@@ -1,0 +1,59 @@
+"""High-level entry points of the port."""
+
+import os
+import runpy
+import types
+
+import numpy as np
+import torch
+
+from .models import build_detector
+from .models.utils import init_weights
+
+
+def load_config(filename):
+    """Read a python-file config (`configs/*.py`) into a dict: the file runs
+    as a module, and every module-level name that is not a dunder, a module
+    or a callable becomes an entry."""
+    ns = runpy.run_path(os.path.abspath(filename))
+    return {k: v for k, v in ns.items()
+            if not k.startswith("__") and not callable(v)
+            and not isinstance(v, types.ModuleType)}
+
+
+def build_model_from_cfg(cfg, device="cuda", seed=0):
+    """Build the detector of a config (`load_config`) on `device`, in eval
+    mode, with weights drawn from `seed` (load trained weights afterwards
+    with `runtime.convert.load_jax_variables`)."""
+    model = build_detector(dict(cfg["model"]), train_cfg=cfg.get("train_cfg"),
+                           test_cfg=cfg["test_cfg"], device=device)
+    return init_weights(model, seed)
+
+
+@torch.no_grad()
+def spread_head_outputs(model, points, points_mask):
+    """Rescale every head projection of a random-weight model so that, on
+    this input, its outputs have median 0 (heatmaps: the prior -2.19) and a
+    robust spread (1.4826 x median absolute deviation) of 1 (heatmaps: 2).
+
+    Random weights otherwise give head outputs of ~1e3: every decoded box
+    centre leaves `post_center_limit_range` and NMS sees no valid candidate.
+    Returns {(task, head): (scale, bias)}, numpy per output channel, so a
+    JAX weight tree can take the same change (`kernel *= scale`,
+    `bias = bias`).
+    """
+    preds = model(points, points_mask)
+    factors = {}
+    for k, pd in enumerate(preds):
+        for h, out in pd.items():
+            conv = getattr(getattr(model.head_net, f"task{k}"), f"{h}_out")
+            z = (out - conv.bias).flatten(0, -2).cpu().numpy()
+            med = np.median(z, axis=0)
+            mad = 1.4826 * np.median(np.abs(z - med), axis=0)
+            scale = (2.0 if h == "hm" else 1.0) / np.maximum(mad, 1e-6)
+            bias = (-2.19 if h == "hm" else 0.0) - med * scale
+            conv.weight.mul_(torch.from_numpy(scale).to(conv.weight)
+                             [:, None, None, None])
+            conv.bias.copy_(torch.from_numpy(bias))
+            factors[(k, h)] = (scale, bias)
+    return factors

@@ -1,0 +1,139 @@
+"""Dense BEV FPN necks RPNV1 and RPNV2, eval path.
+
+Port of `pillarnet_lts_tpu/models/necks/rpn.py`:
+
+- RPNV1: conv5 -> block -> deconv x2 -> concat conv4 -> block; one output
+  at stride 8.
+- RPNV2: conv4 -> block -> deconv x2 -> concat conv3 -> block; one output
+  at stride 4.
+
+Inputs are the backbone's NCHW maps; the conv input widths come from
+`backbone_channels`, which the detector passes in (flax infers them from
+the input). Submodule names mirror the flax ones (`block_5.conv0.Conv_0`,
+`deblock_5.ConvTranspose_0`, ...).
+"""
+
+from typing import Dict, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..backbones.base import MaskedConv
+from ..registry import NECKS
+from ..utils.init import xavier_uniform_
+from ..utils.norm import MaskedBatchNorm
+
+
+class _ConvBNReLU(nn.Module):
+    """3x3 conv + BN (folded) + ReLU."""
+
+    def __init__(self, in_features, features, device=None):
+        super().__init__()
+        self.Conv_0 = MaskedConv(in_features, features, use_bias=False,
+                                 init="xavier", device=device)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(features, device=device)
+
+    def forward(self, x):
+        inv, shift = self.MaskedBatchNorm_0.fold_factors()
+        return F.relu(self.Conv_0.folded(x, inv, shift))
+
+
+class _Block(nn.Module):
+    """1 + num_blocks conv+BN+ReLU units (`conv0`, `conv1`, ...)."""
+
+    def __init__(self, in_features, features, num_blocks, device=None):
+        super().__init__()
+        self.num_convs = num_blocks + 1
+        for i in range(self.num_convs):
+            setattr(self, f"conv{i}",
+                    _ConvBNReLU(in_features if i == 0 else features,
+                                features, device))
+
+    def forward(self, x):
+        for i in range(self.num_convs):
+            x = getattr(self, f"conv{i}")(x)
+        return x
+
+
+class ConvTranspose2x2(nn.Module):
+    """Bias-free ConvTranspose2d(k=2, s=2). `weight` is torch's
+    (in, out, kh, kw); from flax's (kh, kw, in, out) it is transposed and
+    spatially flipped (`runtime/convert.py`)."""
+
+    def __init__(self, in_features, features, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(in_features, features, 2, 2, device=device))
+
+    @torch.no_grad()
+    def init_weights(self, generator):
+        i, o = self.weight.shape[:2]
+        xavier_uniform_(self.weight, 4 * i, 4 * o, generator)
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, self.weight, stride=2)
+
+
+class _DeBlock(nn.Module):
+    """ConvTranspose2d(k=2, s=2) + BN + ReLU."""
+
+    def __init__(self, in_features, features, device=None):
+        super().__init__()
+        self.ConvTranspose_0 = ConvTranspose2x2(in_features, features, device)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(features, device=device)
+
+    def forward(self, x):
+        return F.relu(self.MaskedBatchNorm_0(self.ConvTranspose_0(x)))
+
+
+class _TopDownNeck(nn.Module):
+    """Shared body of RPNV1/RPNV2: block on the coarse map, upsample x2,
+    concat the finer map, block."""
+
+    coarse: str
+    fine: str
+
+    def __init__(self, layer_nums, in_channels, num_filters,
+                 backbone_channels: Dict[str, int], device=None):
+        super().__init__()
+        cc = backbone_channels[self.coarse]
+        cf = backbone_channels[self.fine]
+        top = f"block_{self.coarse[-1]}"
+        self._names = (top, f"deblock_{self.coarse[-1]}",
+                       f"block_{self.fine[-1]}")
+        setattr(self, self._names[0],
+                _Block(cc, in_channels[0], layer_nums[0], device))
+        setattr(self, self._names[1],
+                _DeBlock(in_channels[0], in_channels[1], device))
+        setattr(self, self._names[2],
+                _Block(cf + in_channels[1], num_filters, layer_nums[1],
+                       device))
+        self.out_channels = (num_filters,)
+
+    def forward(self, feats):
+        """feats: the backbone dict of (NCHW map, occupancy) pairs."""
+        top, deblock, out = (getattr(self, n) for n in self._names)
+        up = deblock(top(feats[self.coarse][0]))
+        x = torch.cat([feats[self.fine][0], up], dim=1)
+        return (out(x),)
+
+
+@NECKS.register_module
+class RPNV1(_TopDownNeck):
+    coarse, fine = "conv5", "conv4"
+
+    def __init__(self, layer_nums: Sequence[int], num_filters: int,
+                 in_channels: Sequence[int], backbone_channels, device=None):
+        super().__init__(layer_nums, in_channels, num_filters,
+                         backbone_channels, device)
+
+
+@NECKS.register_module
+class RPNV2(_TopDownNeck):
+    coarse, fine = "conv4", "conv3"
+
+    def __init__(self, layer_nums: Sequence[int], in_channels: Sequence[int],
+                 num_filters: int, backbone_channels, device=None):
+        super().__init__(layer_nums, in_channels, num_filters,
+                         backbone_channels, device)

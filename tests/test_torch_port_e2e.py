@@ -1,0 +1,218 @@
+"""PyTorch port end to end: the whole inference slice against the JAX
+package on a shrunk flagship-shaped config, the committed golden fixture
+replayed through the port, and the port's import boundary.
+
+Tolerances (those of `tests/test_golden_e2e.py`): detection mask and labels
+equal, scores atol 1e-4, boxes atol 1e-3. Random weights put many scores
+near the heatmap prior sigmoid(-2.19) ~ 0.1007, next to the 0.1 threshold,
+so the slice test first spreads them (random batch statistics, head
+projections rescaled to a robust unit spread) and asserts a 1e-4 margin
+around both thresholds before it compares keep sets.
+"""
+
+import copy
+import glob
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pillarnet_lts_tpu.models import build_detector as build_jax_detector
+from pillarnet_lts_tpu.utils.config import Config
+from pillarnet_lts_torch.apis import load_config, spread_head_outputs
+from pillarnet_lts_torch.eval_utils import detections_to_host, make_infer_fn
+from pillarnet_lts_torch.models import build_detector
+from pillarnet_lts_torch.ops.iou3d import rotated_iou_bev, to_pcdet_bev
+from pillarnet_lts_torch.runtime.convert import (
+    load_jax_variables,
+    variables_from_keystr,
+)
+from pillarnet_lts_torch.runtime.serving import ServingPipeline
+from test_torch_port_modules import jit_apply, random_variables
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "golden_e2e_r3.npz")
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+PC_RANGE = [-54.0, -54.0, -5.0, 54.0, 54.0, 3.0]
+PILLAR = 108.0 / 128  # 128 x 128 grid, head maps 16 x 16
+TASKS = [
+    dict(stride=8, class_names=["car"]),
+    dict(stride=8, class_names=["truck", "construction_vehicle"]),
+    dict(stride=8, class_names=["bus", "trailer"]),
+    dict(stride=8, class_names=["barrier"]),
+    dict(stride=8, class_names=["motorcycle", "bicycle"]),
+    dict(stride=8, class_names=["pedestrian", "traffic_cone"]),
+]
+
+
+def shrunk_flagship_cfg():
+    """pillarnet34_nusc's structure (PillarResNet34 + RPNV1 + 6-task
+    CenterHead with vel and GIoU) at narrow widths on a 128^2 grid."""
+    model = dict(
+        type="PillarNet",
+        reader=dict(type="DynamicPFE", in_channels=5, num_filters=(8,),
+                    pillar_size=PILLAR, pc_range=PC_RANGE),
+        backbone=dict(type="PillarResNet34", in_channels=8, s2d_stage1=False,
+                      hpack=False, chunk_nc=0),
+        neck=dict(type="RPNV1", layer_nums=[5, 5], num_filters=32,
+                  in_channels=[32, 32]),
+        bbox_head=dict(
+            type="CenterHead", tasks=TASKS, in_channels=[32],
+            code_weights=[1.0] * 6 + [0.2, 0.2, 1.0, 1.0],
+            common_heads={"reg": (2, 2), "height": (1, 2), "dim": (3, 2),
+                          "rot": (2, 2), "vel": (2, 2)},
+            reg_iou="GIoU", pillar_size=PILLAR, point_cloud_range=PC_RANGE),
+    )
+    test_cfg = dict(
+        nms=dict(use_rotate_nms=True, nms_pre_max_size=256,
+                 nms_post_max_size=32, nms_iou_threshold=0.2),
+        rectifier=0, score_threshold=0.1, double_flip=False,
+        post_center_limit_range=[-61.2, -61.2, -10.0, 61.2, 61.2, 10.0])
+    return model, test_cfg
+
+
+def spread_both_heads(port, variables, pts, msk):
+    """`apis.spread_head_outputs` on the port, and the same rescale applied
+    to the numpy tree, so both frameworks get the same weights."""
+    load_jax_variables(port, variables)
+    head = variables["params"]["head_net"]
+    for (k, h), (scale, bias) in spread_head_outputs(port, pts, msk).items():
+        p = head[f"task{k}"][f"{h}_out"]
+        p["kernel"] *= scale
+        p["bias"][:] = bias
+
+
+def test_shrunk_flagship_slice_matches_jax():
+    from __graft_entry__ import _synth_points_realistic
+
+    mcfg, tcfg = shrunk_flagship_cfg()
+    pts, msk = _synth_points_realistic(1, 8192, PC_RANGE, seed=5)
+    jmodel = build_jax_detector(copy.deepcopy(mcfg), test_cfg=tcfg)
+    variables = random_variables(jmodel, 12, jnp.asarray(pts),
+                                 jnp.asarray(msk), train=False)
+    variables = jax.tree_util.tree_map(np.array, variables)
+
+    port = build_detector(mcfg, test_cfg=tcfg)
+    tpts, tmsk = torch.from_numpy(pts), torch.from_numpy(msk)
+    spread_both_heads(port, variables, tpts, tmsk)
+
+    with torch.inference_mode():
+        preds = port(tpts, tmsk)
+        det = port.predict({}, preds)
+    jpreds = jit_apply(jmodel, variables, jnp.asarray(pts), jnp.asarray(msk))
+    jdet = jax.jit(lambda p: jmodel.predict({}, p, jmodel.processed_test_cfg()))(
+        jpreds)
+
+    # guards: no candidate score and no decisive IoU on a threshold
+    scores = torch.cat([torch.sigmoid(p["hm"]).amax(-1).flatten()
+                        for p in preds])
+    assert (scores - tcfg["score_threshold"]).abs().min() > 1e-4
+    m = det["mask"][0]
+    kept = det["box3d_lidar"][0][m]
+    assert int(m.sum()) > 0
+    iou = rotated_iou_bev(to_pcdet_bev(kept), to_pcdet_bev(kept))
+    off_diag = ~torch.eye(len(kept), dtype=torch.bool)
+    assert (iou[off_diag] - 0.2).abs().min() > 1e-4
+
+    np.testing.assert_array_equal(det["mask"].numpy(),
+                                  np.asarray(jdet["mask"]))
+    mm = det["mask"].numpy()
+    np.testing.assert_array_equal(det["label_preds"].numpy()[mm],
+                                  np.asarray(jdet["label_preds"])[mm])
+    np.testing.assert_allclose(det["scores"].numpy()[mm],
+                               np.asarray(jdet["scores"])[mm], atol=1e-4)
+    np.testing.assert_allclose(det["box3d_lidar"].numpy()[mm],
+                               np.asarray(jdet["box3d_lidar"])[mm], atol=1e-3)
+
+
+def _golden_model():
+    from chip_smoke import golden_model_cfg
+
+    data = np.load(FIXTURE)
+    mcfg, tcfg = golden_model_cfg()
+    model = build_detector(mcfg, test_cfg=tcfg)
+    load_jax_variables(model, variables_from_keystr(data))
+    return model, data
+
+
+def test_golden_fixture_replay():
+    model, data = _golden_model()
+    det = make_infer_fn(model)(torch.from_numpy(data["points"]),
+                               torch.from_numpy(data["points_mask"]))
+    np.testing.assert_array_equal(det["mask"].numpy(), data["det_mask"],
+                                  err_msg="NMS keep-set changed")
+    m = data["det_mask"].astype(bool)
+    np.testing.assert_array_equal(det["label_preds"].numpy()[m],
+                                  data["label_preds"][m])
+    np.testing.assert_allclose(det["scores"].numpy()[m], data["scores"][m],
+                               atol=1e-4)
+    np.testing.assert_allclose(det["box3d_lidar"].numpy()[m],
+                               data["box3d_lidar"][m], atol=1e-3)
+
+
+def test_chip_smoke_golden_config_is_the_fixture_config():
+    from chip_smoke import golden_model_cfg
+    from make_golden_fixture_e2e import model_cfg
+
+    assert json.dumps(golden_model_cfg(), sort_keys=True) == json.dumps(
+        model_cfg(), sort_keys=True)
+
+
+def test_serving_pipeline_keeps_order_and_depth():
+    model, data = _golden_model()
+    infer = make_infer_fn(model)
+    pts = torch.from_numpy(data["points"])
+    msk = torch.from_numpy(data["points_mask"])
+    pipe = ServingPipeline(infer, depth=2)
+    assert pipe.submit(pts, msk) is None and pipe.submit(pts, msk) is None
+    first = pipe.submit(pts, msk)
+    assert len(pipe) == 2
+    rest = list(pipe.drain())
+    assert len(rest) == 2 and len(pipe) == 0
+    for out in [first] + rest:
+        np.testing.assert_array_equal(out["mask"], data["det_mask"])
+    per_sample = detections_to_host(first, [{"token": "a"}])
+    assert len(per_sample) == 1
+    assert per_sample[0]["box3d_lidar"].shape == (
+        int(data["det_mask"].sum()), 7)
+    assert per_sample[0]["metadata"] == {"token": "a"}
+
+
+@pytest.mark.parametrize(
+    "path", sorted(glob.glob(os.path.join(ROOT, "configs", "*", "*.py"))),
+    ids=os.path.basename)
+def test_load_config_matches_jax_config(path):
+    assert load_config(path) == Config.fromfile(path).to_dict()
+
+
+def test_port_runs_without_importing_jax():
+    code = (
+        "import sys, numpy as np, torch\n"
+        "import pillarnet_lts_torch\n"
+        "from chip_smoke import FLAGSHIP, golden_model_cfg\n"
+        "from pillarnet_lts_torch.apis import build_model_from_cfg, load_config\n"
+        "from pillarnet_lts_torch.models import build_detector\n"
+        "from pillarnet_lts_torch.eval_utils import make_infer_fn\n"
+        "build_model_from_cfg(load_config(FLAGSHIP), device='cpu')\n"
+        "mcfg, tcfg = golden_model_cfg()\n"
+        "model = build_detector(mcfg, test_cfg=tcfg)\n"
+        "d = np.load(sys.argv[1])\n"
+        "det = make_infer_fn(model)(torch.from_numpy(d['points']),\n"
+        "                           torch.from_numpy(d['points_mask']))\n"
+        "assert det['mask'].shape == (1, 128)\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert 'pillarnet_lts_tpu' not in sys.modules, 'JAX package imported'\n"
+        "print('no-jax ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code, FIXTURE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "no-jax ok" in out.stdout
