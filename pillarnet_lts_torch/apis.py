@@ -30,6 +30,26 @@ def build_model_from_cfg(cfg, device="cuda", seed=0):
     return init_weights(model, seed)
 
 
+def build_int8_model(cfg, calib_batches, device="cuda", seed=0,
+                     reduce="max", variables=None):
+    """Build an int8 deploy config (`configs/*_int8.py`, or any config
+    after `runtime.quantize.enable_backbone_quant(cfg["model"])`),
+    calibrate it and return the servable model.
+
+    Weights come from `seed`, or from a JAX variables tree (`variables`,
+    numpy leaves, without a 'quant' collection). calib_batches: a few
+    (points, points_mask) pairs on `device`, the clouds the activation
+    scales are taken from (bf16 forwards; `reduce` 'max' or 'mean'). Serve
+    the result with `eval_utils.make_infer_fn`."""
+    from .runtime.convert import load_jax_variables
+    from .runtime.quantize import calibrate
+
+    model = build_model_from_cfg(cfg, device=device, seed=seed)
+    if variables is not None:
+        load_jax_variables(model, variables)
+    return calibrate(model, calib_batches, reduce=reduce)
+
+
 @torch.no_grad()
 def spread_head_outputs(model, points, points_mask):
     """Rescale every head projection of a random-weight model so that, on

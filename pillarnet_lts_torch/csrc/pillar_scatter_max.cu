@@ -25,6 +25,11 @@
 //     starts at 0 (below every encoded non-NaN float), the kernel does an
 //     unsigned atomicMax, and a second launch decodes in place and writes 0
 //     where the pillar is empty.
+//   * int8 code mode (`pillar_scatter_max_i8`, the int8 deploy's payload,
+//     the TPU kernel's int8 mode at voxelize_kernel.py:554-604): nonneg
+//     codes in [0, 127] into an int8 grid, merged 4 channels per 32-bit
+//     word with a compare-and-swap on the per-byte max; the grid is a
+//     quarter of the f32 grid's bytes.
 //
 // What bounds it on the card: at the flagship size (1 x 262,144 points x 32
 // f32 channels into a 1440 x 1440 x 32 f32 grid) the kernel issues about
@@ -88,6 +93,32 @@ __global__ void scatter_max_ordered_kernel(
   atomicMax(grid + off, encode_ordered(feats[t]));
 }
 
+// int8 code mode: one thread per (point, 4-channel word). There is no 8-bit
+// atomicMax, so the thread merges its 4 codes into the grid word with a
+// compare-and-swap loop on the per-byte unsigned max (__vmaxu4). Codes are
+// nonneg (0..127), so the unsigned byte order is the code order; the grid
+// starts at 0, which is also the value of an empty pillar.
+__global__ void scatter_max_codes_kernel(
+    const uint32_t* __restrict__ feats, const int32_t* __restrict__ ids,
+    const uint8_t* __restrict__ valid, uint32_t* __restrict__ grid,
+    uint8_t* __restrict__ occ, int64_t n, int64_t c_words, int64_t hw,
+    int64_t total) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int64_t off = target_offset(t, ids, valid, occ, n, c_words, hw);
+  if (off < 0) return;
+  const uint32_t mine = feats[t];
+  uint32_t* addr = grid + off;
+  uint32_t old = *addr;
+  while (true) {
+    const uint32_t merged = __vmaxu4(old, mine);
+    if (merged == old) break;
+    const uint32_t seen = atomicCAS(addr, old, merged);
+    if (seen == old) break;
+    old = seen;
+  }
+}
+
 __global__ void decode_ordered_kernel(unsigned int* __restrict__ grid,
                                       const uint8_t* __restrict__ occ,
                                       int64_t c_dim, int64_t total) {
@@ -133,4 +164,21 @@ extern "C" int pillar_scatter_max_f32(const float* feats, const int32_t* ids,
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// int8 code mode. codes (B, N, C) int8 in [0, 127], ids (B, N) i32, valid
+// (B, N) bytes; grid (B, H*W, C) int8 and occ (B, H*W) bytes, zero-filled by
+// the caller; C % 4 == 0. Returns the launch's cudaError_t.
+extern "C" int pillar_scatter_max_i8(const void* codes, const int32_t* ids,
+                                     const uint8_t* valid, void* grid,
+                                     uint8_t* occ, int64_t b, int64_t n,
+                                     int64_t c_dim, int64_t hw, void* stream) {
+  const int64_t c_words = c_dim / 4;
+  const int64_t total = b * n * c_words;
+  if (total == 0) return 0;
+  scatter_max_codes_kernel<<<blocks_for(total), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(codes), ids, valid,
+      static_cast<uint32_t*>(grid), occ, n, c_words, hw, total);
+  return (int)cudaGetLastError();
 }

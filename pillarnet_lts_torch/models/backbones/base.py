@@ -11,22 +11,31 @@ Port of `pillarnet_lts_tpu/models/backbones/base.py` in the plain layout:
 - SparseConv2d (strided): the occupancy dilates; the new mask is a 3x3
   max-pool of the old one with padding 1, spconv's output-site rule.
 - Eval BatchNorm is folded into the conv weights and bias.
+- int8 deploy (`quant=True`, calibrated): the conv core runs int8 through
+  `ops/quant.py::int8_conv_bn_act` (the K4 kernel on CUDA), with the BN
+  fold riding the dequant vector and the re-zero, residual and ReLU fused
+  into its epilogue. Uncalibrated, a quant conv runs the bf16/f32 path.
 
-The TPU layout recasts (space-to-depth, H-packing, W-chunking, fused Pallas
-int8 stages) rearrange the same math for the MXU and are not ported; the
-JAX package's own tests pin them equal to this plain layout.
+The TPU layout recasts (space-to-depth, H-packing, W-chunking) rearrange
+the same math for the MXU and are not ported; the JAX package's own tests
+pin them equal to this plain layout.
 
-Layout: feature maps are contiguous NCHW tensors; masks are (B, 1, H, W)
-{0, 1} floats; occupancies handed between stages are (B, H, W) bool, as in
-the JAX package.
+Layout: feature maps are NCHW tensors, contiguous in f32 and channels_last
+(NHWC in memory) in bf16, where the int8 kernels and cuDNN's bf16 convs
+read NHWC; masks are (B, 1, H, W) {0, 1} multipliers in the map dtype;
+occupancies handed between stages are (B, H, W) bool, as in the JAX
+package.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.quant import (activation_scale, int8_conv_bn_act, kernel_int8,
+                          weight_scale)
 from ..utils.init import normal_, xavier_uniform_
 from ..utils.norm import MaskedBatchNorm
+from ..utils.quant import Calibrated
 
 
 def dilate_mask(mask, stride: int = 2):
@@ -42,13 +51,28 @@ def site_mask(occ, dtype):
     return occ[:, None].to(dtype)
 
 
-class MaskedConv(nn.Module):
+def nhwc(x):
+    """NCHW tensor -> contiguous NHWC (a view of a channels_last map)."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def state_key(*tensors):
+    """Identity, storage and in-place version of each tensor: it changes
+    whenever one is replaced, moved or written in place (a weight load,
+    `init_weights`, a calibration)."""
+    return tuple((id(t), t.data_ptr(), t._version) for t in tensors
+                 if t is not None)
+
+
+class MaskedConv(Calibrated, nn.Module):
     """kxk conv over a masked-dense map; caller guarantees inactive sites are
     zero. `init` is 'kaiming' (He-normal over fan-out, the backbone and
-    head) or 'xavier' (uniform, the neck)."""
+    head) or 'xavier' (uniform, the neck). `quant=True` adds the int8
+    deploy mode (calibrated input absmax buffer `in_absmax`)."""
 
     def __init__(self, in_features, features, kernel_size=3, stride=1,
-                 use_bias=True, init="kaiming", bias_init=0.0, device=None):
+                 use_bias=True, init="kaiming", bias_init=0.0, quant=False,
+                 device=None):
         super().__init__()
         k = kernel_size
         self.stride = stride
@@ -59,6 +83,8 @@ class MaskedConv(nn.Module):
             torch.empty(features, in_features, k, k, device=device))
         self.bias = (nn.Parameter(torch.empty(features, device=device))
                      if use_bias else None)
+        self._init_quant(quant, "in_absmax", (), device)
+        self._int8 = (None, None)  # (state_key, int8_params)
 
     @torch.no_grad()
     def init_weights(self, generator):
@@ -71,7 +97,9 @@ class MaskedConv(nn.Module):
             self.bias.fill_(self.bias_init)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
+                        self.padding)
 
     def folded_params(self, inv, shift):
         """Weight and bias with the following BN's affine folded in:
@@ -80,53 +108,99 @@ class MaskedConv(nn.Module):
         return self.weight * inv[:, None, None, None], b
 
     def folded(self, x, inv, shift):
+        """The float path: folded conv in x.dtype (observed when
+        calibrating)."""
+        if self.observing:
+            self.observe(x.abs().amax().float())
         w, b = self.folded_params(inv, shift)
-        return F.conv2d(x, w, b, self.stride, self.padding)
+        return F.conv2d(x, w.to(x.dtype), b.to(x.dtype), self.stride,
+                        self.padding)
+
+    def int8_params(self, bn):
+        """(w_q HWIO int8, 1 / s_x, dq, shift) of the int8 core with the
+        following BN folded (`base.py:685-705`): the per-output-channel
+        weight scale is taken over the raw kernel, and the BN factor rides
+        dq = s_x * s_w * inv (multiplied left to right). Computed once per
+        state of the weights, the scale and the BN (`state_key`)."""
+        key = state_key(self.weight, self.bias, self.in_absmax, bn.weight,
+                        bn.bias, bn.running_mean, bn.running_var)
+        if self._int8[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                inv, shift = bn.fold_factors()
+                s_x = activation_scale(self.in_absmax)
+                s_w = weight_scale(self.weight)
+                b = self.bias * inv + shift if self.bias is not None \
+                    else shift
+                params = (kernel_int8(self.weight, s_w), 1.0 / s_x,
+                          s_x * s_w * inv, b)
+            self._int8 = (key, params)
+        return self._int8[1]
+
+    def int8(self, x, bn, mask=None, residual=None, act=True):
+        """The int8 core with `bn` folded and the fused epilogue; NCHW in
+        and out."""
+        w_q, inv_s, dq, b = self.int8_params(bn)
+        y = int8_conv_bn_act(
+            nhwc(x), w_q, inv_s, dq, b, self.stride,
+            mask=None if mask is None else mask[:, 0],
+            residual=None if residual is None else nhwc(residual), act=act)
+        return y.permute(0, 3, 1, 2)
 
 
-def conv_bn_act(conv: MaskedConv, bn: MaskedBatchNorm, x, mask, act=True):
-    """conv -> folded BN -> re-zero at inactive sites -> optional ReLU.
-    mask: (B, 1, H, W) {0, 1} multiplier or None (dense)."""
-    inv, shift = bn.fold_factors()
-    y = conv.folded(x, inv, shift)
+def conv_bn_act(conv: MaskedConv, bn: MaskedBatchNorm, x, mask, act=True,
+                residual=None):
+    """conv -> folded BN -> re-zero at inactive sites [-> + residual]
+    -> optional ReLU. mask: (B, 1, H, W) {0, 1} multiplier or None (dense).
+
+    The residual is zero at inactive sites, so relu(y * m + r) here and the
+    int8 epilogue's relu(y + r) * m agree."""
+    if conv.quant_ready():
+        return conv.int8(x, bn, mask, residual, act)
+    y = conv.folded(x, *bn.fold_factors())
     if mask is not None:
         y = y * mask
+    if residual is not None:
+        y = y + residual
     return F.relu(y) if act else y
 
 
 class Sparse2DBasicBlock(nn.Module):
     """Residual block of two SubM convs."""
 
-    def __init__(self, planes, device=None):
+    def __init__(self, planes, quant=False, device=None):
         super().__init__()
-        self.conv1 = MaskedConv(planes, planes, device=device)
+        self.conv1 = MaskedConv(planes, planes, quant=quant, device=device)
         self.bn1 = MaskedBatchNorm(planes, device=device)
-        self.conv2 = MaskedConv(planes, planes, device=device)
+        self.conv2 = MaskedConv(planes, planes, quant=quant, device=device)
         self.bn2 = MaskedBatchNorm(planes, device=device)
+
+    def convs(self):
+        """(conv, bn) pairs in execution order."""
+        return [(self.conv1, self.bn1), (self.conv2, self.bn2)]
 
     def forward(self, x, mask):
         out = conv_bn_act(self.conv1, self.bn1, x, mask)
-        out = conv_bn_act(self.conv2, self.bn2, out, mask, act=False)
-        return F.relu(out + x)
+        return conv_bn_act(self.conv2, self.bn2, out, mask, residual=x)
 
 
 class Sparse2DBasicBlockV(nn.Module):
     """Entry block: an extra SubM conv + BN before the residual pair."""
 
-    def __init__(self, planes, device=None):
+    def __init__(self, planes, quant=False, device=None):
         super().__init__()
-        self.conv0 = MaskedConv(planes, planes, device=device)
-        self.bn0 = MaskedBatchNorm(planes, device=device)
-        self.conv1 = MaskedConv(planes, planes, device=device)
-        self.bn1 = MaskedBatchNorm(planes, device=device)
-        self.conv2 = MaskedConv(planes, planes, device=device)
-        self.bn2 = MaskedBatchNorm(planes, device=device)
+        for i in range(3):
+            setattr(self, f"conv{i}",
+                    MaskedConv(planes, planes, quant=quant, device=device))
+            setattr(self, f"bn{i}", MaskedBatchNorm(planes, device=device))
+
+    def convs(self):
+        return [(self.conv0, self.bn0), (self.conv1, self.bn1),
+                (self.conv2, self.bn2)]
 
     def forward(self, x, mask):
         x = conv_bn_act(self.conv0, self.bn0, x, mask, act=False)
         out = conv_bn_act(self.conv1, self.bn1, x, mask)
-        out = conv_bn_act(self.conv2, self.bn2, out, mask, act=False)
-        return F.relu(out + x)
+        return conv_bn_act(self.conv2, self.bn2, out, mask, residual=x)
 
 
 class SparseDownStage(nn.Module):
@@ -134,15 +208,16 @@ class SparseDownStage(nn.Module):
     (`block0`, `block1`, ...)."""
 
     def __init__(self, in_channels, channels, num_blocks, stride=2,
-                 device=None):
+                 quant=False, device=None):
         super().__init__()
         self.stride = stride
         self.num_blocks = num_blocks
         self.down_conv = MaskedConv(in_channels, channels, stride=stride,
-                                    use_bias=False, device=device)
+                                    use_bias=False, quant=quant, device=device)
         self.down_bn = MaskedBatchNorm(channels, device=device)
         for i in range(num_blocks):
-            setattr(self, f"block{i}", Sparse2DBasicBlock(channels, device))
+            setattr(self, f"block{i}",
+                    Sparse2DBasicBlock(channels, quant, device))
 
     def forward(self, x, occ):
         """x (B, C, H, W) with zeros at inactive sites; occ (B, H, W) bool
@@ -158,10 +233,10 @@ class SparseDownStage(nn.Module):
 class DenseConvBNReLU(nn.Module):
     """Dense conv + BN + ReLU (the conv5 stage)."""
 
-    def __init__(self, features, stride=1, device=None):
+    def __init__(self, features, stride=1, quant=False, device=None):
         super().__init__()
         self.conv = MaskedConv(features, features, 3, stride,
-                               use_bias=False, device=device)
+                               use_bias=False, quant=quant, device=device)
         self.bn = MaskedBatchNorm(features, device=device)
 
     def forward(self, x):

@@ -8,20 +8,32 @@ grid branch, plain layout:
 
 Block counts: 18 -> (2, 2, 2, 2) + conv5(1+2 dense); 34 -> (3, 4, 6, 3).
 Takes the reader's NHWC grid and (B, H, W) occupancy; returns a dict
-{'conv1'...'conv5'} of (contiguous NCHW features, (B, H, W) bool
-occupancy) pairs, conv5 with occupancy None (it is dense).
+{'conv1'...'conv5'} of (NCHW features, (B, H, W) bool occupancy) pairs,
+conv5 with occupancy None (it is dense).
+
+int8 deploy (`quant=True`): every conv runs int8 once calibrated. With
+`s2d_pallas=True` (the JAX key of the fused Pallas stage) the calibrated
+32-channel stride-1 stage runs as one fused kernel
+(`ops/int8_stage.py::int8_stage`, K5), the counterpart of
+`pallas_s2d_gate` + `_fused_conv_params` + `s2d_fused_stage`
+(`pillarnet_lts_tpu/models/backbones/base.py:554-619`); otherwise each of
+its convs runs on the per-conv int8 kernel.
 """
 
 from typing import Tuple
 
+import torch
 from torch import nn
 
+from ...ops.int8_stage import CHANNELS as _STAGE_CHANNELS
+from ...ops.int8_stage import int8_stage
 from ..registry import BACKBONES
 from .base import (
     DenseConvBNReLU,
     Sparse2DBasicBlock,
     Sparse2DBasicBlockV,
     SparseDownStage,
+    nhwc,
     site_mask,
 )
 
@@ -31,22 +43,49 @@ class _PillarResNetBase(nn.Module):
     stage_blocks: Tuple[int, int, int] = (2, 2, 2)
     with_conv5: bool = False
 
-    def __init__(self, in_channels=32, device=None):
+    def __init__(self, in_channels=32, quant=False, s2d_pallas=False,
+                 device=None):
         super().__init__()
         c = self.in_channels = in_channels
-        self.conv1_block0 = Sparse2DBasicBlockV(c, device=device)
+        self.s2d_pallas = s2d_pallas
+        self._fused = (None, None)  # (state keys, stacked stage params)
+        self.conv1_block0 = Sparse2DBasicBlockV(c, quant, device)
         for i in range(1, self.conv1_blocks):
-            setattr(self, f"conv1_block{i}", Sparse2DBasicBlock(c, device))
+            setattr(self, f"conv1_block{i}",
+                    Sparse2DBasicBlock(c, quant, device))
         self.conv2 = SparseDownStage(c, c * 2, self.stage_blocks[0],
-                                     device=device)
+                                     quant=quant, device=device)
         self.conv3 = SparseDownStage(c * 2, c * 4, self.stage_blocks[1],
-                                     device=device)
+                                     quant=quant, device=device)
         self.conv4 = SparseDownStage(c * 4, c * 8, self.stage_blocks[2],
-                                     device=device)
+                                     quant=quant, device=device)
         if self.with_conv5:
-            self.conv5_down = DenseConvBNReLU(c * 8, stride=2, device=device)
-            self.conv5_block0 = DenseConvBNReLU(c * 8, device=device)
-            self.conv5_block1 = DenseConvBNReLU(c * 8, device=device)
+            self.conv5_down = DenseConvBNReLU(c * 8, stride=2, quant=quant,
+                                              device=device)
+            self.conv5_block0 = DenseConvBNReLU(c * 8, quant=quant,
+                                                device=device)
+            self.conv5_block1 = DenseConvBNReLU(c * 8, quant=quant,
+                                                device=device)
+
+    def _stage1_blocks(self):
+        return [getattr(self, f"conv1_block{i}")
+                for i in range(self.conv1_blocks)]
+
+    def fused_stage1_params(self):
+        """Stacked int8 params of the stride-1 stage for the fused kernel,
+        or None unless `s2d_pallas` is set, the stage is 32 channels wide
+        and every one of its convs is calibrated."""
+        if not self.s2d_pallas or self.in_channels != _STAGE_CHANNELS:
+            return None
+        pairs = [p for blk in self._stage1_blocks() for p in blk.convs()]
+        if not all(conv.quant_ready() for conv, _ in pairs):
+            return None
+        params = [conv.int8_params(bn) for conv, bn in pairs]
+        key = tuple(conv._int8[0] for conv, _ in pairs)
+        if self._fused[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                self._fused = (key, [torch.stack(p) for p in zip(*params)])
+        return self._fused[1]
 
     @property
     def backbone_channels(self):
@@ -57,14 +96,22 @@ class _PillarResNetBase(nn.Module):
         return out
 
     def forward(self, grid, occ):
-        # contiguous NCHW: cuDNN's f32 conv kernels are NCHW, and a
-        # channels_last view of the NHWC grid makes every conv of every
-        # stage transpose its input and output (~7.5 ms per flagship frame
-        # on an H100); one copy of the grid here avoids all of them
-        x = grid.permute(0, 3, 1, 2).contiguous()
+        x = grid.permute(0, 3, 1, 2)
+        if x.dtype == torch.float32:
+            # contiguous NCHW: cuDNN's f32 conv kernels are NCHW, and a
+            # channels_last view of the NHWC grid makes every conv of every
+            # stage transpose its input and output (~7.5 ms per flagship
+            # frame on an H100); one copy of the grid here avoids all of
+            # them. bf16 keeps the channels_last view: the int8 kernels and
+            # cuDNN's bf16 convs read NHWC.
+            x = x.contiguous()
         mask = site_mask(occ, x.dtype)
-        for i in range(self.conv1_blocks):
-            x = getattr(self, f"conv1_block{i}")(x, mask)
+        fused = self.fused_stage1_params()
+        if fused is not None:
+            x = int8_stage(nhwc(x), *fused, mask[:, 0]).permute(0, 3, 1, 2)
+        else:
+            for blk in self._stage1_blocks():
+                x = blk(x, mask)
         out = {"conv1": (x, occ)}
         x2, m2 = self.conv2(x, occ)
         x3, m3 = self.conv3(x2, m2)

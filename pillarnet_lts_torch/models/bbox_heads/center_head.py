@@ -11,9 +11,10 @@ Port of `pillarnet_lts_tpu/models/bbox_heads/center_head.py`:
   are padded to the NMS post sizes.
 
 Inputs are NCHW maps; the prediction dicts hold NHWC views, the JAX
-package's layout, so decode and the tests index channels last. Not ported
-yet: training losses, double-flip TTA, circular NMS and multi-class NMS
-(they raise).
+package's layout, so decode and the tests index channels last. The convs
+compute in the input's dtype (bf16 in the bf16 and int8 configs); decode
+runs in f32 regardless. Not ported yet: training losses, double-flip TTA,
+circular NMS, multi-class NMS and the head's int8 mode (they raise).
 """
 
 from typing import Dict, Sequence, Tuple
@@ -61,7 +62,8 @@ class SepHead(nn.Module):
             w, b = getattr(self, f"{h}_conv0").folded_params(inv, shift)
             ws.append(w)
             bs.append(b)
-        y = F.relu(F.conv2d(x, torch.cat(ws), torch.cat(bs), padding=1))
+        y = F.relu(F.conv2d(x, torch.cat(ws).to(x.dtype),
+                            torch.cat(bs).to(x.dtype), padding=1))
         hc = self.head_conv
         return {
             h: getattr(self, f"{h}_out")(y[:, j * hc:(j + 1) * hc])
@@ -219,12 +221,16 @@ class CenterHead(nn.Module):
                  code_weights, common_heads, share_channel=64, reg_iou=None,
                  pillar_size=0.1,
                  point_cloud_range=(-75.2, -75.2, -2, 75.2, 75.2, 4),
-                 feat_channels=None, device=None):
+                 feat_channels=None, quant=False, device=None):
         """`feat_channels`: channels of each input map (the neck's outputs);
         defaults to `in_channels`. `code_weights` and `reg_iou` configure
-        training and are accepted for config compatibility."""
+        training and are accepted for config compatibility. The head's
+        int8 mode (`quant=True`, rejected in the JAX package for its mAP
+        cost) is not ported."""
         super().__init__()
         del code_weights, reg_iou
+        if quant:
+            raise NotImplementedError("CenterHead: quant=True is not ported")
         self.tasks = [dict(t) for t in tasks]
         self.pillar_size = pillar_size
         self.point_cloud_range = list(point_cloud_range)

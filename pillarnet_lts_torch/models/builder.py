@@ -1,10 +1,12 @@
 """Config -> module builders, reading the repo's `configs/*.py`.
 
 Config keys that only select TPU layouts or training machinery (remat,
-space-to-depth, H-packing, W-chunking, the Pallas s2d stage) are dropped:
-the port runs the plain eval layout, which the JAX package pins equal to
-them. Keys that select a path the port does not have yet (int8 deploy, the
-compact sparse reader, bf16 compute) raise.
+space-to-depth, H-packing, W-chunking) are dropped: the port runs the plain
+eval layout, which the JAX package pins equal to them. `quant` (int8
+deploy), `quant_scatter` and `s2d_pallas` (the fused int8 stride-1 stage)
+are live. Keys that select a path the port does not have (the compact
+sparse reader) raise. The compute dtype (`dtype`, float32 or bfloat16) is a
+detector-level key, as in the JAX package.
 """
 
 import torch
@@ -13,13 +15,22 @@ from .registry import (BACKBONES, DETECTORS, HEADS, NECKS, READERS,
                        build_from_cfg)
 
 _DROPPED_KEYS = ("logger", "remat", "remat_policy", "s2d_stage1", "chunk_nc",
-                 "chunk_min_w", "chunk_train", "hpack", "s2d_pallas",
-                 "quant_scatter", "spatial_axis")
+                 "chunk_min_w", "chunk_train", "hpack", "spatial_axis")
 
 # key -> the only value the port runs
-_UNPORTED = {"quant": False, "compact_kmax": 0, "compact_kmax2": 0}
+_UNPORTED = {"compact_kmax": 0, "compact_kmax2": 0}
 
-_F32 = (None, "float32", "fp32", torch.float32)
+_DTYPES = {None: torch.float32, "float32": torch.float32,
+           "fp32": torch.float32, torch.float32: torch.float32,
+           "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           torch.bfloat16: torch.bfloat16}
+
+
+def compute_dtype(value):
+    """Config dtype -> torch dtype (float32 or bfloat16)."""
+    if value not in _DTYPES:
+        raise NotImplementedError(f"compute dtype {value!r} is not ported")
+    return _DTYPES[value]
 
 
 def _clean(cfg, device):
@@ -29,27 +40,32 @@ def _clean(cfg, device):
     for k, only in _UNPORTED.items():
         if cfg.pop(k, only) != only:
             raise NotImplementedError(f"{cfg.get('type')}: {k} is not ported")
-    if cfg.pop("dtype", None) not in _F32:
-        raise NotImplementedError(f"{cfg.get('type')}: only float32 is ported")
     cfg["device"] = device
     return cfg
 
 
-def build_reader(cfg, device=None):
-    return build_from_cfg(_clean(cfg, device), READERS)
+def _component(cfg, device):
+    """A component's config: the compute dtype comes from the detector."""
+    cfg = _clean(cfg, device)
+    compute_dtype(cfg.pop("dtype", None))
+    return cfg
+
+
+def build_reader(cfg, device=None, dtype=torch.float32):
+    return build_from_cfg(_component(cfg, device), READERS, dict(dtype=dtype))
 
 
 def build_backbone(cfg, device=None):
-    return build_from_cfg(_clean(cfg, device), BACKBONES)
+    return build_from_cfg(_component(cfg, device), BACKBONES)
 
 
 def build_neck(cfg, backbone_channels, device=None):
-    return build_from_cfg(_clean(cfg, device), NECKS,
+    return build_from_cfg(_component(cfg, device), NECKS,
                           dict(backbone_channels=backbone_channels))
 
 
 def build_head(cfg, feat_channels, device=None):
-    return build_from_cfg(_clean(cfg, device), HEADS,
+    return build_from_cfg(_component(cfg, device), HEADS,
                           dict(feat_channels=feat_channels))
 
 
@@ -58,10 +74,13 @@ def build_detector(cfg, train_cfg=None, test_cfg=None, device=None):
 
     Sets full-f32 convs and matmuls for the process
     (`torch.backends.cudnn.allow_tf32` and `torch.backends.cuda.matmul.
-    allow_tf32` False): cuDNN's default TF32 keeps only ~3 digits per conv.
+    allow_tf32` False): cuDNN's default TF32 keeps only ~3 digits per conv,
+    and the int8 reader's integer matmul must stay exact.
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = build_from_cfg(_clean(cfg, device), DETECTORS,
+    cfg = _clean(cfg, device)
+    cfg["dtype"] = compute_dtype(cfg.get("dtype"))
+    model = build_from_cfg(cfg, DETECTORS,
                            dict(train_cfg=train_cfg, test_cfg=test_cfg))
     return model.eval()

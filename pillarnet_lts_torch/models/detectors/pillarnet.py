@@ -4,10 +4,14 @@ Port of `pillarnet_lts_tpu/models/detectors/pillarnet.py`:
 reader -> backbone -> neck -> CenterHead, with the flax submodule names
 (`reader_net`, `backbone_net`, `neck_net`, `head_net`). The forward is a
 function of (points, points_mask); `predict` decodes and runs NMS.
+`dtype` (f32 or bf16) is the compute dtype: the reader casts its features
+to it and every later module computes in the dtype of its input, with f32
+parameters, as the JAX package does.
 """
 
 from typing import Optional
 
+import torch
 from torch import nn
 
 from .. import builder
@@ -19,12 +23,13 @@ class PillarNet(nn.Module):
     def __init__(self, reader, backbone, neck, bbox_head,
                  train_cfg: Optional[dict] = None,
                  test_cfg: Optional[dict] = None, pretrained=None,
-                 device=None):
+                 dtype=torch.float32, device=None):
         super().__init__()
         del pretrained  # weights come through runtime/convert.py
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
-        self.reader_net = builder.build_reader(reader, device)
+        self.dtype = dtype
+        self.reader_net = builder.build_reader(reader, device, dtype)
         self.backbone_net = builder.build_backbone(backbone, device)
         self.neck_net = builder.build_neck(
             neck, self.backbone_net.backbone_channels, device)

@@ -10,7 +10,9 @@ Port of `pillarnet_lts_tpu/models/necks/rpn.py`:
 Inputs are the backbone's NCHW maps; the conv input widths come from
 `backbone_channels`, which the detector passes in (flax infers them from
 the input). Submodule names mirror the flax ones (`block_5.conv0.Conv_0`,
-`deblock_5.ConvTranspose_0`, ...).
+`deblock_5.ConvTranspose_0`, ...). Convs compute in the input's dtype;
+with `quant=True` the calibrated 3x3 convs run the int8 core (K4 on CUDA)
+and the transposed convs stay in the compute dtype, as in the JAX package.
 """
 
 from typing import Dict, Sequence
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..backbones.base import MaskedConv
+from ..backbones.base import MaskedConv, conv_bn_act
 from ..registry import NECKS
 from ..utils.init import xavier_uniform_
 from ..utils.norm import MaskedBatchNorm
@@ -28,27 +30,27 @@ from ..utils.norm import MaskedBatchNorm
 class _ConvBNReLU(nn.Module):
     """3x3 conv + BN (folded) + ReLU."""
 
-    def __init__(self, in_features, features, device=None):
+    def __init__(self, in_features, features, quant=False, device=None):
         super().__init__()
         self.Conv_0 = MaskedConv(in_features, features, use_bias=False,
-                                 init="xavier", device=device)
+                                 init="xavier", quant=quant, device=device)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features, device=device)
 
     def forward(self, x):
-        inv, shift = self.MaskedBatchNorm_0.fold_factors()
-        return F.relu(self.Conv_0.folded(x, inv, shift))
+        return conv_bn_act(self.Conv_0, self.MaskedBatchNorm_0, x, None)
 
 
 class _Block(nn.Module):
     """1 + num_blocks conv+BN+ReLU units (`conv0`, `conv1`, ...)."""
 
-    def __init__(self, in_features, features, num_blocks, device=None):
+    def __init__(self, in_features, features, num_blocks, quant=False,
+                 device=None):
         super().__init__()
         self.num_convs = num_blocks + 1
         for i in range(self.num_convs):
             setattr(self, f"conv{i}",
                     _ConvBNReLU(in_features if i == 0 else features,
-                                features, device))
+                                features, quant, device))
 
     def forward(self, x):
         for i in range(self.num_convs):
@@ -72,7 +74,7 @@ class ConvTranspose2x2(nn.Module):
         xavier_uniform_(self.weight, 4 * i, 4 * o, generator)
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight, stride=2)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), stride=2)
 
 
 class _DeBlock(nn.Module):
@@ -84,7 +86,13 @@ class _DeBlock(nn.Module):
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features, device=device)
 
     def forward(self, x):
-        return F.relu(self.MaskedBatchNorm_0(self.ConvTranspose_0(x)))
+        # the transposed conv accumulates the x.dtype operands in f32 and
+        # feeds the f32 BN unrounded; one rounding to x.dtype after the BN.
+        # That is what the JAX package computes under jit, where XLA folds
+        # the conv output's bf16 round trip into the BN's f32 convert.
+        w = self.ConvTranspose_0.weight.to(x.dtype).float()
+        y = F.conv_transpose2d(x.float(), w, stride=2)
+        return F.relu(self.MaskedBatchNorm_0(y).to(x.dtype))
 
 
 class _TopDownNeck(nn.Module):
@@ -95,7 +103,7 @@ class _TopDownNeck(nn.Module):
     fine: str
 
     def __init__(self, layer_nums, in_channels, num_filters,
-                 backbone_channels: Dict[str, int], device=None):
+                 backbone_channels: Dict[str, int], quant=False, device=None):
         super().__init__()
         cc = backbone_channels[self.coarse]
         cf = backbone_channels[self.fine]
@@ -103,12 +111,12 @@ class _TopDownNeck(nn.Module):
         self._names = (top, f"deblock_{self.coarse[-1]}",
                        f"block_{self.fine[-1]}")
         setattr(self, self._names[0],
-                _Block(cc, in_channels[0], layer_nums[0], device))
+                _Block(cc, in_channels[0], layer_nums[0], quant, device))
         setattr(self, self._names[1],
                 _DeBlock(in_channels[0], in_channels[1], device))
         setattr(self, self._names[2],
                 _Block(cf + in_channels[1], num_filters, layer_nums[1],
-                       device))
+                       quant, device))
         self.out_channels = (num_filters,)
 
     def forward(self, feats):
@@ -124,9 +132,10 @@ class RPNV1(_TopDownNeck):
     coarse, fine = "conv5", "conv4"
 
     def __init__(self, layer_nums: Sequence[int], num_filters: int,
-                 in_channels: Sequence[int], backbone_channels, device=None):
+                 in_channels: Sequence[int], backbone_channels, quant=False,
+                 device=None):
         super().__init__(layer_nums, in_channels, num_filters,
-                         backbone_channels, device)
+                         backbone_channels, quant, device)
 
 
 @NECKS.register_module
@@ -134,6 +143,7 @@ class RPNV2(_TopDownNeck):
     coarse, fine = "conv4", "conv3"
 
     def __init__(self, layer_nums: Sequence[int], in_channels: Sequence[int],
-                 num_filters: int, backbone_channels, device=None):
+                 num_filters: int, backbone_channels, quant=False,
+                 device=None):
         super().__init__(layer_nums, in_channels, num_filters,
-                         backbone_channels, device)
+                         backbone_channels, quant, device)

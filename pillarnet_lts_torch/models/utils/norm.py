@@ -35,14 +35,17 @@ class MaskedBatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def fold_factors(self):
-        """Eval-mode BN as y = x * inv + shift (f32):
+        """Eval-mode BN as y = x * inv + shift, in f32 whatever the compute
+        dtype (callers cast the folded weights to it):
         inv = scale / sqrt(var + eps), shift = bias - mean * inv."""
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
         shift = self.bias - self.running_mean * inv
         return inv, shift
 
     def forward(self, x):
-        """x (B, C, H, W) -> (x - mean) * inv + bias, per channel."""
+        """x (B, C, H, W) -> (x - mean) * inv + bias, per channel, computed
+        in f32 and cast back to x.dtype (the JAX package's eval order)."""
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean[:, None, None]) * inv[:, None, None] \
-            + self.bias[:, None, None]
+        y = (x.float() - self.running_mean[:, None, None]) \
+            * inv[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)

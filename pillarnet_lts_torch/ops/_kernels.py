@@ -10,7 +10,9 @@ nvcc's stderr; nothing falls back.
 
 `LAUNCHES` counts kernel launches per kernel. Each wrapper adds one right
 after its launch succeeds and nowhere else, so a caller can zero the counts,
-run the model and see which kernels the run went through.
+run the model and see which kernels the run went through. The int8 code
+mode of the scatter-max (a second entry point of the same source) counts
+as `pillar_scatter_max`.
 """
 
 import ctypes
@@ -21,7 +23,8 @@ import subprocess
 import tempfile
 import threading
 
-LAUNCHES = {"pillar_scatter_max": 0, "rotated_overlap": 0}
+LAUNCHES = {"pillar_scatter_max": 0, "rotated_overlap": 0, "int8_conv": 0,
+            "int8_stage": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -33,18 +36,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
+# -fmad=false: with a*b+c contracted to FMA a kernel no longer repeats its
+# plain version's roundings: the overlap drifts up to 3.7e-4 m^2 on +-54 m
+# boxes (H100 run), and the int8 dequant (acc * dq + shift) moves by a bf16
+# ulp now and then
+_NO_FMA = ("-fmad=false",)
+
 # kernel -> (source file, extra nvcc flags, C symbol, argtypes)
 KERNELS = {
     "pillar_scatter_max": (
         "pillar_scatter_max.cu", (), "pillar_scatter_max_f32",
         [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P],
     ),
-    # -fmad=false: with a*b+c contracted to FMA the kernel drifts up to
-    # 3.7e-4 m^2 from the plain version on +-54 m boxes (H100 run); without
-    # contraction it repeats the plain version's rounding, at the same speed
+    "pillar_scatter_max_i8": (
+        "pillar_scatter_max.cu", (), "pillar_scatter_max_i8",
+        [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    ),
     "rotated_overlap": (
-        "rotated_overlap.cu", ("-fmad=false",), "rotated_overlap_f32",
+        "rotated_overlap.cu", _NO_FMA, "rotated_overlap_f32",
         [_P, _P, _P, _I64, _I64, _I64, _P],
+    ),
+    "int8_conv": (
+        "int8_conv.cu", _NO_FMA, "int8_conv_bf16",
+        [_P] * 8 + [_INT] * 9 + [_P],
+    ),
+    "int8_stage": (
+        "int8_stage.cu", _NO_FMA, "int8_stage_bf16",
+        [_P] * 7 + [_INT] * 4 + [_P],
     ),
 }
 
@@ -67,11 +85,15 @@ def _nvcc():
 def build_library(source, extra_flags=()):
     """Compile one `csrc/` source into a shared library; returns its path.
 
-    Reuses a library built from the same source bytes and flags."""
+    Reuses a library built from the same source bytes, headers (`csrc/
+    *.cuh`) and flags."""
     src = os.path.join(CSRC_DIR, source)
     flags = list(NVCC_FLAGS) + list(extra_flags)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    digest = hashlib.sha256(" ".join(flags).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     out = os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
     if os.path.exists(out):
@@ -107,7 +129,14 @@ def kernel(name):
 
 
 def build_all():
-    """Build and load every kernel (what a first call would do)."""
+    """Build every kernel library, one nvcc per source, all at once, then
+    load every kernel (what first calls would do)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    libs = {(src, extra) for src, extra, _, _ in KERNELS.values()}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(build_library, *lib) for lib in libs]:
+            f.result()
     for name in KERNELS:
         kernel(name)
 
@@ -132,8 +161,9 @@ def stream_handle(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def check_args(name, **tensors):
-    """Wrapper checks shared by the kernels: one CUDA device, contiguous."""
+def check_args(name, align=1, **tensors):
+    """Wrapper checks shared by the kernels: one CUDA device, contiguous,
+    and each data pointer a multiple of `align` bytes (vector loads)."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name}: expected tensors on one CUDA device, "
@@ -141,3 +171,5 @@ def check_args(name, **tensors):
     for arg, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: {arg} must be {align}-byte aligned")

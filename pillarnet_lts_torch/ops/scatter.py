@@ -18,8 +18,10 @@ def pillar_scatter_max(point_feats, flat_ids, valid, height, width,
 
     `nonneg=True` promises every valid feature is >= 0 (post-ReLU reader
     features); the kernel then max-combines float bit patterns directly.
+    int8 features are the int8 deploy's codes, in [0, 127] (`nonneg=True`
+    required); the grid then holds the per-pillar max codes as int8.
     A CPU tensor takes the plain version; a CUDA tensor launches
-    `csrc/pillar_scatter_max.cu` (f32 only) or raises.
+    `csrc/pillar_scatter_max.cu` (f32 or int8 codes) or raises.
     """
     if point_feats.device.type == "cpu":
         return scatter_max_to_grid(point_feats, flat_ids, valid, height, width)
@@ -27,8 +29,12 @@ def pillar_scatter_max(point_feats, flat_ids, valid, height, width,
     name = "pillar_scatter_max"
     _kernels.check_args(name, point_feats=point_feats, flat_ids=flat_ids,
                         valid=valid)
+    if point_feats.dtype == torch.int8:
+        return _scatter_codes(point_feats, flat_ids, valid, height, width,
+                              nonneg)
     if point_feats.dtype != torch.float32:
-        raise TypeError(f"{name}: f32 features only, got {point_feats.dtype}")
+        raise TypeError(f"{name}: f32 features or int8 codes only, got "
+                        f"{point_feats.dtype}")
     if flat_ids.dtype != torch.int32 or valid.dtype != torch.bool:
         raise TypeError(f"{name}: ids must be int32 and valid bool, got "
                         f"{flat_ids.dtype} and {valid.dtype}")
@@ -51,3 +57,27 @@ def pillar_scatter_max(point_feats, flat_ids, valid, height, width,
                  _kernels.stream_handle(dev))
     _kernels.launched(name, err)
     return grid.view(torch.float32), occ
+
+
+def _scatter_codes(codes, flat_ids, valid, height, width, nonneg):
+    """int8 code mode of the kernel (checked CUDA tensors)."""
+    name = "pillar_scatter_max"
+    B, N, C = codes.shape
+    if not nonneg or C % 4:
+        raise ValueError(f"{name}: int8 codes need nonneg=True and channels "
+                         f"in multiples of 4, got nonneg={nonneg}, C={C}")
+    if flat_ids.dtype != torch.int32 or valid.dtype != torch.bool \
+            or flat_ids.shape != (B, N) or valid.shape != (B, N):
+        raise ValueError(f"{name}: ids {flat_ids.dtype} {tuple(flat_ids.shape)}"
+                         f", valid {valid.dtype} {tuple(valid.shape)}")
+    _kernels.check_args(name, align=4, codes=codes)
+    dev = codes.device
+    grid = torch.zeros((B, height, width, C), dtype=torch.int8, device=dev)
+    occ = torch.zeros((B, height, width), dtype=torch.bool, device=dev)
+    fn = _kernels.kernel("pillar_scatter_max_i8")
+    with torch.cuda.device(dev):
+        err = fn(codes.data_ptr(), flat_ids.data_ptr(), valid.data_ptr(),
+                 grid.data_ptr(), occ.data_ptr(), B, N, C, height * width,
+                 _kernels.stream_handle(dev))
+    _kernels.launched(name, err)
+    return grid, occ

@@ -79,24 +79,29 @@ def scatter_max_to_grid(point_feats, flat_ids, valid, height, width):
     their valid points.
 
     Args:
-      point_feats: (B, N, C) features.
+      point_feats: (B, N, C) features (float, or the int8 deploy's codes).
       flat_ids: (B, N) int32 in [0, H*W]; H*W = dropped.
       valid: (B, N) bool.
     Returns:
-      grid: (B, H, W, C); occupancy: (B, H, W) bool.
+      grid: (B, H, W, C) in point_feats.dtype; occupancy: (B, H, W) bool.
     """
     B, N, C = point_feats.shape
     hw = height * width
-    neg = torch.finfo(point_feats.dtype).min
-    feats = torch.where(valid[..., None], point_feats, neg)
+    dtype = point_feats.dtype
+    if dtype.is_floating_point:
+        feats, neg = point_feats, torch.finfo(dtype).min
+    else:  # int8 codes: the max runs in int32
+        feats = point_feats.to(torch.int32)
+        neg = torch.iinfo(torch.int32).min
+    feats = torch.where(valid[..., None], feats, neg)
     ids = flat_ids.long()
-    grid = torch.full((B, hw + 1, C), neg, dtype=point_feats.dtype,
-                      device=point_feats.device)
+    grid = torch.full((B, hw + 1, C), neg, dtype=feats.dtype,
+                      device=feats.device)
     grid.scatter_reduce_(1, ids[..., None].expand(B, N, C), feats,
                          reduce="amax", include_self=True)
     occ = torch.zeros((B, hw + 1), dtype=torch.int32, device=ids.device)
     occ.scatter_reduce_(1, ids, valid.to(torch.int32), reduce="amax",
                         include_self=True)
     occ = occ[:, :hw] > 0
-    grid = torch.where(occ[..., None], grid[:, :hw], 0.0)
+    grid = torch.where(occ[..., None], grid[:, :hw], 0).to(dtype)
     return grid.reshape(B, height, width, C), occ.reshape(B, height, width)

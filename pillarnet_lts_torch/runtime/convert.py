@@ -13,6 +13,8 @@ a per-leaf transform:
                                              (I, O, kh, kw), spatially flipped
   BN `scale` / `bias`                        weight / bias
   BN batch_stats `mean` / `var`              running_mean / running_var
+  quant `in_absmax` (conv: (), PFN: (Cin,))  in_absmax (then calibrated)
+  quant `scatter_absmax` (reader)            DynamicPFE.scatter_absmax
 
 The flip: flax's ConvTranspose correlates the zero-dilated input with an
 unflipped kernel, while torch's conv_transpose2d places `w[:, :, i, j]` at
@@ -20,7 +22,10 @@ output offset (i, j) — mirrored relative to that (the inverse of
 `pillarnet_lts_tpu/runtime/torch_convert.py::_t_convT`).
 
 The load is strict: every leaf of `variables` is consumed exactly once and
-every port tensor is filled, else it raises and names the paths. Reference
+every port tensor is filled, else it raises and names the paths. The int8
+calibration (the 'quant' collection of a calibrated JAX model) is one
+unit: without a 'quant' collection the quant buffers stay unset and the
+model uncalibrated; with one, every quant buffer must be in it. Reference
 `.pth` checkpoints are a different naming (the reference's module names);
 they go through the JAX package's `convert_state_dict` first.
 """
@@ -33,7 +38,7 @@ import torch
 
 from ..models.backbones.base import MaskedConv
 from ..models.necks.rpn import ConvTranspose2x2
-from ..models.readers.dynamic_pillar_encoder import _PFNDense
+from ..models.readers.dynamic_pillar_encoder import DynamicPFE, _PFNDense
 from ..models.utils.norm import MaskedBatchNorm
 
 
@@ -52,8 +57,11 @@ def _conv_transpose_kernel(w):
 # module type -> {tensor attribute: (collection, flax leaf, transform)}
 _LEAVES = {
     MaskedConv: {"weight": ("params", "kernel", _conv_kernel),
-                 "bias": ("params", "bias", None)},
-    _PFNDense: {"weight": ("params", "kernel", _dense_kernel)},
+                 "bias": ("params", "bias", None),
+                 "in_absmax": ("quant", "in_absmax", None)},
+    _PFNDense: {"weight": ("params", "kernel", _dense_kernel),
+                "in_absmax": ("quant", "in_absmax", None)},
+    DynamicPFE: {"scatter_absmax": ("quant", "scatter_absmax", None)},
     ConvTranspose2x2: {"weight": ("params", "kernel", _conv_transpose_kernel)},
     MaskedBatchNorm: {"weight": ("params", "scale", None),
                       "bias": ("params", "bias", None),
@@ -84,18 +92,21 @@ def _targets(model):
                 raise TypeError(f"no weight mapping for {type(mod).__name__} "
                                 f"at {name!r}")
             continue
-        path = tuple(name.split("."))
+        path = tuple(name.split(".")) if name else ()
         for attr, (coll, leaf, fn) in spec.items():
-            t = getattr(mod, attr)
+            t = getattr(mod, attr, None)
             if t is not None:
-                out[(coll,) + path + (leaf,)] = (t, fn, f"{name}.{attr}")
+                out[(coll,) + path + (leaf,)] = (t, fn, f"{name}.{attr}", mod)
     return out
 
 
 def load_jax_variables(model, variables):
-    """Fill `model` from a JAX variables tree with numpy leaves; strict."""
+    """Fill `model` from a JAX variables tree with numpy leaves; strict.
+    A 'quant' collection also calibrates the model's int8 modules."""
     flat = _flatten(variables)
     targets = _targets(model)
+    if "quant" not in variables:
+        targets = {k: v for k, v in targets.items() if k[0] != "quant"}
 
     def fmt(keys):
         return ", ".join("/".join(k) for k in sorted(keys))
@@ -107,14 +118,16 @@ def load_jax_variables(model, variables):
             "JAX variables do not match the port model; "
             f"missing: [{fmt(missing)}]; unused: [{fmt(extra)}]")
     with torch.no_grad():
-        for key, (t, fn, name) in targets.items():
+        for key, (t, fn, name, mod) in targets.items():
             arr = np.asarray(flat[key], dtype=np.float32)
             if fn is not None:
                 arr = fn(arr)
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f"{'/'.join(key)} -> {name}: shape "
                                  f"{tuple(arr.shape)} != {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            t.copy_(torch.from_numpy(np.array(arr, order="C")))
+            if key[0] == "quant":
+                mod.calibrated = True
     return model
 
 

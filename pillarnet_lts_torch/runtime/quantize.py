@@ -1,0 +1,91 @@
+"""Post-training int8 calibration for the deploy path.
+
+Port of `pillarnet_lts_tpu/runtime/quantize.py`. A model built with the
+int8 flags (`enable_backbone_quant`, or the `*_int8.py` configs) holds one
+activation absmax per quantized module (`models/utils/quant.py`). Until
+they are set it serves its bf16 path. `calibrate` runs bf16 eval forwards
+over a few representative clouds inside `calibration_mode`, where each
+module records the max |activation| it sees (per input channel for the
+reader MLP), merges the per-batch values, and sets them; the model then
+serves int8. Outside `calibration_mode` nothing is recorded, so serving
+never pays for the reductions.
+"""
+
+import contextlib
+
+import torch
+
+from ..models.utils.quant import Calibrated
+
+
+def enable_backbone_quant(model_cfg, head=False):
+    """Flip the int8 deploy flags in a model config dict: reader MLP,
+    backbone and neck (the JAX package's default scope). `head=True`
+    flips the head's too, which the port does not run (it raises at
+    build). Handles single-stage ({'backbone': ...}) and two-stage
+    ({'first_stage_cfg': ...}) layouts."""
+    stage1 = (model_cfg if "backbone" in model_cfg
+              else model_cfg["first_stage_cfg"])
+    for comp in ("backbone", "reader", "neck"):
+        if comp in stage1 and isinstance(stage1[comp], dict):
+            stage1[comp]["quant"] = True
+    if head and isinstance(stage1.get("bbox_head"), dict):
+        stage1["bbox_head"]["quant"] = True
+    return model_cfg
+
+
+def observers(model):
+    """The modules of `model` that calibrate an activation absmax."""
+    return [m for m in model.modules()
+            if isinstance(m, Calibrated) and m.quant]
+
+
+@contextlib.contextmanager
+def calibration_mode(model):
+    """Within: every quant module runs its bf16 path and records its
+    absmax in `observed`. Yields the observing modules."""
+    obs = observers(model)
+    if not obs:
+        raise ValueError("no module observes an activation scale: was the "
+                         "model built with quant=True? "
+                         "(enable_backbone_quant)")
+    for m in obs:
+        m.observing, m.observed = True, None
+    try:
+        yield obs
+    finally:
+        for m in obs:
+            m.observing, m.observed = False, None
+
+
+@torch.no_grad()
+def calibrate(model, batches, reduce="max"):
+    """Set the int8 activation scales of `model` from calibration batches.
+
+    batches: iterable of (points (B, N, C) f32, points_mask (B, N) bool)
+    on the model's device. reduce: how per-batch absmax values merge —
+    'max' (never clips a calibration activation) or 'mean' (the average of
+    the per-batch maxima, summed left to right as the JAX package does).
+    Existing scales are re-collected. Returns `model`, in eval mode."""
+    if reduce not in ("max", "mean"):
+        raise ValueError(f"unknown reduce {reduce!r}")
+    model.eval()
+    per_batch = []
+    with calibration_mode(model) as obs:
+        for points, points_mask in batches:
+            for m in obs:
+                m.observed = None
+            model(points, points_mask)
+            per_batch.append([m.observed for m in obs])
+    if not per_batch:
+        raise ValueError("calibrate() needs at least one batch")
+    for k, m in enumerate(obs):
+        vals = [seen[k] for seen in per_batch]
+        if any(v is None for v in vals):
+            raise ValueError(f"{type(m).__name__} observed nothing")
+        if reduce == "max":
+            merged = torch.stack(vals).amax(0)
+        else:
+            merged = sum(vals) / len(vals)
+        m.set_absmax(merged)
+    return model

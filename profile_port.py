@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port, flagship config, one CUDA card.
+"""Where the time goes in the PyTorch port, flagship configs, one CUDA card.
 
 Run from the repository root on a machine with the card:
 
-    python3 profile_port.py [--out record.json]
+    python3 profile_port.py [--config CONFIG] [--fused] [--out record.json]
 
-Builds `configs/pillarnet/pillarnet34_nusc.py` with seeded random weights
-(head outputs spread as in `chip_smoke.py`), serves 262,144-point synthetic
-clouds and reports, after 3 warm-up requests:
+Builds a config (default `configs/pillarnet/pillarnet34_nusc.py`) with
+seeded random weights (head outputs spread as in `chip_smoke.py`; an int8
+config is then calibrated on 4 synthetic clouds, with `--fused` running its
+stride-1 stage on the fused kernel), serves 262,144-point synthetic clouds
+and reports, after 3 warm-up requests:
 
-  - FLOPs of one bs=1 request (`torch.utils.flop_counter`);
+  - FLOPs of one bs=1 request (`torch.utils.flop_counter`; it does not see
+    the port's own kernels, so an int8 config's count is its bf16 ops only);
   - per-stage device time (CUDA events around each module; median of 10):
-    reader, backbone conv1..conv5, neck, head, predict;
+    reader, backbone and its conv1..conv5, neck, head, predict;
   - kernel time by kernel over 5 requests (`torch.profiler`), grouped into
-    convolutions, elementwise, layout transposes, the port's two kernels and
-    the rest, with the device's busy share of the window;
+    the port's kernels, convolutions, elementwise, layout transposes and the
+    rest, with the device's busy share of the window;
   - serial frames/s at pipeline depth 1 and 3, and per-request latency at
     bs=2 and bs=4.
 
@@ -35,6 +38,8 @@ from chip_smoke import FLAGSHIP, ROOT, card_line
 
 GROUPS = (("K1 pillar_scatter_max", ("scatter_max", "decode_ordered")),
           ("K2 rotated_overlap", ("rotated_overlap",)),
+          ("K4 int8_conv", ("int8_conv_kernel",)),
+          ("K5 int8_stage", ("int8_stage_kernel",)),
           ("conv", ("conv", "xmma", "implicit_gemm", "cudnn", "winograd")),
           ("transpose", ("nchwToNhwc", "nhwcToNchw", "transpose")),
           ("elementwise", ("elementwise", "vectorized", "reduce")))
@@ -44,8 +49,8 @@ class StageTimer:
     """CUDA events around the top-level stage modules of a PillarNet."""
 
     def __init__(self, model):
-        self.events = []
-        mods = [("reader", model.reader_net)]
+        self.events, self.open = [], []
+        mods = [("reader", model.reader_net), ("backbone", model.backbone_net)]
         for name, mod in model.backbone_net.named_children():
             mods.append((name.split("_")[0], mod))  # conv1_block0 -> conv1
         mods += [("neck", model.neck_net), ("head", model.head_net)]
@@ -56,13 +61,15 @@ class StageTimer:
 
     def _pre(self, stage):
         def hook(mod, args):
-            self.events.append([stage, torch.cuda.Event(enable_timing=True),
-                                torch.cuda.Event(enable_timing=True)])
-            self.events[-1][1].record()
+            ev = [stage, torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)]
+            ev[1].record()
+            self.events.append(ev)
+            self.open.append(ev)
         return hook
 
     def _post(self, mod, args, out):
-        self.events[-1][2].record()  # the stage modules do not nest
+        self.open.pop()[2].record()  # the backbone nests its stages
 
     def remove(self):
         for h in self.handles:
@@ -101,6 +108,9 @@ def group_of(kernel):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default=FLAGSHIP)
+    ap.add_argument("--fused", action="store_true",
+                    help="int8: the stride-1 stage on the fused kernel")
     ap.add_argument("--out", help="write the full record here as JSON")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -113,11 +123,13 @@ def main():
     from pillarnet_lts_torch.apis import (
         build_model_from_cfg, load_config, spread_head_outputs)
     from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.runtime.quantize import calibrate, observers
     from pillarnet_lts_torch.runtime.serving import ServingPipeline
 
     card = card_line()
     dev = torch.device("cuda", 0)
-    cfg = load_config(FLAGSHIP)
+    cfg = load_config(args.config)
+    cfg["model"]["backbone"]["s2d_pallas"] = args.fused
     n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
     model = build_model_from_cfg(cfg, device=dev, seed=0)
 
@@ -126,12 +138,14 @@ def main():
         return torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev)
 
     spread_head_outputs(model, *cloud(1, 99))
+    if observers(model):
+        calibrate(model, [cloud(1, s) for s in (90, 91, 92, 93)])
     infer = make_infer_fn(model)
     clouds = [cloud(1, s) for s in range(10)]
     for c in clouds[:3]:
         infer(*c)
     torch.cuda.synchronize()
-    rec = {"card": card}
+    rec = {"card": card, "config": args.config, "fused": args.fused}
 
     with FlopCounterMode(display=False) as fc:
         infer(*clouds[0])
@@ -198,7 +212,7 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rec, f, indent=1)
-    print(f"card: {card}")
+    print(f"card: {card}; {args.config}, fused stage {args.fused}")
     print(f"GFLOP per bs=1 frame: {rec['gflop_per_frame']:.1f}")
     print("stage ms (median of 10): " + ", ".join(
         f"{s} {v:.2f}" for s, v in rec["stage_ms"].items()))

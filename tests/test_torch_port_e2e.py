@@ -201,13 +201,28 @@ def test_port_runs_without_importing_jax():
         "from pillarnet_lts_torch.apis import build_model_from_cfg, load_config\n"
         "from pillarnet_lts_torch.models import build_detector\n"
         "from pillarnet_lts_torch.eval_utils import make_infer_fn\n"
-        "build_model_from_cfg(load_config(FLAGSHIP), device='cpu')\n"
+        "from pillarnet_lts_torch.apis import build_int8_model\n"
+        "from pillarnet_lts_torch.runtime.quantize import "
+        "enable_backbone_quant\n"
+        "for name in ('', '_bf16', '_int8'):\n"
+        "    build_model_from_cfg(load_config(\n"
+        "        FLAGSHIP.replace('.py', name + '.py')), device='cpu')\n"
         "mcfg, tcfg = golden_model_cfg()\n"
         "model = build_detector(mcfg, test_cfg=tcfg)\n"
         "d = np.load(sys.argv[1])\n"
-        "det = make_infer_fn(model)(torch.from_numpy(d['points']),\n"
-        "                           torch.from_numpy(d['points_mask']))\n"
+        "pts = torch.from_numpy(d['points'])\n"
+        "msk = torch.from_numpy(d['points_mask'])\n"
+        "det = make_infer_fn(model)(pts, msk)\n"
         "assert det['mask'].shape == (1, 128)\n"
+        "mcfg = enable_backbone_quant(dict(mcfg, dtype='bfloat16'))\n"
+        "mcfg['backbone'] = dict(mcfg['backbone'], in_channels=32,\n"
+        "                        s2d_pallas=True)\n"
+        "mcfg['reader'] = dict(mcfg['reader'], num_filters=(32,))\n"
+        "model = build_int8_model(dict(model=mcfg, test_cfg=tcfg),\n"
+        "                         [(pts, msk)], device='cpu')\n"
+        "assert model.backbone_net.fused_stage1_params() is not None\n"
+        "det = make_infer_fn(model)(pts, msk)\n"
+        "assert bool(torch.isfinite(det['box3d_lidar']).all())\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'pillarnet_lts_tpu' not in sys.modules, 'JAX package imported'\n"
         "print('no-jax ok')\n"
