@@ -33,7 +33,35 @@ Phases, each of which raises on failure:
      calibrated on 4 synthetic clouds (its heatmaps' distance from the bf16
      forward is printed), then serving 3 warm-up + 10 timed requests at
      batch 1 with the fused stage on (`s2d_pallas`) and off, every request
-     raising the counters of the kernels of its path.
+     raising the counters of the kernels of its path;
+  9. the suppression-mask kernel against its plain version, bit-equal, at
+     (6, 1000, 1000) pairs (threshold 0.2) and the Waymo grouped shape
+     (3, 2048, 2048) (thresholds 0.8 / 0.55 / 0.55); its masks and keep
+     sets against the default overlap-kernel route on the same candidates
+     (`rotated_nms(use_mask_kernel=True)` vs `rotated_nms`,
+     `_greedy_suppress_mask` vs `rotated_nms_dynamic`): a decision may
+     differ only on a pair whose IoU lies within MASK_EPS of its threshold
+     (each such pair is printed);
+ 10. the sorted-run scatter-max kernel against its plain version and the
+     atomic one, equal by value with identical occupancy, at the Waymo
+     (1 x 196,608 x 32 -> 1504^2) and nuScenes shapes, with the one-call
+     `scatter_reduce_` as a yardstick;
+ 11. the Waymo config `configs/pillarnet/pillarnet34_waymo.py` (full width
+     and depth, f32, per-class NMS), seeded random weights, serving 3
+     warm-up + 10 timed requests at batch 1 on 196,608-point single-sweep
+     clouds; every class fills NMS slots;
+ 12. the same model with `ops.scatter.set_backend("tiled")`: detections
+     identical to phase 11's on the same clouds; then also with
+     `test_cfg.nms.use_mask_kernel`: detections equal to phase 11's except
+     where the mask kernel decided a pair within MASK_EPS of its threshold
+     otherwise (checked on the request's own candidates).
+
+Every kernel's record carries its bound: the least time the card could
+take for the same work on this run's inputs, the larger of the bytes it
+must move (each input read once, each output written once) at 3.35 TB/s
+and the operations it must do at the peak rate of their type (f32 67
+TFLOP/s, int8 1,979 TOP/s), and the time of one PyTorch call that computes
+the same function where there is one (`library_ms`, else null).
 
 The second-to-last line of stdout is the kernels' JSON record, the line
 before it the card's `nvidia-smi` name and power limit, and the last line
@@ -42,6 +70,7 @@ repository, it exits non-zero and prints no result. No JAX is imported.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -55,6 +84,7 @@ FLAGSHIP = os.path.join(ROOT, "configs", "pillarnet", "pillarnet34_nusc.py")
 FLAGSHIP_INT8 = FLAGSHIP.replace(".py", "_int8.py")
 DEMO = os.path.join(ROOT, "configs", "demo", "pillarnet18_demo.py")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "golden_e2e_r3.npz")
+WAYMO = os.path.join(ROOT, "configs", "pillarnet", "pillarnet34_waymo.py")
 
 N_POINTS = 262144
 NMS_TASKS, NMS_K = 6, 1000
@@ -63,6 +93,17 @@ TIMING_ITERS = 20
 PLAIN_ITERS = 3  # the int8 plain versions sum in float64: slow
 F32_PATH = {"pillar_scatter_max", "rotated_overlap"}  # kernels of phase 5
 HM_REL_BOUND = 0.2  # int8 vs bf16 heads, tests/test_quant_int8.py:88-106
+WAYMO_K, WAYMO_THRESH = 2048, (0.8, 0.55, 0.55)  # the grouped per-class NMS
+# the mask kernel's IoU (shoelace areas) and the default route's (w * l
+# areas) may decide a pair differently only this close to its threshold
+MASK_EPS = 1e-4
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 (no tensor
+# cores) and int8 (tensor cores, dense) operations/s
+HBM_BPS, F32_OPS, INT8_OPS = 3.35e12, 67e12, 1979e12
+# f32 operations of one box pair: the overlap kernel (two one-sided clips,
+# the B+ scaling, two shoelaces) and the mask kernel (eight clipped edges
+# of 71 ops, the IoU), counted from the sources
+OVERLAP_PAIR_OPS, MASK_PAIR_OPS = 610, 575
 
 
 def golden_model_cfg():
@@ -134,6 +175,31 @@ def cuda_ms(fn, iters=TIMING_ITERS, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes, ops, peak):
+    """(bound_ms, bound_by): the larger of `n_bytes` at the HBM rate and
+    `ops` at `peak` operations/s."""
+    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scatter_library(torch, x, ids, valid, hw):
+    """The one-call yardstick of a scatter-max: `scatter_reduce_(amax,
+    include_self=False)` into a zeroed grid with a spare row for dropped
+    points; returns a callable of no arguments and the index it uses."""
+    B, N, C = x.shape
+    idx = torch.where(valid, ids, hw).long()[..., None].expand(B, N, C)
+
+    def call():
+        grid = torch.zeros((B, hw + 1, C), dtype=x.dtype, device=x.device)
+        return grid.scatter_reduce_(1, idx, x, reduce="amax",
+                                    include_self=False)
+    return call
+
+
 def check_scatter(torch, dev, pc_range, pillar_size):
     """Phase 2: pillar scatter-max kernel vs plain, flagship shape; returns
     the timings and the cloud's (1, H, W) occupancy."""
@@ -168,11 +234,15 @@ def check_scatter(torch, dev, pc_range, pillar_size):
         k_ms = cuda_ms(lambda: pillar_scatter_max(x, ids, valid, H, W,
                                                   nonneg=nonneg))
         p_ms = cuda_ms(lambda: scatter_max_to_grid(x, ids, valid, H, W))
+        lib_ms = cuda_ms(scatter_library(torch, x, ids, valid, H * W))
+        b_ms, _ = bound(nbytes(x, ids, valid, grid_k, occ_k),
+                        int(valid.sum()) * x.shape[-1], F32_OPS)
         tag = "nonneg" if nonneg else "signed"
         res[f"{tag}_ms"], res[f"{tag}_plain_ms"] = k_ms, p_ms
         print(f"[2] scatter-max {tag}: bit-equal; occupied pillars "
               f"{occ_k.sum().item()} of {H * W}; kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms (mean of {TIMING_ITERS}, incl. the "
+              f"plain {p_ms:.4f} ms, scatter_reduce_ {lib_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms (mean of {TIMING_ITERS}, incl. the "
               f"zero-filled grid allocation)")
     res["occ"] = occ_k
 
@@ -185,20 +255,28 @@ def check_scatter(torch, dev, pc_range, pillar_size):
     if not (torch.equal(grid_k, grid_p) and torch.equal(occ_k, occ_p)):
         raise AssertionError("pillar_scatter_max(int8 codes) differs from "
                              "plain")
+    library = scatter_library(torch, codes, ids, valid, H * W)
+    if not torch.equal(library()[:, :H * W].reshape(grid_k.shape), grid_k):
+        raise AssertionError("scatter_reduce_ yardstick differs from the "
+                             "int8 code grid")
     res["int8_ms"] = cuda_ms(lambda: pillar_scatter_max(
         codes, ids, valid, H, W, nonneg=True))
     res["int8_plain_ms"] = cuda_ms(lambda: scatter_max_to_grid(
         codes, ids, valid, H, W))
+    res["int8_library_ms"] = cuda_ms(library)
+    res["int8_bound"] = bound(nbytes(codes, ids, valid, grid_k, occ_k),
+                              int(valid.sum()) * codes.shape[-1], INT8_OPS)
     print(f"[2] scatter-max int8 codes: bit-equal; kernel "
-          f"{res['int8_ms']:.4f} ms, plain {res['int8_plain_ms']:.4f} ms")
+          f"{res['int8_ms']:.4f} ms, plain {res['int8_plain_ms']:.4f} ms, "
+          f"scatter_reduce_ {res['int8_library_ms']:.4f} ms, bound "
+          f"{res['int8_bound'][0]:.4f} ms ({res['int8_bound'][1]})")
     return res
 
 
-def nms_like_boxes(torch, seed):
+def nms_like_boxes(torch, seed, T=NMS_TASKS, K=NMS_K):
     """(T, K, 5) pcdet BEV boxes in +-54 m, dims 0.3-12 m, with clustered,
     identical and edge-touching pairs."""
     rng = np.random.RandomState(seed)
-    T, K = NMS_TASKS, NMS_K
     b = np.zeros((T, K, 5), np.float32)
     b[..., 0:2] = rng.uniform(-54, 54, (T, K, 2))
     b[..., 2:4] = rng.uniform(0.3, 12, (T, K, 2))
@@ -239,11 +317,13 @@ def check_overlap(torch, dev):
         raise AssertionError(f"rotated_overlap max |d| {err} > {AREA_ATOL}")
     k_ms = cuda_ms(lambda: convex_intersection_area(corners, corners))
     p_ms = cuda_ms(lambda: _pairwise_area_plain(corners, corners), iters=5)
+    b = bound(nbytes(corners, corners, got), got.numel() * OVERLAP_PAIR_OPS,
+              F32_OPS)
     print(f"[3] rotated overlap {tuple(got.shape)}: max |d| {err:.3e} m^2 "
           f"(<= {AREA_ATOL}); pairs with |d| > 1e-6: {n_over} of "
           f"{got.numel()} ({n_pos} overlapping); kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+          f"plain {p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound": b}
 
 
 def check_golden(torch, dev):
@@ -399,11 +479,16 @@ def check_int8_conv(torch, dev, occ):
         p_ms = cuda_ms(lambda: int8_conv_bn_act_plain(*args, **kw),
                        iters=PLAIN_ITERS, warmup=1)
         res["max_abs_err"] = max(res["max_abs_err"], err)
+        sites = got.shape[0] * got.shape[1] * got.shape[2] \
+            if kw["mask"] is None else int((kw["mask"] > 0).sum())
+        b = bound(nbytes(*args[:5], kw["mask"], kw["residual"], got),
+                  2 * 9 * cin * cout * sites, INT8_OPS)
         if i == 0:
-            res["ms"], res["plain_ms"] = k_ms, p_ms
+            res["ms"], res["plain_ms"], res["bound"] = k_ms, p_ms, b
         print(f"[6] int8 conv, {tag}: bit-equal (max |out| "
               f"{got.float().abs().max().item():.3f}); kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms")
+              f"plain {p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+              f"{sites} active output sites)")
     return res
 
 
@@ -428,10 +513,13 @@ def check_int8_stage(torch, dev, occ, n_convs=7):
     k_ms = cuda_ms(lambda: int8_stage(*args))
     p_ms = cuda_ms(lambda: int8_stage_plain(*args), iters=PLAIN_ITERS,
                    warmup=1)
+    sites = int(occ.sum())
+    b = bound(nbytes(*args, got), n_convs * 2 * 9 * 32 * 32 * sites,
+              INT8_OPS)
     print(f"[7] fused int8 stage, n = {n_convs}, 1x1440^2x32: bit-equal (max "
           f"|out| {got.float().abs().max().item():.3f}); kernel {k_ms:.4f} "
-          f"ms, plain {p_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+          f"ms, plain {p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound": b}
 
 
 def rel_errors(ref, got, heads=None):
@@ -551,6 +639,262 @@ def serve_int8_flagship(torch, dev, card):
             launches = counts
     return launches
 
+def det3d_from_bev(torch, bev):
+    """pcdet BEV (..., 5) -> det3d (..., 7) boxes (z 0, height 1.5): the
+    inverse of `ops.iou3d.to_pcdet_bev`."""
+    x, y, dx, dy, heading = bev.unbind(-1)
+    return torch.stack([x, y, torch.zeros_like(x), dy, dx,
+                        torch.full_like(x, 1.5), -heading - math.pi / 2], -1)
+
+
+def mask_flips(torch, boxes, thresh, m_kernel, tag):
+    """Pairs the mask kernel decides unlike the default route (overlap
+    kernel IoU > threshold); each must lie within MASK_EPS of its row's
+    threshold. Prints them; returns their count."""
+    from pillarnet_lts_torch.ops.iou3d import rotated_iou_bev, to_pcdet_bev
+
+    bev = to_pcdet_bev(boxes)
+    iou = rotated_iou_bev(bev, bev)
+    k = boxes.shape[1]
+    upper = torch.ones((k, k), dtype=torch.bool, device=boxes.device).triu(1)
+    th = thresh.reshape(-1, 1, 1)
+    flips = (m_kernel > 0) != (upper & (iou > th))
+    bad = flips & ((iou - th).abs() >= MASK_EPS)
+    for r, j, i in flips.nonzero().tolist():
+        print(f"[9] {tag}: pair (row {r}, {j}, {i}) decided otherwise than "
+              f"the default route: IoU {iou[r, j, i].item():.9f}, threshold "
+              f"{th[r, 0, 0].item()}")
+    if bool(bad.any()):
+        raise AssertionError(f"{tag}: {int(bad.sum())} mask decisions differ "
+                             f"from the default route off the threshold")
+    return int(flips.sum())
+
+
+def check_mask(torch, dev):
+    """Phase 9: the suppression-mask kernel vs its plain version, and vs the
+    default (overlap-kernel) route, at the nuScenes and Waymo shapes."""
+    from pillarnet_lts_torch.ops import nms
+
+    shapes = (("nuScenes", NMS_TASKS, NMS_K, (0.2,) * NMS_TASKS, 1),
+              ("Waymo grouped", 3, WAYMO_K, WAYMO_THRESH, 2))
+    res = {}
+    for tag, R, K, ths, seed in shapes:
+        boxes = det3d_from_bev(torch, nms_like_boxes(torch, seed, R, K)
+                               .to(dev)).contiguous()
+        thresh = torch.tensor(ths, dtype=torch.float32, device=dev)
+        got = nms.suppression_matrix(boxes, thresh)
+        ca, cb = nms.mask_kernel_corners(boxes)
+        want = nms._suppression_matrix_plain(ca, cb, thresh)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"suppression_mask ({tag}) differs from "
+                                 f"plain at {int((got != want).sum())} pairs")
+        n_flips = mask_flips(torch, boxes, thresh, got, tag)
+        valid = torch.rand((R, K), generator=torch.Generator(device=dev)
+                           .manual_seed(seed), device=dev) > 0.05
+        scores = torch.zeros((R, K), device=dev)
+        if tag == "nuScenes":  # the static-threshold route
+            mine = nms.rotated_nms(boxes, scores, valid, ths[0], K,
+                                   use_mask_kernel=True)
+            ref = nms.rotated_nms(boxes, scores, valid, ths[0], K)
+        else:  # the per-row-threshold route, mask given
+            mine = nms._select_topk_sorted(
+                nms._greedy_suppress_mask(got, valid), K)
+            ref = nms.rotated_nms_dynamic(boxes, scores, valid, thresh, K)
+        same = all(torch.equal(x, y) for x, y in zip(mine, ref))
+        if not same and n_flips == 0:
+            raise AssertionError(f"{tag}: keep sets differ with equal masks")
+        ms = cuda_ms(lambda: nms.suppression_matrix(boxes, thresh))
+        p_ms = cuda_ms(lambda: nms._suppression_matrix_plain(ca, cb, thresh),
+                       iters=PLAIN_ITERS, warmup=1)
+        pairs = R * K * (K - 1) // 2
+        b = bound(nbytes(boxes, thresh, got), pairs * MASK_PAIR_OPS, F32_OPS)
+        print(f"[9] suppression mask {tag} {tuple(got.shape)}: bit-equal to "
+              f"plain ({int(got.sum())} suppressing pairs); vs the default "
+              f"route {n_flips} pairs decided otherwise (within {MASK_EPS}), "
+              f"keep sets {'equal' if same else 'differ'} "
+              f"({int(ref[1].sum())} kept); kernel {ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        res[tag] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": p_ms,
+                    "bound": b}
+    return res["Waymo grouped"]
+
+
+def check_scatter_tiled(torch, dev):
+    """Phase 10: the sorted-run scatter-max kernel vs its plain version and
+    the atomic kernel, at the Waymo and nuScenes shapes."""
+    from __graft_entry__ import _synth_points_realistic
+    from pillarnet_lts_torch.apis import load_config
+    from pillarnet_lts_torch.ops.scatter import (
+        pillar_scatter_max, pillar_scatter_max_tiled, scatter_max_tiled_plain)
+    from pillarnet_lts_torch.ops.voxelize import PillarSpec, voxelize_points
+
+    res = {}
+    for tag, path in (("Waymo", WAYMO), ("nuScenes", FLAGSHIP)):
+        cfg = load_config(path)
+        pc_range = cfg["point_cloud_range"]
+        spec = PillarSpec(cfg["pillar_size"], tuple(pc_range))
+        H, W = spec.height, spec.width
+        pts, msk = _synth_points_realistic(
+            1, int(cfg["data"]["max_points"]), pc_range, seed=101,
+            nsweeps=cfg.get("nsweeps", 10))
+        feats, ids, valid = voxelize_points(
+            torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev), spec)
+        g = torch.Generator().manual_seed(1)
+        w = (torch.randn(32, feats.shape[-1], generator=g) * 0.5).to(dev)
+        x = torch.nn.functional.linear(feats, w).contiguous()  # signed
+        args = (x, ids, valid, H, W)
+        grid, occ = pillar_scatter_max_tiled(*args)
+        plain = scatter_max_tiled_plain(*args)
+        atomic = pillar_scatter_max(*args, nonneg=False)
+        library = scatter_library(torch, x, ids, valid, H * W)
+        lib_grid = library()[:, :H * W].reshape(grid.shape)
+        torch.cuda.synchronize()
+        for name, (g2, o2) in (("plain", plain), ("the atomic kernel", atomic),
+                               ("scatter_reduce_", (lib_grid, occ))):
+            if not (torch.equal(occ, o2) and bool((grid == g2).all())):
+                raise AssertionError(
+                    f"pillar_scatter_max_tiled ({tag}) differs from {name}: "
+                    f"max |d| {(grid - g2).abs().max().item()}, occupancy "
+                    f"mismatches {int((occ != o2).sum())}")
+        ms = cuda_ms(lambda: pillar_scatter_max_tiled(*args))
+        p_ms = cuda_ms(lambda: scatter_max_tiled_plain(*args))
+        a_ms = cuda_ms(lambda: pillar_scatter_max(*args, nonneg=False))
+        lib_ms = cuda_ms(library)
+        b = bound(nbytes(x, ids, valid, grid, occ),
+                  int(valid.sum()) * x.shape[-1], F32_OPS)
+        print(f"[10] sorted-run scatter-max {tag} {tuple(x.shape)} -> "
+              f"{H}x{W}: equal by value to plain, the atomic kernel and "
+              f"scatter_reduce_ ({int(occ.sum())} occupied pillars); kernel "
+              f"{ms:.4f} ms (torch.sort and zero fill included), plain "
+              f"{p_ms:.4f} ms, atomic kernel {a_ms:.4f} ms, scatter_reduce_ "
+              f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        res[tag] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": p_ms,
+                    "library_ms": lib_ms, "bound": b}
+    return res["Waymo"]
+
+
+def serve_waymo(torch, dev, card):
+    """Phases 11-12: the Waymo config as a server on the default route,
+    then with the sorted-run scatter-max, then also with the mask kernel.
+    Returns the launch counts of phase 12."""
+    from __graft_entry__ import _synth_points_realistic
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, spread_head_outputs)
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.ops import _kernels, nms, scatter
+    from pillarnet_lts_torch.runtime.serving import ServingPipeline
+
+    cfg = load_config(WAYMO)
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+    posts = cfg["test_cfg"]["nms"]["nms_post_max_size"]
+    post = sum(posts)
+    model = build_model_from_cfg(cfg, device=dev, seed=0)
+    clouds = [_synth_points_realistic(1, n, pc_range, seed=200 + s,
+                                      nsweeps=cfg["nsweeps"])
+              for s in range(13)]
+    calib = _synth_points_realistic(1, n, pc_range, seed=99, nsweeps=1)
+    spread_head_outputs(model, torch.from_numpy(calib[0]).to(dev),
+                        torch.from_numpy(calib[1]).to(dev))
+    test_cfg = model.processed_test_cfg()
+    if test_cfg["nms"]["nms_iou_threshold"] != [list(WAYMO_THRESH)]:
+        raise AssertionError(f"per-class params not regrouped: {test_cfg}")
+
+    def serve(pipe, cloud, kernels, tag):
+        before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        det = list(pipe.map([(torch.from_numpy(cloud[0]).to(dev),
+                              torch.from_numpy(cloud[1]).to(dev))]))[0]
+        dt = (time.perf_counter() - t0) * 1e3
+        for name, count in _kernels.LAUNCHES.items():
+            if (count > before[name]) != (name in kernels):
+                raise AssertionError(f"{tag}: {name} launched="
+                                     f"{count > before[name]}")
+        if det["box3d_lidar"].shape != (1, post, 7) or not (
+                np.isfinite(det["box3d_lidar"]).all()
+                and np.isfinite(det["scores"]).all()):
+            raise AssertionError(f"{tag}: bad detections")
+        return det, dt
+
+    # phase 11: default route (atomic scatter-max, overlap kernel)
+    pipe = ServingPipeline(make_infer_fn(model, test_cfg), depth=1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launches()
+    lat, dets = [], []
+    for i, cloud in enumerate(clouds):
+        det, dt = serve(pipe, cloud, {"pillar_scatter_max", "rotated_overlap"},
+                        f"waymo request {i}")
+        dets.append(det)
+        if i >= 3:
+            lat.append(dt)
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    starts = np.cumsum([0] + posts)
+    per_class = [[int(d["mask"][0, starts[k]:starts[k + 1]].sum())
+                  for k in range(3)] for d in dets]
+    for k in range(3):
+        if min(c[k] for c in per_class) == 0:
+            raise AssertionError(f"class {k} kept no box on some request")
+        labels = np.concatenate([d["label_preds"][0, starts[k]:starts[k + 1]]
+                                 [d["mask"][0, starts[k]:starts[k + 1]]]
+                                 for d in dets])
+        if not (labels == k).all():
+            raise AssertionError(f"class {k} slots hold other labels")
+    q = statistics.quantiles(lat, n=10)
+    print(f"[11] waymo pillarnet34_waymo bs=1, {len(lat)} timed requests "
+          f"(after 3 warm-up), host-synced latency: p50 "
+          f"{statistics.median(lat):.2f} ms, p90 {q[8]:.2f} ms; peak "
+          f"allocated {peak / 2**30:.3f} GiB; kept per class (of {posts}) "
+          f"first requests {per_class[:3]}, mean "
+          f"{np.mean(per_class, axis=0).round(1).tolist()}; launches over "
+          f"{len(clouds)} requests {launches}; card: {card}")
+
+    # phase 12: the switches, on three of the same clouds
+    mask_cfg = dict(test_cfg, nms=dict(test_cfg["nms"], use_mask_kernel=True))
+    seen = []
+    real = nms.suppression_matrix
+
+    def recording(boxes, thresh):  # the candidates the mask kernel sees
+        out = real(boxes, thresh)
+        seen.append((boxes, thresh, out))
+        return out
+
+    _kernels.reset_launches()
+    try:
+        scatter.set_backend("tiled")
+        tiled = ServingPipeline(make_infer_fn(model, test_cfg), depth=1)
+        masked = ServingPipeline(make_infer_fn(model, mask_cfg), depth=1)
+        nms.suppression_matrix = recording
+        for i in (3, 7, 11):
+            det, dt = serve(tiled, clouds[i], {"pillar_scatter_max_tiled",
+                                               "rotated_overlap"},
+                            f"tiled request {i}")
+            for key in det:
+                if not np.array_equal(det[key], dets[i][key]):
+                    raise AssertionError(f"tiled request {i}: {key} differs "
+                                         f"from the default route's")
+            seen.clear()
+            det, dt_m = serve(masked, clouds[i], {"pillar_scatter_max_tiled",
+                                                  "suppression_mask"},
+                              f"mask-kernel request {i}")
+            (boxes, thresh, m_kernel), = seen
+            flips = mask_flips(torch, boxes, thresh, m_kernel,
+                               f"waymo request {i}")
+            same = all(np.array_equal(det[k], dets[i][k]) for k in det)
+            if not same and flips == 0:
+                raise AssertionError(f"mask-kernel request {i}: detections "
+                                     f"differ with equal masks")
+            print(f"[12] request {i}: tiled scatter {dt:.2f} ms, detections "
+                  f"identical; + mask kernel {dt_m:.2f} ms, {flips} pairs "
+                  f"decided otherwise (within {MASK_EPS}), detections "
+                  f"{'identical' if same else 'differ'}")
+    finally:
+        nms.suppression_matrix = real
+        scatter.set_backend("auto")
+    launches = dict(_kernels.LAUNCHES)
+    print(f"[12] launches over 3 + 3 requests: {launches}")
+    return launches
+
 
 def main():
     import torch
@@ -583,34 +927,42 @@ def main():
     conv = check_int8_conv(torch, dev, scatter["occ"])
     stage = check_int8_stage(torch, dev, scatter["occ"])
     launches = serve_int8_flagship(torch, dev, card)
+    mask = check_mask(torch, dev)
+    tiled = check_scatter_tiled(torch, dev)
+    switched = serve_waymo(torch, dev, card)
 
-    # launches: the int8 flagship's run with the fused stage on, the path
-    # this slice adds (all four kernels); times and errors: phases 2-3, 6-7
+    # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
+    # stage on (phase 8), K1' and K3 from the Waymo run with the switches
+    # on (phase 12); times, errors and bounds: phases 2-3, 6-7, 9-10
+    def row(name, source, replaces, count, res, ms, plain_ms, b, lib=None):
+        return {"name": name, "route": "cuda",
+                "source": f"pillarnet_lts_torch/csrc/{source}",
+                "replaces": f"pillarnet_lts_tpu/ops/pallas/{replaces}",
+                "launches": count, "max_abs_err": res["max_abs_err"],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": lib}
+
     record = {"kernels": [
-        {"name": "pillar_scatter_max", "route": "cuda",
-         "source": "pillarnet_lts_torch/csrc/pillar_scatter_max.cu",
-         "replaces": "pillarnet_lts_tpu/ops/pallas/voxelize_kernel.py:411",
-         "launches": launches["pillar_scatter_max"],
-         "max_abs_err": scatter["max_abs_err"], "ms": scatter["int8_ms"],
-         "plain_ms": scatter["int8_plain_ms"]},
-        {"name": "rotated_overlap", "route": "cuda",
-         "source": "pillarnet_lts_torch/csrc/rotated_overlap.cu",
-         "replaces": "pillarnet_lts_tpu/ops/pallas/iou_kernel.py:105",
-         "launches": launches["rotated_overlap"],
-         "max_abs_err": overlap["max_abs_err"], "ms": overlap["ms"],
-         "plain_ms": overlap["plain_ms"]},
-        {"name": "int8_conv", "route": "cuda",
-         "source": "pillarnet_lts_torch/csrc/int8_conv.cu",
-         "replaces": "pillarnet_lts_tpu/ops/pallas/s2d_conv_kernel.py:137",
-         "launches": launches["int8_conv"],
-         "max_abs_err": conv["max_abs_err"], "ms": conv["ms"],
-         "plain_ms": conv["plain_ms"]},
-        {"name": "int8_stage", "route": "cuda",
-         "source": "pillarnet_lts_torch/csrc/int8_stage.cu",
-         "replaces": "pillarnet_lts_tpu/ops/pallas/s2d_conv_kernel.py:385",
-         "launches": launches["int8_stage"],
-         "max_abs_err": stage["max_abs_err"], "ms": stage["ms"],
-         "plain_ms": stage["plain_ms"]},
+        row("pillar_scatter_max", "pillar_scatter_max.cu",
+            "voxelize_kernel.py:411", launches["pillar_scatter_max"], scatter,
+            scatter["int8_ms"], scatter["int8_plain_ms"],
+            scatter["int8_bound"], scatter["int8_library_ms"]),
+        row("pillar_scatter_max_tiled", "pillar_scatter_max_tiled.cu",
+            "voxelize_kernel.py:78", switched["pillar_scatter_max_tiled"],
+            tiled, tiled["ms"], tiled["plain_ms"], tiled["bound"],
+            tiled["library_ms"]),
+        row("rotated_overlap", "rotated_overlap.cu", "iou_kernel.py:105",
+            launches["rotated_overlap"], overlap, overlap["ms"],
+            overlap["plain_ms"], overlap["bound"]),
+        row("suppression_mask", "suppression_mask.cu", "nms_kernel.py:221",
+            switched["suppression_mask"], mask, mask["ms"], mask["plain_ms"],
+            mask["bound"]),
+        row("int8_conv", "int8_conv.cu", "s2d_conv_kernel.py:137",
+            launches["int8_conv"], conv, conv["ms"], conv["plain_ms"],
+            conv["bound"]),
+        row("int8_stage", "int8_stage.cu", "s2d_conv_kernel.py:385",
+            launches["int8_stage"], stage, stage["ms"], stage["plain_ms"],
+            stage["bound"]),
     ]}
     for k in record["kernels"]:
         if k["launches"] < 1:

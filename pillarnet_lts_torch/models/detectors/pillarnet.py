@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...core.utils import set_by_task_cfg
 from .. import builder
 from ..registry import DETECTORS
 
@@ -37,9 +38,12 @@ class PillarNet(nn.Module):
             bbox_head, self.neck_net.out_channels, device)
 
     def processed_test_cfg(self):
+        """The test config with per-class NMS params regrouped per task
+        when `use_multi_class_nms` is set (the Waymo configs)."""
         cfg = dict(self.test_cfg)
         if cfg["nms"].get("use_multi_class_nms", False):
-            raise NotImplementedError("multi-class NMS is not ported yet")
+            num_classes = [len(t["class_names"]) for t in self.head_net.tasks]
+            cfg = set_by_task_cfg(cfg, num_classes)
         return cfg
 
     def predict(self, example, preds, test_cfg=None):

@@ -23,7 +23,8 @@ import subprocess
 import tempfile
 import threading
 
-LAUNCHES = {"pillar_scatter_max": 0, "rotated_overlap": 0, "int8_conv": 0,
+LAUNCHES = {"pillar_scatter_max": 0, "pillar_scatter_max_tiled": 0,
+            "rotated_overlap": 0, "suppression_mask": 0, "int8_conv": 0,
             "int8_stage": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,8 +39,9 @@ _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 # -fmad=false: with a*b+c contracted to FMA a kernel no longer repeats its
 # plain version's roundings: the overlap drifts up to 3.7e-4 m^2 on +-54 m
-# boxes (H100 run), and the int8 dequant (acc * dq + shift) moves by a bf16
-# ulp now and then
+# boxes (H100 run), the suppression mask would flip on pairs at the
+# threshold, and the int8 dequant (acc * dq + shift) moves by a bf16 ulp
+# now and then
 _NO_FMA = ("-fmad=false",)
 
 # kernel -> (source file, extra nvcc flags, C symbol, argtypes)
@@ -52,9 +54,17 @@ KERNELS = {
         "pillar_scatter_max.cu", (), "pillar_scatter_max_i8",
         [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     ),
+    "pillar_scatter_max_tiled": (
+        "pillar_scatter_max_tiled.cu", (), "pillar_scatter_max_sorted_f32",
+        [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    ),
     "rotated_overlap": (
         "rotated_overlap.cu", _NO_FMA, "rotated_overlap_f32",
         [_P, _P, _P, _I64, _I64, _I64, _P],
+    ),
+    "suppression_mask": (
+        "suppression_mask.cu", _NO_FMA, "suppression_mask_f32",
+        [_P, _P, _P, _P, _I64, _I64, _P],
     ),
     "int8_conv": (
         "int8_conv.cu", _NO_FMA, "int8_conv_bf16",

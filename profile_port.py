@@ -3,13 +3,15 @@
 
 Run from the repository root on a machine with the card:
 
-    python3 profile_port.py [--config CONFIG] [--fused] [--out record.json]
+    python3 profile_port.py [--config CONFIG] [--fused] [--tiled]
+                            [--mask-kernel] [--out record.json]
 
 Builds a config (default `configs/pillarnet/pillarnet34_nusc.py`) with
 seeded random weights (head outputs spread as in `chip_smoke.py`; an int8
 config is then calibrated on 4 synthetic clouds, with `--fused` running its
-stride-1 stage on the fused kernel), serves 262,144-point synthetic clouds
-and reports, after 3 warm-up requests:
+stride-1 stage on the fused kernel), serves synthetic clouds of the
+config's `max_points` and `nsweeps` (nuScenes 262,144 points in 10 sweeps,
+Waymo 196,608 in one) and reports, after 3 warm-up requests:
 
   - FLOPs of one bs=1 request (`torch.utils.flop_counter`; it does not see
     the port's own kernels, so an int8 config's count is its bf16 ops only);
@@ -20,6 +22,10 @@ and reports, after 3 warm-up requests:
     rest, with the device's busy share of the window;
   - serial frames/s at pipeline depth 1 and 3, and per-request latency at
     bs=2 and bs=4.
+
+`--tiled` serves with `ops.scatter.set_backend("tiled")` (the sorted-run
+scatter-max), `--mask-kernel` with `test_cfg.nms.use_mask_kernel` (the
+suppression-mask kernel).
 
 The summary names the card's `nvidia-smi` name and power limit; `--out`
 takes the full record as JSON.
@@ -36,8 +42,10 @@ import torch
 
 from chip_smoke import FLAGSHIP, ROOT, card_line
 
-GROUPS = (("K1 pillar_scatter_max", ("scatter_max", "decode_ordered")),
+GROUPS = (("K1' pillar_scatter_max_tiled", ("scatter_max_sorted",)),
+          ("K1 pillar_scatter_max", ("scatter_max", "decode_ordered")),
           ("K2 rotated_overlap", ("rotated_overlap",)),
+          ("K3 suppression_mask", ("suppression_mask",)),
           ("K4 int8_conv", ("int8_conv_kernel",)),
           ("K5 int8_stage", ("int8_stage_kernel",)),
           ("conv", ("conv", "xmma", "implicit_gemm", "cudnn", "winograd")),
@@ -111,6 +119,10 @@ def main():
     ap.add_argument("--config", default=FLAGSHIP)
     ap.add_argument("--fused", action="store_true",
                     help="int8: the stride-1 stage on the fused kernel")
+    ap.add_argument("--tiled", action="store_true",
+                    help="the sorted-run scatter-max (set_backend('tiled'))")
+    ap.add_argument("--mask-kernel", action="store_true",
+                    help="NMS masks from the suppression-mask kernel")
     ap.add_argument("--out", help="write the full record here as JSON")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -123,6 +135,7 @@ def main():
     from pillarnet_lts_torch.apis import (
         build_model_from_cfg, load_config, spread_head_outputs)
     from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.ops import scatter
     from pillarnet_lts_torch.runtime.quantize import calibrate, observers
     from pillarnet_lts_torch.runtime.serving import ServingPipeline
 
@@ -131,21 +144,28 @@ def main():
     cfg = load_config(args.config)
     cfg["model"]["backbone"]["s2d_pallas"] = args.fused
     n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+    nsweeps = cfg.get("nsweeps", 10)
     model = build_model_from_cfg(cfg, device=dev, seed=0)
 
     def cloud(batch, seed):
-        pts, msk = _synth_points_realistic(batch, n, pc_range, seed=seed)
+        pts, msk = _synth_points_realistic(batch, n, pc_range, seed=seed,
+                                           nsweeps=nsweeps)
         return torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev)
 
     spread_head_outputs(model, *cloud(1, 99))
     if observers(model):
         calibrate(model, [cloud(1, s) for s in (90, 91, 92, 93)])
-    infer = make_infer_fn(model)
+    test_cfg = model.processed_test_cfg()
+    if args.mask_kernel:
+        test_cfg["nms"] = dict(test_cfg["nms"], use_mask_kernel=True)
+    scatter.set_backend("tiled" if args.tiled else "auto")
+    infer = make_infer_fn(model, test_cfg)
     clouds = [cloud(1, s) for s in range(10)]
     for c in clouds[:3]:
         infer(*c)
     torch.cuda.synchronize()
-    rec = {"card": card, "config": args.config, "fused": args.fused}
+    rec = {"card": card, "config": args.config, "fused": args.fused,
+           "tiled": args.tiled, "mask_kernel": args.mask_kernel}
 
     with FlopCounterMode(display=False) as fc:
         infer(*clouds[0])
@@ -159,7 +179,7 @@ def main():
             start, end = (torch.cuda.Event(enable_timing=True)
                           for _ in range(2))
             start.record()
-            model.predict({}, preds)
+            model.predict({}, preds, test_cfg)
             end.record()
         for s, v in timer.take().items():
             per_stage[s].append(v)
@@ -212,7 +232,8 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rec, f, indent=1)
-    print(f"card: {card}; {args.config}, fused stage {args.fused}")
+    print(f"card: {card}; {args.config}, fused stage {args.fused}, tiled "
+          f"scatter {args.tiled}, mask kernel {args.mask_kernel}")
     print(f"GFLOP per bs=1 frame: {rec['gflop_per_frame']:.1f}")
     print("stage ms (median of 10): " + ", ".join(
         f"{s} {v:.2f}" for s, v in rec["stage_ms"].items()))

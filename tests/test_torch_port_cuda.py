@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version, and
 the models' paths through the kernels (f32: scatter-max and overlap; int8
-deploy: also the int8 conv and the fused int8 stage).
+deploy: also the int8 conv and the fused int8 stage; the switches: the
+sorted-run scatter-max and the suppression mask).
 
 This file imports no JAX, so it also runs where only PyTorch is installed.
 Every test needs a CUDA card with nvcc and skips without one. On the card,
@@ -11,7 +12,10 @@ from the repository root:
 (`--noconftest`: `tests/conftest.py` configures JAX.) Tolerances: the
 scatter-max is bit-equal (max of the same floats or codes); areas within
 1e-4 m^2 (the kernel is built without FMA contraction and repeats the plain
-version's operation order, so they agree to rounding); the int8 conv and
+version's operation order, so they agree to rounding); the sorted-run
+scatter-max equal by value (-0.0 and +0.0 may trade places); the
+suppression mask bit-equal (built without FMA contraction, the plain
+version's order of operations); the int8 conv and
 the fused int8 stage are bit-equal as values (integer sums, the same f32
 epilogue roundings; an all-empty tile writes +0 where the plain version
 may give -0).
@@ -29,8 +33,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from pillarnet_lts_torch.ops import _kernels  # noqa: E402
 from pillarnet_lts_torch.ops import int8_stage as tstage  # noqa: E402
 from pillarnet_lts_torch.ops import iou3d as tiou  # noqa: E402
+from pillarnet_lts_torch.ops import nms as tnms  # noqa: E402
 from pillarnet_lts_torch.ops import quant as tquant  # noqa: E402
 from pillarnet_lts_torch.ops import voxelize as tvox  # noqa: E402
+from pillarnet_lts_torch.ops import scatter as tscatter  # noqa: E402
 from pillarnet_lts_torch.ops.scatter import pillar_scatter_max  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -247,5 +253,135 @@ def test_int8_model_path_runs_all_kernels(cuda):
     _kernels.reset_launches()
     det = make_infer_fn(model)(pts, msk)
     torch.cuda.synchronize()
-    assert all(n >= 1 for n in _kernels.LAUNCHES.values()), _kernels.LAUNCHES
+    path = ("pillar_scatter_max", "rotated_overlap", "int8_conv", "int8_stage")
+    assert all(_kernels.LAUNCHES[n] >= 1 for n in path), _kernels.LAUNCHES
     assert bool(torch.isfinite(det["box3d_lidar"]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_tiled_scatter_kernel_matches_plain_and_atomic(cuda, dtype):
+    feats, ids, valid, H, W = _scatter_inputs(11, dtype == torch.int8)
+    x = torch.from_numpy(feats).to(cuda)
+    x = (x * 30).round().clamp(0, 127).to(dtype) if dtype == torch.int8 \
+        else x.to(dtype)
+    args = (x, torch.from_numpy(ids).to(cuda),
+            torch.from_numpy(valid).to(cuda), H, W)
+    before = dict(_kernels.LAUNCHES)
+    grid, occ = tscatter.pillar_scatter_max_tiled(*args)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["pillar_scatter_max_tiled"] == \
+        before["pillar_scatter_max_tiled"] + 1
+    assert _kernels.LAUNCHES["pillar_scatter_max"] == \
+        before["pillar_scatter_max"]
+    want_grid, want_occ = tscatter.scatter_max_tiled_plain(*args)
+    assert grid.dtype == dtype and torch.equal(occ, want_occ)
+    assert bool((grid == want_grid).all())
+    if dtype == torch.float32:
+        atomic = pillar_scatter_max(*args, nonneg=False)
+        assert torch.equal(occ, atomic[1])
+        assert bool((grid == atomic[0]).all())
+
+
+def test_set_backend_tiled_launches_the_sorted_kernel(cuda):
+    feats, ids, valid, H, W = _scatter_inputs(12, True)
+    args = (torch.from_numpy(feats).to(cuda), torch.from_numpy(ids).to(cuda),
+            torch.from_numpy(valid).to(cuda), H, W)
+    want = pillar_scatter_max(*args, nonneg=True)
+    _kernels.reset_launches()
+    try:
+        tscatter.set_backend("tiled")
+        got = pillar_scatter_max(*args, nonneg=True)
+    finally:
+        tscatter.set_backend("auto")
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["pillar_scatter_max_tiled"] == 1
+    assert _kernels.LAUNCHES["pillar_scatter_max"] == 0
+    assert torch.equal(got[1], want[1]) and bool((got[0] == want[0]).all())
+
+
+def _det_boxes(R, K, seed):
+    rng = np.random.RandomState(seed)
+    centres = rng.uniform(-50, 50, (R, 12, 2))
+    b = np.zeros((R, K, 7), np.float32)
+    pick = rng.randint(0, 12, (R, K))
+    b[..., 0:2] = np.take_along_axis(centres, pick[..., None], 1) \
+        + rng.randn(R, K, 2) * 1.5
+    b[..., 3:6] = rng.uniform(0.3, 6, (R, K, 3))
+    b[..., 6] = rng.uniform(-np.pi, np.pi, (R, K))
+    b[:, 1] = b[:, 0]  # identical pair
+    b[:, 2:4] = [[0, 0, 0, 2, 4, 1.5, 0], [2, 0, 0, 2, 4, 1.5, 0]]
+    return b
+
+
+@pytest.mark.parametrize("R,K,thresh", [
+    (2, 100, (0.2, 0.2)),            # ragged tiles
+    (3, 300, (0.8, 0.55, 0.55)),     # per-row thresholds
+    (6, 1000, (0.2,) * 6),           # nuScenes flagship
+    (3, 2048, (0.8, 0.55, 0.55)),    # Waymo grouped flagship
+])
+def test_suppression_mask_kernel_matches_plain(cuda, R, K, thresh):
+    boxes = torch.from_numpy(_det_boxes(R, K, K)).to(cuda)
+    th = torch.tensor(thresh, device=cuda)
+    before = _kernels.LAUNCHES["suppression_mask"]
+    got = tnms.suppression_matrix(boxes, th)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["suppression_mask"] == before + 1
+    ca, cb = tnms.mask_kernel_corners(boxes)
+    want = tnms._suppression_matrix_plain(ca, cb, th)
+    assert got.shape == (R, K, K)
+    assert torch.equal(got, want), int((got != want).sum())
+    assert got.sum() > 0 and not bool(got.tril().any())
+
+
+def test_mask_kernel_nms_route_launches_the_mask_kernel(cuda):
+    boxes = torch.from_numpy(_det_boxes(3, 256, 5)).to(cuda)
+    valid = torch.ones((3, 256), dtype=torch.bool, device=cuda)
+    scores = torch.zeros((3, 256), device=cuda)
+    th = torch.tensor([0.8, 0.55, 0.55], device=cuda)
+    _kernels.reset_launches()
+    got = tnms.rotated_nms_dynamic(boxes, scores, valid, th, 64,
+                                   use_mask_kernel=True)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["suppression_mask"] == 1
+    assert _kernels.LAUNCHES["rotated_overlap"] == 0
+    stat = tnms.rotated_nms(boxes, scores, valid, 0.55, 64,
+                            use_mask_kernel=True)
+    assert _kernels.LAUNCHES["suppression_mask"] == 2
+    plain = tnms.rotated_nms_dynamic(boxes.cpu(), scores.cpu(), valid.cpu(),
+                                     th.cpu(), 64, use_mask_kernel=True)
+    for a, b in zip(got, plain):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(stat[1][1:], got[1][1:])
+
+
+@pytest.mark.parametrize("name", ["pillarnet18_waymo", "pillarnet34_waymo",
+                                  "pillarnet18_s4_waymo",
+                                  "pillarnet34_s4_waymo"])
+def test_waymo_config_serves_on_the_card(cuda, name):
+    """Each served Waymo config builds on the card by default (full width
+    and depth) and serves a 196,608-point request with per-class NMS."""
+    from __graft_entry__ import _synth_points_realistic
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, spread_head_outputs)
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    cfg = load_config(os.path.join(root, "configs", "pillarnet",
+                                   name + ".py"))
+    model = build_model_from_cfg(cfg)
+    assert next(model.parameters()).device.type == "cuda"
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+    pts, msk = (torch.from_numpy(a).to(cuda) for a in
+                _synth_points_realistic(1, n, pc_range, seed=4, nsweeps=1))
+    spread_head_outputs(model, pts, msk)
+    _kernels.reset_launches()
+    det = make_infer_fn(model)(pts, msk)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["pillar_scatter_max"] == 1
+    assert _kernels.LAUNCHES["rotated_overlap"] == 1
+    assert det["box3d_lidar"].shape == (1, 500, 7)
+    assert bool(torch.isfinite(det["box3d_lidar"]).all())
+    m = det["mask"][0]
+    for k, (lo, hi) in enumerate(((0, 200), (200, 350), (350, 500))):
+        assert bool(m[lo:hi].any())
+        assert bool((det["label_preds"][0, lo:hi][m[lo:hi]] == k).all())

@@ -223,6 +223,17 @@ def test_port_runs_without_importing_jax():
         "assert model.backbone_net.fused_stage1_params() is not None\n"
         "det = make_infer_fn(model)(pts, msk)\n"
         "assert bool(torch.isfinite(det['box3d_lidar']).all())\n"
+        "from chip_smoke import WAYMO\n"
+        "from pillarnet_lts_torch.ops.scatter import set_backend\n"
+        "wm = build_model_from_cfg(load_config(WAYMO), device='cpu')\n"
+        "wcfg = wm.processed_test_cfg()\n"
+        "assert wcfg['nms']['nms_iou_threshold'] == [[0.8, 0.55, 0.55]]\n"
+        "set_backend('tiled')\n"
+        "mcfg, tcfg = golden_model_cfg()\n"
+        "model = build_detector(mcfg, test_cfg=tcfg)\n"
+        "tiled = make_infer_fn(model)(pts, msk)\n"
+        "set_backend('auto')\n"
+        "assert tiled['mask'].shape == (1, 128)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'pillarnet_lts_tpu' not in sys.modules, 'JAX package imported'\n"
         "print('no-jax ok')\n"

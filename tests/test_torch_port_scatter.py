@@ -2,9 +2,11 @@
 package, on the same numpy inputs.
 
 Tolerances: pillar ids, validity, occupancy and the scatter-max are
-bit-equal (integer math and a max); the PFE input features allow 1e-6 (one
-f32 rounding of the pillar-centre offsets). The CUDA kernel against the
-plain version is in `test_torch_port_cuda.py` (needs a card).
+bit-equal (integer math and a max; the sorted-run route is compared by
+value, as -0.0 and +0.0 may trade places); the PFE input features allow
+1e-6 (one f32 rounding of the pillar-centre offsets). The CUDA kernels
+against their plain versions are in `test_torch_port_cuda.py` (needs a
+card).
 """
 
 import numpy as np
@@ -15,10 +17,17 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from pillarnet_lts_tpu.ops import voxelize as jvox
-from pillarnet_lts_tpu.ops.pallas.voxelize_kernel import pillar_scatter_max_mxu
+from pillarnet_lts_tpu.ops.pallas.voxelize_kernel import (
+    pillar_scatter_max_mxu,
+    pillar_scatter_max_pallas,
+)
 from pillarnet_lts_torch.ops import _kernels
+from pillarnet_lts_torch.ops import scatter as tscatter
 from pillarnet_lts_torch.ops import voxelize as tvox
-from pillarnet_lts_torch.ops.scatter import pillar_scatter_max
+from pillarnet_lts_torch.ops.scatter import (
+    pillar_scatter_max,
+    pillar_scatter_max_tiled,
+)
 
 
 def _points(seed, B=2, N=3000):
@@ -105,3 +114,63 @@ def test_pillar_scatter_max_raises_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         pillar_scatter_max(feats, ids, valid, 2, 2, nonneg=True)
 
+
+
+def test_tiled_plain_matches_jax_pallas_interpret():
+    # the JAX sorted-tile kernel (the "tiled" backend's counterpart); ~2k
+    # points into 16 x 16 keeps its interpret-mode loop under ~10 s
+    feats, ids, valid, H, W = _scatter_inputs(8, False, B=2, N=1024)
+    with pltpu.force_tpu_interpret_mode():
+        want_grid, want_occ = pillar_scatter_max_pallas(
+            jnp.asarray(feats), jnp.asarray(ids), jnp.asarray(valid), H, W)
+    grid, occ = pillar_scatter_max_tiled(
+        torch.from_numpy(feats), torch.from_numpy(ids),
+        torch.from_numpy(valid), H, W)
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(want_occ))
+    assert (grid.numpy() == np.asarray(want_grid)).all()  # by value
+    assert (grid.numpy() < 0).any()  # the all-negative pillar stays signed
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_tiled_takes_plain_version_on_cpu(dtype):
+    feats, ids, valid, H, W = _scatter_inputs(9, dtype == torch.int8)
+    x = torch.from_numpy(feats)
+    x = (x * 30).round().clamp(0, 127).to(dtype) if dtype == torch.int8 \
+        else x.to(dtype)
+    args = (x, torch.from_numpy(ids), torch.from_numpy(valid), H, W)
+    before = dict(_kernels.LAUNCHES)
+    grid, occ = pillar_scatter_max_tiled(*args, nonneg=True)  # ignored
+    assert _kernels.LAUNCHES == before  # no kernel launched for CPU tensors
+    want_grid, want_occ = tvox.scatter_max_to_grid(*args)
+    assert grid.dtype == dtype and torch.equal(occ, want_occ)
+    assert (grid == want_grid).all()
+
+
+def test_set_backend_tiled_routes_the_scatter():
+    feats, ids, valid, H, W = _scatter_inputs(10, True)
+    args = (torch.from_numpy(feats), torch.from_numpy(ids),
+            torch.from_numpy(valid), H, W)
+    want = pillar_scatter_max(*args, nonneg=True)
+    calls = []
+    real = tscatter.pillar_scatter_max_tiled
+    try:
+        tscatter.pillar_scatter_max_tiled = \
+            lambda *a, **k: calls.append(1) or real(*a, **k)
+        tscatter.set_backend("tiled")
+        got = pillar_scatter_max(*args, nonneg=True)
+    finally:
+        tscatter.pillar_scatter_max_tiled = real
+        tscatter.set_backend("auto")
+    assert calls == [1]
+    assert (got[0] == want[0]).all() and torch.equal(got[1], want[1])
+    for name in ("xla", "sort", "pallas", "mxu"):
+        with pytest.raises(ValueError, match="backend"):
+            tscatter.set_backend(name)
+
+
+def test_tiled_raises_off_cpu_and_cuda():
+    feats = torch.empty(1, 4, 8, device="meta")
+    ids = torch.empty(1, 4, dtype=torch.int32, device="meta")
+    valid = torch.empty(1, 4, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        pillar_scatter_max_tiled(feats, ids, valid, 2, 2)
