@@ -9,9 +9,11 @@ Phases, each of which raises on failure:
   0. card name and power limit, torch and CUDA versions;
   1. build every CUDA kernel from `pillarnet_lts_torch/csrc/` (nvcc, sm_90a,
      one nvcc per source, all at once);
-  2. the pillar scatter-max kernel against its plain version at the
-     flagship shape (1 x 262,144 points x 32 channels -> 1440 x 1440), both
-     `nonneg` modes and the int8 code mode, bit-equal;
+  2. the pillar scatter-max kernel (K1) against its plain version at the
+     flagship shape (1 x 262,144 points x 32 channels -> 1440 x 1440), f32
+     signed, f32 nonneg and int8 codes, and with every point in one pillar,
+     bit-equal; each case timed with its wrapper, its kernels alone
+     (`torch.profiler`), the plain version and `scatter_reduce_`;
   3. the rotated-overlap kernel against its plain version at (6, 1000, 1000)
      pairs, within 1e-4 m^2;
   4. the committed golden fixture (`tests/fixtures/golden_e2e_r3.npz`)
@@ -42,10 +44,11 @@ Phases, each of which raises on failure:
      `_greedy_suppress_mask` vs `rotated_nms_dynamic`): a decision may
      differ only on a pair whose IoU lies within MASK_EPS of its threshold
      (each such pair is printed);
- 10. the sorted-run scatter-max kernel against its plain version and the
-     atomic one, equal by value with identical occupancy, at the Waymo
-     (1 x 196,608 x 32 -> 1504^2) and nuScenes shapes, with the one-call
-     `scatter_reduce_` as a yardstick;
+ 10. the sorted-run scatter-max kernel (K1') against its plain version, the
+     atomic one and `scatter_reduce_`, equal by value with identical
+     occupancy, at the Waymo (1 x 196,608 x 32 -> 1504^2) and nuScenes
+     shapes, in bf16 and int8 at the Waymo shape, and with every point in
+     one pillar; timed as in phase 2;
  11. the Waymo config `configs/pillarnet/pillarnet34_waymo.py` (full width
      and depth, f32, per-class NMS), seeded random weights, serving 3
      warm-up + 10 timed requests at batch 1 on 196,608-point single-sweep
@@ -200,77 +203,123 @@ def scatter_library(torch, x, ids, valid, hw):
     return call
 
 
+def device_ms(fn, iters=10):
+    """Mean device time of the kernels and memsets that one fn() call
+    launches (`torch.profiler`'s sums over `iters` calls): the call's
+    kernels alone, without the host's launch gaps. Returns it and the
+    per-kernel means, longest first."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if t is None else t
+            per.append((us / 1e3 / iters, e.key))
+    total = sum(ms for ms, _ in per)
+    if total <= 0:
+        raise AssertionError("torch.profiler saw no device time")
+    return total, sorted(per, reverse=True)
+
+
+def check_scatter_equal(torch, tag, got, want, by_value=False):
+    """Identical occupancy; the grid bit-equal, or equal by value (-0.0 and
+    +0.0 may trade places). Returns the grid's max |got - want|."""
+    (grid, occ), (g2, o2) = got, want
+    err = (grid.float() - g2.float()).abs().max().item()
+    same = bool((grid == g2).all()) if by_value else torch.equal(grid, g2)
+    if not (same and grid.dtype == g2.dtype and torch.equal(occ, o2)):
+        raise AssertionError(f"{tag}: max |d| {err}, occupancy mismatches "
+                             f"{int((occ != o2).sum())}")
+    return err
+
+
+def scatter_times(torch, tag, call, plain, x, ids, valid, out, peak,
+                  iters=TIMING_ITERS):
+    """Phase 2 and 10 timings of one scatter-max case: the wrapper (CUDA
+    events), its kernels alone (profiler), the plain version, the one-call
+    `scatter_reduce_` yardstick and the bound; printed and returned."""
+    library = scatter_library(torch, x, ids, valid, out[1][0].numel())
+    alone, per_kernel = device_ms(call, iters=min(iters, 10))
+    r = {"ms": cuda_ms(call, iters=iters), "alone_ms": alone,
+         "plain_ms": cuda_ms(plain, iters=iters),
+         "library_ms": cuda_ms(library, iters=iters)}
+    r["bound_ms"], r["bound_by"] = bound(
+        nbytes(x, ids, valid, *out), int(valid.sum()) * x.shape[-1], peak)
+    print(f"{tag}: wrapper {r['ms']:.4f} ms, kernels alone "
+          f"{r['alone_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"scatter_reduce_ {r['library_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}); mean of {iters} "
+          f"calls; kernels: " + "; ".join(
+              f"{k.replace('(anonymous namespace)::', '').split('(')[0][-60:]}"
+              f" {ms * 1e3:.1f} us"
+              for ms, k in per_kernel[:6]))
+    return r
+
+
+def one_pillar(torch, ids, width, height):
+    """The same points, every id moved to the centre pillar."""
+    return torch.full_like(ids, (height // 2) * width + width // 2)
+
+
 def check_scatter(torch, dev, pc_range, pillar_size):
-    """Phase 2: pillar scatter-max kernel vs plain, flagship shape; returns
-    the timings and the cloud's (1, H, W) occupancy."""
-    from __graft_entry__ import _synth_points_realistic
+    """Phase 2: the pillar scatter-max kernel (K1) vs its plain version at
+    the flagship shape in its three modes, and with every point in one
+    pillar; returns the per-mode records and the cloud's (1, H, W)
+    occupancy."""
+    from pillarnet_lts_torch.datasets import synth_points_realistic
     from pillarnet_lts_torch.ops.scatter import pillar_scatter_max
     from pillarnet_lts_torch.ops.voxelize import (
         PillarSpec, scatter_max_to_grid, voxelize_points)
 
     spec = PillarSpec(pillar_size, tuple(pc_range))
     H, W = spec.height, spec.width
-    pts, msk = _synth_points_realistic(1, N_POINTS, pc_range, seed=100)
+    pts, msk = synth_points_realistic(1, N_POINTS, pc_range, seed=100)
     pts = torch.from_numpy(pts).to(dev)
     msk = torch.from_numpy(msk).to(dev)
     feats, ids, valid = voxelize_points(pts, msk, spec)
     g = torch.Generator().manual_seed(0)
     w = (torch.randn(32, feats.shape[-1], generator=g) * 0.5).to(dev)
     signed = torch.nn.functional.linear(feats, w).contiguous()
-    inputs = {True: torch.relu(signed), False: signed}
+    relu = torch.relu(signed)
+    codes = torch.round(relu * (127.0 / relu.max())).clamp_(0, 127) \
+        .to(torch.int8)
+    cases = (("f32_signed", signed, False, F32_OPS),
+             ("f32_nonneg", relu, True, F32_OPS),
+             ("int8", codes, True, INT8_OPS))
+    modes, err = {}, 0.0
+    for tag, x, nonneg, peak in cases:
+        args = (x, ids, valid, H, W)
+        out = pillar_scatter_max(*args, nonneg=nonneg)
+        err = max(err, check_scatter_equal(torch, f"pillar_scatter_max {tag}",
+                                           out, scatter_max_to_grid(*args)))
+        modes[tag] = scatter_times(
+            torch, f"[2] K1 {tag} {tuple(x.shape)} -> {H}x{W}, bit-equal, "
+            f"{int(out[1].sum())} of {H * W} pillars occupied",
+            lambda: pillar_scatter_max(*args, nonneg=nonneg),
+            lambda: scatter_max_to_grid(*args), x, ids, valid, out, peak)
+    occ = out[1]
 
-    res = {"max_abs_err": 0.0}
-    for nonneg, x in inputs.items():
-        grid_k, occ_k = pillar_scatter_max(x, ids, valid, H, W, nonneg=nonneg)
-        grid_p, occ_p = scatter_max_to_grid(x, ids, valid, H, W)
-        torch.cuda.synchronize()
-        if not (torch.equal(grid_k, grid_p) and torch.equal(occ_k, occ_p)):
-            raise AssertionError(
-                f"pillar_scatter_max(nonneg={nonneg}) differs from plain: "
-                f"max |d| {(grid_k - grid_p).abs().max().item()}, occupancy "
-                f"mismatches {(occ_k != occ_p).sum().item()}")
-        err = (grid_k - grid_p).abs().max().item()
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        k_ms = cuda_ms(lambda: pillar_scatter_max(x, ids, valid, H, W,
-                                                  nonneg=nonneg))
-        p_ms = cuda_ms(lambda: scatter_max_to_grid(x, ids, valid, H, W))
-        lib_ms = cuda_ms(scatter_library(torch, x, ids, valid, H * W))
-        b_ms, _ = bound(nbytes(x, ids, valid, grid_k, occ_k),
-                        int(valid.sum()) * x.shape[-1], F32_OPS)
-        tag = "nonneg" if nonneg else "signed"
-        res[f"{tag}_ms"], res[f"{tag}_plain_ms"] = k_ms, p_ms
-        print(f"[2] scatter-max {tag}: bit-equal; occupied pillars "
-              f"{occ_k.sum().item()} of {H * W}; kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, scatter_reduce_ {lib_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms (mean of {TIMING_ITERS}, incl. the "
-              f"zero-filled grid allocation)")
-    res["occ"] = occ_k
-
-    # int8 code mode: the int8 deploy's payload
-    x = inputs[True]
-    codes = torch.round(x * (127.0 / x.max())).clamp_(0, 127).to(torch.int8)
-    grid_k, occ_k = pillar_scatter_max(codes, ids, valid, H, W, nonneg=True)
-    grid_p, occ_p = scatter_max_to_grid(codes, ids, valid, H, W)
-    torch.cuda.synchronize()
-    if not (torch.equal(grid_k, grid_p) and torch.equal(occ_k, occ_p)):
-        raise AssertionError("pillar_scatter_max(int8 codes) differs from "
-                             "plain")
-    library = scatter_library(torch, codes, ids, valid, H * W)
-    if not torch.equal(library()[:, :H * W].reshape(grid_k.shape), grid_k):
-        raise AssertionError("scatter_reduce_ yardstick differs from the "
-                             "int8 code grid")
-    res["int8_ms"] = cuda_ms(lambda: pillar_scatter_max(
-        codes, ids, valid, H, W, nonneg=True))
-    res["int8_plain_ms"] = cuda_ms(lambda: scatter_max_to_grid(
-        codes, ids, valid, H, W))
-    res["int8_library_ms"] = cuda_ms(library)
-    res["int8_bound"] = bound(nbytes(codes, ids, valid, grid_k, occ_k),
-                              int(valid.sum()) * codes.shape[-1], INT8_OPS)
-    print(f"[2] scatter-max int8 codes: bit-equal; kernel "
-          f"{res['int8_ms']:.4f} ms, plain {res['int8_plain_ms']:.4f} ms, "
-          f"scatter_reduce_ {res['int8_library_ms']:.4f} ms, bound "
-          f"{res['int8_bound'][0]:.4f} ms ({res['int8_bound'][1]})")
-    return res
+    # the longest run: every point in one pillar (atomics on one row)
+    args = (signed, one_pillar(torch, ids, W, H), valid, H, W)
+    out = pillar_scatter_max(*args)
+    err = max(err, check_scatter_equal(torch, "pillar_scatter_max one pillar",
+                                       out, scatter_max_to_grid(*args)))
+    modes["one_pillar_f32"] = scatter_times(
+        torch, f"[2] K1 f32 signed, all {int(valid.sum())} points in one "
+        f"pillar, bit-equal", lambda: pillar_scatter_max(*args),
+        lambda: scatter_max_to_grid(*args), signed, args[1], valid, out,
+        F32_OPS, iters=5)
+    return {"max_abs_err": err, "modes": modes, "occ": occ}
 
 
 def nms_like_boxes(torch, seed, T=NMS_TASKS, K=NMS_K):
@@ -357,7 +406,7 @@ def check_golden(torch, dev):
 
 def serve_flagship(torch, dev, card):
     """Phase 5: the f32 flagship config as a server."""
-    from __graft_entry__ import _synth_points_realistic
+    from pillarnet_lts_torch.datasets import synth_points_realistic
     from pillarnet_lts_torch.apis import (
         build_model_from_cfg, load_config, spread_head_outputs)
     from pillarnet_lts_torch.eval_utils import make_infer_fn
@@ -368,12 +417,12 @@ def serve_flagship(torch, dev, card):
     n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
     model = build_model_from_cfg(cfg, device=dev, seed=0)
     post = cfg["test_cfg"]["nms"]["nms_post_max_size"] * len(cfg["tasks"])
-    clouds = [_synth_points_realistic(1, n, pc_range, seed=s)
+    clouds = [synth_points_realistic(1, n, pc_range, seed=s)
               for s in range(13)]
-    clouds += [_synth_points_realistic(2, n, pc_range, seed=s)
+    clouds += [synth_points_realistic(2, n, pc_range, seed=s)
                for s in (13, 14)]
     # random weights: spread the head outputs so that NMS sees valid boxes
-    calib = _synth_points_realistic(1, n, pc_range, seed=99)
+    calib = synth_points_realistic(1, n, pc_range, seed=99)
     spread_head_outputs(model, torch.from_numpy(calib[0]).to(dev),
                         torch.from_numpy(calib[1]).to(dev))
     pipe = ServingPipeline(make_infer_fn(model), depth=1)
@@ -411,7 +460,7 @@ def serve_flagship(torch, dev, card):
                   f"{det['mask'].sum(axis=1).tolist()} boxes")
     launches = dict(_kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
-    for mod in ("jax", "pillarnet_lts_tpu"):
+    for mod in ("jax", "pillarnet_lts_tpu", "__graft_entry__"):
         if mod in sys.modules:
             raise AssertionError(f"the port imported {mod}")
     q = statistics.quantiles(lat, n=10)
@@ -564,7 +613,7 @@ def demo_canary(torch, dev):
 def serve_int8_flagship(torch, dev, card):
     """Phase 8: the int8 deploy config as a server, fused stage on and off;
     returns the launch counts of the fused-stage run."""
-    from __graft_entry__ import _synth_points_realistic
+    from pillarnet_lts_torch.datasets import synth_points_realistic
     from pillarnet_lts_torch.apis import (
         build_model_from_cfg, load_config, spread_head_outputs)
     from pillarnet_lts_torch.eval_utils import make_infer_fn
@@ -577,7 +626,7 @@ def serve_int8_flagship(torch, dev, card):
     post = cfg["test_cfg"]["nms"]["nms_post_max_size"] * len(cfg["tasks"])
 
     def cloud(seed, batch=1):
-        p, m = _synth_points_realistic(batch, n, pc_range, seed=seed)
+        p, m = synth_points_realistic(batch, n, pc_range, seed=seed)
         return torch.from_numpy(p).to(dev), torch.from_numpy(m).to(dev)
 
     model = build_model_from_cfg(cfg, device=dev, seed=0)
@@ -596,7 +645,7 @@ def serve_int8_flagship(torch, dev, card):
           f"{[round(e, 4) for e in rel_errors(ref, got, ('hm',))]}")
     demo_canary(torch, dev)
 
-    clouds = [_synth_points_realistic(1, n, pc_range, seed=s)
+    clouds = [synth_points_realistic(1, n, pc_range, seed=s)
               for s in range(13)]
     path = {"pillar_scatter_max", "rotated_overlap", "int8_conv"}
     launches = None
@@ -721,21 +770,23 @@ def check_mask(torch, dev):
 
 
 def check_scatter_tiled(torch, dev):
-    """Phase 10: the sorted-run scatter-max kernel vs its plain version and
-    the atomic kernel, at the Waymo and nuScenes shapes."""
-    from __graft_entry__ import _synth_points_realistic
+    """Phase 10: the sorted-run scatter-max kernel (K1') vs its plain
+    version, the atomic kernel and `scatter_reduce_` at the Waymo and
+    nuScenes shapes (signed f32), in bf16 and int8 at the Waymo shape, and
+    with every point in one pillar."""
     from pillarnet_lts_torch.apis import load_config
+    from pillarnet_lts_torch.datasets import synth_points_realistic
     from pillarnet_lts_torch.ops.scatter import (
         pillar_scatter_max, pillar_scatter_max_tiled, scatter_max_tiled_plain)
     from pillarnet_lts_torch.ops.voxelize import PillarSpec, voxelize_points
 
-    res = {}
-    for tag, path in (("Waymo", WAYMO), ("nuScenes", FLAGSHIP)):
+    modes, err = {}, 0.0
+    for tag, path in (("waymo", WAYMO), ("nuscenes", FLAGSHIP)):
         cfg = load_config(path)
         pc_range = cfg["point_cloud_range"]
         spec = PillarSpec(cfg["pillar_size"], tuple(pc_range))
         H, W = spec.height, spec.width
-        pts, msk = _synth_points_realistic(
+        pts, msk = synth_points_realistic(
             1, int(cfg["data"]["max_points"]), pc_range, seed=101,
             nsweeps=cfg.get("nsweeps", 10))
         feats, ids, valid = voxelize_points(
@@ -744,41 +795,57 @@ def check_scatter_tiled(torch, dev):
         w = (torch.randn(32, feats.shape[-1], generator=g) * 0.5).to(dev)
         x = torch.nn.functional.linear(feats, w).contiguous()  # signed
         args = (x, ids, valid, H, W)
-        grid, occ = pillar_scatter_max_tiled(*args)
-        plain = scatter_max_tiled_plain(*args)
-        atomic = pillar_scatter_max(*args, nonneg=False)
+        out = pillar_scatter_max_tiled(*args)
         library = scatter_library(torch, x, ids, valid, H * W)
-        lib_grid = library()[:, :H * W].reshape(grid.shape)
-        torch.cuda.synchronize()
-        for name, (g2, o2) in (("plain", plain), ("the atomic kernel", atomic),
-                               ("scatter_reduce_", (lib_grid, occ))):
-            if not (torch.equal(occ, o2) and bool((grid == g2).all())):
-                raise AssertionError(
-                    f"pillar_scatter_max_tiled ({tag}) differs from {name}: "
-                    f"max |d| {(grid - g2).abs().max().item()}, occupancy "
-                    f"mismatches {int((occ != o2).sum())}")
-        ms = cuda_ms(lambda: pillar_scatter_max_tiled(*args))
-        p_ms = cuda_ms(lambda: scatter_max_tiled_plain(*args))
-        a_ms = cuda_ms(lambda: pillar_scatter_max(*args, nonneg=False))
-        lib_ms = cuda_ms(library)
-        b = bound(nbytes(x, ids, valid, grid, occ),
-                  int(valid.sum()) * x.shape[-1], F32_OPS)
-        print(f"[10] sorted-run scatter-max {tag} {tuple(x.shape)} -> "
-              f"{H}x{W}: equal by value to plain, the atomic kernel and "
-              f"scatter_reduce_ ({int(occ.sum())} occupied pillars); kernel "
-              f"{ms:.4f} ms (torch.sort and zero fill included), plain "
-              f"{p_ms:.4f} ms, atomic kernel {a_ms:.4f} ms, scatter_reduce_ "
-              f"{lib_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
-        res[tag] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": p_ms,
-                    "library_ms": lib_ms, "bound": b}
-    return res["Waymo"]
+        lib = (library()[:, :H * W].reshape(out[0].shape), out[1])
+        for name, want in (("plain", scatter_max_tiled_plain(*args)),
+                           ("the atomic kernel",
+                            pillar_scatter_max(*args, nonneg=False)),
+                           ("scatter_reduce_", lib)):
+            err = max(err, check_scatter_equal(
+                torch, f"pillar_scatter_max_tiled ({tag}) vs {name}", out,
+                want, by_value=True))
+        modes[tag] = scatter_times(
+            torch, f"[10] K1' {tag} {tuple(x.shape)} -> {H}x{W}, equal by "
+            f"value to plain, K1 and scatter_reduce_, {int(out[1].sum())} "
+            f"pillars occupied", lambda: pillar_scatter_max_tiled(*args),
+            lambda: scatter_max_tiled_plain(*args), x, ids, valid, out,
+            F32_OPS)
+        if tag != "waymo":
+            continue
+        for dtype in (torch.bfloat16, torch.int8):
+            xd = (x.relu() * 20).round().clamp(0, 127).to(dtype) \
+                if dtype == torch.int8 else x.to(dtype)
+            a2 = (xd, ids, valid, H, W)
+            got = pillar_scatter_max_tiled(*a2)
+            err = max(err, check_scatter_equal(
+                torch, f"pillar_scatter_max_tiled ({tag}, {dtype})", got,
+                scatter_max_tiled_plain(*a2), by_value=True))
+            modes[f"waymo_{str(dtype)[6:]}"] = scatter_times(
+                torch, f"[10] K1' {tag} {dtype}, equal by value to plain",
+                lambda: pillar_scatter_max_tiled(*a2),
+                lambda: scatter_max_tiled_plain(*a2), xd, ids, valid, got,
+                F32_OPS)
+        # the longest run: every point in one pillar, walked by one group
+        a1 = (x, one_pillar(torch, ids, W, H), valid, H, W)
+        got = pillar_scatter_max_tiled(*a1)
+        err = max(err, check_scatter_equal(
+            torch, "pillar_scatter_max_tiled one pillar", got,
+            scatter_max_tiled_plain(*a1), by_value=True))
+        modes["one_pillar_waymo"] = scatter_times(
+            torch, f"[10] K1' {tag}, all {int(valid.sum())} points in one "
+            f"pillar, equal by value to plain",
+            lambda: pillar_scatter_max_tiled(*a1),
+            lambda: scatter_max_tiled_plain(*a1), x, a1[1], valid, got,
+            F32_OPS, iters=3)
+    return {"max_abs_err": err, "modes": modes}
 
 
 def serve_waymo(torch, dev, card):
     """Phases 11-12: the Waymo config as a server on the default route,
     then with the sorted-run scatter-max, then also with the mask kernel.
     Returns the launch counts of phase 12."""
-    from __graft_entry__ import _synth_points_realistic
+    from pillarnet_lts_torch.datasets import synth_points_realistic
     from pillarnet_lts_torch.apis import (
         build_model_from_cfg, load_config, spread_head_outputs)
     from pillarnet_lts_torch.eval_utils import make_infer_fn
@@ -790,10 +857,10 @@ def serve_waymo(torch, dev, card):
     posts = cfg["test_cfg"]["nms"]["nms_post_max_size"]
     post = sum(posts)
     model = build_model_from_cfg(cfg, device=dev, seed=0)
-    clouds = [_synth_points_realistic(1, n, pc_range, seed=200 + s,
+    clouds = [synth_points_realistic(1, n, pc_range, seed=200 + s,
                                       nsweeps=cfg["nsweeps"])
               for s in range(13)]
-    calib = _synth_points_realistic(1, n, pc_range, seed=99, nsweeps=1)
+    calib = synth_points_realistic(1, n, pc_range, seed=99, nsweeps=1)
     spread_head_outputs(model, torch.from_numpy(calib[0]).to(dev),
                         torch.from_numpy(calib[1]).to(dev))
     test_cfg = model.processed_test_cfg()
@@ -933,7 +1000,9 @@ def main():
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
-    # on (phase 12); times, errors and bounds: phases 2-3, 6-7, 9-10
+    # on (phase 12); times, errors and bounds: phases 2-3, 6-7, 9-10. K1's
+    # and K1''s rows carry the mode of their launches' path (int8 codes,
+    # the Waymo shape) and every mode's times under "modes"
     def row(name, source, replaces, count, res, ms, plain_ms, b, lib=None):
         return {"name": name, "route": "cuda",
                 "source": f"pillarnet_lts_torch/csrc/{source}",
@@ -942,15 +1011,19 @@ def main():
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
                 "bound_by": b[1], "library_ms": lib}
 
+    def scatter_row(name, source, replaces, count, res, main):
+        m = res["modes"][main]
+        return dict(row(name, source, replaces, count, res, m["ms"],
+                        m["plain_ms"], (m["bound_ms"], m["bound_by"]),
+                        m["library_ms"]), main_mode=main, modes=res["modes"])
+
     record = {"kernels": [
-        row("pillar_scatter_max", "pillar_scatter_max.cu",
-            "voxelize_kernel.py:411", launches["pillar_scatter_max"], scatter,
-            scatter["int8_ms"], scatter["int8_plain_ms"],
-            scatter["int8_bound"], scatter["int8_library_ms"]),
-        row("pillar_scatter_max_tiled", "pillar_scatter_max_tiled.cu",
-            "voxelize_kernel.py:78", switched["pillar_scatter_max_tiled"],
-            tiled, tiled["ms"], tiled["plain_ms"], tiled["bound"],
-            tiled["library_ms"]),
+        scatter_row("pillar_scatter_max", "pillar_scatter_max.cu",
+                    "voxelize_kernel.py:411", launches["pillar_scatter_max"],
+                    scatter, "int8"),
+        scatter_row("pillar_scatter_max_tiled", "pillar_scatter_max_tiled.cu",
+                    "voxelize_kernel.py:78",
+                    switched["pillar_scatter_max_tiled"], tiled, "waymo"),
         row("rotated_overlap", "rotated_overlap.cu", "iou_kernel.py:105",
             launches["rotated_overlap"], overlap, overlap["ms"],
             overlap["plain_ms"], overlap["bound"]),

@@ -10,9 +10,9 @@ nvcc's stderr; nothing falls back.
 
 `LAUNCHES` counts kernel launches per kernel. Each wrapper adds one right
 after its launch succeeds and nowhere else, so a caller can zero the counts,
-run the model and see which kernels the run went through. The int8 code
-mode of the scatter-max (a second entry point of the same source) counts
-as `pillar_scatter_max`.
+run the model and see which kernels the run went through. A wrapper that
+calls two entry points of one source (the sorted-run scatter-max makes its
+sort keys first) counts once, as its kernel.
 """
 
 import ctypes
@@ -47,16 +47,16 @@ _NO_FMA = ("-fmad=false",)
 # kernel -> (source file, extra nvcc flags, C symbol, argtypes)
 KERNELS = {
     "pillar_scatter_max": (
-        "pillar_scatter_max.cu", (), "pillar_scatter_max_f32",
-        [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _INT, _P],
-    ),
-    "pillar_scatter_max_i8": (
-        "pillar_scatter_max.cu", (), "pillar_scatter_max_i8",
-        [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+        "pillar_scatter_max.cu", (), "pillar_scatter_max",
+        [_P] * 6 + [_I64] * 4 + [_INT, _P],
     ),
     "pillar_scatter_max_tiled": (
-        "pillar_scatter_max_tiled.cu", (), "pillar_scatter_max_sorted_f32",
-        [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+        "pillar_scatter_max_tiled.cu", (), "pillar_scatter_max_sorted",
+        [_P] * 8 + [_I64] * 4 + [_INT, _P],
+    ),
+    "pillar_scatter_max_tiled_keys": (
+        "pillar_scatter_max_tiled.cu", (), "pillar_scatter_max_sorted_keys",
+        [_P] * 3 + [_I64] * 3 + [_P],
     ),
     "rotated_overlap": (
         "rotated_overlap.cu", _NO_FMA, "rotated_overlap_f32",
@@ -151,11 +151,15 @@ def build_all():
         kernel(name)
 
 
-def launched(name, err):
-    """Raise on a failed launch (the C entry returns its cudaError_t),
-    else count it."""
+def raise_on_error(name, err):
+    """Raise on a failed launch (the C entry returns its cudaError_t)."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
+def launched(name, err):
+    """Raise on a failed launch, else count it."""
+    raise_on_error(name, err)
     LAUNCHES[name] += 1
 
 

@@ -80,7 +80,9 @@ def scatter_max_to_grid(point_feats, flat_ids, valid, height, width):
 
     Args:
       point_feats: (B, N, C) features (float, or the int8 deploy's codes).
-      flat_ids: (B, N) int32 in [0, H*W]; H*W = dropped.
+      flat_ids: (B, N) int32; an id outside [0, H*W) drops its point (H*W
+        is what `voxelize_points` gives a dropped point), as in the kernels
+        and in JAX's `segment_max`.
       valid: (B, N) bool.
     Returns:
       grid: (B, H, W, C) in point_feats.dtype; occupancy: (B, H, W) bool.
@@ -95,6 +97,7 @@ def scatter_max_to_grid(point_feats, flat_ids, valid, height, width):
         neg = torch.iinfo(torch.int32).min
     feats = torch.where(valid[..., None], feats, neg)
     ids = flat_ids.long()
+    ids = torch.where((ids >= 0) & (ids < hw), ids, hw)
     grid = torch.full((B, hw + 1, C), neg, dtype=feats.dtype,
                       device=feats.device)
     grid.scatter_reduce_(1, ids[..., None].expand(B, N, C), feats,

@@ -42,8 +42,14 @@ import torch
 
 from chip_smoke import FLAGSHIP, ROOT, card_line
 
-GROUPS = (("K1' pillar_scatter_max_tiled", ("scatter_max_sorted",)),
-          ("K1 pillar_scatter_max", ("scatter_max", "decode_ordered")),
+# the two scatter-max kernels share the streaming pass of
+# `csrc/pillar_grid.cuh` (`pillar_grid_fill_kernel`), told apart by its tag
+# (`SortedRuns` for K1', `ClaimedPillars` for K1); their head-map memsets
+# fall under "other", the sort of K1' under its cub kernels
+GROUPS = (("K1' pillar_scatter_max_tiled", ("scatter_max_sorted",
+                                            "SortedRuns")),
+          ("K1 pillar_scatter_max", ("scatter_max_claim", "scatter_max_merge",
+                                     "ClaimedPillars")),
           ("K2 rotated_overlap", ("rotated_overlap",)),
           ("K3 suppression_mask", ("suppression_mask",)),
           ("K4 int8_conv", ("int8_conv_kernel",)),
@@ -129,7 +135,7 @@ def main():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from __graft_entry__ import _synth_points_realistic
+    from pillarnet_lts_torch.datasets import synth_points_realistic
     from torch.utils.flop_counter import FlopCounterMode
 
     from pillarnet_lts_torch.apis import (
@@ -148,7 +154,7 @@ def main():
     model = build_model_from_cfg(cfg, device=dev, seed=0)
 
     def cloud(batch, seed):
-        pts, msk = _synth_points_realistic(batch, n, pc_range, seed=seed,
+        pts, msk = synth_points_realistic(batch, n, pc_range, seed=seed,
                                            nsweeps=nsweeps)
         return torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev)
 

@@ -360,7 +360,7 @@ def test_mask_kernel_nms_route_launches_the_mask_kernel(cuda):
 def test_waymo_config_serves_on_the_card(cuda, name):
     """Each served Waymo config builds on the card by default (full width
     and depth) and serves a 196,608-point request with per-class NMS."""
-    from __graft_entry__ import _synth_points_realistic
+    from pillarnet_lts_torch.datasets import synth_points_realistic
     from pillarnet_lts_torch.apis import (
         build_model_from_cfg, load_config, spread_head_outputs)
     from pillarnet_lts_torch.eval_utils import make_infer_fn
@@ -372,7 +372,7 @@ def test_waymo_config_serves_on_the_card(cuda, name):
     assert next(model.parameters()).device.type == "cuda"
     n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
     pts, msk = (torch.from_numpy(a).to(cuda) for a in
-                _synth_points_realistic(1, n, pc_range, seed=4, nsweeps=1))
+                synth_points_realistic(1, n, pc_range, seed=4, nsweeps=1))
     spread_head_outputs(model, pts, msk)
     _kernels.reset_launches()
     det = make_infer_fn(model)(pts, msk)
@@ -385,3 +385,113 @@ def test_waymo_config_serves_on_the_card(cuda, name):
     for k, (lo, hi) in enumerate(((0, 200), (200, 350), (350, 500))):
         assert bool(m[lo:hi].any())
         assert bool((det["label_preds"][0, lo:hi][m[lo:hi]] == k).all())
+
+
+# the redesigned scatter-max kernels (K1 and K1'): every variant, on the
+# edge cases of the redesign. Each checks occupancy identical and the grid
+# equal by value to the plain version, two calls bit-identical, and one
+# count per call.
+_VARIANTS = {
+    "k1_f32_signed": ("auto", torch.float32, False),
+    "k1_f32_nonneg": ("auto", torch.float32, True),
+    "k1_int8_codes": ("auto", torch.int8, True),
+    "k1t_f32": ("tiled", torch.float32, False),
+    "k1t_bf16": ("tiled", torch.bfloat16, False),
+    "k1t_int8": ("tiled", torch.int8, False),
+}
+
+# (B, N, C, H, W) per case: "poisoned" makes the grid large enough (> 1 MB
+# in every dtype) to come from the caching allocator's large pool
+_EDGE_SHAPES = {
+    "poisoned": (2, 20000, 32, 256, 256),
+    "empty_sample": (2, 5000, 32, 40, 48),
+    "batch8": (8, 3000, 32, 24, 40),
+    "bad_ids": (2, 5000, 32, 40, 48),
+    "one_pillar": (2, 20000, 32, 40, 48),
+}
+
+
+def _edge_case(dev, case, dtype, nonneg):
+    B, N, C, H, W = _EDGE_SHAPES[case]
+    rng = np.random.RandomState(len(case))
+    feats = rng.randn(B, N, C).astype(np.float32)
+    if nonneg:
+        feats = np.maximum(feats, 0.0)
+    ids = rng.randint(0, H * W, (B, N))
+    valid = rng.rand(B, N) > 0.2
+    if case == "empty_sample":
+        valid[1] = False
+    elif case == "bad_ids":  # valid points with ids outside [0, H*W)
+        ids[:, ::3] = rng.randint(-H * W, 0, ids[:, ::3].shape)
+        ids[:, 1::5] = rng.randint(H * W, 3 * H * W, ids[:, 1::5].shape)
+    elif case == "one_pillar":
+        ids[:] = H * W // 2 + 3
+    x = torch.from_numpy(feats).to(dev)
+    if dtype == torch.int8:  # K1's codes are in [0, 127]; K1' takes any
+        x = (x * 40).round().clamp(0 if nonneg else -128, 127)
+    return (x.to(dtype), torch.from_numpy(ids.astype(np.int32)).to(dev),
+            torch.from_numpy(valid).to(dev), H, W)
+
+
+def _poison(dev, nbytes):
+    """Fill cached blocks of `nbytes` with 0xFF bytes (NaN in f32 and bf16,
+    -1 in int8, 255 as occupancy) until the allocator has to reserve more,
+    then free them: every free block that can hold `nbytes` is then
+    poisoned, so the next allocation of that size comes out of one.
+    Returns their address ranges."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    junk = []
+    for _ in range(64):
+        reserved = torch.cuda.memory_reserved(dev)
+        junk.append(torch.full((nbytes,), 255, dtype=torch.uint8, device=dev))
+        if torch.cuda.memory_reserved(dev) > reserved:
+            break
+    ranges = [(j.data_ptr(), j.data_ptr() + nbytes) for j in junk]
+    del junk
+    return ranges
+
+
+@pytest.mark.parametrize("case", sorted(_EDGE_SHAPES))
+@pytest.mark.parametrize("variant", sorted(_VARIANTS))
+def test_scatter_kernels_on_edge_cases(cuda, variant, case):
+    backend, dtype, nonneg = _VARIANTS[variant]
+    name = "pillar_scatter_max" if backend == "auto" \
+        else "pillar_scatter_max_tiled"
+    args = _edge_case(cuda, case, dtype, nonneg)
+    want_grid, want_occ = (tvox.scatter_max_to_grid if backend == "auto"
+                           else tscatter.scatter_max_tiled_plain)(*args)
+    B, N, C = args[0].shape
+    H, W = args[3], args[4]
+    grid_bytes = B * H * W * C * args[0].element_size()
+    if case == "poisoned":
+        poisoned = _poison(cuda, grid_bytes)
+    outs = []
+    try:
+        tscatter.set_backend(backend)
+        for _ in range(2):
+            before = dict(_kernels.LAUNCHES)
+            outs.append(pillar_scatter_max(*args, nonneg=nonneg))
+            torch.cuda.synchronize()
+            assert _kernels.LAUNCHES == dict(before, **{name: before[name]
+                                                        + 1})
+    finally:
+        tscatter.set_backend("auto")
+    (grid, occ), (grid2, occ2) = outs
+    if case == "poisoned":  # the grid was carved out of a poisoned block
+        start, end = grid.data_ptr(), grid.data_ptr() + grid_bytes
+        assert any(lo < end and start < hi for lo, hi in poisoned)
+        assert not bool(torch.isnan(grid.float()).any())
+        assert not bool(grid[~occ].any())  # every empty pillar exactly 0
+    assert grid.dtype == dtype and grid.shape == (B, H, W, C)
+    assert torch.equal(occ, want_occ)
+    assert bool((grid == want_grid).all())
+    # deterministic: two calls bit-identical
+    assert torch.equal(occ, occ2)
+    assert torch.equal(grid.flatten().view(torch.uint8),
+                       grid2.flatten().view(torch.uint8))
+    occupied = occ.sum(dim=(1, 2)).tolist()
+    if case == "empty_sample":
+        assert occupied[1] == 0 and not bool(grid[1].any())
+    elif case == "one_pillar":
+        assert occupied == [1, 1]

@@ -4,10 +4,13 @@ package, on the same numpy inputs.
 Tolerances: pillar ids, validity, occupancy and the scatter-max are
 bit-equal (integer math and a max; the sorted-run route is compared by
 value, as -0.0 and +0.0 may trade places); the PFE input features allow
-1e-6 (one f32 rounding of the pillar-centre offsets). The CUDA kernels
+1e-6 (one f32 rounding of the pillar-centre offsets). The port's synthetic
+cloud equals the JAX package's drivers' bit for bit. The CUDA kernels
 against their plain versions are in `test_torch_port_cuda.py` (needs a
 card).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -21,6 +24,9 @@ from pillarnet_lts_tpu.ops.pallas.voxelize_kernel import (
     pillar_scatter_max_mxu,
     pillar_scatter_max_pallas,
 )
+from __graft_entry__ import _synth_points_realistic
+from pillarnet_lts_torch.apis import load_config
+from pillarnet_lts_torch.datasets import synth_points_realistic
 from pillarnet_lts_torch.ops import _kernels
 from pillarnet_lts_torch.ops import scatter as tscatter
 from pillarnet_lts_torch.ops import voxelize as tvox
@@ -28,6 +34,8 @@ from pillarnet_lts_torch.ops.scatter import (
     pillar_scatter_max,
     pillar_scatter_max_tiled,
 )
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 
 def _points(seed, B=2, N=3000):
@@ -174,3 +182,67 @@ def test_tiled_raises_off_cpu_and_cuda():
     valid = torch.empty(1, 4, dtype=torch.bool, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         pillar_scatter_max_tiled(feats, ids, valid, 2, 2)
+
+
+def _edge_inputs(case, B=2, N=384, C=8, H=16, W=16):
+    """The cases the scatter-max kernels' redesign targets: every point in
+    one pillar, a sample whose points are all dropped, and ids below 0 or
+    at/after H*W on valid points (dropped)."""
+    rng = np.random.RandomState(20)
+    feats = rng.randn(B, N, C).astype(np.float32)
+    ids = rng.randint(0, H * W, (B, N))
+    valid = rng.rand(B, N) > 0.2
+    if case == "one_pillar":
+        ids[:] = 37
+    elif case == "empty_sample":
+        valid[1] = False
+    else:
+        ids[:, ::3] = rng.randint(-H * W, 0, ids[:, ::3].shape)
+        ids[:, 1::5] = rng.randint(H * W, 3 * H * W, ids[:, 1::5].shape)
+    return feats, ids.astype(np.int32), valid, H, W
+
+
+@pytest.mark.parametrize("ref", ["segment_max", "sorted", "pallas_interpret"])
+@pytest.mark.parametrize("case", ["one_pillar", "empty_sample", "bad_ids"])
+def test_plain_scatter_edge_cases_match_jax(case, ref):
+    # JAX's scatter_max_to_grid (segment_max), scatter_max_to_grid_sorted
+    # and the sorted-tile Pallas kernel in interpret mode all drop ids
+    # outside [0, H*W); the port's plain versions (and its wrappers on CPU
+    # tensors) must give the same grid and occupancy
+    feats, ids, valid, H, W = _edge_inputs(case)
+    jargs = (jnp.asarray(feats), jnp.asarray(ids), jnp.asarray(valid), H, W)
+    if ref == "pallas_interpret":
+        with pltpu.force_tpu_interpret_mode():
+            want = pillar_scatter_max_pallas(*jargs)
+    elif ref == "sorted":
+        want = jvox.scatter_max_to_grid_sorted(*jargs)
+    else:
+        want = jvox.scatter_max_to_grid(*jargs)
+    want_grid, want_occ = (np.asarray(a) for a in want)
+    targs = (torch.from_numpy(feats), torch.from_numpy(ids),
+             torch.from_numpy(valid), H, W)
+    for fn in (tvox.scatter_max_to_grid, tscatter.scatter_max_tiled_plain,
+               pillar_scatter_max, pillar_scatter_max_tiled):
+        grid, occ = fn(*targs)
+        np.testing.assert_array_equal(occ.numpy(), want_occ)
+        assert (grid.numpy() == want_grid).all(), fn.__name__  # by value
+    occupied = occ.sum(dim=(1, 2)).tolist()
+    if case == "one_pillar":
+        assert occupied == [1, 1]
+    elif case == "empty_sample":
+        assert occupied[1] == 0 and not grid[1].any()
+    else:
+        assert 0 < occupied[0] < H * W
+
+
+@pytest.mark.parametrize("config,seed", [
+    ("pillarnet34_nusc.py", 100), ("pillarnet34_waymo.py", 101)])
+def test_synth_cloud_equals_the_drivers_cloud(config, seed):
+    cfg = load_config(os.path.join(ROOT, "configs", "pillarnet", config))
+    args = (2, int(cfg["data"]["max_points"]), cfg["point_cloud_range"])
+    kw = dict(seed=seed, nsweeps=cfg.get("nsweeps", 10))
+    pts, msk = synth_points_realistic(*args, **kw)
+    want_pts, want_msk = _synth_points_realistic(*args, **kw)
+    assert pts.dtype == want_pts.dtype and msk.dtype == want_msk.dtype
+    assert pts.tobytes() == want_pts.tobytes()
+    assert msk.tobytes() == want_msk.tobytes()
