@@ -23,19 +23,24 @@ Phases, each of which raises on failure:
      random weights, serving 3 warm-up + 10 timed requests at batch 1 and 2
      requests at batch 2 through `ServingPipeline(make_infer_fn(model))`,
      with both kernels' launch counters rising on every request;
-  6. the int8 conv kernel against its plain version at flagship shapes: a
-     stride-1 stage conv (1 x 1440^2 x 32, residual and mask), the 32 -> 64
-     stride-2 down conv, a 256-channel neck conv at 180^2; bit-equal;
-  7. the fused int8 stage kernel against its plain version at
-     1 x 1440^2 x 32, n = 7 convs; bit-equal;
+  6. the int8 deploy config `configs/pillarnet/pillarnet34_nusc_int8.py`,
+     seeded random weights, calibrated on 4 synthetic clouds (its heatmaps'
+     distance from the bf16 forward is printed); one request served with
+     the fused stage off, the arguments of its 51 int8 conv (K4) calls
+     captured and each replayed through K4 and its plain version,
+     bit-equal; per distinct shape the wrapper time, kernels alone
+     (`torch.profiler`), plain, bound and the cuDNN bf16 conv of that shape
+     (a yardstick, not the same function); per-frame sums;
+  7. the fused int8 stage kernel (K5, n = 7) on that request's stride-1
+     stage (its input, mask and the model's stacked params), bit-equal to
+     its plain version and to the per-conv route's output, timed beside the
+     per-conv route over the same 7 convs;
   8. the int8 canary of tests/test_quant_int8.py:88-106 (its demo model at
      the int8 kernels' 32-channel widths: int8 head outputs within 0.2 of
-     the bf16 ones); the int8 deploy config
-     `configs/pillarnet/pillarnet34_nusc_int8.py`, seeded random weights,
-     calibrated on 4 synthetic clouds (its heatmaps' distance from the bf16
-     forward is printed), then serving 3 warm-up + 10 timed requests at
-     batch 1 with the fused stage on (`s2d_pallas`) and off, every request
-     raising the counters of the kernels of its path;
+     the bf16 ones); the int8 flagship serving 3 warm-up + 10 timed
+     requests at batch 1 with the fused stage on (`s2d_pallas`) and off,
+     every request raising the counters of the kernels of its path, and
+     the two routes' detections identical on every cloud;
   9. the suppression-mask kernel against its plain version, bit-equal, at
      (6, 1000, 1000) pairs (threshold 0.2) and the Waymo grouped shape
      (3, 2048, 2048) (thresholds 0.8 / 0.55 / 0.55); its masks and keep
@@ -274,8 +279,7 @@ def one_pillar(torch, ids, width, height):
 def check_scatter(torch, dev, pc_range, pillar_size):
     """Phase 2: the pillar scatter-max kernel (K1) vs its plain version at
     the flagship shape in its three modes, and with every point in one
-    pillar; returns the per-mode records and the cloud's (1, H, W)
-    occupancy."""
+    pillar; returns the per-mode records."""
     from pillarnet_lts_torch.datasets import synth_points_realistic
     from pillarnet_lts_torch.ops.scatter import pillar_scatter_max
     from pillarnet_lts_torch.ops.voxelize import (
@@ -307,7 +311,6 @@ def check_scatter(torch, dev, pc_range, pillar_size):
             f"{int(out[1].sum())} of {H * W} pillars occupied",
             lambda: pillar_scatter_max(*args, nonneg=nonneg),
             lambda: scatter_max_to_grid(*args), x, ids, valid, out, peak)
-    occ = out[1]
 
     # the longest run: every point in one pillar (atomics on one row)
     args = (signed, one_pillar(torch, ids, W, H), valid, H, W)
@@ -319,7 +322,7 @@ def check_scatter(torch, dev, pc_range, pillar_size):
         f"pillar, bit-equal", lambda: pillar_scatter_max(*args),
         lambda: scatter_max_to_grid(*args), signed, args[1], valid, out,
         F32_OPS, iters=5)
-    return {"max_abs_err": err, "modes": modes, "occ": occ}
+    return {"max_abs_err": err, "modes": modes}
 
 
 def nms_like_boxes(torch, seed, T=NMS_TASKS, K=NMS_K):
@@ -472,105 +475,6 @@ def serve_flagship(torch, dev, card):
     print(f"[5] launches over {len(clouds)} requests: {launches}")
 
 
-def _int8_conv_case(torch, gen, dev, occ, cin, cout, stride, residual):
-    """Random bf16 activations zero off `occ` (B, H, W), a random int8
-    kernel, scales that keep the outputs O(1), the output-site mask."""
-    import torch.nn.functional as F
-
-    bf = torch.bfloat16
-    B, H, W = occ.shape
-    x = torch.randn((B, H, W, cin), generator=gen, device=dev)
-    x = (x * occ[..., None]).to(bf)
-    w_q = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen,
-                        device=dev, dtype=torch.int32).to(torch.int8)
-    inv_s = (127.0 / x.float().abs().amax()).reshape(())
-    dq = (torch.rand(cout, generator=gen, device=dev) + 0.5) \
-        / (127.0 * 127.0 * (9 * cin) ** 0.5) * 4
-    shift = torch.randn(cout, generator=gen, device=dev) * 0.1
-    out_occ = occ
-    if stride == 2:
-        out_occ = F.max_pool2d(occ[:, None].float(), 3, 2, 1)[:, 0] > 0.5
-    mask = out_occ.to(bf)
-    res = None
-    if residual:
-        res = (torch.randn((*out_occ.shape, cout), generator=gen, device=dev)
-               * out_occ[..., None]).to(bf)
-    return (x, w_q, inv_s, dq, shift, stride), dict(mask=mask, residual=res)
-
-
-def check_int8_conv(torch, dev, occ):
-    """Phase 6: the int8 conv kernel vs plain at three flagship shapes."""
-    from pillarnet_lts_torch.ops.quant import (
-        int8_conv_bn_act, int8_conv_bn_act_plain)
-
-    gen = torch.Generator(device=dev).manual_seed(6)
-    dense = torch.ones((1, 180, 180), dtype=torch.bool, device=dev)
-    cases = [
-        ("stage-1 conv 1x1440^2x32, residual + mask", occ, 32, 32, 1, True),
-        ("down conv 32->64 stride 2, 1440^2 -> 720^2", occ, 32, 64, 2, False),
-        ("neck conv 1x180^2x256 -> 256, dense", dense, 256, 256, 1, False),
-    ]
-    res = {"max_abs_err": 0.0}
-    for i, (tag, o, cin, cout, stride, residual) in enumerate(cases):
-        args, kw = _int8_conv_case(torch, gen, dev, o, cin, cout, stride,
-                                   residual)
-        if o is dense:
-            kw["mask"] = None
-        got = int8_conv_bn_act(*args, **kw)
-        want = int8_conv_bn_act_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError(f"int8_conv ({tag}) differs from plain: "
-                                 f"max |d| {err}, {int((got != want).sum())}"
-                                 f" elements")
-        k_ms = cuda_ms(lambda: int8_conv_bn_act(*args, **kw))
-        p_ms = cuda_ms(lambda: int8_conv_bn_act_plain(*args, **kw),
-                       iters=PLAIN_ITERS, warmup=1)
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        sites = got.shape[0] * got.shape[1] * got.shape[2] \
-            if kw["mask"] is None else int((kw["mask"] > 0).sum())
-        b = bound(nbytes(*args[:5], kw["mask"], kw["residual"], got),
-                  2 * 9 * cin * cout * sites, INT8_OPS)
-        if i == 0:
-            res["ms"], res["plain_ms"], res["bound"] = k_ms, p_ms, b
-        print(f"[6] int8 conv, {tag}: bit-equal (max |out| "
-              f"{got.float().abs().max().item():.3f}); kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
-              f"{sites} active output sites)")
-    return res
-
-
-def check_int8_stage(torch, dev, occ, n_convs=7):
-    """Phase 7: the fused int8 stage kernel vs plain, 1 x 1440^2 x 32."""
-    from pillarnet_lts_torch.ops.int8_stage import int8_stage, int8_stage_plain
-
-    gen = torch.Generator(device=dev).manual_seed(7)
-    convs = [_int8_conv_case(torch, gen, dev, occ, 32, 32, 1, False)[0]
-             for _ in range(n_convs)]
-    x = convs[0][0]
-    w_q, inv_s, dq, shift = (torch.stack([c[k] for c in convs])
-                             for k in (1, 2, 3, 4))
-    args = (x, w_q, inv_s, dq, shift, occ.to(torch.bfloat16))
-    got = int8_stage(*args)
-    want = int8_stage_plain(*args)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    if not torch.equal(got, want):
-        raise AssertionError(f"int8_stage differs from plain: max |d| {err}, "
-                             f"{int((got != want).sum())} elements")
-    k_ms = cuda_ms(lambda: int8_stage(*args))
-    p_ms = cuda_ms(lambda: int8_stage_plain(*args), iters=PLAIN_ITERS,
-                   warmup=1)
-    sites = int(occ.sum())
-    b = bound(nbytes(*args, got), n_convs * 2 * 9 * 32 * 32 * sites,
-              INT8_OPS)
-    print(f"[7] fused int8 stage, n = {n_convs}, 1x1440^2x32: bit-equal (max "
-          f"|out| {got.float().abs().max().item():.3f}); kernel {k_ms:.4f} "
-          f"ms, plain {p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
-    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound": b}
-
-
 def rel_errors(ref, got, heads=None):
     """max |got - ref| / max |ref| per task over the named head outputs."""
     return [max(((a[k].float() - b[k].float()).abs().max()
@@ -610,52 +514,238 @@ def demo_canary(torch, dev):
         raise AssertionError(f"int8 canary {max(errs)} > {HM_REL_BOUND}")
 
 
-def serve_int8_flagship(torch, dev, card):
-    """Phase 8: the int8 deploy config as a server, fused stage on and off;
-    returns the launch counts of the fused-stage run."""
+def int8_flagship(torch, dev):
+    """The int8 deploy config with seeded random weights and spread head
+    outputs, calibrated on 4 synthetic clouds (its heatmaps' distance from
+    the bf16 forward is printed). Returns the model, a cloud maker and the
+    number of NMS slots."""
     from pillarnet_lts_torch.datasets import synth_points_realistic
     from pillarnet_lts_torch.apis import (
         build_model_from_cfg, load_config, spread_head_outputs)
-    from pillarnet_lts_torch.eval_utils import make_infer_fn
-    from pillarnet_lts_torch.ops import _kernels
     from pillarnet_lts_torch.runtime.quantize import calibrate
-    from pillarnet_lts_torch.runtime.serving import ServingPipeline
 
     cfg = load_config(FLAGSHIP_INT8)
     n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
     post = cfg["test_cfg"]["nms"]["nms_post_max_size"] * len(cfg["tasks"])
 
-    def cloud(seed, batch=1):
-        p, m = synth_points_realistic(batch, n, pc_range, seed=seed)
-        return torch.from_numpy(p).to(dev), torch.from_numpy(m).to(dev)
+    def cloud(seed):  # in host memory, as a request arrives
+        return synth_points_realistic(1, n, pc_range, seed=seed)
 
     model = build_model_from_cfg(cfg, device=dev, seed=0)
-    calib = [cloud(s) for s in (90, 91, 92, 93)]
+    calib = [on_card(torch, dev, cloud(s)) for s in (90, 91, 92, 93)]
     with torch.no_grad():
-        spread_head_outputs(model, *cloud(99))  # uncalibrated: bf16 path
+        # uncalibrated: the bf16 path
+        spread_head_outputs(model, *on_card(torch, dev, cloud(99)))
         ref = model(*calib[0])
         t0 = time.perf_counter()
         calibrate(model, calib)
         torch.cuda.synchronize()
         t_cal = time.perf_counter() - t0
         got = model(*calib[0])
-    print(f"[8] int8 flagship calibrated on 4 clouds in {t_cal:.2f} s; "
+    print(f"[6] int8 flagship calibrated on 4 clouds in {t_cal:.2f} s; "
           f"heatmap |int8 - bf16| / max|bf16| per task on a calibration "
           f"cloud (random weights, reported): "
           f"{[round(e, 4) for e in rel_errors(ref, got, ('hm',))]}")
-    demo_canary(torch, dev)
+    return model, cloud, post
 
-    clouds = [synth_points_realistic(1, n, pc_range, seed=s)
-              for s in range(13)]
+
+def on_card(torch, dev, cloud):
+    return tuple(torch.from_numpy(a).to(dev) for a in cloud)
+
+
+def capture_int8_convs(torch, model, request):
+    """Serve one request with the fused stage off and record (args, kwargs,
+    output) of every K4 call in it: `MaskedConv.int8` reaches the wrapper
+    through `models/backbones/base.py`, so the masks and residuals are the
+    served ones."""
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.models.backbones import base
+    from pillarnet_lts_torch.runtime.serving import ServingPipeline
+
+    calls, real = [], base.int8_conv_bn_act
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    model.backbone_net.s2d_pallas = False
+    base.int8_conv_bn_act = recording
+    try:
+        list(ServingPipeline(make_infer_fn(model), depth=1).map([request]))
+    finally:
+        base.int8_conv_bn_act = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def plain_kwargs(kw):
+    """The keyword arguments that the plain version takes."""
+    return {k: v for k, v in kw.items() if k in ("mask", "residual", "act")}
+
+
+def int8_conv_bound(args, kw, out):
+    """K4's bound for one call: x, the kernel, the scales, mask, residual
+    and output each moved once; 2 * 9 * Cin * Cout operations per active
+    output site (every site when there is no mask)."""
+    x, w_q = args[0], args[1]
+    cin, cout = w_q.shape[2], w_q.shape[3]
+    mask = kw.get("mask")
+    sites = out.shape[0] * out.shape[1] * out.shape[2] if mask is None \
+        else int((mask != 0).sum())
+    return bound(nbytes(*args[:5], mask, kw.get("residual"), out),
+                 2 * 9 * cin * cout * sites, INT8_OPS), sites
+
+
+def check_int8_conv(torch, calls):
+    """Phase 6: every K4 call of one served int8 request replayed through
+    the kernel and its plain version, bit-equal; each call timed with its
+    wrapper and its plain version, each distinct shape with its kernels
+    alone (`torch.profiler`), its bound and the cuDNN bf16 conv of the same
+    shape (a yardstick, not the same function); per-frame sums."""
+    import torch.nn.functional as F
+    from pillarnet_lts_torch.ops.quant import (
+        int8_conv_bn_act, int8_conv_bn_act_plain)
+
+    shapes, err = {}, 0.0
+    for i, (args, kw, out) in enumerate(calls):
+        got = int8_conv_bn_act(*args, **kw)
+        want = int8_conv_bn_act_plain(*args, **plain_kwargs(kw))
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs().max().item()
+        err = max(err, d)
+        if not (torch.equal(got, want) and torch.equal(got, out)):
+            raise AssertionError(
+                f"int8_conv call {i} {tuple(args[0].shape)} -> "
+                f"{tuple(got.shape)} differs from plain: max |d| {d}, "
+                f"{int((got != want).sum())} elements")
+        (b_ms, b_by), sites = int8_conv_bound(args, kw, out)
+        x, w_q, stride = args[0], args[1], args[5]
+        key = (tuple(x.shape), w_q.shape[3], stride,
+               kw.get("mask") is not None, kw.get("residual") is not None)
+        s = shapes.setdefault(key, {"calls": [], "ms": [], "plain_ms": [],
+                                    "bound_ms": [], "sites": []})
+        s["calls"].append((args, kw))
+        s["ms"].append(cuda_ms(lambda: int8_conv_bn_act(*args, **kw)))
+        s["plain_ms"].append(cuda_ms(
+            lambda: int8_conv_bn_act_plain(*args, **plain_kwargs(kw)),
+            iters=PLAIN_ITERS, warmup=1))
+        s["bound_ms"].append(b_ms)
+        s["bound_by"] = b_by
+        s["sites"].append(sites)
+
+    rows, frame = [], {k: 0.0 for k in ("ms", "alone_ms", "plain_ms",
+                                        "bound_ms", "bf16_conv_ms")}
+    for (xs, cout, stride, has_mask, has_res), s in shapes.items():
+        n = len(s["calls"])
+        alone, _ = device_ms(lambda: [int8_conv_bn_act(*a, **k)
+                                      for a, k in s["calls"]], iters=5)
+        x, w_q = s["calls"][0][0][0], s["calls"][0][0][1]
+        xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
+        wc = w_q.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bf16 = cuda_ms(lambda: F.conv2d(xc, wc, stride=stride, padding=1))
+        r = {"shape": f"{xs[0]}x{xs[1]}x{xs[2]}x{xs[3]} -> {cout}, stride "
+                      f"{stride}" + (", mask" if has_mask else ", dense")
+                      + (", residual" if has_res else ""),
+             "launches": n, "ms": statistics.mean(s["ms"]),
+             "alone_ms": alone / n, "plain_ms": statistics.mean(s["plain_ms"]),
+             "bound_ms": statistics.mean(s["bound_ms"]),
+             "bound_by": s["bound_by"], "bf16_conv_ms": bf16,
+             "active_sites": statistics.mean(s["sites"]),
+             "key": (has_res, xs[1] * xs[2])}
+        rows.append(r)
+        for k in frame:
+            frame[k] += n * r[k]
+        print(f"[6] K4 {r['shape']}: {n} launches, bit-equal; wrapper "
+              f"{r['ms']:.4f} ms, kernels alone {r['alone_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; {r['bound_ms'] / r['alone_ms']:.0%} of it "
+              f"alone), cuDNN bf16 conv of the shape (not the same function) "
+              f"{bf16:.4f} ms; {r['active_sites']:.0f} active output sites")
+    print(f"[6] K4 per int8 frame ({len(calls)} calls, fused stage off): "
+          f"wrapper {frame['ms']:.4f} ms, kernels alone "
+          f"{frame['alone_ms']:.4f} ms, plain {frame['plain_ms']:.4f} ms, "
+          f"bound {frame['bound_ms']:.4f} ms, cuDNN bf16 convs "
+          f"{frame['bf16_conv_ms']:.4f} ms")
+    # the row's own numbers: the stage-1 residual conv (the largest map)
+    main = max(rows, key=lambda r: r["key"])
+    for r in rows:
+        del r["key"]
+    return {"max_abs_err": err, "ms": main["ms"], "alone_ms":
+            main["alone_ms"], "plain_ms": main["plain_ms"],
+            "bound": (main["bound_ms"], main["bound_by"]), "main_shape":
+            main["shape"], "shapes": rows, "frame": frame}
+
+
+def check_int8_stage(torch, model, calls):
+    """Phase 7: the fused int8 stage kernel (K5) on the served request's
+    stride-1 stage (its input and mask from the first captured K4 call, the
+    model's stacked int8 params) vs its plain version and vs the per-conv
+    route over the same convs, all bit-equal."""
+    from pillarnet_lts_torch.ops.int8_stage import int8_stage, int8_stage_plain
+    from pillarnet_lts_torch.ops.quant import int8_conv_bn_act
+
+    bb = model.backbone_net
+    bb.s2d_pallas = True
+    params = bb.fused_stage1_params()
+    n = params[0].shape[0]
+    (x, *_), kw0, _ = calls[0]
+    args = (x, *params[:4], kw0["mask"])
+    pack = {"w_pack": params[4]}
+    got = int8_stage(*args, **pack)
+    want = int8_stage_plain(*args)
+    per_conv = calls[n - 1][2]
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not (torch.equal(got, want) and torch.equal(got, per_conv)):
+        raise AssertionError(f"int8_stage differs from plain or the per-conv "
+                             f"route: max |d| {err}, "
+                             f"{int((got != want).sum())} elements")
+    route = [(a, k) for a, k, _ in calls[:n]]
+    r = {"max_abs_err": err, "ms": cuda_ms(lambda: int8_stage(*args, **pack)),
+         "alone_ms": device_ms(lambda: int8_stage(*args, **pack),
+                               iters=5)[0],
+         "plain_ms": cuda_ms(lambda: int8_stage_plain(*args),
+                             iters=PLAIN_ITERS, warmup=1),
+         "per_conv_ms": cuda_ms(lambda: [int8_conv_bn_act(*a, **k)
+                                         for a, k in route]),
+         "per_conv_alone_ms": device_ms(lambda: [int8_conv_bn_act(*a, **k)
+                                                 for a, k in route],
+                                        iters=5)[0]}
+    sites = int((kw0["mask"] != 0).sum())
+    r["bound"] = bound(nbytes(*args, got), n * 2 * 9 * 32 * 32 * sites,
+                       INT8_OPS)
+    print(f"[7] fused int8 stage, n = {n}, {tuple(x.shape)} (the served "
+          f"request's stage 1, {sites} active sites): bit-equal to plain and "
+          f"to the per-conv route; wrapper {r['ms']:.4f} ms, kernels alone "
+          f"{r['alone_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+          f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); the per-conv route "
+          f"over the same {n} convs: wrapper {r['per_conv_ms']:.4f} ms, "
+          f"kernels alone {r['per_conv_alone_ms']:.4f} ms")
+    return r
+
+
+def serve_int8_flagship(torch, dev, card, model, cloud, post):
+    """Phase 8: the int8 deploy config as a server, fused stage on and off,
+    on the same clouds: both routes are bit-equal to the same plain chain,
+    so they must serve identical detections. Returns the launch counts of
+    the fused-stage run."""
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.runtime.serving import ServingPipeline
+
+    demo_canary(torch, dev)
+    clouds = [cloud(s) for s in range(13)]
     path = {"pillar_scatter_max", "rotated_overlap", "int8_conv"}
-    launches = None
+    launches, served = None, {}
     for fused in (True, False):
         model.backbone_net.s2d_pallas = fused
         kernels = path | {"int8_stage"} if fused else path
         pipe = ServingPipeline(make_infer_fn(model), depth=1)
         torch.cuda.reset_peak_memory_stats(dev)
         _kernels.reset_launches()
-        lat, kept = [], []
+        lat, kept, dets = [], [], []
         for i, (pts, msk) in enumerate(clouds):
             before = dict(_kernels.LAUNCHES)
             t0 = time.perf_counter()
@@ -671,6 +761,7 @@ def serve_int8_flagship(torch, dev, card):
                     np.isfinite(det["box3d_lidar"]).all()
                     and np.isfinite(det["scores"]).all()):
                 raise AssertionError(f"int8 request {i}: bad detections")
+            dets.append(det)
             if i >= 3:
                 lat.append(dt)
                 kept.append(int(det["mask"].sum()))
@@ -684,9 +775,18 @@ def serve_int8_flagship(torch, dev, card):
               f"allocated {peak / 2**30:.3f} GiB; mean kept boxes "
               f"{statistics.mean(kept):.1f} of {post}; launches over "
               f"{len(clouds)} requests {counts}; card: {card}")
+        served[fused] = dets
         if fused:
             launches = counts
+    for i, (a, b) in enumerate(zip(served[True], served[False])):
+        for key in a:
+            if not np.array_equal(a[key], b[key]):
+                raise AssertionError(f"int8 request {i}: {key} differs "
+                                     f"between the fused and per-conv routes")
+    print(f"[8] the fused and per-conv int8 routes served identical "
+          f"detections on all {len(clouds)} clouds")
     return launches
+
 
 def det3d_from_bev(torch, bev):
     """pcdet BEV (..., 5) -> det3d (..., 7) boxes (z 0, height 1.5): the
@@ -991,9 +1091,12 @@ def main():
     overlap = check_overlap(torch, dev)
     check_golden(torch, dev)
     serve_flagship(torch, dev, card)
-    conv = check_int8_conv(torch, dev, scatter["occ"])
-    stage = check_int8_stage(torch, dev, scatter["occ"])
-    launches = serve_int8_flagship(torch, dev, card)
+    model, cloud, post = int8_flagship(torch, dev)
+    calls = capture_int8_convs(torch, model, on_card(torch, dev, cloud(50)))
+    conv = check_int8_conv(torch, calls)
+    stage = check_int8_stage(torch, model, calls)
+    del calls
+    launches = serve_int8_flagship(torch, dev, card, model, cloud, post)
     mask = check_mask(torch, dev)
     tiled = check_scatter_tiled(torch, dev)
     switched = serve_waymo(torch, dev, card)
@@ -1030,12 +1133,16 @@ def main():
         row("suppression_mask", "suppression_mask.cu", "nms_kernel.py:221",
             switched["suppression_mask"], mask, mask["ms"], mask["plain_ms"],
             mask["bound"]),
-        row("int8_conv", "int8_conv.cu", "s2d_conv_kernel.py:137",
-            launches["int8_conv"], conv, conv["ms"], conv["plain_ms"],
-            conv["bound"]),
-        row("int8_stage", "int8_stage.cu", "s2d_conv_kernel.py:385",
-            launches["int8_stage"], stage, stage["ms"], stage["plain_ms"],
-            stage["bound"]),
+        dict(row("int8_conv", "int8_conv.cu", "s2d_conv_kernel.py:137",
+                 launches["int8_conv"], conv, conv["ms"], conv["plain_ms"],
+                 conv["bound"]), alone_ms=conv["alone_ms"],
+             main_shape=conv["main_shape"], shapes=conv["shapes"],
+             frame=conv["frame"]),
+        dict(row("int8_stage", "int8_stage.cu", "s2d_conv_kernel.py:385",
+                 launches["int8_stage"], stage, stage["ms"],
+                 stage["plain_ms"], stage["bound"]),
+             alone_ms=stage["alone_ms"], per_conv_ms=stage["per_conv_ms"],
+             per_conv_alone_ms=stage["per_conv_alone_ms"]),
     ]}
     for k in record["kernels"]:
         if k["launches"] < 1:

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.quant import (activation_scale, int8_conv_bn_act, kernel_int8,
-                          weight_scale)
+                          pack_kernel, weight_scale)
 from ..utils.init import normal_, xavier_uniform_
 from ..utils.norm import MaskedBatchNorm
 from ..utils.quant import Calibrated
@@ -117,11 +117,13 @@ class MaskedConv(Calibrated, nn.Module):
                         self.padding)
 
     def int8_params(self, bn):
-        """(w_q HWIO int8, 1 / s_x, dq, shift) of the int8 core with the
-        following BN folded (`base.py:685-705`): the per-output-channel
-        weight scale is taken over the raw kernel, and the BN factor rides
-        dq = s_x * s_w * inv (multiplied left to right). Computed once per
-        state of the weights, the scale and the BN (`state_key`)."""
+        """(w_q HWIO int8, 1 / s_x, dq, shift, w_pack) of the int8 core
+        with the following BN folded (`base.py:685-705`): the
+        per-output-channel weight scale is taken over the raw kernel, and
+        the BN factor rides dq = s_x * s_w * inv (multiplied left to
+        right); w_pack is w_q in the CUDA kernel's layout
+        (`ops.quant.pack_kernel`). Computed once per state of the weights,
+        the scale and the BN (`state_key`)."""
         key = state_key(self.weight, self.bias, self.in_absmax, bn.weight,
                         bn.bias, bn.running_mean, bn.running_var)
         if self._int8[0] != key:
@@ -131,19 +133,21 @@ class MaskedConv(Calibrated, nn.Module):
                 s_w = weight_scale(self.weight)
                 b = self.bias * inv + shift if self.bias is not None \
                     else shift
-                params = (kernel_int8(self.weight, s_w), 1.0 / s_x,
-                          s_x * s_w * inv, b)
+                w_q = kernel_int8(self.weight, s_w)
+                params = (w_q, 1.0 / s_x, s_x * s_w * inv, b,
+                          pack_kernel(w_q))
             self._int8 = (key, params)
         return self._int8[1]
 
     def int8(self, x, bn, mask=None, residual=None, act=True):
         """The int8 core with `bn` folded and the fused epilogue; NCHW in
         and out."""
-        w_q, inv_s, dq, b = self.int8_params(bn)
+        w_q, inv_s, dq, b, w_pack = self.int8_params(bn)
         y = int8_conv_bn_act(
             nhwc(x), w_q, inv_s, dq, b, self.stride,
             mask=None if mask is None else mask[:, 0],
-            residual=None if residual is None else nhwc(residual), act=act)
+            residual=None if residual is None else nhwc(residual), act=act,
+            w_pack=w_pack)
         return y.permute(0, 3, 1, 2)
 
 

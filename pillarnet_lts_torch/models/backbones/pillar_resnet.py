@@ -72,9 +72,10 @@ class _PillarResNetBase(nn.Module):
                 for i in range(self.conv1_blocks)]
 
     def fused_stage1_params(self):
-        """Stacked int8 params of the stride-1 stage for the fused kernel,
-        or None unless `s2d_pallas` is set, the stage is 32 channels wide
-        and every one of its convs is calibrated."""
+        """Stacked int8 params of the stride-1 stage for the fused kernel
+        (w_q, inv_s, dq, shift and the packed kernels, each stacked over the
+        convs), or None unless `s2d_pallas` is set, the stage is 32 channels
+        wide and every one of its convs is calibrated."""
         if not self.s2d_pallas or self.in_channels != _STAGE_CHANNELS:
             return None
         pairs = [p for blk in self._stage1_blocks() for p in blk.convs()]
@@ -108,7 +109,9 @@ class _PillarResNetBase(nn.Module):
         mask = site_mask(occ, x.dtype)
         fused = self.fused_stage1_params()
         if fused is not None:
-            x = int8_stage(nhwc(x), *fused, mask[:, 0]).permute(0, 3, 1, 2)
+            w_q, inv_s, dq, shift, w_pack = fused
+            x = int8_stage(nhwc(x), w_q, inv_s, dq, shift, mask[:, 0],
+                           w_pack=w_pack).permute(0, 3, 1, 2)
         else:
             for blk in self._stage1_blocks():
                 x = blk(x, mask)

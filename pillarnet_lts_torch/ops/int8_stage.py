@@ -19,7 +19,7 @@ carried over: the int32 sums do not depend on it.
 import torch
 
 from . import _kernels
-from .quant import int8_conv_bn_act_plain
+from .quant import check_pack, int8_conv_bn_act_plain, pack_kernel
 
 CHANNELS = 32  # the only stage width the kernel takes (PillarNet's stage 1)
 
@@ -37,24 +37,31 @@ def int8_stage_plain(x, w_q, inv_s, dq, shift, mask):
     return ident
 
 
-def int8_stage(x, w_q, inv_s, dq, shift, mask):
+def int8_stage(x, w_q, inv_s, dq, shift, mask, w_pack=None):
     """Fused int8 stride-1 stage.
 
     x:     (B, H, W, 32) bf16 stage input, zero at inactive sites;
     w_q:   (n, 3, 3, 32, 32) int8 kernels in execution order, n odd >= 3;
     inv_s: (n,) f32, 1 / activation scale of each conv;
     dq:    (n, 32) f32 dequant vectors; shift: (n, 32) f32;
-    mask:  (B, H, W) {0, 1} occupancy multiplier in x.dtype.
+    mask:  (B, H, W) {0, 1} occupancy multiplier in x.dtype;
+    w_pack: optional `quant.pack_kernel(w_q)`, (n, 9, 32, 32) (the
+           backbone's `fused_stage1_params` caches it); the kernel's
+           wrapper packs w_q itself when it is absent.
 
     Returns (B, H, W, 32) in x.dtype. A CPU tensor takes the plain version;
     a CUDA tensor launches `csrc/int8_stage.cu` or raises."""
+    name = "int8_stage"
+    if w_pack is not None:
+        check_pack(name, w_pack, w_q)
     if x.device.type == "cpu":
         return int8_stage_plain(x, w_q, inv_s, dq, shift, mask)
 
-    name = "int8_stage"
-    _kernels.check_args(name, x=x, w_q=w_q, inv_s=inv_s, dq=dq, shift=shift,
-                        mask=mask)
-    _kernels.check_args(name, align=16, x=x)
+    if w_pack is None:
+        w_pack = pack_kernel(w_q)
+    _kernels.check_args(name, x=x, w_pack=w_pack, inv_s=inv_s, dq=dq,
+                        shift=shift, mask=mask)
+    _kernels.check_args(name, align=16, x=x, w_pack=w_pack)
     B, H, W, C = x.shape
     n = w_q.shape[0]
     if x.dtype != torch.bfloat16 or mask.dtype != x.dtype \
@@ -73,7 +80,7 @@ def int8_stage(x, w_q, inv_s, dq, shift, mask):
     out = torch.empty_like(x)
     fn = _kernels.kernel(name)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w_q.data_ptr(), inv_s.data_ptr(),
+        err = fn(x.data_ptr(), w_pack.data_ptr(), inv_s.data_ptr(),
                  dq.data_ptr(), shift.data_ptr(), mask.data_ptr(),
                  out.data_ptr(), B, H, W, n, _kernels.stream_handle(x.device))
     _kernels.launched(name, err)

@@ -11,7 +11,9 @@ activation scales from a calibrated absmax, int32 sums, f32 dequant.
 
 Public functions keep the JAX package's layouts: activations NHWC, kernels
 HWIO. `int8_conv_bn_act` launches `csrc/int8_conv.cu` on a CUDA tensor and
-runs its plain version on a CPU tensor; nothing falls back.
+runs its plain version on a CPU tensor; nothing falls back. The kernel reads
+its weights as `pack_kernel(w_q)`, which a caller may compute once and pass
+as `w_pack`.
 
 Rounding is the JAX package's: `torch.round` rounds half to even, as
 `jnp.round` does. The dequant epilogue is a multiply and then an add, each
@@ -65,6 +67,25 @@ def kernel_int8(w, s_w):
     return q.permute(2, 3, 1, 0).contiguous()
 
 
+def pack_kernel(w_q):
+    """(..., 3, 3, Cin, Cout) HWIO int8 kernel(s) -> (..., 9, Cout, Cin):
+    each output channel's input channels contiguous, tap by tap, the order
+    in which the CUDA kernels' tensor-core B operand reads them."""
+    *lead, kh, kw, cin, cout = w_q.shape
+    return w_q.transpose(-1, -2).reshape(*lead, kh * kw, cout,
+                                         cin).contiguous()
+
+
+def check_pack(name, w_pack, w_q):
+    """Raise unless `w_pack` has the shape and type of `pack_kernel(w_q)`."""
+    *lead, kh, kw, cin, cout = w_q.shape
+    if w_pack.dtype != torch.int8 \
+            or tuple(w_pack.shape) != (*lead, kh * kw, cout, cin):
+        raise ValueError(f"{name}: w_pack {tuple(w_pack.shape)} "
+                         f"{w_pack.dtype} is not pack_kernel of w_q "
+                         f"{tuple(w_q.shape)}")
+
+
 def conv_core_int8(xq, wq, stride):
     """int8 NHWC x int8 HWIO -> int32 NHWC sums, 3x3, padding 1 (plain).
 
@@ -97,7 +118,7 @@ def int8_conv_bn_act_plain(x, w_q, inv_s, dq, shift, stride, mask=None,
 
 
 def int8_conv_bn_act(x, w_q, inv_s, dq, shift, stride, mask=None,
-                     residual=None, act=True):
+                     residual=None, act=True, w_pack=None):
     """One int8 3x3 conv (padding 1) with the fused eval epilogue.
 
     x:        (B, H, W, Cin) bf16 activations (f32 accepted on the CPU);
@@ -107,27 +128,34 @@ def int8_conv_bn_act(x, w_q, inv_s, dq, shift, stride, mask=None,
     shift:    (Cout,) f32, conv bias * inv + BN shift;
     stride:   1 or 2;
     mask:     optional (B, Ho, Wo) {0, 1} re-zero multiplier, x.dtype;
-    residual: optional (B, Ho, Wo, Cout) in x.dtype.
+    residual: optional (B, Ho, Wo, Cout) in x.dtype;
+    w_pack:   optional `pack_kernel(w_q)` (`MaskedConv.int8_params` caches
+              it); the kernel's wrapper packs w_q itself when it is absent.
 
     Quantizes x on load (round half to even, clip to +-127), sums in int32,
     then (acc * dq + shift) -> x.dtype, + residual, ReLU if `act`, times the
     mask. Returns (B, Ho, Wo, Cout) in x.dtype. A CPU tensor takes the
     plain version; a CUDA tensor launches `csrc/int8_conv.cu` or raises."""
+    name = "int8_conv"
+    if w_pack is not None:
+        check_pack(name, w_pack, w_q)
     if x.device.type == "cpu":
         return int8_conv_bn_act_plain(x, w_q, inv_s, dq, shift, stride, mask,
                                       residual, act)
 
-    name = "int8_conv"
+    if w_pack is None:
+        w_pack = pack_kernel(w_q)
     B, H, W, cin = x.shape
     kh, kw, wcin, cout = w_q.shape
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    tensors = dict(x=x, w_q=w_q, inv_s=inv_s, dq=dq, shift=shift)
+    tensors = dict(x=x, w_pack=w_pack, inv_s=inv_s, dq=dq, shift=shift)
     if mask is not None:
         tensors["mask"] = mask
     if residual is not None:
         tensors["residual"] = residual
     _kernels.check_args(name, **tensors)
-    _kernels.check_args(name, align=16, x=x)
+    _kernels.check_args(name, align=16, x=x, w_pack=w_pack,
+                        **({} if residual is None else {"residual": residual}))
     if x.dtype != torch.bfloat16 or w_q.dtype != torch.int8:
         raise TypeError(f"{name}: bf16 activations and an int8 kernel, got "
                         f"{x.dtype} and {w_q.dtype}")
@@ -153,7 +181,7 @@ def int8_conv_bn_act(x, w_q, inv_s, dq, shift, stride, mask=None,
     out = torch.empty((B, Ho, Wo, cout), dtype=x.dtype, device=x.device)
     fn = _kernels.kernel(name)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w_q.data_ptr(), inv_s.data_ptr(),
+        err = fn(x.data_ptr(), w_pack.data_ptr(), inv_s.data_ptr(),
                  dq.data_ptr(), shift.data_ptr(),
                  mask.data_ptr() if mask is not None else None,
                  residual.data_ptr() if residual is not None else None,

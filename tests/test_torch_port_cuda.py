@@ -17,8 +17,8 @@ scatter-max equal by value (-0.0 and +0.0 may trade places); the
 suppression mask bit-equal (built without FMA contraction, the plain
 version's order of operations); the int8 conv and
 the fused int8 stage are bit-equal as values (integer sums, the same f32
-epilogue roundings; an all-empty tile writes +0 where the plain version
-may give -0).
+epilogue roundings; an inactive site is written as +0 where the plain
+version may give -0).
 """
 
 import os
@@ -228,6 +228,118 @@ def test_int8_stage_kernel_matches_plain(cuda, n_convs):
     assert _kernels.LAUNCHES["int8_stage"] == before + 1
     want = tstage.int8_stage_plain(x, w_q, inv_s, dq, shift, mask)
     assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    assert got.float().abs().max() > 0
+
+
+# the tensor-core int8 conv (K4): every (Cin, Cout, stride) class of the
+# flagship's int8 convs, on the edge cases of the redesign. Each checks the
+# kernel equal to the plain version, two calls byte-identical and one count
+# per call.
+_K4_CLASSES = {"32-32": (32, 32, 1), "32-64-s2": (32, 64, 2),
+               "64-64": (64, 64, 1), "64-128-s2": (64, 128, 2),
+               "128-128": (128, 128, 1), "256-256": (256, 256, 1),
+               "512-256": (512, 256, 1)}
+# "masked": a random mask and residual, codes that clip at +-127, with and
+# without the packed keyword; "dense": no mask; "corners": one active site
+# at each image corner and at tile corners; "poisoned": the output carved
+# out of 0xFF-filled memory, one sample with a random mask and one whose
+# mask is all zero. Sizes are odd and no multiple of the 8 x 16 tile.
+_K4_CASES = ("masked", "dense", "corners", "poisoned")
+
+
+def _k4_case(dev, case, cin, cout, stride):
+    rng = np.random.RandomState(cin + cout + stride + len(case))
+    B, H, W = (2, 181, 163) if case == "poisoned" else (2, 37, 45)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    occ = rng.rand(B, H, W) < (1.0 if case in ("dense", "corners") else 0.3)
+    x = rng.randn(B, H, W, cin).astype(np.float32) * occ[..., None] * 2
+    mask = rng.rand(B, Ho, Wo) < 0.3
+    if case == "corners":
+        mask[:] = False
+        for b, y, xx in ((0, 0, 0), (0, Ho - 1, Wo - 1), (1, 0, Wo - 1),
+                         (1, Ho - 1, 0), (0, 7, 15), (1, 8, 16)):
+            mask[b, y, xx] = True
+    elif case == "poisoned":
+        mask[1] = False
+    res = rng.randn(B, Ho, Wo, cout).astype(np.float32) * mask[..., None]
+    amax = np.abs(x).max() * (0.5 if case == "masked" else 1.0)
+    bf = torch.bfloat16
+    args = (torch.from_numpy(x).to(dev, bf),
+            torch.from_numpy(rng.randint(-127, 128, (3, 3, cin, cout))
+                             .astype(np.int8)).to(dev),
+            torch.tensor(127.0 / amax, dtype=torch.float32, device=dev),
+            torch.from_numpy((rng.rand(cout) * 2e-4 / cin ** 0.5 + 1e-5)
+                             .astype(np.float32)).to(dev),
+            torch.from_numpy(rng.randn(cout).astype(np.float32)).to(dev),
+            stride)
+    kw = dict(mask=None if case == "dense"
+              else torch.from_numpy(mask).to(dev, bf),
+              residual=torch.from_numpy(res).to(dev, bf)
+              if case == "masked" else None,
+              act=case != "corners")
+    return args, kw
+
+
+@pytest.mark.parametrize("case", _K4_CASES)
+@pytest.mark.parametrize("cls", sorted(_K4_CLASSES))
+def test_int8_conv_kernel_on_edge_cases(cuda, cls, case):
+    cin, cout, stride = _K4_CLASSES[cls]
+    args, kw = _k4_case(cuda, case, cin, cout, stride)
+    want = tquant.int8_conv_bn_act_plain(*args, **kw)
+    pack = tquant.pack_kernel(args[1])
+    out_bytes = want.numel() * want.element_size()
+    if case == "poisoned":
+        poisoned = _poison(cuda, out_bytes)
+    before = _kernels.LAUNCHES["int8_conv"]
+    got = tquant.int8_conv_bn_act(*args, **kw, w_pack=pack)
+    got2 = tquant.int8_conv_bn_act(
+        *args, **kw, w_pack=None if case == "masked" else pack)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["int8_conv"] == before + 2
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    assert torch.equal(got.view(torch.int16), got2.view(torch.int16))
+    assert got.float().abs().max() > 0
+    if case == "masked":  # some codes clip
+        assert (args[0].float() * args[2]).abs().max() > 127
+    elif case == "poisoned":  # the output was carved out of a poisoned block
+        start, end = got.data_ptr(), got.data_ptr() + out_bytes
+        assert any(lo < end and start < hi for lo, hi in poisoned)
+        assert not bool(torch.isnan(got.float()).any())
+        assert not bool(got[1].any())  # the all-zero mask: exactly 0
+    elif case == "corners":
+        assert int((got.float().abs().sum(-1) > 0).sum()) <= 6
+
+
+@pytest.mark.parametrize("density", ["sparse", "dense"])
+@pytest.mark.parametrize("n_convs", [3, 5, 7, 9])
+def test_int8_stage_kernel_on_sparse_and_dense_masks(cuda, n_convs, density):
+    """K5 on a size that is no multiple of its tile, at 1% and 100%
+    occupancy; n = 9 takes the 8-row tile (16 rows do not fit in shared
+    memory there)."""
+    rng = np.random.RandomState(10 * n_convs + len(density))
+    B, H, W, c = 2, 37, 83, 32
+    occ = rng.rand(B, H, W) < (0.01 if density == "sparse" else 1.0)
+    bf = torch.bfloat16
+    x = torch.from_numpy(rng.randn(B, H, W, c).astype(np.float32)
+                         * occ[..., None]).to(cuda, bf)
+    w_q = torch.from_numpy(rng.randint(-127, 128, (n_convs, 3, 3, c, c))
+                           .astype(np.int8)).to(cuda)
+    inv_s = torch.from_numpy((30.0 + 5 * np.arange(n_convs))
+                             .astype(np.float32)).to(cuda)
+    dq = torch.from_numpy((rng.rand(n_convs, c) * 2e-5 + 1e-5)
+                          .astype(np.float32)).to(cuda)
+    shift = torch.from_numpy((rng.randn(n_convs, c) * 0.05)
+                             .astype(np.float32)).to(cuda)
+    args = (x, w_q, inv_s, dq, shift, torch.from_numpy(occ).to(cuda, bf))
+    want = tstage.int8_stage_plain(*args)
+    before = _kernels.LAUNCHES["int8_stage"]
+    got = tstage.int8_stage(*args, w_pack=tquant.pack_kernel(w_q))
+    got2 = tstage.int8_stage(*args)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["int8_stage"] == before + 2
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    assert torch.equal(got.view(torch.int16), got2.view(torch.int16))
     assert got.float().abs().max() > 0
 
 
