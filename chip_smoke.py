@@ -29,8 +29,9 @@ Phases, each of which raises on failure:
      the fused stage off, the arguments of its 51 int8 conv (K4) calls
      captured and each replayed through K4 and its plain version,
      bit-equal; per distinct shape the wrapper time, kernels alone
-     (`torch.profiler`), plain, bound and the cuDNN bf16 conv of that shape
-     (a yardstick, not the same function); per-frame sums;
+     (`torch.profiler`), plain, bound, the share of 8 x 16 tiles with an
+     active site, and the cuDNN bf16 conv of that shape (a yardstick, not
+     the same function); per-frame sums;
   7. the fused int8 stage kernel (K5, n = 7) on that request's stride-1
      stage (its input, mask and the model's stacked params), bit-equal to
      its plain version and to the per-conv route's output, timed beside the
@@ -66,7 +67,8 @@ Phases, each of which raises on failure:
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
-must move (each input read once, each output written once) at 3.35 TB/s
+must move (each input read once, each output written once; of the int8
+convs' x and residual, only what the active output sites need) at 3.35 TB/s
 and the operations it must do at the peak rate of their type (f32 67
 TFLOP/s, int8 1,979 TOP/s), and the time of one PyTorch call that computes
 the same function where there is one (`library_ms`, else null).
@@ -584,17 +586,50 @@ def plain_kwargs(kw):
     return {k: v for k, v in kw.items() if k in ("mask", "residual", "act")}
 
 
-def int8_conv_bound(args, kw, out):
-    """K4's bound for one call: x, the kernel, the scales, mask, residual
-    and output each moved once; 2 * 9 * Cin * Cout operations per active
-    output site (every site when there is no mask)."""
-    x, w_q = args[0], args[1]
-    cin, cout = w_q.shape[2], w_q.shape[3]
-    mask = kw.get("mask")
-    sites = out.shape[0] * out.shape[1] * out.shape[2] if mask is None \
-        else int((mask != 0).sum())
-    return bound(nbytes(*args[:5], mask, kw.get("residual"), out),
-                 2 * 9 * cin * cout * sites, INT8_OPS), sites
+def input_sites(torch, mask, H, W, stride):
+    """Input sites that a 3x3 conv (padding 1) at `stride` reads for the
+    active sites of its (B, Ho, Wo) output `mask`: the mask dilated by the
+    conv window, counted on the (B, H, W) input."""
+    import torch.nn.functional as F
+
+    m = (mask != 0).float()[:, None]
+    if stride == 2:
+        up = m.new_zeros((m.shape[0], 1, 2 * m.shape[2], 2 * m.shape[3]))
+        up[..., ::2, ::2] = m
+        m = up
+    return int(F.max_pool2d(m, 3, 1, 1)[..., :H, :W].sum())
+
+
+def live_tiles(torch, mask, th=8, tw=16):
+    """Share of K4's th x tw output tiles with an active site: the tiles
+    that read their haloed input patch and residual."""
+    import torch.nn.functional as F
+
+    m = F.max_pool2d((mask != 0).float()[:, None], (th, tw), (th, tw),
+                     ceil_mode=True)
+    return float(m.mean())
+
+
+def int8_conv_bound(torch, args, kw, out):
+    """K4's bound for one call, from what the function needs: the packed
+    kernel, the scales and the mask once, x at the input sites that the
+    active output sites' 3x3 windows cover, the residual at the active
+    sites, and the whole output (inactive sites are written as 0); 2 * 9 *
+    Cin * Cout operations per active output site (every site when there is
+    no mask). Returns the bound and the active output sites."""
+    x, w_q, stride = args[0], args[1], args[5]
+    B, H, W, cin = x.shape
+    cout = w_q.shape[3]
+    mask, res = kw.get("mask"), kw.get("residual")
+    sites = out.shape[0] * out.shape[1] * out.shape[2]
+    sites_in = B * H * W
+    if mask is not None:
+        sites = int((mask != 0).sum())
+        sites_in = input_sites(torch, mask, H, W, stride)
+    n_bytes = (nbytes(kw.get("w_pack", w_q), *args[2:5], mask, out)
+               + sites_in * cin * x.element_size()
+               + (0 if res is None else sites * cout * res.element_size()))
+    return bound(n_bytes, 2 * 9 * cin * cout * sites, INT8_OPS), sites
 
 
 def check_int8_conv(torch, calls):
@@ -619,12 +654,12 @@ def check_int8_conv(torch, calls):
                 f"int8_conv call {i} {tuple(args[0].shape)} -> "
                 f"{tuple(got.shape)} differs from plain: max |d| {d}, "
                 f"{int((got != want).sum())} elements")
-        (b_ms, b_by), sites = int8_conv_bound(args, kw, out)
+        (b_ms, b_by), sites = int8_conv_bound(torch, args, kw, out)
         x, w_q, stride = args[0], args[1], args[5]
         key = (tuple(x.shape), w_q.shape[3], stride,
                kw.get("mask") is not None, kw.get("residual") is not None)
         s = shapes.setdefault(key, {"calls": [], "ms": [], "plain_ms": [],
-                                    "bound_ms": [], "sites": []})
+                                    "bound_ms": [], "sites": [], "live": []})
         s["calls"].append((args, kw))
         s["ms"].append(cuda_ms(lambda: int8_conv_bn_act(*args, **kw)))
         s["plain_ms"].append(cuda_ms(
@@ -633,6 +668,8 @@ def check_int8_conv(torch, calls):
         s["bound_ms"].append(b_ms)
         s["bound_by"] = b_by
         s["sites"].append(sites)
+        s["live"].append(1.0 if kw.get("mask") is None
+                         else live_tiles(torch, kw["mask"]))
 
     rows, frame = [], {k: 0.0 for k in ("ms", "alone_ms", "plain_ms",
                                         "bound_ms", "bf16_conv_ms")}
@@ -653,6 +690,7 @@ def check_int8_conv(torch, calls):
              "bound_ms": statistics.mean(s["bound_ms"]),
              "bound_by": s["bound_by"], "bf16_conv_ms": bf16,
              "active_sites": statistics.mean(s["sites"]),
+             "live_tiles": statistics.mean(s["live"]),
              "key": (has_res, xs[1] * xs[2])}
         rows.append(r)
         for k in frame:
@@ -662,7 +700,8 @@ def check_int8_conv(torch, calls):
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}; {r['bound_ms'] / r['alone_ms']:.0%} of it "
               f"alone), cuDNN bf16 conv of the shape (not the same function) "
-              f"{bf16:.4f} ms; {r['active_sites']:.0f} active output sites")
+              f"{bf16:.4f} ms; {r['active_sites']:.0f} active output sites, "
+              f"{r['live_tiles']:.1%} of its 8 x 16 tiles live")
     print(f"[6] K4 per int8 frame ({len(calls)} calls, fused stage off): "
           f"wrapper {frame['ms']:.4f} ms, kernels alone "
           f"{frame['alone_ms']:.4f} ms, plain {frame['plain_ms']:.4f} ms, "
@@ -713,9 +752,13 @@ def check_int8_stage(torch, model, calls):
          "per_conv_alone_ms": device_ms(lambda: [int8_conv_bn_act(*a, **k)
                                                  for a, k in route],
                                         iters=5)[0]}
+    # bytes as for K4: x where the active sites' windows reach it (later
+    # convs read only the stage's own intermediates), the whole output
     sites = int((kw0["mask"] != 0).sum())
-    r["bound"] = bound(nbytes(*args, got), n * 2 * 9 * 32 * 32 * sites,
-                       INT8_OPS)
+    sites_in = input_sites(torch, kw0["mask"], x.shape[1], x.shape[2], 1)
+    r["bound"] = bound(nbytes(*args[2:], params[4], got)
+                       + sites_in * 32 * x.element_size(),
+                       n * 2 * 9 * 32 * 32 * sites, INT8_OPS)
     print(f"[7] fused int8 stage, n = {n}, {tuple(x.shape)} (the served "
           f"request's stage 1, {sites} active sites): bit-equal to plain and "
           f"to the per-conv route; wrapper {r['ms']:.4f} ms, kernels alone "

@@ -34,16 +34,19 @@
 // A warp whose output row has no active site skips its mma (its outputs are
 // multiplied by 0); a tile whose output mask is all zero writes zeros and
 // stops. The int32 sums then go through the epilogue (int8_common.cuh::
-// epilogue2, on pairs of output channels): the residual tile arrives in
-// shared memory by 16-byte cp.async issued before the K loop, each thread
-// finishes its accumulators in place there (an inactive site is written as
-// 0 without the arithmetic), and the bf16 tile leaves as 16-byte stores.
+// epilogue2, on pairs of output channels): the residual of the tile's
+// active sites arrives in shared memory by 16-byte cp.async issued before
+// the K loop, each thread finishes its accumulators in place there (an
+// inactive site is written as 0 without the arithmetic or its residual),
+// and the bf16 tile leaves as 16-byte stores.
 //
-// What bounds it on the card: at the masked stride-1 convs the bytes (x,
-// residual and output of the 1440^2 x 32 map: 0.12 ms) and the haloed
-// patches' L2 traffic; at the dense 256-channel convs the issue rate of
-// mma.sync, which reaches only part of the int8 peak that wgmma with TMA
-// would (later work).
+// What bounds it on the card: at the masked convs the bytes. The function
+// needs x only under the active sites' 3x3 windows, but a live tile reads
+// its whole haloed patch, so at the sparse 1440^2 stage the kernel reads
+// most of x (chip_smoke.py phase 6 prints each shape's bound and share of
+// live tiles); at the dense 256-channel convs the issue rate of mma.sync,
+// which reaches only part of the int8 peak that wgmma with TMA would (later
+// work).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -130,11 +133,11 @@ int8_conv_kernel(
   }
   const bool row_live =
       __any_sync(0xffffffffu, lane < kTW && ms[warp * kTW + lane] != 0.f);
-  if (res) {  // the residual tile, in flight during the K loop
+  if (res) {  // the residual at the active sites, in flight during the K loop
     for (int i = tid; i < kTH * kTW * (COT / 8); i += kThreads) {
       const int s = i / (COT / 8), part = i % (COT / 8);
       const int64_t site = out_site(s);
-      if (site >= 0)
+      if (site >= 0 && ms[s] != 0.f)
         cp_async16(eo + s * T::kOStride + part * 16,
                    res + site * cout + co_base + part * 8);
     }

@@ -19,7 +19,8 @@ carried over: the int32 sums do not depend on it.
 import torch
 
 from . import _kernels
-from .quant import check_pack, int8_conv_bn_act_plain, pack_kernel
+from .quant import (check_pack, int8_conv_bn_act_plain, pack_kernel,
+                    unpack_kernel)
 
 CHANNELS = 32  # the only stage width the kernel takes (PillarNet's stage 1)
 
@@ -46,8 +47,10 @@ def int8_stage(x, w_q, inv_s, dq, shift, mask, w_pack=None):
     dq:    (n, 32) f32 dequant vectors; shift: (n, 32) f32;
     mask:  (B, H, W) {0, 1} occupancy multiplier in x.dtype;
     w_pack: optional `quant.pack_kernel(w_q)`, (n, 9, 32, 32) (the
-           backbone's `fused_stage1_params` caches it); the kernel's
-           wrapper packs w_q itself when it is absent.
+           backbone's `fused_stage1_params` caches it); when given, it is
+           the kernels that both devices read (the CPU through
+           `quant.unpack_kernel`); when absent, the wrapper packs w_q
+           itself on the card.
 
     Returns (B, H, W, 32) in x.dtype. A CPU tensor takes the plain version;
     a CUDA tensor launches `csrc/int8_stage.cu` or raises."""
@@ -55,7 +58,8 @@ def int8_stage(x, w_q, inv_s, dq, shift, mask, w_pack=None):
     if w_pack is not None:
         check_pack(name, w_pack, w_q)
     if x.device.type == "cpu":
-        return int8_stage_plain(x, w_q, inv_s, dq, shift, mask)
+        w = w_q if w_pack is None else unpack_kernel(w_pack)
+        return int8_stage_plain(x, w, inv_s, dq, shift, mask)
 
     if w_pack is None:
         w_pack = pack_kernel(w_q)

@@ -13,7 +13,8 @@ Public functions keep the JAX package's layouts: activations NHWC, kernels
 HWIO. `int8_conv_bn_act` launches `csrc/int8_conv.cu` on a CUDA tensor and
 runs its plain version on a CPU tensor; nothing falls back. The kernel reads
 its weights as `pack_kernel(w_q)`, which a caller may compute once and pass
-as `w_pack`.
+as `w_pack`; when it is passed, the plain version runs on
+`unpack_kernel(w_pack)`, so both devices read the same tensor.
 
 Rounding is the JAX package's: `torch.round` rounds half to even, as
 `jnp.round` does. The dequant epilogue is a multiply and then an add, each
@@ -76,6 +77,13 @@ def pack_kernel(w_q):
                                          cin).contiguous()
 
 
+def unpack_kernel(w_pack):
+    """Inverse of `pack_kernel`: (..., 9, Cout, Cin) -> (..., 3, 3, Cin,
+    Cout)."""
+    *lead, taps, cout, cin = w_pack.shape
+    return w_pack.reshape(*lead, 3, taps // 3, cout, cin).transpose(-1, -2)
+
+
 def check_pack(name, w_pack, w_q):
     """Raise unless `w_pack` has the shape and type of `pack_kernel(w_q)`."""
     *lead, kh, kw, cin, cout = w_q.shape
@@ -130,7 +138,9 @@ def int8_conv_bn_act(x, w_q, inv_s, dq, shift, stride, mask=None,
     mask:     optional (B, Ho, Wo) {0, 1} re-zero multiplier, x.dtype;
     residual: optional (B, Ho, Wo, Cout) in x.dtype;
     w_pack:   optional `pack_kernel(w_q)` (`MaskedConv.int8_params` caches
-              it); the kernel's wrapper packs w_q itself when it is absent.
+              it); when given, it is the kernel that both devices read
+              (the CPU through `unpack_kernel`); when absent, the wrapper
+              packs w_q itself on the card.
 
     Quantizes x on load (round half to even, clip to +-127), sums in int32,
     then (acc * dq + shift) -> x.dtype, + residual, ReLU if `act`, times the
@@ -140,7 +150,8 @@ def int8_conv_bn_act(x, w_q, inv_s, dq, shift, stride, mask=None,
     if w_pack is not None:
         check_pack(name, w_pack, w_q)
     if x.device.type == "cpu":
-        return int8_conv_bn_act_plain(x, w_q, inv_s, dq, shift, stride, mask,
+        w = w_q if w_pack is None else unpack_kernel(w_pack)
+        return int8_conv_bn_act_plain(x, w, inv_s, dq, shift, stride, mask,
                                       residual, act)
 
     if w_pack is None:

@@ -16,7 +16,7 @@ version's operation order, so they agree to rounding); the sorted-run
 scatter-max equal by value (-0.0 and +0.0 may trade places); the
 suppression mask bit-equal (built without FMA contraction, the plain
 version's order of operations); the int8 conv and
-the fused int8 stage are bit-equal as values (integer sums, the same f32
+the fused int8 stage are equal by value (integer sums, the same f32
 epilogue roundings; an inactive site is written as +0 where the plain
 version may give -0).
 """

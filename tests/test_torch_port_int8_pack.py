@@ -6,7 +6,9 @@ and the wrappers' `w_pack` keyword on the CPU.
 The kernels themselves run only on the card (`tests/test_torch_port_cuda.py`);
 here the packing and the keyword's plumbing are held exact: integer
 permutations compare bit for bit, and the CPU wrappers (the plain versions)
-give identical tensors with and without the keyword. The JAX parity of the
+give identical tensors with and without the keyword. When the keyword is
+given, the CPU reads the pack (`unpack_kernel`), as the card does, so a
+stale pack shows on the CPU too. The JAX parity of the
 int8 conv and stage stays in `tests/test_torch_port_int8.py`.
 """
 
@@ -74,6 +76,14 @@ def test_pack_of_a_stacked_stage_is_the_stack_of_packs():
     assert pack.shape == (7, 9, 32, 32) and pack.is_contiguous()
     for i in range(7):
         assert torch.equal(pack[i], quant.pack_kernel(w_q[i]))
+
+
+@pytest.mark.parametrize("lead", [(), (7,)])
+@pytest.mark.parametrize("cin,cout,stride", FLAGSHIP_CONVS)
+def test_unpack_inverts_the_pack(cin, cout, stride, lead):
+    w_q = _codes(np.random.RandomState(cin * cout + stride),
+                 (*lead, 3, 3, cin, cout))
+    assert torch.equal(quant.unpack_kernel(quant.pack_kernel(w_q)), w_q)
 
 
 @pytest.mark.parametrize("shape", [(9, 32, 32), (3, 3, 32, 32),
@@ -171,8 +181,21 @@ def test_int8_conv_on_the_cpu_with_and_without_the_pack(cin, cout, stride):
     assert got.float().abs().max() > 0
 
 
-def test_int8_stage_on_the_cpu_with_and_without_the_pack():
-    rng = np.random.RandomState(3)
+@pytest.mark.parametrize("cin,cout,stride", [(32, 32, 1), (64, 128, 2)])
+def test_int8_conv_on_the_cpu_reads_the_pack(cin, cout, stride):
+    """Given a pack, the CPU computes with it, not with w_q: the pack of
+    another kernel gives that kernel's result."""
+    args, mask, _ = _conv_inputs(cin * stride, cin, cout, stride)
+    other = -args[1]
+    want = quant.int8_conv_bn_act_plain(args[0], other, *args[2:], mask=mask)
+    got = quant.int8_conv_bn_act(*args, mask=mask,
+                                 w_pack=quant.pack_kernel(other))
+    assert torch.equal(got, want)
+    assert not torch.equal(got, quant.int8_conv_bn_act(*args, mask=mask))
+
+
+def _stage_inputs(seed):
+    rng = np.random.RandomState(seed)
     B, H, W, c, n = 1, 17, 21, 32, 5
     occ = rng.rand(B, H, W) < 0.3
     bf = torch.bfloat16
@@ -183,13 +206,26 @@ def test_int8_stage_on_the_cpu_with_and_without_the_pack():
     dq = torch.from_numpy((rng.rand(n, c) * 2e-5 + 1e-5).astype(np.float32))
     shift = torch.from_numpy((rng.randn(n, c) * 0.05).astype(np.float32))
     mask = torch.from_numpy(occ).to(bf)
-    args = (x, w_q, inv_s, dq, shift, mask)
+    return (x, w_q, inv_s, dq, shift, mask)
+
+
+def test_int8_stage_on_the_cpu_with_and_without_the_pack():
+    args = _stage_inputs(3)
+    w_q = args[1]
     want = int8_stage_plain(*args)
     assert torch.equal(int8_stage(*args), want)
     assert torch.equal(int8_stage(*args, w_pack=quant.pack_kernel(w_q)),
                        want)
     with pytest.raises(ValueError, match="w_pack"):
         int8_stage(*args, w_pack=quant.pack_kernel(w_q[:3]))
+
+
+def test_int8_stage_on_the_cpu_reads_the_pack():
+    args = _stage_inputs(4)
+    other = args[1].flip(0)  # the same kernels in another order
+    want = int8_stage_plain(args[0], other, *args[2:])
+    got = int8_stage(*args, w_pack=quant.pack_kernel(other))
+    assert torch.equal(got, want) and not torch.equal(got, int8_stage(*args))
 
 
 def test_fused_stage_params_carry_the_stacked_pack(flagship_int8):
