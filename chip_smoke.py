@@ -14,15 +14,21 @@ Phases, each of which raises on failure:
      signed, f32 nonneg and int8 codes, and with every point in one pillar,
      bit-equal; each case timed with its wrapper, its kernels alone
      (`torch.profiler`), the plain version and `scatter_reduce_`;
-  3. the rotated-overlap kernel against its plain version at (6, 1000, 1000)
-     pairs, within 1e-4 m^2;
+  3. the rotated-overlap kernel (K2) against its plain version, bit-equal,
+     at (6, 1000, 1000) NMS-like pairs, and replayed on the candidates that
+     the served requests of phases 5 (f32 nuScenes, (6, 1000)) and 11
+     (Waymo, (3, 2048)) handed it; each timed with its wrapper, its kernels
+     alone (`torch.profiler`) and the plain version, with the share of
+     pairs that `ops.iou3d.pairs_may_meet` lets through to the clip;
   4. the committed golden fixture (`tests/fixtures/golden_e2e_r3.npz`)
      replayed through the port with the fixture's own weights, within the
      tolerances of `tests/test_golden_e2e.py`;
   5. the flagship config `configs/pillarnet/pillarnet34_nusc.py` with seeded
      random weights, serving 3 warm-up + 10 timed requests at batch 1 and 2
      requests at batch 2 through `ServingPipeline(make_infer_fn(model))`,
-     with both kernels' launch counters rising on every request;
+     with both kernels' launch counters rising on every request; one more
+     request under `torch.cuda.set_sync_debug_mode("error")` up to its
+     host copy (no host sync inside a request);
   6. the int8 deploy config `configs/pillarnet/pillarnet34_nusc_int8.py`,
      seeded random weights, calibrated on 4 synthetic clouds (its heatmaps'
      distance from the bf16 forward is printed); one request served with
@@ -42,9 +48,11 @@ Phases, each of which raises on failure:
      requests at batch 1 with the fused stage on (`s2d_pallas`) and off,
      every request raising the counters of the kernels of its path, and
      the two routes' detections identical on every cloud;
-  9. the suppression-mask kernel against its plain version, bit-equal, at
-     (6, 1000, 1000) pairs (threshold 0.2) and the Waymo grouped shape
-     (3, 2048, 2048) (thresholds 0.8 / 0.55 / 0.55); its masks and keep
+  9. the suppression-mask kernel (K3) against its plain version, bit-equal,
+     at (6, 1000, 1000) pairs (threshold 0.2) and the Waymo grouped shape
+     (3, 2048, 2048) (thresholds 0.8 / 0.55 / 0.55), its own corners
+     bit-equal to `mask_kernel_corners`, timed as K2 in phase 3; its masks
+     and keep
      sets against the default overlap-kernel route on the same candidates
      (`rotated_nms(use_mask_kernel=True)` vs `rotated_nms`,
      `_greedy_suppress_mask` vs `rotated_nms_dynamic`): a decision may
@@ -58,12 +66,14 @@ Phases, each of which raises on failure:
  11. the Waymo config `configs/pillarnet/pillarnet34_waymo.py` (full width
      and depth, f32, per-class NMS), seeded random weights, serving 3
      warm-up + 10 timed requests at batch 1 on 196,608-point single-sweep
-     clouds; every class fills NMS slots;
+     clouds; every class fills NMS slots; one more request under
+     `torch.cuda.set_sync_debug_mode("error")`;
  12. the same model with `ops.scatter.set_backend("tiled")`: detections
      identical to phase 11's on the same clouds; then also with
      `test_cfg.nms.use_mask_kernel`: detections equal to phase 11's except
      where the mask kernel decided a pair within MASK_EPS of its threshold
-     otherwise (checked on the request's own candidates).
+     otherwise (checked on the request's own candidates); K3 replayed on
+     the last such request's candidates as in phase 9.
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
@@ -71,7 +81,10 @@ must move (each input read once, each output written once; of the int8
 convs' x and residual, only what the active output sites need) at 3.35 TB/s
 and the operations it must do at the peak rate of their type (f32 67
 TFLOP/s, int8 1,979 TOP/s), and the time of one PyTorch call that computes
-the same function where there is one (`library_ms`, else null).
+the same function where there is one (`library_ms`, else null). K2's and
+K3's operations are those of their near pairs (what `pairs_may_meet` lets
+through) plus the separation test on every pair they test; the old count
+(every pair clipped) is printed beside it.
 
 The second-to-last line of stdout is the kernels' JSON record, the line
 before it the card's `nvidia-smi` name and power limit, and the last line
@@ -98,7 +111,6 @@ WAYMO = os.path.join(ROOT, "configs", "pillarnet", "pillarnet34_waymo.py")
 
 N_POINTS = 262144
 NMS_TASKS, NMS_K = 6, 1000
-AREA_ATOL = 1e-4  # m^2, as tests/test_pallas_iou.py holds the TPU kernel
 TIMING_ITERS = 20
 PLAIN_ITERS = 3  # the int8 plain versions sum in float64: slow
 F32_PATH = {"pillar_scatter_max", "rotated_overlap"}  # kernels of phase 5
@@ -112,8 +124,9 @@ MASK_EPS = 1e-4
 HBM_BPS, F32_OPS, INT8_OPS = 3.35e12, 67e12, 1979e12
 # f32 operations of one box pair: the overlap kernel (two one-sided clips,
 # the B+ scaling, two shoelaces) and the mask kernel (eight clipped edges
-# of 71 ops, the IoU), counted from the sources
-OVERLAP_PAIR_OPS, MASK_PAIR_OPS = 610, 575
+# of 71 ops, the IoU), counted from the sources; and the separation test
+# of `csrc/rotated_pairs.cuh::may_meet` that every tested pair costs
+OVERLAP_PAIR_OPS, MASK_PAIR_OPS, CULL_PAIR_OPS = 610, 575, 9
 
 
 def golden_model_cfg():
@@ -352,32 +365,93 @@ def nms_like_boxes(torch, seed, T=NMS_TASKS, K=NMS_K):
     return torch.from_numpy(b)
 
 
-def check_overlap(torch, dev):
-    """Phase 3: rotated-overlap kernel vs plain at (6, 1000, 1000)."""
-    from pillarnet_lts_torch.ops.iou3d import (
-        _pairwise_area_plain, box_corners_bev, convex_intersection_area)
+def bit_equal(torch, a, b):
+    """Same shape and the same f32 bits (+0 and -0 differ, NaN equals)."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
 
-    corners = box_corners_bev(nms_like_boxes(torch, 1).to(dev)).contiguous()
-    got = convex_intersection_area(corners, corners)
-    want = _pairwise_area_plain(corners, corners)
+
+def pair_bound(n_bytes, near, tested, pair_ops, all_pairs):
+    """(bound, old bound): the pair kernels' bound from this run's near
+    pairs plus the test on every tested pair, and the earlier count that
+    charged every pair the full clip."""
+    return (bound(n_bytes, near * pair_ops + tested * CULL_PAIR_OPS, F32_OPS),
+            bound(n_bytes, all_pairs * pair_ops, F32_OPS))
+
+
+def pair_times(call, plain, plain_iters=5):
+    """Wrapper (CUDA events), kernels alone (profiler), plain."""
+    return {"ms": cuda_ms(call), "alone_ms": device_ms(call)[0],
+            "plain_ms": cuda_ms(plain, iters=plain_iters, warmup=1)}
+
+
+def check_overlap(torch, tag, a, b):
+    """Phase 3: the rotated-overlap kernel (K2) on corners a, b against its
+    plain version, bit-equal, timed three ways; its near-pair share and
+    recounted bound."""
+    from pillarnet_lts_torch.ops.iou3d import (
+        _pairwise_area_plain, convex_intersection_area, pairs_may_meet)
+
+    got = convex_intersection_area(a, b)
+    want = _pairwise_area_plain(a, b)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
-        raise AssertionError("rotated_overlap produced non-finite areas")
-    diff = (got - want).abs()
-    err = diff.max().item()
-    n_over = int((diff > 1e-6).sum().item())
-    n_pos = int((want > 0).sum().item())
-    if err > AREA_ATOL:
-        raise AssertionError(f"rotated_overlap max |d| {err} > {AREA_ATOL}")
-    k_ms = cuda_ms(lambda: convex_intersection_area(corners, corners))
-    p_ms = cuda_ms(lambda: _pairwise_area_plain(corners, corners), iters=5)
-    b = bound(nbytes(corners, corners, got), got.numel() * OVERLAP_PAIR_OPS,
-              F32_OPS)
-    print(f"[3] rotated overlap {tuple(got.shape)}: max |d| {err:.3e} m^2 "
-          f"(<= {AREA_ATOL}); pairs with |d| > 1e-6: {n_over} of "
-          f"{got.numel()} ({n_pos} overlapping); kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
-    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound": b}
+        raise AssertionError(f"rotated_overlap ({tag}): non-finite areas")
+    err = (got - want).abs().max().item()
+    if not bit_equal(torch, got, want):
+        raise AssertionError(f"rotated_overlap ({tag}) differs from plain: "
+                             f"max |d| {err}, {int((got != want).sum())} "
+                             f"pairs")
+    pairs = got.numel()
+    near = int(pairs_may_meet(a, b).sum())
+    r = dict(pair_times(lambda: convex_intersection_area(a, b),
+                        lambda: _pairwise_area_plain(a, b)),
+             max_abs_err=err, shape=list(got.shape), near_share=near / pairs)
+    r["bound"], r["bound_all_pairs"] = pair_bound(
+        nbytes(a, b, got), near, pairs, OVERLAP_PAIR_OPS, pairs)
+    print(f"[3] K2 rotated overlap, {tag} {tuple(got.shape)}: bit-equal to "
+          f"plain ({int((want > 0).sum())} overlapping pairs); near pairs "
+          f"{near} of {pairs} ({r['near_share']:.2%}); wrapper "
+          f"{r['ms']:.4f} ms, kernels alone {r['alone_ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+          f"({r['bound'][1]}; every pair clipped: "
+          f"{r['bound_all_pairs'][0]:.4f} ms)")
+    return r
+
+
+def capture_overlap(request):
+    """Run request() with `ops.iou3d.convex_intersection_area` recorded:
+    returns its result and the (a_quad, b_quad) of its K2 calls."""
+    from pillarnet_lts_torch.ops import iou3d
+
+    calls, real = [], iou3d.convex_intersection_area
+
+    def recording(a, b):
+        calls.append((a, b))
+        return real(a, b)
+
+    iou3d.convex_intersection_area = recording
+    try:
+        out = request()
+    finally:
+        iou3d.convex_intersection_area = real
+    return out, calls
+
+
+def check_no_sync(torch, infer, pts, msk, tag):
+    """One request on card-resident points with every host sync an error,
+    up to its host copy."""
+    from pillarnet_lts_torch.runtime.serving import to_host
+
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        det = infer(pts, msk)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    det = to_host(det)
+    print(f"[{tag}] a request under set_sync_debug_mode('error'): no host "
+          f"sync before its host copy ({int(det['mask'].sum())} kept)")
 
 
 def check_golden(torch, dev):
@@ -410,7 +484,8 @@ def check_golden(torch, dev):
 
 
 def serve_flagship(torch, dev, card):
-    """Phase 5: the f32 flagship config as a server."""
+    """Phase 5: the f32 flagship config as a server. Returns the corners
+    that its first request handed K2."""
     from pillarnet_lts_torch.datasets import synth_points_realistic
     from pillarnet_lts_torch.apis import (
         build_model_from_cfg, load_config, spread_head_outputs)
@@ -430,7 +505,8 @@ def serve_flagship(torch, dev, card):
     calib = synth_points_realistic(1, n, pc_range, seed=99)
     spread_head_outputs(model, torch.from_numpy(calib[0]).to(dev),
                         torch.from_numpy(calib[1]).to(dev))
-    pipe = ServingPipeline(make_infer_fn(model), depth=1)
+    infer = make_infer_fn(model)
+    pipe = ServingPipeline(infer, depth=1)
 
     def request(pts, msk):
         before = dict(_kernels.LAUNCHES)
@@ -447,7 +523,10 @@ def serve_flagship(torch, dev, card):
     lat, kept = [], []
     for i, (pts, msk) in enumerate(clouds):
         t0 = time.perf_counter()
-        det = request(pts, msk)
+        if i == 0:  # a warm-up request: record what it hands K2
+            det, k2_calls = capture_overlap(lambda: request(pts, msk))
+        else:
+            det = request(pts, msk)
         dt = (time.perf_counter() - t0) * 1e3
         B = pts.shape[0]
         for key, shape in (("box3d_lidar", (B, post, 9)), ("scores", (B, post)),
@@ -475,6 +554,10 @@ def serve_flagship(torch, dev, card):
           f"allocated {peak / 2**30:.3f} GiB; mean kept boxes "
           f"{statistics.mean(kept):.1f} of {post}; card: {card}")
     print(f"[5] launches over {len(clouds)} requests: {launches}")
+    check_no_sync(torch, infer, *on_card(torch, dev, clouds[3]), "5")
+    if len(k2_calls) != 1:
+        raise AssertionError(f"a request made {len(k2_calls)} K2 calls")
+    return k2_calls[0]
 
 
 def rel_errors(ref, got, heads=None):
@@ -862,6 +945,53 @@ def mask_flips(torch, boxes, thresh, m_kernel, tag):
     return int(flips.sum())
 
 
+def check_suppression_mask(torch, tag, boxes, thresh):
+    """K3 on (R, K, D) det3d boxes and thresholds (a float or (R,)) against
+    its plain version, bit-equal, and its own corners against
+    `mask_kernel_corners`, bit-equal; timed three ways (the plain version
+    from given corners); its near-pair share and recounted bound. Returns
+    the record and the mask."""
+    from pillarnet_lts_torch.ops import nms
+    from pillarnet_lts_torch.ops.iou3d import pairs_may_meet
+
+    R, K = boxes.shape[:2]
+    th = thresh if torch.is_tensor(thresh) else torch.full(
+        (R,), float(thresh), device=boxes.device)
+    got = nms.suppression_matrix(boxes, thresh)
+    ca, cb = nms.mask_kernel_corners(boxes)
+    want = nms._suppression_matrix_plain(ca, cb, th)
+    kca, kcb = nms.suppression_mask_corners(boxes)
+    torch.cuda.synchronize()
+    corner_err = max((kca - ca).abs().max().item(),
+                     (kcb - cb).abs().max().item())
+    if not (bit_equal(torch, kca, ca) and bit_equal(torch, kcb, cb)):
+        raise AssertionError(f"suppression_mask ({tag}): the kernel's corners "
+                             f"differ from mask_kernel_corners by "
+                             f"{corner_err}")
+    if not bit_equal(torch, got, want):
+        raise AssertionError(f"suppression_mask ({tag}) differs from plain "
+                             f"at {int((got != want).sum())} pairs")
+    upper = torch.ones((K, K), dtype=torch.bool, device=boxes.device).triu(1)
+    near = int((pairs_may_meet(ca, ca) & upper).sum())
+    tested = R * K * (K - 1) // 2
+    r = dict(pair_times(lambda: nms.suppression_matrix(boxes, thresh),
+                        lambda: nms._suppression_matrix_plain(ca, cb, th),
+                        plain_iters=PLAIN_ITERS),
+             max_abs_err=0.0, shape=list(got.shape), near_share=near / tested,
+             corner_max_abs_err=corner_err)
+    r["bound"], r["bound_all_pairs"] = pair_bound(
+        nbytes(boxes, th, got), near, tested, MASK_PAIR_OPS, tested)
+    print(f"[9] K3 suppression mask, {tag} {tuple(got.shape)}: bit-equal to "
+          f"plain ({int(got.sum())} suppressing pairs), its corners "
+          f"bit-equal to mask_kernel_corners; near pairs {near} of {tested} "
+          f"above the diagonal ({r['near_share']:.2%}); wrapper "
+          f"{r['ms']:.4f} ms, kernels alone {r['alone_ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+          f"({r['bound'][1]}; every pair clipped: "
+          f"{r['bound_all_pairs'][0]:.4f} ms)")
+    return r, got
+
+
 def check_mask(torch, dev):
     """Phase 9: the suppression-mask kernel vs its plain version, and vs the
     default (overlap-kernel) route, at the nuScenes and Waymo shapes."""
@@ -874,13 +1004,7 @@ def check_mask(torch, dev):
         boxes = det3d_from_bev(torch, nms_like_boxes(torch, seed, R, K)
                                .to(dev)).contiguous()
         thresh = torch.tensor(ths, dtype=torch.float32, device=dev)
-        got = nms.suppression_matrix(boxes, thresh)
-        ca, cb = nms.mask_kernel_corners(boxes)
-        want = nms._suppression_matrix_plain(ca, cb, thresh)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"suppression_mask ({tag}) differs from "
-                                 f"plain at {int((got != want).sum())} pairs")
+        res[tag], got = check_suppression_mask(torch, tag, boxes, thresh)
         n_flips = mask_flips(torch, boxes, thresh, got, tag)
         valid = torch.rand((R, K), generator=torch.Generator(device=dev)
                            .manual_seed(seed), device=dev) > 0.05
@@ -896,20 +1020,10 @@ def check_mask(torch, dev):
         same = all(torch.equal(x, y) for x, y in zip(mine, ref))
         if not same and n_flips == 0:
             raise AssertionError(f"{tag}: keep sets differ with equal masks")
-        ms = cuda_ms(lambda: nms.suppression_matrix(boxes, thresh))
-        p_ms = cuda_ms(lambda: nms._suppression_matrix_plain(ca, cb, thresh),
-                       iters=PLAIN_ITERS, warmup=1)
-        pairs = R * K * (K - 1) // 2
-        b = bound(nbytes(boxes, thresh, got), pairs * MASK_PAIR_OPS, F32_OPS)
-        print(f"[9] suppression mask {tag} {tuple(got.shape)}: bit-equal to "
-              f"plain ({int(got.sum())} suppressing pairs); vs the default "
-              f"route {n_flips} pairs decided otherwise (within {MASK_EPS}), "
-              f"keep sets {'equal' if same else 'differ'} "
-              f"({int(ref[1].sum())} kept); kernel {ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
-        res[tag] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": p_ms,
-                    "bound": b}
-    return res["Waymo grouped"]
+        print(f"[9] {tag}: vs the default route {n_flips} pairs decided "
+              f"otherwise (within {MASK_EPS}), keep sets "
+              f"{'equal' if same else 'differ'} ({int(ref[1].sum())} kept)")
+    return res
 
 
 def check_scatter_tiled(torch, dev):
@@ -987,7 +1101,9 @@ def check_scatter_tiled(torch, dev):
 def serve_waymo(torch, dev, card):
     """Phases 11-12: the Waymo config as a server on the default route,
     then with the sorted-run scatter-max, then also with the mask kernel.
-    Returns the launch counts of phase 12."""
+    Returns the launch counts of phase 12, the corners that phase 11's
+    first request handed K2 and the (boxes, thresh) that phase 12's last
+    request handed K3."""
     from pillarnet_lts_torch.datasets import synth_points_realistic
     from pillarnet_lts_torch.apis import (
         build_model_from_cfg, load_config, spread_head_outputs)
@@ -1027,13 +1143,21 @@ def serve_waymo(torch, dev, card):
         return det, dt
 
     # phase 11: default route (atomic scatter-max, overlap kernel)
-    pipe = ServingPipeline(make_infer_fn(model, test_cfg), depth=1)
+    infer = make_infer_fn(model, test_cfg)
+    pipe = ServingPipeline(infer, depth=1)
     torch.cuda.reset_peak_memory_stats(dev)
     _kernels.reset_launches()
     lat, dets = [], []
     for i, cloud in enumerate(clouds):
-        det, dt = serve(pipe, cloud, {"pillar_scatter_max", "rotated_overlap"},
-                        f"waymo request {i}")
+        def request():
+            return serve(pipe, cloud, {"pillar_scatter_max",
+                                       "rotated_overlap"},
+                         f"waymo request {i}")
+
+        if i == 0:  # a warm-up request: record what it hands K2
+            (det, dt), k2_calls = capture_overlap(request)
+        else:
+            det, dt = request()
         dets.append(det)
         if i >= 3:
             lat.append(dt)
@@ -1058,6 +1182,9 @@ def serve_waymo(torch, dev, card):
           f"first requests {per_class[:3]}, mean "
           f"{np.mean(per_class, axis=0).round(1).tolist()}; launches over "
           f"{len(clouds)} requests {launches}; card: {card}")
+    check_no_sync(torch, infer, *on_card(torch, dev, clouds[3]), "11")
+    if len(k2_calls) != 1:
+        raise AssertionError(f"a Waymo request made {len(k2_calls)} K2 calls")
 
     # phase 12: the switches, on three of the same clouds
     mask_cfg = dict(test_cfg, nms=dict(test_cfg["nms"], use_mask_kernel=True))
@@ -1103,7 +1230,7 @@ def serve_waymo(torch, dev, card):
         scatter.set_backend("auto")
     launches = dict(_kernels.LAUNCHES)
     print(f"[12] launches over 3 + 3 requests: {launches}")
-    return launches
+    return launches, k2_calls[0], (boxes, thresh)
 
 
 def main():
@@ -1115,6 +1242,7 @@ def main():
     sys.path.insert(0, ROOT)
     from pillarnet_lts_torch.apis import load_config
     from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.ops.iou3d import box_corners_bev
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -1131,24 +1259,36 @@ def main():
     cfg = load_config(FLAGSHIP)
     scatter = check_scatter(torch, dev, cfg["point_cloud_range"],
                             cfg["pillar_size"])
-    overlap = check_overlap(torch, dev)
+    corners = box_corners_bev(nms_like_boxes(torch, 1).to(dev)).contiguous()
+    overlaps = {"nms_like": check_overlap(torch, "NMS-like", corners,
+                                          corners)}
+    del corners
     check_golden(torch, dev)
-    serve_flagship(torch, dev, card)
+    overlaps["served_nuscenes"] = check_overlap(
+        torch, "the served f32 nuScenes request's candidates",
+        *serve_flagship(torch, dev, card))
     model, cloud, post = int8_flagship(torch, dev)
     calls = capture_int8_convs(torch, model, on_card(torch, dev, cloud(50)))
     conv = check_int8_conv(torch, calls)
     stage = check_int8_stage(torch, model, calls)
     del calls
     launches = serve_int8_flagship(torch, dev, card, model, cloud, post)
-    mask = check_mask(torch, dev)
+    masks = check_mask(torch, dev)
     tiled = check_scatter_tiled(torch, dev)
-    switched = serve_waymo(torch, dev, card)
+    switched, k2_waymo, k3_waymo = serve_waymo(torch, dev, card)
+    overlaps["served_waymo"] = check_overlap(
+        torch, "the served Waymo request's candidates", *k2_waymo)
+    masks["served_waymo"], _ = check_suppression_mask(
+        torch, "the served Waymo request's candidates (phase 12)", *k3_waymo)
+    overlap, mask = overlaps["served_nuscenes"], masks["served_waymo"]
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
     # on (phase 12); times, errors and bounds: phases 2-3, 6-7, 9-10. K1's
     # and K1''s rows carry the mode of their launches' path (int8 codes,
-    # the Waymo shape) and every mode's times under "modes"
+    # the Waymo shape) and every mode's times under "modes"; K2's and K3's
+    # rows the served candidates' replay (f32 nuScenes, Waymo phase 12) and
+    # every replay under "replays"
     def row(name, source, replaces, count, res, ms, plain_ms, b, lib=None):
         return {"name": name, "route": "cuda",
                 "source": f"pillarnet_lts_torch/csrc/{source}",
@@ -1170,12 +1310,17 @@ def main():
         scatter_row("pillar_scatter_max_tiled", "pillar_scatter_max_tiled.cu",
                     "voxelize_kernel.py:78",
                     switched["pillar_scatter_max_tiled"], tiled, "waymo"),
-        row("rotated_overlap", "rotated_overlap.cu", "iou_kernel.py:105",
-            launches["rotated_overlap"], overlap, overlap["ms"],
-            overlap["plain_ms"], overlap["bound"]),
-        row("suppression_mask", "suppression_mask.cu", "nms_kernel.py:221",
-            switched["suppression_mask"], mask, mask["ms"], mask["plain_ms"],
-            mask["bound"]),
+        dict(row("rotated_overlap", "rotated_overlap.cu", "iou_kernel.py:105",
+                 launches["rotated_overlap"], overlap, overlap["ms"],
+                 overlap["plain_ms"], overlap["bound"]),
+             alone_ms=overlap["alone_ms"], near_share=overlap["near_share"],
+             bound_all_pairs_ms=overlap["bound_all_pairs"][0],
+             replays=overlaps),
+        dict(row("suppression_mask", "suppression_mask.cu",
+                 "nms_kernel.py:221", switched["suppression_mask"], mask,
+                 mask["ms"], mask["plain_ms"], mask["bound"]),
+             alone_ms=mask["alone_ms"], near_share=mask["near_share"],
+             bound_all_pairs_ms=mask["bound_all_pairs"][0], replays=masks),
         dict(row("int8_conv", "int8_conv.cu", "s2d_conv_kernel.py:137",
                  launches["int8_conv"], conv, conv["ms"], conv["plain_ms"],
                  conv["bound"]), alone_ms=conv["alone_ms"],

@@ -1,5 +1,31 @@
 """Misc core helpers (the port's own copy of
-`pillarnet_lts_tpu/core/utils.py`)."""
+`pillarnet_lts_tpu/core/utils.py`, and the device constants of predict)."""
+
+import torch
+
+_CONSTANTS = {}
+
+
+def device_constant(values, device, dtype=torch.float32):
+    """A 1-D tensor of the python `values` on `device`, made once per
+    (values, dtype, device) and cached; callers must not write to it.
+
+    On a CUDA device it goes through pinned host memory with a
+    non-blocking copy: a tensor built from a list straight on the card
+    (`torch.tensor(..., device=)`) is a pageable copy that PyTorch ends
+    with a stream synchronize, which would stall the host inside every
+    request."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (tuple(values), dtype, device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        host = torch.tensor(list(values), dtype=dtype)
+        if device.type == "cuda":
+            host = host.pin_memory()
+        t = _CONSTANTS[key] = host.to(device, non_blocking=True)
+    return t
 
 
 def set_by_task_cfg(test_cfg, task_num_classes):

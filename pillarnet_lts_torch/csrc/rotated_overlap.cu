@@ -14,30 +14,39 @@
 // iou3d.py::_ENLARGE: collinear shared edges are then counted once).
 //
 // Replaces the TPU kernel
-// pillarnet_lts_tpu/ops/pallas/iou_kernel.py::convex_intersection_area_pallas.
-// That kernel works on (8 x 128) pair tiles and needs two pallas_calls (one
-// per side) only because of the Mosaic compiler; here one thread evaluates
-// one (t, i, j) pair, both sides, in registers, and the ragged edge is
-// masked in the kernel rather than padded. It is built with -fmad=false
-// (ops/_kernels.py): products of coordinates near 54 m round at ~2e-4 m^2,
-// so FMA contraction alone moved areas by up to 3.7e-4 m^2 from the plain
-// version; without it the two agree bit for bit.
+// pillarnet_lts_tpu/ops/pallas/iou_kernel.py::convex_intersection_area_pallas,
+// which computes every pair of its (8 x 128) tiles in full, in two
+// pallas_calls (one per side). Built with -fmad=false (ops/_kernels.py):
+// products of coordinates near 54 m round at ~2e-4 m^2, so FMA contraction
+// alone moved areas by up to 3.7e-4 m^2 from the plain version; without it
+// the two agree bit for bit.
 //
-// What bounds it on the card: it is compute-bound. A pair costs about 600
-// flops and 32 divides (16 clip planes per side) on 64 bytes of corners; the
-// flagship's NMS runs 6 tasks x 1000 x 1000 = 6 M pairs per frame, and the
-// output is 24 MB. A block covers one row quad i and 128 column quads j, so
-// the row quad is a broadcast load and the column quads are read coalesced.
+// Design (rotated_pairs.cuh): a block owns 32 row quads x 128 column quads.
+// Its prologue stages each row quad's corners, bounding circle and
+// shoelace area, and each column quad's B+ corners, B+'s bounding circle
+// and B's shoelace area, once. A pair whose circles cannot meet is written
+// +0.0 (what the plain version returns there, bit for bit) with nothing
+// else computed; the pairs that may meet are compacted into a shared list
+// that the block's warps clip at full occupancy; the tile leaves shared
+// memory in 16-byte stores.
+//
+// What bounds it on the card: the output. A near pair costs ~610 f32
+// operations and 32 divides, a far pair ~9 for the test; on NMS candidates
+// only a few percent of pairs are near (chip_smoke.py prints the share), so
+// the 4 bytes a pair written once (24 MB at the flagship's 6 x 1000^2, ~7 us
+// at 3.35 TB/s) are the floor.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rotated_pairs.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr float kEps = 1e-8f;      // iou_kernel.py::_EPS
-constexpr float kBig = 1e9f;       // iou_kernel.py::_BIG
-constexpr float kScale = 1.00001f; // 1 + iou3d.py::_ENLARGE
+using namespace rpairs;
+
+constexpr float kEps = 1e-8f;  // iou_kernel.py::_EPS
+constexpr float kBig = 1e9f;   // iou_kernel.py::_BIG
 
 // Sum over P's 4 edges of the Green integral of the part inside convex Q.
 __device__ __forceinline__ float one_sided(const float (&p)[8],
@@ -92,48 +101,86 @@ __device__ __forceinline__ float shoelace(const float (&q)[8]) {
   return 0.5f * fabsf(s);
 }
 
-__global__ void rotated_overlap_kernel(const float* __restrict__ a,
-                                       const float* __restrict__ b,
-                                       float* __restrict__ out, int64_t ka,
-                                       int64_t kb) {
-  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= kb) return;
-  const int64_t i = blockIdx.y;
-  const int64_t t = blockIdx.z;
+__device__ __forceinline__ void load_box(const float* src, float (&q)[8]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) q[c] = src[c];
+}
 
-  float qa[8], qb[8], qp[8];
-  const float* pa = a + (t * ka + i) * 8;
-  const float* pb = b + (t * kb + j) * 8;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    qa[k] = pa[k];
-    qb[k] = pb[k];
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+rotated_overlap_kernel(const float* __restrict__ a,
+                       const float* __restrict__ b, float* __restrict__ out,
+                       int64_t ka, int64_t kb, int64_t row_tiles,
+                       int64_t col_tiles) {
+  __shared__ BoxTile<kTileRows> rows;   // A
+  __shared__ BoxTile<kTileCols> cols;   // B+, with B's area
+  __shared__ __align__(16) float tile[kTilePairs];
+  __shared__ uint16_t list[kTilePairs];
+  __shared__ int count;
+
+  int64_t t, row0, col0;
+  tile_origin(row_tiles, col_tiles, t, row0, col0);
+  const int nrows = ka - row0 < kTileRows ? (int)(ka - row0) : kTileRows;
+  const int ncols = kb - col0 < kTileCols ? (int)(kb - col0) : kTileCols;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) count = 0;
+  if (tid < kTileRows) {
+    if (tid < nrows) {
+      float q[8];
+      load_box(a + (t * ka + row0 + tid) * 8, q);
+      stage_box(rows, tid, q, shoelace(q));
+    }
+  } else if (tid < kTileRows + kTileCols) {
+    const int slot = tid - kTileRows;
+    if (slot < ncols) {
+      float q[8], qp[8];
+      load_box(b + (t * kb + col0 + slot) * 8, q);
+      scale_quad(q, qp);
+      stage_box(cols, slot, qp, shoelace(q));
+    }
   }
-  // B+ = B scaled about its corner mean (iou3d.py::_scale_quad)
-  const float mx = (((qb[0] + qb[2]) + qb[4]) + qb[6]) / 4.0f;
-  const float my = (((qb[1] + qb[3]) + qb[5]) + qb[7]) / 4.0f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    qp[2 * k] = mx + (qb[2 * k] - mx) * kScale;
-    qp[2 * k + 1] = my + (qb[2 * k + 1] - my) * kScale;
-  }
-  const float area = one_sided(qa, qp) + one_sided(qp, qa);
-  const float cap = fminf(shoelace(qa), shoelace(qb));
-  out[(t * ka + i) * kb + j] = fminf(fmaxf(area, 0.0f), cap);
+  __syncthreads();
+
+  // far pairs: every clipped interval empty, the plain version's +0.0
+  cull_pairs(
+      [&](int r, int c, float& v) {
+        v = 0.0f;
+        return r < nrows && c < ncols && tile_may_meet(rows, cols, r, c);
+      },
+      tile, list, &count);
+  __syncthreads();
+
+  eval_listed(
+      [&](int r, int c) {
+        float qa[8], qp[8];
+        load_quad(rows, r, qa);
+        load_quad(cols, c, qp);
+        const float area = one_sided(qa, qp) + one_sided(qp, qa);
+        const float cap = fminf(rows.area[r], cols.area[c]);
+        return fminf(fmaxf(area, 0.0f), cap);
+      },
+      tile, list, count);
+  __syncthreads();
+
+  store_tile(tile, out + (t * ka + row0) * kb + col0, kb, nrows, ncols);
 }
 
 }  // namespace
 
-// a (T, Ka, 4, 2), b (T, Kb, 4, 2), out (T, Ka, Kb): f32, contiguous.
-// Ka and T must each be at most 65535 (grid y and z). Returns the
-// cudaError_t of the launch.
+// a (T, Ka, 4, 2), b (T, Kb, 4, 2), out (T, Ka, Kb): f32, contiguous. The
+// grid is one block per 32 x 128 tile: T * ceil(Ka / 32) * ceil(Kb / 128)
+// must stay below 2^31 (the wrapper checks). Returns the cudaError_t of
+// the launch.
 extern "C" int rotated_overlap_f32(const float* a, const float* b, float* out,
                                    int64_t t, int64_t ka, int64_t kb,
                                    void* stream) {
   if (t == 0 || ka == 0 || kb == 0) return 0;
-  dim3 grid((unsigned int)((kb + kThreads - 1) / kThreads), (unsigned int)ka,
-            (unsigned int)t);
-  rotated_overlap_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, out, ka, kb);
+  const int64_t row_tiles = (ka + kTileRows - 1) / kTileRows;
+  const int64_t col_tiles = (kb + kTileCols - 1) / kTileCols;
+  const int64_t blocks = t * row_tiles * col_tiles;
+  if (blocks >= (int64_t(1) << 31)) return (int)cudaErrorInvalidConfiguration;
+  rotated_overlap_kernel<<<(unsigned int)blocks, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      a, b, out, ka, kb, row_tiles, col_tiles);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,13 @@
 // NMS suppression mask from rotated-BEV IoU, for Hopper (sm_90a).
 //
 // out[r, j, i] = (j < i) * (IoU_bev(j, i) > thresh[r]) as f32, for rows
-// r < R of K score-sorted boxes each, given their corners A (R, K, 4, 2) and
-// the corners of B+ (R, K, 4, 2): each box scaled by 1 + 1e-5 about its
-// corner mean (pillarnet_lts_torch/ops/nms.py::mask_kernel_corners). The
-// IoU is the TPU kernel's own formula, not rotated_iou_bev's:
+// r < R of K score-sorted det3d boxes (R, K, D >= 7) each. The kernel makes
+// each box's corners itself, in the order of operations of
+// pillarnet_lts_torch/ops/nms.py::mask_kernel_corners on the card: the
+// det3d -> pcdet swap (x, y, l, w, -yaw - pi/2), cosf/sinf, the corners
+// ((lx cos - ly sin) + x, (lx sin + ly cos) + y), and B+ = the corners
+// scaled by 1 + 1e-5 about their mean. The IoU is the TPU kernel's own
+// formula, not rotated_iou_bev's:
 //
 //   inter = one running sum of the Green integrals of A's edges clipped to
 //           B+, then of B+'s edges clipped to A (edge by edge);
@@ -19,35 +22,42 @@
 //
 // Replaces the TPU kernel
 // pillarnet_lts_tpu/ops/pallas/nms_kernel.py::suppression_matrix_pallas. On
-// the TPU every (32 x 128) pair tile is computed whole and masked, and the
-// eight clip passes run as a fori_loop whose edge operands are picked with
-// one-hot selects (Mosaic's limits). Here one thread evaluates one pair in
-// registers, and only pairs with j < i are computed: a block covers a
-// 32 x 32 tile, tiles below the diagonal only write zeros, and on the
-// diagonal tile the threads with j >= i write 0 without computing.
+// the TPU every (32 x 128) pair tile is computed whole and masked, the
+// corners are made by XLA outside the kernel, and the eight clip passes run
+// as a fori_loop whose edge operands are picked with one-hot selects
+// (Mosaic's limits).
 //
-// What bounds it on the card: it is compute-bound. A pair costs about 600
-// f32 operations and 32 divides (16 clip planes per direction); the Waymo
-// grouped shape (3, 2048, 2048) has 6.3 M pairs above the diagonal, the
-// output is 50 MB (15 us at 3.35 TB/s). The corners of the tile's 32 row
-// boxes and 32 column boxes (and their areas) are staged once in shared
-// memory; each thread then reads a row quad (a broadcast) and its own
-// column quad (stride 9 floats, no bank conflicts).
+// Design (rotated_pairs.cuh, shared with rotated_overlap.cu): a block owns
+// 32 rows j x 128 columns i. A tile wholly below the diagonal (every
+// j >= i) is stored as zeros with 16-byte stores and stages nothing. Any
+// other tile stages its row boxes' A corners, circle and area and its
+// column boxes' B+ corners, circle and area, computed once from the boxes.
+// A pair with j >= i is 0; a pair whose circles cannot meet gets what the
+// plain version computes from an intersection of +0 (IoU +0 > thresh, so
+// 0 for thresh >= 0); the rest are compacted and clipped at full warps;
+// the tile leaves shared memory in 16-byte stores.
+//
+// What bounds it on the card: the output. A near pair above the diagonal
+// costs ~575 f32 operations and 32 divides, a far one ~9 for the test; the
+// Waymo grouped shape (3, 2048, 2048) writes 50 MB (15 us at 3.35 TB/s).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rotated_pairs.cuh"
+
 namespace {
 
-constexpr int kTile = 32;             // pairs per block: kTile x kTile
-constexpr int kRowsPerPass = 8;       // threadIdx.y extent
-constexpr float kEps = 1e-8f;         // nms_kernel.py::_EPS
-constexpr float kBig = 1e9f;          // nms_kernel.py::_BIG
+using namespace rpairs;
+
+constexpr float kEps = 1e-8f;                // nms_kernel.py::_EPS
+constexpr float kBig = 1e9f;                 // nms_kernel.py::_BIG
 constexpr float kEnlargeSq = 1.0000200001f;  // (1 + 1e-5)^2
+constexpr float kHalfPi = 1.57079632679489662f;  // f32(math.pi / 2)
 
 // Shoelace area without abs, summed left to right from 0
 // (nms_kernel.py::_quad_area).
-__device__ __forceinline__ float mask_area(const float* q) {
+__device__ __forceinline__ float mask_area(const float (&q)[8]) {
   float s = 0.0f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -55,6 +65,25 @@ __device__ __forceinline__ float mask_area(const float* q) {
     s = s + (q[2 * k] * q[2 * kn + 1] - q[2 * k + 1] * q[2 * kn]);
   }
   return 0.5f * s;
+}
+
+// Corners (CCW) of det3d box `b` (x, y, z, w, l, h, ..., yaw at d - 1):
+// iou3d.py::box_corners_bev(to_pcdet_bev(b)), operation by operation.
+__device__ __forceinline__ void box_corners(const float* b, int d,
+                                            float (&q)[8]) {
+  const float x = b[0], y = b[1];
+  const float dx = b[4], dy = b[3];  // pcdet (dx, dy) = det3d (l, w)
+  const float heading = -b[d - 1] - kHalfPi;
+  const float c = cosf(heading);
+  const float s = sinf(heading);
+  const float hx = dx * 0.5f, hy = dy * 0.5f;
+  const float lx[4] = {hx, -hx, -hx, hx};
+  const float ly[4] = {hy, hy, -hy, -hy};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    q[2 * k] = (lx[k] * c - ly[k] * s) + x;
+    q[2 * k + 1] = (lx[k] * s + ly[k] * c) + y;
+  }
 }
 
 // total += the Green integrals of P's 4 edges clipped to the inside of
@@ -97,84 +126,133 @@ __device__ __forceinline__ float clip_edges(const float (&p)[8],
   return total;
 }
 
-__global__ void __launch_bounds__(kTile * kRowsPerPass)
-suppression_mask_kernel(const float* __restrict__ ca,
-                        const float* __restrict__ cb,
-                        const float* __restrict__ thresh,
-                        float* __restrict__ out, int k) {
-  const int r = blockIdx.z;
-  const int row0 = blockIdx.y * kTile;
-  const int col0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  float* o = out + (int64_t)r * k * k;
-  const int i = col0 + tx;
+// The mask bit from an intersection sum, in the plain version's order.
+__device__ __forceinline__ float mask_bit(float inter, float area_a,
+                                          float area_b, float th) {
+  inter = fminf(fmaxf(inter, 0.0f), fminf(area_a, area_b));
+  const float iou = inter / fmaxf((area_a + area_b) - inter, kEps);
+  return iou > th ? 1.0f : 0.0f;
+}
 
-  if (row0 > col0) {  // below the diagonal: every pair has j > i
-    for (int jj = ty; jj < kTile; jj += kRowsPerPass) {
-      const int j = row0 + jj;
-      if (j < k && i < k) o[(int64_t)j * k + i] = 0.0f;
-    }
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+suppression_mask_kernel(const float* __restrict__ boxes, int d,
+                        const float* __restrict__ thresh, float thresh_value,
+                        float* __restrict__ out, int64_t k,
+                        int64_t row_tiles, int64_t col_tiles) {
+  __shared__ BoxTile<kTileRows> rows;   // A of boxes j
+  __shared__ BoxTile<kTileCols> cols;   // B+ of boxes i
+  __shared__ __align__(16) float tile[kTilePairs];
+  __shared__ uint16_t list[kTilePairs];
+  __shared__ int count;
+
+  int64_t r, row0, col0;
+  tile_origin(row_tiles, col_tiles, r, row0, col0);
+  const int nrows = k - row0 < kTileRows ? (int)(k - row0) : kTileRows;
+  const int ncols = k - col0 < kTileCols ? (int)(k - col0) : kTileCols;
+  float* o = out + (r * k + row0) * k + col0;
+
+  // below the diagonal: every pair has j >= i
+  if (row0 >= col0 + ncols - 1) {
+    fill_tile(o, k, nrows, ncols, 0.0f);
     return;
   }
 
-  // 8 corner coordinates + area per box; stride 9 avoids bank conflicts
-  __shared__ float rows[kTile][9];
-  __shared__ float cols[kTile][9];
-  const int tid = ty * kTile + tx;
-  if (tid < 2 * kTile) {
-    const bool is_row = tid < kTile;
-    const int slot = is_row ? tid : tid - kTile;
-    const int box = (is_row ? row0 : col0) + slot;
-    float* dst = is_row ? rows[slot] : cols[slot];
-    if (box < k) {
-      const float* src = (is_row ? ca : cb) + ((int64_t)r * k + box) * 8;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) dst[c] = src[c];
-      const float area = mask_area(dst);
-      dst[8] = is_row ? area : area / kEnlargeSq;
+  const int tid = threadIdx.x;
+  const float* rb = boxes + r * k * d;
+  if (tid == 0) count = 0;
+  if (tid < kTileRows) {
+    if (tid < nrows) {
+      float q[8];
+      box_corners(rb + (row0 + tid) * d, d, q);
+      stage_box(rows, tid, q, mask_area(q));
+    }
+  } else if (tid < kTileRows + kTileCols) {
+    const int slot = tid - kTileRows;
+    if (slot < ncols) {
+      float q[8], qp[8];
+      box_corners(rb + (col0 + slot) * d, d, q);
+      scale_quad(q, qp);
+      stage_box(cols, slot, qp, mask_area(qp) / kEnlargeSq);
     }
   }
   __syncthreads();
-  if (i >= k) return;
 
-  const float th = thresh[r];
-  float b[8];
+  const float th = thresh != nullptr ? thresh[r] : thresh_value;
+  cull_pairs(
+      [&](int jj, int ii, float& v) {
+        v = 0.0f;
+        if (jj >= nrows || ii >= ncols || row0 + jj >= col0 + ii) return false;
+        if (tile_may_meet(rows, cols, jj, ii)) return true;
+        // far: every clipped interval empty, so the plain sum is +0
+        v = mask_bit(0.0f, rows.area[jj], cols.area[ii], th);
+        return false;
+      },
+      tile, list, &count);
+  __syncthreads();
+
+  eval_listed(
+      [&](int jj, int ii) {
+        float a[8], b[8];
+        load_quad(rows, jj, a);
+        load_quad(cols, ii, b);
+        float inter = clip_edges(a, b, 0.0f);
+        inter = clip_edges(b, a, inter);
+        return mask_bit(inter, rows.area[jj], cols.area[ii], th);
+      },
+      tile, list, count);
+  __syncthreads();
+
+  store_tile(tile, o, k, nrows, ncols);
+}
+
+// The staged corners of every box, for checking them against
+// mask_kernel_corners: A and B+, (N, 4, 2) each.
+__global__ void mask_corners_kernel(const float* __restrict__ boxes, int d,
+                                    float* __restrict__ ca,
+                                    float* __restrict__ cb, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float q[8], qp[8];
+  box_corners(boxes + i * d, d, q);
+  scale_quad(q, qp);
 #pragma unroll
-  for (int c = 0; c < 8; ++c) b[c] = cols[tx][c];
-  const float area_b = cols[tx][8];
-  for (int jj = ty; jj < kTile; jj += kRowsPerPass) {
-    const int j = row0 + jj;
-    if (j >= k) break;
-    float m = 0.0f;
-    if (j < i) {
-      float a[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) a[c] = rows[jj][c];
-      const float area_a = rows[jj][8];
-      float inter = clip_edges(a, b, 0.0f);
-      inter = clip_edges(b, a, inter);
-      inter = fminf(fmaxf(inter, 0.0f), fminf(area_a, area_b));
-      const float iou = inter / fmaxf((area_a + area_b) - inter, kEps);
-      m = iou > th ? 1.0f : 0.0f;
-    }
-    o[(int64_t)j * k + i] = m;
+  for (int c = 0; c < 8; ++c) {
+    ca[i * 8 + c] = q[c];
+    cb[i * 8 + c] = qp[c];
   }
 }
 
 }  // namespace
 
-// ca, cb (R, K, 4, 2) f32 corners of A and B+; thresh (R,) f32; out
-// (R, K, K) f32. All contiguous; R <= 65535 and ceil(K / 32) <= 65535.
-// Returns the cudaError_t of the launch.
-extern "C" int suppression_mask_f32(const float* ca, const float* cb,
-                                    const float* thresh, float* out,
-                                    int64_t r, int64_t k, void* stream) {
+// boxes (N, D) f32 det3d boxes -> ca, cb (N, 4, 2): the corners the mask
+// kernel makes (A, B+). Returns the cudaError_t of the launch.
+extern "C" int suppression_mask_corners_f32(const float* boxes, float* ca,
+                                            float* cb, int64_t n, int64_t d,
+                                            void* stream) {
+  if (n == 0) return 0;
+  if (d < 7) return (int)cudaErrorInvalidConfiguration;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  mask_corners_kernel<<<(unsigned int)blocks, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(boxes, (int)d, ca,
+                                                             cb, n);
+  return (int)cudaGetLastError();
+}
+
+// boxes (R, K, D) f32 det3d boxes (D >= 7, yaw last); thresh (R,) f32, or
+// null for one threshold `thresh_value` on every row; out (R, K, K) f32.
+// All contiguous; R * ceil(K / 32) * ceil(K / 128) below 2^31. Returns the
+// cudaError_t of the launch.
+extern "C" int suppression_mask_f32(const float* boxes, const float* thresh,
+                                    float thresh_value, float* out, int64_t r,
+                                    int64_t k, int64_t d, void* stream) {
   if (r == 0 || k == 0) return 0;
-  const unsigned int tiles = (unsigned int)((k + kTile - 1) / kTile);
-  dim3 grid(tiles, tiles, (unsigned int)r);
-  dim3 block(kTile, kRowsPerPass);
-  suppression_mask_kernel<<<grid, block, 0,
+  const int64_t row_tiles = (k + kTileRows - 1) / kTileRows;
+  const int64_t col_tiles = (k + kTileCols - 1) / kTileCols;
+  const int64_t blocks = r * row_tiles * col_tiles;
+  if (blocks >= (int64_t(1) << 31) || d < 7)
+    return (int)cudaErrorInvalidConfiguration;
+  suppression_mask_kernel<<<(unsigned int)blocks, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-      ca, cb, thresh, out, (int)k);
+      boxes, (int)d, thresh, thresh_value, out, k, row_tiles, col_tiles);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,11 @@ Port of `pillarnet_lts_tpu/models/bbox_heads/center_head.py`:
 suppression masks with the mask kernel (`ops/nms.py::suppression_matrix`),
 the counterpart of the JAX package's `rotated_nms(use_pallas=True)`.
 
+Predict does not sync the host: its constants from `test_cfg` (centre
+range, per-row thresholds and pre sizes) are made once per values and
+device (`core.utils.device_constant`), and a float IoU threshold reaches
+the mask kernel as a launch argument.
+
 Inputs are NCHW maps; the prediction dicts hold NHWC views, the JAX
 package's layout, so decode and the tests index channels last. The convs
 compute in the input's dtype (bf16 in the bf16 and int8 configs); decode
@@ -32,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.utils import device_constant
 from ...ops.nms import _NMS_SWEEPS, rotated_nms, rotated_nms_dynamic
 from ..backbones.base import MaskedConv
 from ..registry import HEADS
@@ -250,10 +256,11 @@ class CenterHeadMath:
                 torch.cat([valid & (labels == k) for k in range(num_cls)]),
                 torch.cat([order_scores(k) for k in range(num_cls)]),
                 max(pre_sizes), max(post_sizes),
-                torch.tensor(threshs, device=dev).repeat_interleave(B),
+                device_constant([t for t in threshs for _ in range(B)], dev),
                 sweeps,
-                pre_limits=torch.tensor(pre_sizes, device=dev)
-                .repeat_interleave(B),
+                pre_limits=device_constant(
+                    [n for n in pre_sizes for _ in range(B)], dev,
+                    torch.int64),
                 use_mask_kernel=mask_kernel)
             return tuple(
                 torch.cat([o[k * B:(k + 1) * B, :post_sizes[k]]
@@ -271,8 +278,8 @@ class CenterHeadMath:
 
 def _candidate_mask(boxes, scores, test_cfg):
     """Score threshold and centre-range mask of flat (B', P, *) maps."""
-    pcr = torch.tensor(test_cfg["post_center_limit_range"],
-                       dtype=boxes.dtype, device=boxes.device)
+    pcr = device_constant(test_cfg["post_center_limit_range"], boxes.device,
+                          boxes.dtype)
     dist_ok = ((boxes[..., :3] >= pcr[:3]).all(-1)
                & (boxes[..., :3] <= pcr[3:]).all(-1))
     return (scores > test_cfg["score_threshold"]) & dist_ok

@@ -12,7 +12,9 @@ nvcc's stderr; nothing falls back.
 after its launch succeeds and nowhere else, so a caller can zero the counts,
 run the model and see which kernels the run went through. A wrapper that
 calls two entry points of one source (the sorted-run scatter-max makes its
-sort keys first) counts once, as its kernel.
+sort keys first) counts once, as its kernel; an entry point that only
+exposes a kernel's staged values for a check
+(`suppression_mask_corners`) counts nothing.
 """
 
 import ctypes
@@ -64,7 +66,11 @@ KERNELS = {
     ),
     "suppression_mask": (
         "suppression_mask.cu", _NO_FMA, "suppression_mask_f32",
-        [_P, _P, _P, _P, _I64, _I64, _P],
+        [_P, _P, ctypes.c_float, _P, _I64, _I64, _I64, _P],
+    ),
+    "suppression_mask_corners": (
+        "suppression_mask.cu", _NO_FMA, "suppression_mask_corners_f32",
+        [_P, _P, _P, _I64, _I64, _P],
     ),
     "int8_conv": (
         "int8_conv.cu", _NO_FMA, "int8_conv_bf16",

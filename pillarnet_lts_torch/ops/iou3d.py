@@ -7,7 +7,8 @@ of B+ clipped to the inside of A, with B+ = B enlarged by 1 + `_ENLARGE`.
 `_convex_intersection_area` is the plain PyTorch version of the Hopper
 kernel `csrc/rotated_overlap.cu`; `convex_intersection_area` picks between
 the two by device. Sums run in a fixed left-to-right order that the kernel
-repeats, so the two agree to rounding.
+repeats, so the two agree bit for bit. `pairs_may_meet` is the kernels'
+separation test (pairs that cannot meet skip the clip).
 
 Box conventions: det3d boxes (x, y, z, w, l, h, [vx, vy,] yaw) are turned
 into pcdet BEV boxes (x, y, dx, dy, heading) by `to_pcdet_bev` before any
@@ -31,6 +32,14 @@ _ENLARGE = 1e-5
 
 # rows of A per plain-version chunk: bounds the (rows, M, 4, 4) temporaries
 _PLAIN_ROWS = 256
+
+# The pair kernels' separation test (`csrc/rotated_pairs.cuh`): bounding
+# circles further apart than this (m) cannot meet. It covers the test's and
+# the clip bounds' f32 rounding (< 1e-4 m for coordinates within +-150 m)
+# ten times over; `pairs_may_meet` states the rest.
+_CULL_MARGIN = 1e-3
+# The kernels' pair tile: rows x columns of one block
+_TILE_ROWS, _TILE_COLS = 32, 128
 
 
 def to_pcdet_bev(boxes):
@@ -123,6 +132,44 @@ def _convex_intersection_area(a_quad, b_quad):
     return torch.minimum(area.clamp_min(0.0), cap)
 
 
+def _bounding_circle(quad):
+    """(..., 4, 2) quads -> corner means (..., 2) and radii (...): the
+    largest corner distance from the mean, as `rotated_pairs.cuh`
+    computes them."""
+    q = quad.unbind(-2)
+    center = (((q[0] + q[1]) + q[2]) + q[3]) / 4.0
+    r2 = None
+    for k in range(4):
+        d = q[k] - center
+        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+        r2 = d2 if r2 is None else torch.maximum(r2, d2)
+    return center, torch.sqrt(r2)
+
+
+def pairs_may_meet(a_quad, b_quad):
+    """The separation test of the pair kernels K2 and K3, in PyTorch:
+    (..., Ka, 4, 2) x (..., Kb, 4, 2) -> (..., Ka, Kb) bool, False where
+    the bounding circles of A and of B+ (B scaled by 1 + `_ENLARGE` about
+    its corner mean) are more than `_CULL_MARGIN` apart.
+
+    The same operations in the same order as `csrc/rotated_pairs.cuh::
+    may_meet`. Where it is False, every clipped edge interval of the pair
+    is empty, so `_pairwise_area_plain` gives +0.0 and the suppression
+    mask's plain version the value of an intersection of +0 (the CPU tests
+    pin both); the kernels write those values without the clip. For the
+    tests and `chip_smoke.py`'s bound; the served path does not call it."""
+    ca, ra = _bounding_circle(a_quad)
+    cb, rb = _bounding_circle(_scale_quad(b_quad, 1.0 + _ENLARGE))
+    d = ca[..., :, None, :] - cb[..., None, :, :]
+    reach = (ra[..., :, None] + rb[..., None, :]) + _CULL_MARGIN
+    return ~(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] > reach * reach)
+
+
+def pair_tiles(t, ka, kb):
+    """Blocks of the pair kernels' grid: one per 32 x 128 pair tile."""
+    return t * -(-ka // _TILE_ROWS) * -(-kb // _TILE_COLS)
+
+
 def _pairwise_area_plain(a_quad, b_quad):
     """(..., Ka, 4, 2) x (..., Kb, 4, 2) -> (..., Ka, Kb), chunked over Ka."""
     kb = b_quad.shape[-3]
@@ -141,7 +188,8 @@ def convex_intersection_area(a_quad, b_quad):
 
     a_quad (..., Ka, 4, 2), b_quad (..., Kb, 4, 2) with equal leading dims
     -> (..., Ka, Kb). A CPU tensor takes the plain version; a CUDA tensor
-    launches `csrc/rotated_overlap.cu` (f32) or raises.
+    launches `csrc/rotated_overlap.cu` (f32; one block per 32 x 128 pair
+    tile, fewer than 2^31 tiles) or raises.
     """
     if a_quad.device.type == "cpu":
         return _pairwise_area_plain(a_quad, b_quad)
@@ -157,8 +205,9 @@ def convex_intersection_area(a_quad, b_quad):
                          f"{tuple(b_quad.shape)}")
     ka, kb = a_quad.shape[-3], b_quad.shape[-3]
     t = math.prod(batch)
-    if ka > 65535 or t > 65535:
-        raise ValueError(f"{name}: Ka={ka} and batch={t} must be <= 65535")
+    if pair_tiles(t, ka, kb) >= 2**31:
+        raise ValueError(f"{name}: batch={t}, Ka={ka}, Kb={kb} make "
+                         f"{pair_tiles(t, ka, kb)} pair tiles (< 2^31)")
     a = a_quad.contiguous()
     b = b_quad.contiguous()
     _kernels.check_args(name, a_quad=a, b_quad=b)

@@ -20,9 +20,10 @@ Two routes to the suppression mask M[j, i] = (j < i) & (IoU(j, i) > t):
 
 import torch
 
+from ..core.utils import device_constant
 from . import _kernels
-from .iou3d import _ENLARGE, _scale_quad, box_corners_bev, rotated_iou_bev, \
-    to_pcdet_bev
+from .iou3d import _ENLARGE, _scale_quad, box_corners_bev, pair_tiles, \
+    rotated_iou_bev, to_pcdet_bev
 
 # Number of fixpoint sweeps: exact greedy for every suppression chain of
 # depth <= this (`test_cfg.nms.nms_sweeps` overrides it).
@@ -78,10 +79,10 @@ def _select_topk_sorted(keep, post_max_size):
 
 
 def mask_kernel_corners(boxes):
-    """(R, K, 7+) det3d boxes -> the suppression-mask kernel's inputs:
+    """(R, K, 7+) det3d boxes -> the plain suppression mask's inputs:
     corners of A (R, K, 4, 2) and of B+ = B scaled by 1 + 1e-5 about its
-    corner mean (R, K, 4, 2), f32, contiguous. Computed once for both the
-    kernel and its plain version."""
+    corner mean (R, K, 4, 2), f32, contiguous. The kernel makes the same
+    corners itself, operation by operation."""
     corners = box_corners_bev(to_pcdet_bev(boxes.float()))
     return (corners.contiguous(),
             _scale_quad(corners, 1.0 + _ENLARGE).contiguous())
@@ -163,37 +164,68 @@ def _suppression_matrix_plain(ca, cb, thresh):
 
 
 def suppression_matrix(boxes, thresh):
-    """(R, K, 7+) det3d boxes (score-descending) and per-row IoU
-    thresholds (R,) -> (R, K, K) f32 mask M[r, j, i] = (j < i) *
-    (IoU_bev(j, i) > thresh[r]), with the IoU of the TPU kernel
-    `nms_kernel.py::suppression_matrix_pallas`.
+    """(R, K, 7+) det3d boxes (score-descending) and IoU thresholds, a
+    python float or an (R,) (or 0-d) f32 tensor -> (R, K, K) f32 mask
+    M[r, j, i] = (j < i) * (IoU_bev(j, i) > thresh[r]), with the IoU of the
+    TPU kernel `nms_kernel.py::suppression_matrix_pallas`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches
-    `csrc/suppression_mask.cu` or raises."""
+    `csrc/suppression_mask.cu`, which reads the boxes and makes their
+    corners itself (a float threshold goes in as a launch argument, so
+    nothing is copied from the host), or raises."""
     name = "suppression_mask"
     if boxes.dim() != 3 or boxes.shape[-1] < 7:
         raise ValueError(f"{name}: boxes must be (R, K, >=7), got "
                          f"{tuple(boxes.shape)}")
-    R, K = boxes.shape[:2]
-    thresh = torch.as_tensor(thresh, dtype=torch.float32,
-                             device=boxes.device).expand(R).contiguous()
-    ca, cb = mask_kernel_corners(boxes)
+    R, K, D = boxes.shape
     if boxes.device.type == "cpu":
-        return _suppression_matrix_plain(ca, cb, thresh)
+        th = (thresh.float().expand(R).contiguous() if torch.is_tensor(thresh)
+              else torch.full((R,), float(thresh)))
+        return _suppression_matrix_plain(*mask_kernel_corners(boxes), th)
 
-    if R > 65535 or -(-K // 32) > 65535:
-        raise ValueError(f"{name}: R={R} and K/32={-(-K // 32)} must be "
-                         f"<= 65535")
-    _kernels.check_args(name, corners=ca, corners_plus=cb, thresh=thresh)
+    if pair_tiles(R, K, K) >= 2**31:
+        raise ValueError(f"{name}: R={R}, K={K} make {pair_tiles(R, K, K)} "
+                         f"pair tiles (< 2^31)")
+    boxes = boxes.float().contiguous()
+    tensors = {"boxes": boxes}
+    if torch.is_tensor(thresh):
+        th, value = thresh.float().expand(R).contiguous(), 0.0
+        tensors["thresh"] = th
+    else:
+        th, value = None, float(thresh)
+    _kernels.check_args(name, **tensors)
     out = torch.empty((R, K, K), dtype=torch.float32, device=boxes.device)
     if out.numel() == 0:
         return out  # nothing to launch
     fn = _kernels.kernel(name)
     with torch.cuda.device(boxes.device):
-        err = fn(ca.data_ptr(), cb.data_ptr(), thresh.data_ptr(),
-                 out.data_ptr(), R, K, _kernels.stream_handle(boxes.device))
+        err = fn(boxes.data_ptr(), None if th is None else th.data_ptr(),
+                 value, out.data_ptr(), R, K, D,
+                 _kernels.stream_handle(boxes.device))
     _kernels.launched(name, err)
     return out
+
+
+def suppression_mask_corners(boxes):
+    """The corners the suppression-mask kernel makes from CUDA det3d boxes
+    (R, K, 7+), as it stages them: A and B+ (R, K, 4, 2) each. For checking
+    them against `mask_kernel_corners` on the card (the served path never
+    calls it; it counts no launch)."""
+    name = "suppression_mask_corners"
+    if boxes.dim() != 3 or boxes.shape[-1] < 7:
+        raise ValueError(f"{name}: boxes must be (R, K, >=7), got "
+                         f"{tuple(boxes.shape)}")
+    boxes = boxes.float().contiguous()
+    _kernels.check_args(name, boxes=boxes)
+    R, K, D = boxes.shape
+    ca, cb = (torch.empty((R, K, 4, 2), dtype=torch.float32,
+                          device=boxes.device) for _ in range(2))
+    with torch.cuda.device(boxes.device):
+        err = _kernels.kernel(name)(
+            boxes.data_ptr(), ca.data_ptr(), cb.data_ptr(), R * K, D,
+            _kernels.stream_handle(boxes.device))
+    _kernels.raise_on_error(name, err)
+    return ca, cb
 
 
 def rotated_nms(boxes, scores, valid, nms_thresh, post_max_size,
@@ -236,11 +268,15 @@ def rotated_nms_dynamic(boxes, scores, valid, nms_thresh, post_max_size,
     with different thresholds into the rows of one batched NMS.
 
     Args:
-      boxes: (R, K, 7+); scores, valid: (R, K); nms_thresh: (R,) f32.
+      boxes: (R, K, 7+); scores, valid: (R, K); nms_thresh: (R,) f32
+        tensor (or a list of R floats).
     """
     del scores
-    thresh = torch.as_tensor(nms_thresh, dtype=torch.float32,
-                             device=boxes.device)
+    if torch.is_tensor(nms_thresh):
+        thresh = nms_thresh.to(boxes.device, torch.float32)
+    else:  # a list: cached on the device, no synchronizing copy
+        thresh = device_constant([float(t) for t in nms_thresh],
+                                 boxes.device)
     if use_mask_kernel:
         keep = _greedy_suppress_mask(suppression_matrix(boxes, thresh),
                                      valid, sweeps)

@@ -10,13 +10,13 @@ from the repository root:
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
 (`--noconftest`: `tests/conftest.py` configures JAX.) Tolerances: the
-scatter-max is bit-equal (max of the same floats or codes); areas within
-1e-4 m^2 (the kernel is built without FMA contraction and repeats the plain
-version's operation order, so they agree to rounding); the sorted-run
-scatter-max equal by value (-0.0 and +0.0 may trade places); the
-suppression mask bit-equal (built without FMA contraction, the plain
-version's order of operations); the int8 conv and
-the fused int8 stage are equal by value (integer sums, the same f32
+scatter-max is bit-equal (max of the same floats or codes); the sorted-run
+scatter-max equal by value (-0.0 and +0.0 may trade places); the overlap
+areas and the suppression mask bit-equal (built without FMA contraction,
+the plain version's order of operations; a pair that cannot meet gets the
+plain version's exact value without the clip), the mask kernel's own
+corners bit-equal to `mask_kernel_corners` (the same cosf/sinf); the int8
+conv and the fused int8 stage are equal by value (integer sums, the same f32
 epilogue roundings; an inactive site is written as +0 where the plain
 version may give -0).
 """
@@ -102,6 +102,10 @@ def _bev(n, seed):
     return b
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
 def test_overlap_kernel_matches_plain(cuda):
     b = np.stack([_bev(300, s) for s in (10, 11)])
     c = tiou.box_corners_bev(torch.from_numpy(b).to(cuda)).contiguous()
@@ -111,7 +115,9 @@ def test_overlap_kernel_matches_plain(cuda):
     assert _kernels.LAUNCHES["rotated_overlap"] == before + 1
     want = tiou._pairwise_area_plain(c, c[:, :257])
     assert got.shape == (2, 300, 257)
-    assert (got - want).abs().max().item() <= 1e-4
+    # bit for bit: -fmad=false and the plain version's order of operations
+    assert torch.equal(_bits(got), _bits(want)), \
+        (got - want).abs().max().item()
     assert got[0, 0, 1].item() == pytest.approx(want[0, 0, 0].item())
 
 
@@ -607,3 +613,200 @@ def test_scatter_kernels_on_edge_cases(cuda, variant, case):
         assert occupied[1] == 0 and not bool(grid[1].any())
     elif case == "one_pillar":
         assert occupied == [1, 1]
+
+
+# the redesigned pair kernels (K2 and K3): pair sets that exercise the
+# separation test, the compaction and the tile store. Each case is a pair
+# of pcdet BEV sets (T, Ka, 5), (T, Kb, 5); K3 takes the first as its rows.
+_HEADINGS = tuple(k * np.pi / 4 + 0.1 for k in range(8))
+
+
+def _near_miss_bev():
+    """A-B pairs with B's corner mean at the cull distance -1e-3, 0 and
+    +1e-3 m from A's, at 0 m and +-54 m under 8 headings, B's corner
+    pointing back at A (the circles' bound is then tight)."""
+    out = []
+    for cx, cy in ((0.0, 0.0), (54.0, 54.0), (-54.0, -54.0)):
+        for h in _HEADINGS:
+            for off in (-1e-3, 0.0, 1e-3):
+                a = torch.tensor([[cx, cy, 4.5, 1.9, h]], dtype=torch.float32)
+                ca = tiou.box_corners_bev(a)
+                ma, ra = tiou._bounding_circle(ca)
+                u = (ca[0, 0] - ma[0]) / (ca[0, 0] - ma[0]).norm()
+                hb = float(torch.atan2(-u[1], -u[0])) - np.arctan2(2.9, 12.0)
+                b = torch.tensor([[0.0, 0.0, 12.0, 2.9, hb]],
+                                 dtype=torch.float32)
+                _, rb = tiou._bounding_circle(tiou._scale_quad(
+                    tiou.box_corners_bev(b), 1.0 + tiou._ENLARGE))
+                dist = float(ra[0] + rb[0]) + tiou._CULL_MARGIN + off
+                b[0, 0:2] = ma[0] + u * dist
+                out += [a[0], b[0]]
+    s = torch.stack(out)[None].numpy()
+    return s, s
+
+
+def _grid_bev(T, n, x0, seed):
+    """Boxes of 0.3-4 m on a 20 x 8 m grid, 3 columns from x0: no two can
+    meet."""
+    rng = np.random.RandomState(seed)
+    b = np.zeros((T, n, 5), np.float32)
+    k = np.arange(n)
+    b[..., 0] = x0 + 20.0 * (k % 3)
+    b[..., 1] = -54.0 + 8.0 * (k // 3)
+    b[..., 2:4] = rng.uniform(0.3, 4.0, (T, n, 2))
+    b[..., 4] = rng.uniform(-np.pi, np.pi, (T, n))
+    return b
+
+
+def _pair_case(case):
+    from chip_smoke import nms_like_boxes
+
+    if case == "near_miss":
+        return _near_miss_bev()
+    if case == "all_far":  # Ka != Kb, T = 2
+        return _grid_bev(2, 36, -54.0, 1), _grid_bev(2, 30, 6.0, 2)
+    if case == "all_near":  # every box identical
+        b = np.tile(np.array([[[3.0, -2.0, 4.0, 1.8, 0.4]]], np.float32),
+                    (1, 150, 1))
+        return b, b
+    if case == "ragged":  # T = 3, Ka = 45, Kb = 131
+        return (nms_like_boxes(torch, 3, T=3, K=45).numpy(),
+                nms_like_boxes(torch, 4, T=3, K=131).numpy())
+    s = nms_like_boxes(torch, 5, T=2, K=500).numpy()  # "nms_like_poisoned"
+    return s, s
+
+
+def _det3d(bev, d=7):
+    """pcdet BEV (..., 5) -> det3d (..., d) boxes, yaw last."""
+    b = np.zeros(bev.shape[:-1] + (d,), np.float32)
+    b[..., 0:2] = bev[..., 0:2]
+    b[..., 3], b[..., 4] = bev[..., 3], bev[..., 2]
+    b[..., 5] = 1.5
+    b[..., -1] = -bev[..., 4] - np.pi / 2
+    return b
+
+
+_PAIR_CASES = ("near_miss", "all_far", "all_near", "ragged",
+               "nms_like_poisoned")
+
+
+def _twice(dev, name, fn, poison_bytes=0):
+    """fn() twice (the first out of poisoned memory if poison_bytes), one
+    launch each; returns both outputs and whether the first landed in the
+    poisoned blocks."""
+    ranges = _poison(dev, poison_bytes) if poison_bytes else []
+    outs = []
+    for _ in range(2):
+        before = _kernels.LAUNCHES[name]
+        outs.append(fn())
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES[name] == before + 1
+    start = outs[0].data_ptr()
+    end = start + outs[0].numel() * 4
+    return outs, any(lo < end and start < hi for lo, hi in ranges)
+
+
+@pytest.mark.parametrize("case", _PAIR_CASES)
+def test_overlap_kernel_on_pair_cases(cuda, case):
+    a_bev, b_bev = _pair_case(case)
+    a = tiou.box_corners_bev(torch.from_numpy(a_bev).to(cuda)).contiguous()
+    b = tiou.box_corners_bev(torch.from_numpy(b_bev).to(cuda)).contiguous()
+    poison = a.shape[0] * a.shape[1] * b.shape[1] * 4 \
+        if case.endswith("poisoned") else 0
+    (got, got2), poisoned = _twice(
+        cuda, "rotated_overlap",
+        lambda: tiou.convex_intersection_area(a, b), poison)
+    want = tiou._pairwise_area_plain(a, b)
+    assert got.shape == (a.shape[0], a.shape[1], b.shape[1])
+    assert torch.equal(_bits(got), _bits(want)), \
+        int((_bits(got) != _bits(want)).sum())
+    assert torch.equal(_bits(got), _bits(got2))  # two calls byte-identical
+    near = tiou.pairs_may_meet(a, b)
+    if poison:
+        assert poisoned and not bool(torch.isnan(got).any())
+    if case == "all_far":
+        assert not bool(near.any()) and not bool(got.any())
+    elif case == "all_near":
+        assert bool(near.all()) and bool((got > 0).all())
+    else:
+        assert bool(near.any()) and not bool(near.all())
+
+
+@pytest.mark.parametrize("case", _PAIR_CASES)
+def test_suppression_mask_kernel_on_pair_cases(cuda, case):
+    a_bev, b_bev = _pair_case(case)
+    bev = np.concatenate([a_bev, b_bev], 1) if case == "all_far" else a_bev
+    boxes = torch.from_numpy(_det3d(bev)).to(cuda)
+    R, K = boxes.shape[:2]
+    th = torch.tensor([(0.2, 0.0, -0.1)[r % 3] for r in range(R)],
+                      device=cuda)
+    (got, got2), poisoned = _twice(
+        cuda, "suppression_mask", lambda: tnms.suppression_matrix(boxes, th),
+        R * K * K * 4 if case.endswith("poisoned") else 0)
+    ca, cb = tnms.mask_kernel_corners(boxes)
+    want = tnms._suppression_matrix_plain(ca, cb, th)
+    assert torch.equal(_bits(got), _bits(want)), int((got != want).sum())
+    assert torch.equal(_bits(got), _bits(got2))
+    assert not bool(got.tril().any())
+    if case.endswith("poisoned"):
+        assert poisoned and not bool(torch.isnan(got).any())
+    # one threshold for every row: the launch-argument route
+    one = tnms.suppression_matrix(boxes, 0.2)
+    want1 = tnms._suppression_matrix_plain(
+        ca, cb, torch.full((R,), 0.2, device=cuda))
+    assert torch.equal(_bits(one), _bits(want1))
+
+
+def test_suppression_mask_corners_equal_mask_kernel_corners(cuda):
+    from chip_smoke import nms_like_boxes
+
+    bev = nms_like_boxes(torch, 6, T=3, K=700).numpy()
+    for d in (7, 9):  # yaw last: det3d with and without velocity
+        boxes = torch.from_numpy(_det3d(bev, d)).to(cuda)
+        if d == 9:
+            boxes[..., 6:8] = torch.randn(boxes.shape[:2] + (2,),
+                                          device=cuda)
+        ca, cb = tnms.mask_kernel_corners(boxes)
+        ka, kb = tnms.suppression_mask_corners(boxes)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(ka), _bits(ca)), \
+            (ka - ca).abs().max().item()
+        assert torch.equal(_bits(kb), _bits(cb)), \
+            (kb - cb).abs().max().item()
+        got = tnms.suppression_matrix(boxes, 0.2)
+        want = tnms._suppression_matrix_plain(
+            ca, cb, torch.full((3,), 0.2, device=cuda))
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["pillarnet34_nusc", "pillarnet34_waymo"])
+def test_served_request_does_not_sync_the_host(cuda, name):
+    """A full-size request, after one warm-up, queues all its work without
+    a stream or device synchronize until its result is copied to the host
+    (`torch.cuda.set_sync_debug_mode("error")` raises on any)."""
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, spread_head_outputs)
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.runtime.serving import to_host
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    cfg = load_config(os.path.join(root, "configs", "pillarnet",
+                                   name + ".py"))
+    model = build_model_from_cfg(cfg, device=cuda)
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+    clouds = [tuple(torch.from_numpy(a).to(cuda) for a in
+                    synth_points_realistic(1, n, pc_range, seed=s,
+                                           nsweeps=cfg.get("nsweeps", 10)))
+              for s in (7, 8)]
+    spread_head_outputs(model, *clouds[0])
+    infer = make_infer_fn(model)
+    infer(*clouds[0])
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        det = infer(*clouds[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    det = to_host(det)
+    assert det["mask"].any() and np.isfinite(det["box3d_lidar"]).all()

@@ -159,3 +159,28 @@ def test_overlap_takes_plain_version_on_cpu_and_raises_elsewhere():
     assert _kernels.LAUNCHES == before  # no kernel launched for CPU tensors
     with pytest.raises(ValueError, match="CUDA"):
         tiou.convex_intersection_area(c.to("meta"), c.to("meta"))
+
+
+@pytest.mark.parametrize("seed,span", [(0, 20.0), (1, 54.0)])
+def test_plain_area_is_plus_zero_where_pairs_cannot_meet(seed, span):
+    # the overlap kernel writes +0.0 without clipping wherever the
+    # separation test says the pair cannot meet; so must plain and JAX
+    b = _bev(120, seed, span)
+    ca_j = jiou.box_corners_bev(jnp.asarray(b))
+    pa, pb = jnp.broadcast_arrays(ca_j[:, None], ca_j[None, :])
+    want = np.asarray(jax.jit(jiou._convex_intersection_area)(pa, pb))
+    c = torch.from_numpy(np.array(ca_j))
+    far = ~tiou.pairs_may_meet(c, c)
+    got = tiou.convex_intersection_area(c, c)
+    assert far.any() and (~far).any()
+    assert not bool(got[far].any()) and not bool(torch.signbit(got[far]).any())
+    assert not want[far.numpy()].any()
+
+
+def test_overlap_wrapper_raises_past_its_grid():
+    # one block per 32 x 128 pair tile, fewer than 2^31 of them
+    a = torch.empty((2**16, 2**16, 4, 2), device="meta")
+    b = torch.empty((2**16, 2**17, 4, 2), device="meta")
+    with pytest.raises(ValueError, match="pair tiles"):
+        tiou.convex_intersection_area(a, b)
+    assert tiou.pair_tiles(2**16, 2**16, 2**17) >= 2**31

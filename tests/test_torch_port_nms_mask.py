@@ -146,3 +146,28 @@ def test_suppression_matrix_takes_plain_version_on_cpu_and_raises_elsewhere():
         tnms.suppression_matrix(b.to("meta"), 0.3)
     with pytest.raises(ValueError, match="R, K"):
         tnms.suppression_matrix(b[0], 0.3)
+
+
+@pytest.mark.parametrize("thresh", [0.2, 0.0, -0.1])
+def test_plain_mask_far_pairs_take_the_zero_intersection_value(thresh):
+    # the mask kernel writes (j < i) & (0 > thresh) without clipping
+    # wherever the separation test says a pair cannot meet; so must plain
+    # and the JAX kernel
+    from pillarnet_lts_torch.ops.iou3d import pairs_may_meet
+
+    b = _boxes(96, 11, span=40.0)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(suppression_matrix_pallas(jnp.asarray(b), thresh))
+    got = tnms.suppression_matrix(torch.from_numpy(b)[None], thresh)[0]
+    ca, _ = tnms.mask_kernel_corners(torch.from_numpy(b)[None])
+    far = ~pairs_may_meet(ca, ca)[0]
+    value = torch.ones((96, 96)).triu(1) * float(0.0 > thresh)
+    assert far.any() and (~far).any()
+    assert torch.equal(got[far], value[far])
+    np.testing.assert_array_equal(want[far.numpy()], value[far].numpy())
+
+
+def test_suppression_matrix_raises_past_its_grid():
+    boxes = torch.empty((2**16, 2**16, 7), device="meta")
+    with pytest.raises(ValueError, match="pair tiles"):
+        tnms.suppression_matrix(boxes, 0.5)
