@@ -73,7 +73,22 @@ Phases, each of which raises on failure:
      `test_cfg.nms.use_mask_kernel`: detections equal to phase 11's except
      where the mask kernel decided a pair within MASK_EPS of its threshold
      otherwise (checked on the request's own candidates); K3 replayed on
-     the last such request's candidates as in phase 9.
+     the last such request's candidates as in phase 9;
+ 13. training: the pillar ids of the 4 flagship calibration clouds and of
+     every pillar edge +-1 ulp on the card equal to the CPU's (which the
+     CPU tests hold equal to jitted JAX); (a) K1's gradient at the
+     flagship shape with 300 points
+     duplicated onto others, through the scatter's autograd Function,
+     bit-equal to the same backward over the plain version's grid and to
+     the CPU, forward and backward timed; (b) one train step of the demo
+     config on the card and on the CPU from the same weights and batch,
+     within stated tolerances; (c) `pillarnet34_nusc` at full width
+     (remat) trained by `apis.train_detector` at bs=4 on 4 synthetic
+     scenes with every class, 2 + 8 timed steps: finite metrics, K1
+     launched on every step, step time, samples/s, peak memory; (d) with
+     deterministic cuDNN, the next step from the trained state and from
+     its checkpoint resumed into a fresh model equal, its loss below the
+     first step's.
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
@@ -86,8 +101,9 @@ K3's operations are those of their near pairs (what `pairs_may_meet` lets
 through) plus the separation test on every pair they test; the old count
 (every pair clipped) is printed beside it.
 
-The second-to-last line of stdout is the kernels' JSON record, the line
-before it the card's `nvidia-smi` name and power limit, and the last line
+Before the last three lines stdout carries phase 13's JSON record
+(`{"training": ...}`); then the kernels' JSON record, the card's
+`nvidia-smi` name and power limit, and the last line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result. No JAX is imported.
 """
@@ -1233,6 +1249,307 @@ def serve_waymo(torch, dev, card):
     return launches, k2_calls[0], (boxes, thresh)
 
 
+TRAIN_STEPS, TRAIN_WARMUP = 10, 2  # phase 13: flagship steps, untimed first
+TRAIN_DUPLICATES = 300  # phase 13a: points copied onto others (exact ties)
+
+
+def params_within_first_adam_step(torch, got, want, names, shifted, lr0):
+    """Every parameter within two first Adam steps (2 lr0) of `want` plus
+    rtol = atol = 1e-4, and at most 0.5% of the elements outside the names
+    in `shifted` beyond rtol = atol = 1e-4: Adam's first step is about
+    lr * sign(g), and a gradient within the rounding of 0 (all of a
+    BN-shifted bias's) may take either sign. Returns (share, max |d|)."""
+    bad = total = 0
+    worst = 0.0
+    for k in names:
+        d = (got[k] - want[k]).abs()
+        tol = 1e-4 + 1e-4 * want[k].abs()
+        if bool((d > 2 * lr0 * 1.0001 + tol).any()):
+            raise AssertionError(f"{k}: {d.max().item()} beyond two Adam "
+                                 f"steps of {lr0}")
+        worst = max(worst, d.max().item())
+        if k not in shifted:
+            bad += int((d > tol).sum())
+            total += d.numel()
+    if bad > 5e-3 * total:
+        raise AssertionError(f"{bad} of {total} parameters beyond 1e-4")
+    return bad / total, worst
+
+
+def check_pillar_ids(torch, dev, pc_range, pillar_size):
+    """Phase 13, first: the pillar ids and validity of the flagship's 4
+    calibration clouds (seeds 90-93, 1,048,576 points) and of every pillar
+    edge +-1 ulp in x and y, on the card equal to the CPU's (which
+    `tests/test_torch_port_train.py` holds equal to jitted JAX)."""
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.ops.voxelize import PillarSpec, voxelize_points
+
+    spec = PillarSpec(pillar_size, tuple(pc_range))
+    edge = np.float32(pc_range[0] + np.arange(spec.width + 1) * pillar_size)
+    xs = np.concatenate([np.nextafter(edge, np.float32(-np.inf)), edge,
+                         np.nextafter(edge, np.float32(np.inf))])
+    edges = np.zeros((2, xs.size, 5), np.float32)
+    edges[0, :, 0] = edges[1, :, 1] = xs
+    inside = np.float32(pc_range[0] + 0.3 * pillar_size)
+    edges[0, :, 1] = edges[1, :, 0] = inside
+    clouds = [synth_points_realistic(1, N_POINTS, pc_range, seed=s)
+              for s in (90, 91, 92, 93)]
+    clouds.append((edges, np.ones(edges.shape[:2], bool)))
+    n = 0
+    for pts, msk in clouds:
+        pts, msk = torch.from_numpy(pts), torch.from_numpy(msk)
+        _, ids, valid = voxelize_points(pts.to(dev), msk.to(dev), spec)
+        _, want_ids, want_valid = voxelize_points(pts, msk, spec)
+        if not (torch.equal(ids.cpu(), want_ids)
+                and torch.equal(valid.cpu(), want_valid)):
+            bad = int((ids.cpu() != want_ids).sum())
+            raise AssertionError(f"{bad} pillar ids on the card differ "
+                                 f"from the CPU's")
+        n += ids.numel()
+    print(f"[13] pillar ids of the 4 flagship calibration clouds and "
+          f"{edges.shape[1]} pillar-edge points (+-1 ulp) in x and y, "
+          f"{n} points: the card's equal the CPU's")
+
+
+def check_scatter_grad(torch, dev, pc_range, pillar_size):
+    """Phase 13a: K1's gradient at the flagship shape (1 x 262,144 x 32 ->
+    1440^2, post-ReLU features with TRAIN_DUPLICATES points copied onto
+    others): through `pillar_scatter_max`'s autograd Function on the card,
+    bit-equal to the same backward over the plain version's grid on the
+    card and to the Function on the CPU; the forward (the kernel, saving
+    for backward) and the backward (`scatter_max_backward`, torch ops)
+    timed, the backward's bound from the bytes it must move."""
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.ops.scatter import (
+        pillar_scatter_max, scatter_max_backward)
+    from pillarnet_lts_torch.ops.voxelize import (
+        PillarSpec, scatter_max_to_grid, voxelize_points)
+
+    spec = PillarSpec(pillar_size, tuple(pc_range))
+    H, W = spec.height, spec.width
+    pts, msk = synth_points_realistic(1, N_POINTS, pc_range, seed=101)
+    feats, ids, valid = voxelize_points(torch.from_numpy(pts).to(dev),
+                                        torch.from_numpy(msk).to(dev), spec)
+    g = torch.Generator().manual_seed(1)
+    w = (torch.randn(32, feats.shape[-1], generator=g) * 0.5).to(dev)
+    x = torch.relu(torch.nn.functional.linear(feats, w))
+    live = torch.nonzero(valid[0])[:, 0]
+    src, dst = live[:TRAIN_DUPLICATES], live[-TRAIN_DUPLICATES:]
+    x[0, src] += 0.5
+    x[0, dst] = x[0, src]
+    ids[0, dst] = ids[0, src]
+    x = x.contiguous()
+    dgrid = torch.randn((1, H, W, x.shape[-1]), generator=g).to(dev)
+
+    xr = x.clone().requires_grad_(True)
+    before = _kernels.LAUNCHES["pillar_scatter_max"]
+    grid, occ = pillar_scatter_max(xr, ids, valid, H, W, nonneg=True)
+    (dx,) = torch.autograd.grad(grid, xr, dgrid)
+    if _kernels.LAUNCHES["pillar_scatter_max"] != before + 1:
+        raise AssertionError("the Function did not launch K1 once")
+    pgrid, pocc = scatter_max_to_grid(x, ids, valid, H, W)
+    want = scatter_max_backward(x, ids, valid, pgrid, dgrid)
+    if not (bit_equal(torch, grid, pgrid) and torch.equal(occ, pocc)
+            and bit_equal(torch, dx, want)):
+        raise AssertionError("K1's gradient differs from the plain "
+                             "version's")
+    xc = x.cpu().requires_grad_(True)
+    gc, _ = pillar_scatter_max(xc, ids.cpu(), valid.cpu(), H, W, nonneg=True)
+    (dxc,) = torch.autograd.grad(gc, xc, dgrid.cpu())
+    if not bit_equal(torch, dx.cpu(), dxc):
+        raise AssertionError("K1's gradient on the card differs from the "
+                             "CPU's")
+    both = ((dx[0, src] != 0) & (dx[0, dst] != 0)).any(-1)
+    if not bool(both.any()):
+        raise AssertionError("no tied pair received the gradient")
+
+    fwd = cuda_ms(lambda: pillar_scatter_max(xr, ids, valid, H, W,
+                                             nonneg=True))
+    grid = grid.detach()
+
+    def backward():
+        return scatter_max_backward(x, ids, valid, grid, dgrid)
+
+    bwd = cuda_ms(backward)
+    bwd_alone, per = device_ms(backward)
+    rows = int(occ.sum()) * x.shape[-1] * x.element_size()
+    b = bound(nbytes(x, ids, valid, dx) + 2 * rows, 0, F32_OPS)
+    r = {"forward_ms": fwd, "backward_ms": bwd, "backward_alone_ms": bwd_alone,
+         "backward_bound_ms": b[0], "backward_bound_by": b[1],
+         "tied_pairs_with_gradient": int(both.sum()),
+         "max_abs_err": 0.0}
+    print(f"[13a] K1 gradient {tuple(x.shape)} -> {H}x{W}, "
+          f"{TRAIN_DUPLICATES} duplicated points "
+          f"({r['tied_pairs_with_gradient']} tied pairs both with "
+          f"gradient): bit-equal to the plain version "
+          f"on the card and to the CPU; forward {fwd:.4f} ms, backward "
+          f"{bwd:.4f} ms (kernels alone {bwd_alone:.4f} ms; bound "
+          f"{b[0]:.4f} ms, {b[1]}); backward kernels: " + "; ".join(
+              f"{k.split('(')[0][-50:]} {ms * 1e3:.1f} us"
+              for ms, k in per[:4]))
+    return r
+
+
+def train_card_vs_cpu(torch, dev):
+    """Phase 13b: one train step of the demo config on the card and on the
+    CPU from the same seeded weights and batch: metrics within rtol 1e-4
+    (`grad_norm` 1e-3), running statistics within rtol = atol = 1e-4, the
+    parameters as `params_within_first_adam_step`."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          optimizer_from_cfg)
+    from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
+    from pillarnet_lts_torch.runtime.train_step import (
+        batch_to_device, bn_shifted_biases, train_step)
+
+    cfg = load_config(DEMO)
+    ds = SynthDataset(cfg, 2, 4096, seed=31)
+    batch = collate_batch([ds[0], ds[1]], cfg["data"]["max_points"])
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        model = build_model_from_cfg(cfg, device=d, seed=3)
+        opt = optimizer_from_cfg(model, cfg, 10)
+        m = train_step(model, opt, batch_to_device(batch, d),
+                       cfg["train_cfg"])
+        runs.append(({k: float(v) for k, v in m.items()},
+                     {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()}))
+    (mg, sg), (mc, sc) = runs
+    rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in mc}
+    for k, r in rel.items():
+        if r > (1e-3 if k == "grad_norm" else 1e-4):
+            raise AssertionError(f"card vs CPU {k}: {mg[k]} vs {mc[k]}")
+    params = [n for n, _ in model.named_parameters()]
+    for k in sc:
+        if k not in params and not torch.allclose(sg[k], sc[k], rtol=1e-4,
+                                                  atol=1e-4):
+            raise AssertionError(f"card vs CPU {k}")
+    share, worst = params_within_first_adam_step(
+        torch, sg, sc, params, set(bn_shifted_biases(model)),
+        opt.lr_fn(0))
+    print(f"[13b] demo config, one step on the card and on the CPU (same "
+          f"weights, batch 2): loss {mg['loss']:.6f} / {mc['loss']:.6f}, "
+          f"largest metric rel diff {max(rel.values()):.2e} "
+          f"({max(rel, key=rel.get)}); running statistics within 1e-4; "
+          f"parameters: {share:.2e} beyond 1e-4, max |d| {worst:.2e}")
+    return {"metrics_max_rel": max(rel.values()), "params_share": share}
+
+
+def train_flagship(torch, dev, card):
+    """Phase 13c and d: `pillarnet34_nusc` (full width, remat) trained by
+    `apis.train_detector` at bs=4 on 4 seeded synthetic scenes with every
+    class (262,144 points each): TRAIN_STEPS steps, the first TRAIN_WARMUP
+    untimed; every metric finite, K1 launched on every step, the step time
+    (host, synced by the metrics' read-back; loader time excluded),
+    samples/s and peak memory printed. Then, with deterministic cuDNN, one
+    more step on the same scenes from the trained state and the same step
+    from the checkpoint in a fresh model: equal; its loss below the first
+    step's."""
+    import shutil
+
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          optimizer_from_cfg, train_detector)
+    from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.runtime.checkpoint import (latest_checkpoint,
+                                                        load_checkpoint)
+    from pillarnet_lts_torch.runtime.hooks import Hook
+    from pillarnet_lts_torch.runtime.train_step import (batch_to_device,
+                                                        train_step)
+
+    cfg = load_config(FLAGSHIP)
+    bs = cfg["data"]["samples_per_gpu"]
+    cfg["total_epochs"] = TRAIN_STEPS
+    cfg["checkpoint_config"] = dict(interval=TRAIN_STEPS)
+    work = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+    ds = SynthDataset(cfg, bs, cfg["data"]["max_points"], seed=200,
+                      num_boxes=(10, 21))
+    model = build_model_from_cfg(cfg, device=dev, seed=0)
+    if not model.backbone_net.remat:
+        raise AssertionError("the flagship config trains with remat")
+
+    class K1PerStep(Hook):
+        def before_train_iter(self, trainer):
+            self.before = _kernels.LAUNCHES["pillar_scatter_max"]
+
+        def after_train_iter(self, trainer):
+            n = _kernels.LAUNCHES["pillar_scatter_max"] - self.before
+            if n < 1:
+                raise AssertionError(f"step {trainer.iter}: K1 not launched")
+            counts.append(n)
+
+    counts = []
+    with open(FLAGSHIP) as f:
+        cfg_text = f.read()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launches()
+    trainer = train_detector(model, ds, cfg, work_dir=work,
+                             cfg_text=cfg_text, hooks=[K1PerStep()])
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = trainer.log_buffer.val_history
+    for k, vals in hist.items():
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"non-finite {k}: {vals}")
+    step_ms = [(t - d) * 1e3 for t, d in zip(hist["time"], hist["data_time"])]
+    timed = step_ms[TRAIN_WARMUP:]
+    med = statistics.median(timed)
+    print(f"[13c] pillarnet34_nusc training, bs={bs}, remat, "
+          f"{TRAIN_STEPS} steps ({TRAIN_WARMUP} untimed): median step "
+          f"{med:.1f} ms (min {min(timed):.1f}, max {max(timed):.1f}), "
+          f"{bs / med * 1e3:.3f} samples/s, peak allocated "
+          f"{peak / 2**30:.3f} GiB; loss {hist['loss'][0]:.3f} -> "
+          f"{hist['loss'][-1]:.3f}, grad_norm {hist['grad_norm'][0]:.1f} -> "
+          f"{hist['grad_norm'][-1]:.1f}; K1 launches per step {counts}; "
+          f"card: {card}")
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        batch = batch_to_device(collate_batch(
+            [ds[i] for i in range(bs)], cfg["data"]["max_points"]), dev)
+        path = latest_checkpoint(work)
+        ma = train_step(trainer.model, trainer.optimizer, batch,
+                        cfg["train_cfg"])
+        ma = {k: float(v) for k, v in ma.items()}
+        sa = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        fresh = build_model_from_cfg(cfg, device=dev, seed=1)
+        opt = optimizer_from_cfg(fresh, cfg, TRAIN_STEPS)
+        meta = load_checkpoint(path, fresh, opt)
+        mb = {k: float(v) for k, v in train_step(fresh, opt, batch,
+                                                 cfg["train_cfg"]).items()}
+        sb = fresh.state_dict()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if meta["epoch"] != TRAIN_STEPS or meta["CLASSES"] != cfg["class_names"]:
+        raise AssertionError(f"checkpoint meta {meta['epoch']}, "
+                             f"{meta['CLASSES']}")
+    exact = ma == mb and all(torch.equal(sa[k], sb[k]) for k in sa)
+    worst = max(max(abs(ma[k] - mb[k]) / max(abs(ma[k]), 1e-30) for k in ma),
+                max(((sa[k] - sb[k]).abs() / (1 + sa[k].abs())).max().item()
+                    for k in sa))
+    if worst > 1e-6:
+        raise AssertionError(f"resumed step differs: {worst}")
+    if not ma["loss"] < hist["loss"][0]:
+        raise AssertionError(f"loss did not fall: {hist['loss'][0]} -> "
+                             f"{ma['loss']}")
+    print(f"[13d] checkpoint {os.path.basename(path)} resumed into a fresh "
+          f"model: the next step {'bit-equal' if exact else 'equal'} to the "
+          f"unresumed one (largest rel diff {worst:.2e}); loss on the same "
+          f"scenes after {TRAIN_STEPS} steps {ma['loss']:.3f} < step 0's "
+          f"{hist['loss'][0]:.3f}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"config": "configs/pillarnet/pillarnet34_nusc.py",
+            "batch": bs, "steps": TRAIN_STEPS, "timed_steps": len(timed),
+            "step_ms": step_ms, "median_step_ms": med,
+            "samples_per_s": bs / med * 1e3,
+            "peak_allocated_gib": peak / 2**30,
+            "loss": hist["loss"], "loss_after": ma["loss"],
+            "grad_norm": hist["grad_norm"], "k1_launches_per_step": counts,
+            "launches": launches, "resume_bit_equal": exact,
+            "resume_max_rel": worst}
+
+
 def main():
     import torch
 
@@ -1281,6 +1598,11 @@ def main():
     masks["served_waymo"], _ = check_suppression_mask(
         torch, "the served Waymo request's candidates (phase 12)", *k3_waymo)
     overlap, mask = overlaps["served_nuscenes"], masks["served_waymo"]
+    check_pillar_ids(torch, dev, cfg["point_cloud_range"], cfg["pillar_size"])
+    training = {"k1_gradient": check_scatter_grad(
+        torch, dev, cfg["point_cloud_range"], cfg["pillar_size"])}
+    training["card_vs_cpu"] = train_card_vs_cpu(torch, dev)
+    training["flagship"] = train_flagship(torch, dev, card)
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
@@ -1335,6 +1657,7 @@ def main():
     for k in record["kernels"]:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")
+    print(json.dumps({"training": training}))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """High-level entry points of the port."""
 
+import logging
 import os
 import runpy
 import types
@@ -9,6 +10,10 @@ import torch
 
 from .models import build_detector
 from .models.utils import init_weights
+from .runtime.hooks import CheckpointHook, IterTimerHook, TextLoggerHook
+from .runtime.trainer import Trainer
+from .datasets.collate import DataLoader
+from .solver import build_optimizer
 
 
 def load_config(filename):
@@ -77,3 +82,43 @@ def spread_head_outputs(model, points, points_mask):
             conv.bias.copy_(torch.from_numpy(bias))
             factors[(k, h)] = (scale, bias)
     return factors
+
+
+def optimizer_from_cfg(model, cfg, total_steps):
+    """The config's optimizer over `total_steps` steps, with its gradient
+    clip (`optimizer_config.grad_clip.max_norm`)."""
+    clip = (cfg.get("optimizer_config") or {}).get("grad_clip")
+    return build_optimizer(model.parameters(), cfg["optimizer"],
+                           cfg["lr_config"], total_steps,
+                           clip["max_norm"] if clip else None)
+
+
+def train_detector(model, dataset, cfg, logger=None, resume_from=None,
+                   cfg_text=None, work_dir=None, hooks=()):
+    """Train `model` (on its device) on `dataset` as the config says:
+    batches of `data.samples_per_gpu` padded to `data.max_points`, shuffled
+    per epoch; the one-cycle AdamW over all `total_epochs`; a log every
+    `log_config.interval` steps and a checkpoint every
+    `checkpoint_config.interval` epochs under `work_dir` (default: the
+    config's), then `hooks`. `resume_from` a checkpoint path, or True for
+    the latest. Returns the `Trainer`."""
+    logger = logger or logging.getLogger("train")
+    data = cfg["data"]
+    loader = DataLoader(dataset, data["samples_per_gpu"], data["max_points"])
+    total_epochs = cfg["total_epochs"]
+    optimizer = optimizer_from_cfg(model, cfg, total_epochs * len(loader))
+    trainer = Trainer(model, optimizer, dict(cfg["train_cfg"]),
+                      work_dir or cfg["work_dir"], logger=logger,
+                      cfg_text=cfg_text,
+                      class_names=list(cfg.get("class_names") or []))
+    trainer.register_hook(IterTimerHook())
+    trainer.register_hook(TextLoggerHook(
+        (cfg.get("log_config") or {}).get("interval", 10), logger))
+    trainer.register_hook(CheckpointHook(
+        (cfg.get("checkpoint_config") or {}).get("interval", 1)))
+    for hook in hooks:
+        trainer.register_hook(hook)
+    if resume_from:
+        trainer.resume(None if resume_from is True else resume_from)
+    trainer.run(loader, total_epochs)
+    return trainer

@@ -1,5 +1,7 @@
-"""Synthetic inputs for the port's smoke run, profiles and tests."""
+"""Synthetic inputs and the training data path of the port."""
 
-from .synth import synth_points_realistic
+from .collate import DataLoader, collate_batch
+from .synth import SynthDataset, synth_points_realistic, synth_scene
 
-__all__ = ["synth_points_realistic"]
+__all__ = ["DataLoader", "SynthDataset", "collate_batch",
+           "synth_points_realistic", "synth_scene"]

@@ -1,0 +1,203 @@
+"""Train preprocessing and CenterNet target assignment (numpy, host).
+
+The port's own copy of `pillarnet_lts_tpu/datasets/pipelines/preprocess.py`
+(`Preprocess`, `flatten`, `merge_multi_group_label`, `AssignLabel`; lines
+165-350) and of `core/bbox/box_np_ops.py::limit_period`. `AssignLabel`
+gives the same arrays, bit for bit: per task `hm` (H, W, C), `anno_box`
+(max_objs, 10), `ind`, `mask`, `cat` (max_objs,) and `gt_box`
+(max_objs, 7), plus `gt_boxes_and_cls` (max_objs, 10).
+
+Not ported yet: `Preprocess`'s augmentations (flips, global rotation,
+scaling, translation) and the GT-AUG database sampler; a train config that
+asks for them raises unless it sets `no_augmentation=True`.
+"""
+
+import numpy as np
+
+from ...core.target.center_target import draw_gaussian, gaussian_radius
+
+
+def limit_period(val, offset=0.5, period=np.pi):
+    """Wrap angles into one period."""
+    return val - np.floor(val / period + offset) * period
+
+
+def flatten(box):
+    return np.concatenate(box, axis=0)
+
+
+def merge_multi_group_label(gt_classes, num_classes_by_task):
+    flag = 0
+    for i in range(len(gt_classes)):
+        gt_classes[i] = gt_classes[i] + flag
+        flag += num_classes_by_task[i]
+    return flatten(gt_classes)
+
+
+class Preprocess:
+    """Train mode: keep the boxes of `class_names` and number their classes
+    from 1; val mode: points only. `shuffle_points` shuffles with numpy's
+    global generator, as the JAX package does."""
+
+    def __init__(self, cfg):
+        self.mode = cfg["mode"]
+        self.shuffle_points = cfg["shuffle_points"]
+        if self.mode == "train":
+            self.class_names = cfg["class_names"]
+            sampler = cfg.get("db_sampler")
+            if not cfg.get("no_augmentation", False) or (
+                    sampler is not None and sampler.get("enable", True)):
+                raise NotImplementedError(
+                    "training augmentations and GT-AUG are not ported yet; "
+                    "set no_augmentation=True and no db_sampler")
+
+    def __call__(self, res, info):
+        res["mode"] = self.mode
+        points = res["lidar"]["combined"]
+        if self.mode == "train":
+            anno = res["lidar"]["annotations"]
+            names = np.array(anno["names"]).reshape(-1)
+            keep = np.array([n in self.class_names for n in names],
+                            dtype=np.bool_)
+            gt_dict = {"gt_boxes": anno["boxes"][keep],
+                       "gt_names": names[keep]}
+            gt_dict["gt_classes"] = np.array(
+                [self.class_names.index(n) + 1 for n in gt_dict["gt_names"]],
+                dtype=np.int32)
+            res["lidar"]["annotations"] = gt_dict
+        if self.shuffle_points:
+            np.random.shuffle(points)
+        res["lidar"]["points"] = points
+        return res, info
+
+
+class AssignLabel:
+    """CenterNet target encoding (`pipelines/preprocess.py:178-350`)."""
+
+    def __init__(self, cfg):
+        self.tasks = cfg["target_assigner"]["tasks"]
+        self.gaussian_overlap = cfg["gaussian_overlap"]
+        self._max_objs = cfg["max_objs"]
+        self._min_radius = cfg["min_radius"]
+        self._cfg = cfg
+
+    def __call__(self, res, info):
+        max_objs = self._max_objs
+        class_names_by_task = [t["class_names"] for t in self.tasks]
+        num_classes_by_task = [len(t["class_names"]) for t in self.tasks]
+
+        pc_range = np.array(self._cfg["pc_range"], dtype=np.float32)
+        pillar_size = np.array(self._cfg["pillar_size"], dtype=np.float32)
+        grid_size = np.round(
+            (pc_range[3:5] - pc_range[:2]) / pillar_size).astype(np.int64)
+
+        example = {}
+        if res["mode"] == "train":
+            gt_dict = res["lidar"]["annotations"]
+
+            # the annotations regrouped by task, classes numbered per task
+            task_boxes, task_classes, task_names = [], [], []
+            flag = 0
+            for names in class_names_by_task:
+                masks = [np.where(gt_dict["gt_classes"]
+                                  == names.index(i) + 1 + flag)
+                         for i in names]
+                task_boxes.append(np.concatenate(
+                    [gt_dict["gt_boxes"][m] for m in masks], axis=0))
+                task_classes.append(np.concatenate(
+                    [gt_dict["gt_classes"][m] - flag for m in masks]))
+                task_names.append(np.concatenate(
+                    [gt_dict["gt_names"][m] for m in masks]))
+                flag += len(names)
+
+            for task_box in task_boxes:
+                task_box[:, -1] = limit_period(task_box[:, -1], offset=0.5,
+                                               period=np.pi * 2)
+
+            gt_dict["gt_classes"] = task_classes
+            gt_dict["gt_names"] = task_names
+            gt_dict["gt_boxes"] = task_boxes
+            res["lidar"]["annotations"] = gt_dict
+
+            hms, anno_boxs, inds, masks, cats, gt_boxs = [], [], [], [], [], []
+            for idx, task in enumerate(self.tasks):
+                stride = int(task["stride"])
+                task_grid = grid_size // stride
+                hm = np.zeros((len(class_names_by_task[idx]), task_grid[1],
+                               task_grid[0]), dtype=np.float32)
+                anno_box = np.zeros((max_objs, 10), dtype=np.float32)
+                gt_box = np.zeros((max_objs, 7), dtype=np.float32)
+                ind = np.zeros((max_objs), dtype=np.int64)
+                mask = np.zeros((max_objs), dtype=np.uint8)
+                cat = np.zeros((max_objs), dtype=np.int64)
+
+                num_objs = min(gt_dict["gt_boxes"][idx].shape[0], max_objs)
+                for k in range(num_objs):
+                    box = gt_dict["gt_boxes"][idx][k]
+                    cls_id = gt_dict["gt_classes"][idx][k] - 1
+                    w = box[3] / (pillar_size * stride)
+                    l = box[4] / (pillar_size * stride)  # noqa: E741
+                    if w <= 0 or l <= 0:
+                        continue
+                    radius = gaussian_radius(
+                        (l, w), min_overlap=self.gaussian_overlap)
+                    if isinstance(self._min_radius, list):
+                        radius = max(self._min_radius[cls_id], int(radius))
+                    else:
+                        radius = max(self._min_radius, int(radius))
+
+                    x, y, z = box[0], box[1], box[2]
+                    coor_x = (x - pc_range[0]) / (pillar_size * stride)
+                    coor_y = (y - pc_range[1]) / (pillar_size * stride)
+                    ct = np.array([coor_x, coor_y], dtype=np.float32)
+                    ct_int = ct.astype(np.int32)
+                    if not (0 <= ct_int[0] < task_grid[0]
+                            and 0 <= ct_int[1] < task_grid[1]):
+                        continue
+
+                    draw_gaussian(hm[cls_id], ct, radius)
+
+                    xi, yi = ct_int[0], ct_int[1]
+                    cat[k] = cls_id
+                    ind[k] = yi * task_grid[0] + xi
+                    mask[k] = 1
+                    gt_box[k] = (box[[0, 1, 2, 3, 4, 5, 8]]
+                                 if box.shape[0] > 7
+                                 else box[[0, 1, 2, 3, 4, 5, 6]])
+                    if box.shape[0] > 7:
+                        vx, vy = box[6:8]
+                        rot = box[8] if res["type"] in (
+                            "NuScenesDataset", "DemoDataset") else box[-1]
+                    else:
+                        vx, vy = 0.0, 0.0
+                        rot = box[-1]
+                    anno_box[k] = np.concatenate(
+                        (ct - (xi, yi), z, np.log(box[3:6]), np.array(vx),
+                         np.array(vy), np.sin(rot), np.cos(rot)), axis=None)
+
+                hms.append(hm.transpose((1, 2, 0)))
+                anno_boxs.append(anno_box)
+                gt_boxs.append(gt_box)
+                masks.append(mask)
+                inds.append(ind)
+                cats.append(cat)
+
+            # the flattened ground truth of the two-stage head
+            boxes = flatten(gt_dict["gt_boxes"])
+            classes = merge_multi_group_label(gt_dict["gt_classes"],
+                                              num_classes_by_task)
+            gt_boxes_and_cls = np.zeros((max_objs, 10), dtype=np.float32)
+            if boxes.shape[0] > 0:
+                boxes_and_cls = np.concatenate(
+                    (boxes, classes.reshape(-1, 1).astype(np.float32)),
+                    axis=1)
+                num_obj = min(len(boxes_and_cls), max_objs)
+                if boxes.shape[1] == 9:
+                    boxes_and_cls = boxes_and_cls[
+                        :, [0, 1, 2, 3, 4, 5, 8, 6, 7, 9]]
+                gt_boxes_and_cls[:num_obj] = boxes_and_cls[:num_obj]
+            example.update(gt_boxes_and_cls=gt_boxes_and_cls, hm=hms,
+                           anno_box=anno_boxs, ind=inds, mask=masks, cat=cats,
+                           gt_box=gt_boxs)
+        res["lidar"]["targets"] = example
+        return res, info

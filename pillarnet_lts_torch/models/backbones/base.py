@@ -1,4 +1,4 @@
-"""Masked-dense building blocks with exact spconv semantics, eval path.
+"""Masked-dense building blocks with exact spconv semantics.
 
 Port of `pillarnet_lts_tpu/models/backbones/base.py` in the plain layout:
 
@@ -10,7 +10,13 @@ Port of `pillarnet_lts_tpu/models/backbones/base.py` in the plain layout:
   values after the following ReLU; the multiply needs no such ordering.)
 - SparseConv2d (strided): the occupancy dilates; the new mask is a 3x3
   max-pool of the old one with padding 1, spconv's output-site rule.
-- Eval BatchNorm is folded into the conv weights and bias.
+- Eval BatchNorm is folded into the conv weights and bias. In training
+  (`module.train()`) the conv runs unfolded with its bias, and the masked
+  BatchNorm takes its statistics over the active sites and re-zeroes the
+  rest (`models/utils/norm.py`), as the JAX package's fine training path.
+- `remat` runs a unit under `torch.utils.checkpoint` (non-reentrant): its
+  activations are recomputed in the backward, the counterpart of the JAX
+  package's `nn.remat`; the replay leaves the BN running statistics alone.
 - int8 deploy (`quant=True`, calibrated): the conv core runs int8 through
   `ops/quant.py::int8_conv_bn_act` (the K4 kernel on CUDA), with the BN
   fold riding the dequant vector and the re-zero, residual and ReLU fused
@@ -27,15 +33,33 @@ occupancies handed between stages are (B, H, W) bool, as in the JAX
 package.
 """
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ...ops.quant import (activation_scale, int8_conv_bn_act, kernel_int8,
                           pack_kernel, weight_scale)
 from ..utils.init import normal_, xavier_uniform_
-from ..utils.norm import MaskedBatchNorm
+from ..utils.norm import MaskedBatchNorm, recomputing
 from ..utils.quant import Calibrated
+
+
+def _replay_context():
+    return contextlib.nullcontext(), recomputing()
+
+
+def remat(enabled, fn, *args):
+    """fn(*args), with its activations recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant) when `enabled` and autograd
+    records; the replay runs under `norm.recomputing()`, so BN running
+    statistics move once per step."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, context_fn=_replay_context)
 
 
 def dilate_mask(mask, stride: int = 2):
@@ -157,12 +181,17 @@ def conv_bn_act(conv: MaskedConv, bn: MaskedBatchNorm, x, mask, act=True,
     -> optional ReLU. mask: (B, 1, H, W) {0, 1} multiplier or None (dense).
 
     The residual is zero at inactive sites, so relu(y * m + r) here and the
-    int8 epilogue's relu(y + r) * m agree."""
-    if conv.quant_ready():
+    int8 epilogue's relu(y + r) * m agree. In training the BN is not
+    folded: conv with its bias, then the masked BN with batch statistics
+    (which re-zeroes)."""
+    if bn.training:
+        y = bn(conv(x), mask)
+    elif conv.quant_ready():
         return conv.int8(x, bn, mask, residual, act)
-    y = conv.folded(x, *bn.fold_factors())
-    if mask is not None:
-        y = y * mask
+    else:
+        y = conv.folded(x, *bn.fold_factors())
+        if mask is not None:
+            y = y * mask
     if residual is not None:
         y = y + residual
     return F.relu(y) if act else y
@@ -209,13 +238,15 @@ class Sparse2DBasicBlockV(nn.Module):
 
 class SparseDownStage(nn.Module):
     """Strided SparseConv2d + BN + ReLU followed by N residual blocks
-    (`block0`, `block1`, ...)."""
+    (`block0`, `block1`, ...). `remat`: the down conv unit and each block
+    recompute their activations in the backward."""
 
     def __init__(self, in_channels, channels, num_blocks, stride=2,
-                 quant=False, device=None):
+                 quant=False, remat=False, device=None):
         super().__init__()
         self.stride = stride
         self.num_blocks = num_blocks
+        self.remat = remat
         self.down_conv = MaskedConv(in_channels, channels, stride=stride,
                                     use_bias=False, quant=quant, device=device)
         self.down_bn = MaskedBatchNorm(channels, device=device)
@@ -228,9 +259,10 @@ class SparseDownStage(nn.Module):
         -> (y, new occupancy)."""
         new_occ = dilate_mask(occ, self.stride)
         mask = site_mask(new_occ, x.dtype)
-        y = conv_bn_act(self.down_conv, self.down_bn, x, mask)
+        y = remat(self.remat, conv_bn_act, self.down_conv, self.down_bn, x,
+                  mask)
         for i in range(self.num_blocks):
-            y = getattr(self, f"block{i}")(y, mask)
+            y = remat(self.remat, getattr(self, f"block{i}"), y, mask)
         return y, new_occ
 
 

@@ -1,4 +1,4 @@
-"""PillarResNet BEV backbones (masked-dense), eval path.
+"""PillarResNet BEV backbones (masked-dense).
 
 Port of `pillarnet_lts_tpu/models/backbones/pillar_resnet.py` on the dense
 grid branch, plain layout:
@@ -18,6 +18,13 @@ int8 deploy (`quant=True`): every conv runs int8 once calibrated. With
 `pallas_s2d_gate` + `_fused_conv_params` + `s2d_fused_stage`
 (`pillarnet_lts_tpu/models/backbones/base.py:554-619`); otherwise each of
 its convs runs on the per-conv int8 kernel.
+
+Training (`module.train()`) runs every conv unfolded with masked batch
+statistics (`base.py::conv_bn_act`). `remat=True` (the flagship config)
+recomputes each stage-1 block, each down conv unit and residual block of
+conv2-conv4 and each conv5 layer in the backward (`base.py::remat`), the
+units the JAX package wraps in `nn.remat` (`pillar_resnet.py:180-190`,
+`base.py:934-938`).
 """
 
 from typing import Tuple
@@ -34,6 +41,7 @@ from .base import (
     Sparse2DBasicBlockV,
     SparseDownStage,
     nhwc,
+    remat,
     site_mask,
 )
 
@@ -44,21 +52,25 @@ class _PillarResNetBase(nn.Module):
     with_conv5: bool = False
 
     def __init__(self, in_channels=32, quant=False, s2d_pallas=False,
-                 device=None):
+                 remat=False, device=None):
         super().__init__()
         c = self.in_channels = in_channels
         self.s2d_pallas = s2d_pallas
+        self.remat = remat
         self._fused = (None, None)  # (state keys, stacked stage params)
         self.conv1_block0 = Sparse2DBasicBlockV(c, quant, device)
         for i in range(1, self.conv1_blocks):
             setattr(self, f"conv1_block{i}",
                     Sparse2DBasicBlock(c, quant, device))
         self.conv2 = SparseDownStage(c, c * 2, self.stage_blocks[0],
-                                     quant=quant, device=device)
+                                     quant=quant, remat=remat,
+                                     device=device)
         self.conv3 = SparseDownStage(c * 2, c * 4, self.stage_blocks[1],
-                                     quant=quant, device=device)
+                                     quant=quant, remat=remat,
+                                     device=device)
         self.conv4 = SparseDownStage(c * 4, c * 8, self.stage_blocks[2],
-                                     quant=quant, device=device)
+                                     quant=quant, remat=remat,
+                                     device=device)
         if self.with_conv5:
             self.conv5_down = DenseConvBNReLU(c * 8, stride=2, quant=quant,
                                               device=device)
@@ -114,14 +126,17 @@ class _PillarResNetBase(nn.Module):
                            w_pack=w_pack).permute(0, 3, 1, 2)
         else:
             for blk in self._stage1_blocks():
-                x = blk(x, mask)
+                x = remat(self.remat, blk, x, mask)
         out = {"conv1": (x, occ)}
         x2, m2 = self.conv2(x, occ)
         x3, m3 = self.conv3(x2, m2)
         x4, m4 = self.conv4(x3, m3)
         out.update(conv2=(x2, m2), conv3=(x3, m3), conv4=(x4, m4))
         if self.with_conv5:
-            y = self.conv5_block1(self.conv5_block0(self.conv5_down(x4)))
+            y = x4
+            for layer in (self.conv5_down, self.conv5_block0,
+                          self.conv5_block1):
+                y = remat(self.remat, layer, y)
             out["conv5"] = (y, None)
         return out
 

@@ -1,4 +1,4 @@
-"""Multi-task center-heatmap detection head, eval path.
+"""Multi-task center-heatmap detection head.
 
 Port of `pillarnet_lts_tpu/models/bbox_heads/center_head.py`:
 
@@ -26,9 +26,16 @@ the mask kernel as a launch argument.
 Inputs are NCHW maps; the prediction dicts hold NHWC views, the JAX
 package's layout, so decode and the tests index channels last. The convs
 compute in the input's dtype (bf16 in the bf16 and int8 configs); decode
-runs in f32 regardless. Not ported yet: training losses, double-flip TTA,
-circular NMS and the head's int8 mode (they raise). `approx_topk` (the
-TPU's approximate top-k, `lax.approx_max_k`, set by no config) raises too.
+runs in f32 regardless.
+
+Training (`module.train()`): the shared conv and the fused wide conv run
+unfolded with their biases, each head's slice of the wide conv gets a BN
+of its own with batch statistics (JAX :123-135); `loss` returns the JAX
+package's per-task dict (`models/losses/centernet_loss.py`).
+
+Not ported yet: double-flip TTA, circular NMS and the head's int8 mode
+(they raise). `approx_topk` (the TPU's approximate top-k,
+`lax.approx_max_k`, set by no config) raises too.
 """
 
 from typing import Dict, Sequence, Tuple
@@ -40,6 +47,8 @@ from torch import nn
 from ...core.utils import device_constant
 from ...ops.nms import _NMS_SWEEPS, rotated_nms, rotated_nms_dynamic
 from ..backbones.base import MaskedConv
+from ..losses.centernet_loss import (fast_focal_loss, iou_loss, iou_reg_loss,
+                                     reg_loss)
 from ..registry import HEADS
 from ..utils.norm import MaskedBatchNorm
 
@@ -71,15 +80,20 @@ class SepHead(nn.Module):
 
     def forward(self, x):
         """x (B, C, H, W) -> {head: (B, H, W, classes) NHWC view}."""
-        ws, bs = [], []
-        for h in self.heads:
-            inv, shift = getattr(self, f"{h}_bn0").fold_factors()
-            w, b = getattr(self, f"{h}_conv0").folded_params(inv, shift)
-            ws.append(w)
-            bs.append(b)
-        y = F.relu(F.conv2d(x, torch.cat(ws).to(x.dtype),
-                            torch.cat(bs).to(x.dtype), padding=1))
         hc = self.head_conv
+        convs = [getattr(self, f"{h}_conv0") for h in self.heads]
+        bns = [getattr(self, f"{h}_bn0") for h in self.heads]
+        if bns[0].training:
+            y = F.conv2d(x, torch.cat([c.weight for c in convs]).to(x.dtype),
+                         torch.cat([c.bias for c in convs]).to(x.dtype),
+                         padding=1)
+            y = torch.cat([F.relu(bn(y[:, j * hc:(j + 1) * hc]))
+                           for j, bn in enumerate(bns)], dim=1)
+        else:
+            ws, bs = zip(*(c.folded_params(*bn.fold_factors())
+                           for c, bn in zip(convs, bns)))
+            y = F.relu(F.conv2d(x, torch.cat(ws).to(x.dtype),
+                                torch.cat(bs).to(x.dtype), padding=1))
         return {
             h: getattr(self, f"{h}_out")(y[:, j * hc:(j + 1) * hc])
             .permute(0, 2, 3, 1)
@@ -88,12 +102,16 @@ class SepHead(nn.Module):
 
 
 class CenterHeadMath:
-    """Parameter-free decode/predict math for CenterHead outputs."""
+    """Parameter-free decode/loss/predict math for CenterHead outputs."""
 
-    def __init__(self, tasks, pillar_size, point_cloud_range):
+    def __init__(self, tasks, pillar_size, point_cloud_range,
+                 code_weights=(), common_heads=None, reg_iou=None):
         self.tasks = [dict(t) for t in tasks]
         self.pillar_size = float(pillar_size)
         self.point_cloud_range = list(point_cloud_range)
+        self.code_weights = list(code_weights)
+        self.common_heads = dict(common_heads or {})
+        self.reg_iou = reg_iou
 
     @property
     def num_classes(self):
@@ -123,6 +141,65 @@ class CenterHeadMath:
         if with_vel:
             parts.append(preds_dict["vel"])
         return torch.cat(parts + [rot], dim=-1)
+
+    def loss(self, example, preds_dicts, train_cfg):
+        """Training losses (JAX `center_head.py:312-411`): per task the
+        focal heatmap loss, the weighted L1 box loss and, per config, the
+        IoU-aware and IoU-regression losses. Returns {key: [per-task
+        value]} with the JAX keys (`loss`, `hm_loss`, `loc_loss`,
+        `loc_loss_elem`, `num_positive`, `iou_loss`, `reg_iou_loss`).
+
+        example: the collated targets on the maps' device, per task `hm`
+        (B, C, H, W), `anno_box` (B, M, 10), `ind`, `mask`, `cat` (B, M)
+        and `gt_box` (B, M, 7)."""
+        rets = []
+        for task_id, preds_dict in enumerate(preds_dicts):
+            preds_dict = {k: v.float() for k, v in preds_dict.items()}
+            pd = {k: v.permute(0, 3, 1, 2) for k, v in preds_dict.items()}
+            ind = example["ind"][task_id]
+            mask = example["mask"][task_id]
+            hm = torch.sigmoid(pd["hm"]).clamp(1e-4, 1 - 1e-4)
+            hm_loss = fast_focal_loss(hm, example["hm"][task_id], ind, mask,
+                                      example["cat"][task_id])
+
+            target_box = example["anno_box"][task_id]
+            names = ["reg", "height", "dim", "vel", "rot"]
+            if "vel" not in pd:
+                names.remove("vel")
+                target_box = target_box[..., [0, 1, 2, 3, 4, 5, -2, -1]]
+            box_loss = reg_loss(torch.cat([pd[k] for k in names], dim=1),
+                                mask, ind, target_box)
+            cw = list(self.code_weights)
+            if len(cw) == box_loss.shape[0] + 2 and "vel" not in pd:
+                # nuScenes' 10 weights on a task without velocity: drop
+                # the vx/vy slots, as the target columns above
+                cw = cw[:6] + cw[-2:]
+            if len(cw) != box_loss.shape[0]:
+                raise ValueError(
+                    f"code_weights has {len(self.code_weights)} entries but "
+                    f"the box regression target has {box_loss.shape[0]} dims")
+            loc_loss = (box_loss * device_constant(cw, box_loss.device)).sum()
+            loss = (hm_loss * train_cfg["hm_weight"]
+                    + loc_loss * train_cfg["bbox_weight"])
+            ret = {"hm_loss": hm_loss, "loc_loss": loc_loss,
+                   "loc_loss_elem": box_loss,
+                   "num_positive": mask.float().sum()}
+
+            if "iou" in self.common_heads or self.reg_iou is not None:
+                boxes = self._decode_dense_boxes(
+                    preds_dict, task_id, False).permute(0, 3, 1, 2)
+            gt_box = example["gt_box"][task_id]
+            if "iou" in self.common_heads:
+                il = iou_loss(pd["iou"], mask, ind, boxes.detach(), gt_box)
+                loss = loss + il * train_cfg["iou_weight"]
+                ret["iou_loss"] = il
+            if self.reg_iou is not None:
+                rl = iou_reg_loss(boxes, mask, ind, gt_box, kind=self.reg_iou)
+                loss = loss + rl * train_cfg["reg_iou_weight"]
+                ret["reg_iou_loss"] = rl
+            ret["loss"] = loss
+            rets.append(ret)
+        return {k: [r[k] for r in rets] for k in rets[0]}
 
     def predict(self, example, preds_dicts, test_cfg):
         """Decode + post-processing. Returns a dict of padded tensors:
@@ -331,14 +408,16 @@ class CenterHead(nn.Module):
                  point_cloud_range=(-75.2, -75.2, -2, 75.2, 75.2, 4),
                  feat_channels=None, quant=False, device=None):
         """`feat_channels`: channels of each input map (the neck's outputs);
-        defaults to `in_channels`. `code_weights` and `reg_iou` configure
-        training and are accepted for config compatibility. The head's
-        int8 mode (`quant=True`, rejected in the JAX package for its mAP
-        cost) is not ported."""
+        defaults to `in_channels`. `code_weights`, `common_heads` and
+        `reg_iou` also configure the loss. The head's int8 mode
+        (`quant=True`, rejected in the JAX package for its mAP cost) is not
+        ported."""
         super().__init__()
-        del code_weights, reg_iou
         if quant:
             raise NotImplementedError("CenterHead: quant=True is not ported")
+        self.code_weights = list(code_weights)
+        self.common_heads = dict(common_heads)
+        self.reg_iou = reg_iou
         self.tasks = [dict(t) for t in tasks]
         self.pillar_size = pillar_size
         self.point_cloud_range = list(point_cloud_range)
@@ -359,7 +438,8 @@ class CenterHead(nn.Module):
 
     def math(self) -> CenterHeadMath:
         return CenterHeadMath(self.tasks, self.pillar_size,
-                              self.point_cloud_range)
+                              self.point_cloud_range, self.code_weights,
+                              self.common_heads, self.reg_iou)
 
     def forward(self, x):
         """x: tuple of NCHW maps, one per scale -> list of per-task dicts of
@@ -368,11 +448,16 @@ class CenterHead(nn.Module):
             raise ValueError(f"expected {self.num_scales} maps, got {len(x)}")
         share = []
         for k in range(self.num_scales):
-            inv, shift = getattr(self, f"share_bn{k}").fold_factors()
-            share.append(F.relu(
-                getattr(self, f"share_conv{k}").folded(x[k], inv, shift)))
+            conv = getattr(self, f"share_conv{k}")
+            bn = getattr(self, f"share_bn{k}")
+            y = bn(conv(x[k])) if bn.training else \
+                conv.folded(x[k], *bn.fold_factors())
+            share.append(F.relu(y))
         return [getattr(self, f"task{k}")(share[self.task_idx[k]])
                 for k in range(len(self.tasks))]
+
+    def loss(self, example, preds_dicts, train_cfg):
+        return self.math().loss(example, preds_dicts, train_cfg)
 
     def predict(self, example, preds_dicts, test_cfg):
         return self.math().predict(example, preds_dicts, test_cfg)

@@ -1,10 +1,11 @@
 """Config -> module builders, reading the repo's `configs/*.py`.
 
-Config keys that only select TPU layouts or training machinery (remat,
-space-to-depth, H-packing, W-chunking) are dropped: the port runs the plain
-eval layout, which the JAX package pins equal to them. `quant` (int8
-deploy), `quant_scatter` and `s2d_pallas` (the fused int8 stride-1 stage)
-are live. Keys that select a path the port does not have (the compact
+Config keys that only select TPU layouts or XLA's remat policy
+(space-to-depth, H-packing, W-chunking, `remat_policy`) are dropped: the
+port runs the plain layout, which the JAX package pins equal to them.
+`quant` (int8 deploy), `quant_scatter`, `s2d_pallas` (the fused int8
+stride-1 stage) and the backbone's `remat` (activation recompute in
+training) are live. Keys that select a path the port does not have (the compact
 sparse reader) raise. The compute dtype (`dtype`, float32 or bfloat16) is a
 detector-level key, as in the JAX package.
 """
@@ -14,7 +15,7 @@ import torch
 from .registry import (BACKBONES, DETECTORS, HEADS, NECKS, READERS,
                        build_from_cfg)
 
-_DROPPED_KEYS = ("logger", "remat", "remat_policy", "s2d_stage1", "chunk_nc",
+_DROPPED_KEYS = ("logger", "remat_policy", "s2d_stage1", "chunk_nc",
                  "chunk_min_w", "chunk_train", "hpack", "spatial_axis")
 
 # key -> the only value the port runs

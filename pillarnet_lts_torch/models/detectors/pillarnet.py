@@ -1,9 +1,11 @@
-"""PillarNet single-stage detector, eval path.
+"""PillarNet single-stage detector.
 
 Port of `pillarnet_lts_tpu/models/detectors/pillarnet.py`:
 reader -> backbone -> neck -> CenterHead, with the flax submodule names
 (`reader_net`, `backbone_net`, `neck_net`, `head_net`). The forward is a
-function of (points, points_mask); `predict` decodes and runs NMS.
+function of (points, points_mask), in training (`module.train()`) or
+eval mode; `loss` takes the collated targets, `predict` decodes and runs
+NMS.
 `dtype` (f32 or bf16) is the compute dtype: the reader casts its features
 to it and every later module computes in the dtype of its input, with f32
 parameters, as the JAX package does.
@@ -45,6 +47,10 @@ class PillarNet(nn.Module):
             num_classes = [len(t["class_names"]) for t in self.head_net.tasks]
             cfg = set_by_task_cfg(cfg, num_classes)
         return cfg
+
+    def loss(self, example, preds, train_cfg=None):
+        return self.head_net.loss(example, preds,
+                                  train_cfg or self.train_cfg)
 
     def predict(self, example, preds, test_cfg=None):
         return self.head_net.predict(

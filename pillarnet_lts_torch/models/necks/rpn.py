@@ -1,4 +1,4 @@
-"""Dense BEV FPN necks RPNV1 and RPNV2, eval path.
+"""Dense BEV FPN necks RPNV1 and RPNV2.
 
 Port of `pillarnet_lts_tpu/models/necks/rpn.py`:
 
@@ -13,6 +13,8 @@ the input). Submodule names mirror the flax ones (`block_5.conv0.Conv_0`,
 `deblock_5.ConvTranspose_0`, ...). Convs compute in the input's dtype;
 with `quant=True` the calibrated 3x3 convs run the int8 core (K4 on CUDA)
 and the transposed convs stay in the compute dtype, as in the JAX package.
+In training (`module.train()`) every BN, the deconv branches' too, takes
+batch statistics over all sites (`models/utils/norm.py`).
 """
 
 from typing import Dict, Sequence
@@ -28,7 +30,7 @@ from ..utils.norm import MaskedBatchNorm
 
 
 class _ConvBNReLU(nn.Module):
-    """3x3 conv + BN (folded) + ReLU."""
+    """3x3 conv + BN (folded at eval) + ReLU."""
 
     def __init__(self, in_features, features, quant=False, device=None):
         super().__init__()

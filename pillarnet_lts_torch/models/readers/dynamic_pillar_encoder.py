@@ -1,10 +1,15 @@
-"""Dynamic pillar feature encoder (reader), eval path.
+"""Dynamic pillar feature encoder (reader).
 
 Port of `pillarnet_lts_tpu/models/readers/dynamic_pillar_encoder.py`:
 
   padded points -> per-point pillar ids + [dx_c, dy_c, raw] features
   -> shared Linear + BN + ReLU MLP, BN folded into the weights
   -> scatter-max straight into the dense (B, H, W, F) BEV grid + occupancy.
+
+In training (`module.train()`) the MLP runs unfolded: Linear, then the
+masked BN with batch statistics over the valid points (`mask=valid`),
+then ReLU (JAX :150-160); the gradient flows back through the scatter-max
+(`ops/scatter.py::_PillarScatterMax`).
 
 The MLP computes in `dtype` (f32 or bf16). int8 deploy (`quant=True`,
 calibrated): the MLP quantizes its input per input channel and the scale
@@ -95,11 +100,16 @@ class DynamicPFE(Calibrated, nn.Module):
         spec = self.spec
         x, flat_ids, valid = voxelize_points(points, points_mask, spec)
         x = x.to(self.dtype)
+        train = self.pfn_bn_0.training
         for k in range(self.num_layers):
-            inv, shift = getattr(self, f"pfn_bn_{k}").fold_factors()
-            x = F.relu(getattr(self, f"pfn_dense_{k}").folded(
-                x, inv, shift, valid))
-        if self.quant_ready():
+            dense = getattr(self, f"pfn_dense_{k}")
+            bn = getattr(self, f"pfn_bn_{k}")
+            if train:
+                x = bn(F.linear(x, dense.weight.to(x.dtype)), valid[..., None])
+            else:
+                x = dense.folded(x, *bn.fold_factors(), valid)
+            x = F.relu(x)
+        if self.quant_ready() and not train:
             # post-ReLU features quantize to nonneg codes; per-tensor
             # monotone quantization commutes with the max
             s = activation_scale(self.scatter_absmax)

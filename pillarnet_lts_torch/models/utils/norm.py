@@ -1,30 +1,79 @@
-"""Masked BatchNorm, eval path.
+"""Masked BatchNorm: batch statistics over active sites in training, the
+running statistics (folded into the preceding conv or matmul) at eval.
 
-Port of `pillarnet_lts_tpu/models/utils/norm.py::MaskedBatchNorm`. At eval
-the norm is an affine y = x * inv + shift that the port folds into the
-preceding conv or matmul (`fold_factors`); `forward` applies it unfolded,
-as the JAX package does after a transposed conv. Masked training statistics
-(mean/var over active sites only) come with the training slice.
+Port of `pillarnet_lts_tpu/models/utils/norm.py::MaskedBatchNorm`. In
+training mode (`module.train()`) the statistics are the JAX package's
+one-pass formulas (`norm.py:106-137`) over the sites where `mask` is set
+(all sites with `mask=None`), across the whole batch:
+
+  cnt = max(#sites, 1); mean = sum(x) / cnt;
+  var = max(sum(x^2) / cnt - mean^2, 0)        (biased; normalizes)
+  running_mean = (1 - m) running_mean + m mean
+  running_var  = (1 - m) running_var + m var cnt / max(cnt - 1, 1)
+
+with m = 0.01 and eps = 1e-3. With `mask=None` the site count is a
+constant of the shape, and the JAX package's division by it compiles to a
+multiply by its f32 reciprocal (XLA's simplifier); the port multiplies
+likewise. The output is re-zeroed at inactive sites. Under
+`torch.utils.checkpoint` (`remat`) the forward runs again in the backward;
+`recomputing()` marks that replay, and the running statistics are then
+left alone, so they move once per step as under JAX's `nn.remat`.
+
+At eval the norm is an affine y = x * inv + shift that the port folds into
+the preceding conv or matmul (`fold_factors`); `forward` applies it
+unfolded, as the JAX package does after a transposed conv. A norm is built
+in eval mode, as the port's models are built for serving, and the modules
+around it follow its mode: `model.train()` selects the training path of
+every module, `model.eval()` (or a module built on its own) the eval path.
 
 Parameter names follow torch (`weight`, `bias`, `running_mean`,
 `running_var`); `runtime/convert.py` maps them from flax's
 `scale`/`bias`/`mean`/`var`.
 """
 
+import contextlib
+import threading
+
+import numpy as np
 import torch
 from torch import nn
 
+_REPLAY = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks a checkpointed forward's replay in the backward (the context
+    `remat` hands `torch.utils.checkpoint` for its recompute)."""
+    prev = getattr(_REPLAY, "active", False)
+    _REPLAY.active = True
+    try:
+        yield
+    finally:
+        _REPLAY.active = prev
+
+
+def _f32_reciprocal(n):
+    return float(np.float32(1) / np.float32(n))
+
+
+def _clamp0(v):
+    """max(v, 0) with JAX's gradient at a tie (half to each side)."""
+    return torch.maximum(v, torch.zeros_like(v))
+
 
 class MaskedBatchNorm(nn.Module):
-    def __init__(self, features, eps=1e-3, device=None):
+    def __init__(self, features, eps=1e-3, momentum=0.01, device=None):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.empty(features, device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("running_mean",
                              torch.empty(features, device=device))
         self.register_buffer("running_var", torch.empty(features, device=device))
         self.init_weights(None)
+        self.eval()  # built for serving; `module.train()` switches
 
     @torch.no_grad()
     def init_weights(self, generator):
@@ -42,10 +91,51 @@ class MaskedBatchNorm(nn.Module):
         shift = self.bias - self.running_mean * inv
         return inv, shift
 
-    def forward(self, x):
-        """x (B, C, H, W) -> (x - mean) * inv + bias, per channel, computed
-        in f32 and cast back to x.dtype (the JAX package's eval order)."""
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean[:, None, None]) \
-            * inv[:, None, None] + self.bias[:, None, None]
+    def forward(self, x, mask=None):
+        """x (B, C, H, W) maps or (B, N, C) point rows; mask: a {0, 1} or
+        bool tensor that broadcasts against x with size 1 on the channel
+        axis ((B, 1, H, W) or (B, N, 1)), or None for every site.
+
+        Training: normalize with the batch statistics of the masked sites
+        and re-zero the others; eval: the running statistics (mask
+        ignored, as the JAX package's eval forward after a transposed
+        conv). Computed in f32, returned in x.dtype."""
+        cdim = 1 if x.dim() == 4 else x.dim() - 1
+        shape = [1] * x.dim()
+        shape[cdim] = -1
+        xf = x.float()
+        if not self.training:
+            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+            y = (xf - self.running_mean.view(shape)) * inv.view(shape) \
+                + self.bias.view(shape)
+            return y.to(x.dtype)
+
+        dims = [d for d in range(x.dim()) if d != cdim]
+        if mask is None:
+            cnt = max(x.numel() // x.shape[cdim], 1)
+            rcp = _f32_reciprocal(cnt)
+            mean = xf.sum(dims) * rcp
+            var = _clamp0((xf * xf).sum(dims) * rcp - mean * mean)
+            # cnt / (cnt - 1) for the running variance, folded into one
+            # constant
+            bessel = float(np.float32(cnt) * np.float32(
+                _f32_reciprocal(max(cnt - 1, 1))))
+        else:
+            mf = mask.float()
+            cnt = mf.sum().clamp_min(1.0)
+            mean = (xf * mf).sum(dims) / cnt
+            var = _clamp0((xf * xf * mf).sum(dims) / cnt - mean * mean)
+        if not getattr(_REPLAY, "active", False):
+            with torch.no_grad():
+                unbiased = (var * bessel if mask is None
+                            else var * cnt / (cnt - 1.0).clamp_min(1.0))
+                m = self.momentum
+                self.running_mean.copy_(
+                    (1.0 - m) * self.running_mean + m * mean)
+                self.running_var.copy_(
+                    (1.0 - m) * self.running_var + m * unbiased)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
+        if mask is not None:
+            y = y * mask.to(y.dtype)
         return y.to(x.dtype)

@@ -235,3 +235,24 @@ def rotated_iou_bev(boxes_a, boxes_b):
     sa = (boxes_a[..., 2] * boxes_a[..., 3])[..., :, None]
     sb = (boxes_b[..., 2] * boxes_b[..., 3])[..., None, :]
     return overlap / (sa + sb - overlap).clamp_min(_EPS)
+
+
+def _height_overlap(za, ha, zb, hb):
+    top = torch.minimum(za + ha / 2, zb + hb / 2)
+    bot = torch.maximum(za - ha / 2, zb - hb / 2)
+    return (top - bot).clamp_min(0.0)
+
+
+def boxes_aligned_iou3d(boxes_a, boxes_b):
+    """Row-aligned rotated 3D IoU (...,) of det3d 7-dim boxes (..., 7):
+    the target of the IoU-aware head's loss. Plain PyTorch on every device
+    (`_convex_intersection_area`, one pair per row), as the JAX package's
+    `boxes_aligned_iou3d` runs plain XLA."""
+    overlap = _convex_intersection_area(
+        box_corners_bev(to_pcdet_bev(boxes_a)),
+        box_corners_bev(to_pcdet_bev(boxes_b)))
+    overlap = overlap * _height_overlap(boxes_a[..., 2], boxes_a[..., 5],
+                                        boxes_b[..., 2], boxes_b[..., 5])
+    vol_a = boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5]
+    vol_b = boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5]
+    return overlap / (vol_a + vol_b - overlap).clamp_min(1e-6)

@@ -19,6 +19,14 @@ cast. The JAX package's other backends ('xla', 'sort') are plain JAX,
 not kernels, and its MXU knobs (`set_mxu_pack`, tile rows) have no meaning
 on Hopper; neither is carried over. On CPU tensors both backends run the
 plain version.
+
+`pillar_scatter_max` is differentiable in the point features
+(`_PillarScatterMax`): the backward is the TPU kernels' custom VJP
+(`voxelize_kernel.py:853-890`, XLA there, torch ops here), which hands a
+pillar's whole gradient to every valid point equal to its max, so tied
+points each receive it (a split, as `scatter_reduce_`'s or JAX's XLA
+`segment_max` gradient gives, is not what the TPU path trains with). The
+occupancy has no gradient.
 """
 
 import torch
@@ -66,6 +74,43 @@ def _check(name, point_feats, flat_ids, valid, dtypes, height, width):
     return B, N, C
 
 
+class _PillarScatterMax(torch.autograd.Function):
+    """The scatter-max with the TPU kernels' gradient: for each valid point
+    and channel, dgrid at its pillar where its feature equals the pillar's
+    max (`_scatter_vjp_bwd`), else 0."""
+
+    @staticmethod
+    def forward(ctx, point_feats, flat_ids, valid, height, width, nonneg):
+        grid, occ = _scatter_max(point_feats, flat_ids, valid, height, width,
+                                 nonneg)
+        ctx.mark_non_differentiable(occ)
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(point_feats, flat_ids, valid, grid)
+        return grid, occ
+
+    @staticmethod
+    def backward(ctx, dgrid, docc):
+        del docc
+        return (scatter_max_backward(*ctx.saved_tensors, dgrid),
+                None, None, None, None, None)
+
+
+def scatter_max_backward(point_feats, flat_ids, valid, grid, dgrid):
+    """The gradient of the scatter-max's point features: dgrid (B, H, W, C)
+    at each valid point's pillar where its feature equals the grid's max
+    there, else 0 (torch ops: one gather of the grid's and of dgrid's rows,
+    a compare, a select)."""
+    B, N, C = point_feats.shape
+    hw = grid.shape[1] * grid.shape[2]
+    rows = (flat_ids.long().clamp(0, hw - 1)
+            + hw * torch.arange(B, device=flat_ids.device)[:, None])
+    rows = rows.reshape(-1)
+    g_at = grid.reshape(B * hw, C).index_select(0, rows)
+    d_at = dgrid.reshape(B * hw, C).index_select(0, rows)
+    winner = (point_feats.reshape(B * N, C) == g_at) & valid.reshape(B * N, 1)
+    return torch.where(winner, d_at, 0).reshape(B, N, C)
+
+
 def pillar_scatter_max(point_feats, flat_ids, valid, height, width,
                        nonneg=False):
     """(B, N, C) features + (B, N) pillar ids -> (B, H, W, C) grid, (B, H, W) occ.
@@ -79,7 +124,16 @@ def pillar_scatter_max(point_feats, flat_ids, valid, height, width,
     A CPU tensor takes the plain version; a CUDA tensor launches
     `csrc/pillar_scatter_max.cu` (f32 or int8 codes), or with
     `set_backend("tiled")` `csrc/pillar_scatter_max_tiled.cu`, or raises.
+    Float features that require grad get the TPU kernels' gradient
+    (`_PillarScatterMax`).
     """
+    return _PillarScatterMax.apply(point_feats, flat_ids, valid, height,
+                                   width, nonneg)
+
+
+def _scatter_max(point_feats, flat_ids, valid, height, width, nonneg):
+    """The forward of `pillar_scatter_max`: the selected kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
     if _BACKEND == "tiled":
         return pillar_scatter_max_tiled(point_feats, flat_ids, valid, height,
                                         width, nonneg)
@@ -125,8 +179,9 @@ def pillar_scatter_max_tiled(point_feats, flat_ids, valid, height, width,
     `nonneg` is accepted and ignored. The kernel makes sort keys (dropped
     points past every pillar), `torch.sort` orders them (stable), and the
     kernel reduces each pillar's run of points into its grid row: no
-    atomics on the grid, so the result is deterministic. Forward only: the
-    gradient comes with training.
+    atomics on the grid, so the result is deterministic. This function is
+    the forward alone; `pillar_scatter_max` under `set_backend("tiled")`
+    adds the gradient.
 
     A CPU tensor takes the plain version; a CUDA tensor launches
     `csrc/pillar_scatter_max_tiled.cu` or raises.

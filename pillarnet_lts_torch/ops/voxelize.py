@@ -10,6 +10,7 @@ picks between the two by device.
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 
@@ -26,6 +27,12 @@ class PillarSpec(NamedTuple):
     @property
     def height(self) -> int:
         return int(round((self.pc_range[4] - self.pc_range[1]) / self.pillar_size))
+
+    @property
+    def inv_pillar_size(self) -> float:
+        """1 / pillar_size rounded to f32, the constant XLA multiplies by
+        where the JAX package divides by the pillar size."""
+        return float(np.float32(1) / np.float32(self.pillar_size))
 
     @property
     def x_offset(self) -> float:
@@ -52,10 +59,13 @@ def voxelize_points(points, points_mask, spec: PillarSpec):
     H, W = spec.height, spec.width
     x = points[..., 0]
     y = points[..., 1]
-    # divide, not multiply by 1/size: a reciprocal moves points that sit on
-    # pillar boundaries into the neighbouring pillar
-    cx = torch.floor((x - spec.pc_range[0]) / spec.pillar_size).to(torch.int32)
-    cy = torch.floor((y - spec.pc_range[1]) / spec.pillar_size).to(torch.int32)
+    # multiply by the f32 reciprocal of the pillar size, as XLA compiles the
+    # JAX package's division by that constant (and as CUDA's division by a
+    # python scalar would): a true division moves points within an ulp of
+    # a pillar edge into the neighbouring pillar
+    inv = spec.inv_pillar_size
+    cx = torch.floor((x - spec.pc_range[0]) * inv).to(torch.int32)
+    cy = torch.floor((y - spec.pc_range[1]) * inv).to(torch.int32)
     in_range = (cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)
     valid = points_mask & in_range
 

@@ -1,0 +1,70 @@
+"""One training step: forward, losses, backward, clip and AdamW update.
+
+Port of `pillarnet_lts_tpu/parallel/train_step.py::make_train_step` (and
+the update of `parallel/train_state.py`) for one device: the model runs in
+training mode (batch statistics, running statistics updated once), the
+task losses are summed in task order, the optimizer clips and steps
+(`solver/optim.py`), and the metrics carry the JAX keys: `loss`, every
+per-task `*_loss` and `num_positive` as `<key>_task<t>`, and `grad_norm`,
+the global norm of the unclipped gradients. Metrics stay on the device
+(0-d tensors); reading them syncs the host.
+"""
+
+import torch
+
+_TARGET_KEYS = ("hm", "anno_box", "ind", "mask", "cat", "gt_box")
+
+
+def batch_to_device(batch, device):
+    """The tensors of a collated numpy batch (`datasets/collate.py`) on
+    `device`: points, points_mask and the per-task target lists."""
+    out = {k: torch.from_numpy(batch[k]).to(device)
+           for k in ("points", "points_mask")}
+    for k in _TARGET_KEYS:
+        if k in batch:
+            out[k] = [torch.from_numpy(a).to(device) for a in batch[k]]
+    return out
+
+
+def step_losses(model, batch, train_cfg=None):
+    """The training forward of a device batch: (the summed loss, the
+    per-task loss dict)."""
+    if model.dtype != torch.float32:
+        raise NotImplementedError("training is ported for f32 models only")
+    model.train()
+    preds = model(batch["points"], batch["points_mask"])
+    losses = model.loss(batch, preds, train_cfg)
+    total = losses["loss"][0]
+    for task_loss in losses["loss"][1:]:
+        total = total + task_loss
+    return total, losses
+
+
+def train_step(model, optimizer, batch, train_cfg=None):
+    """One step on a device batch (`batch_to_device`); returns the metrics
+    dict of 0-d tensors."""
+    total, losses = step_losses(model, batch, train_cfg)
+    optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    metrics = {"loss": total.detach()}
+    for k, vals in losses.items():
+        if k != "loss" and (k.endswith("_loss") or k == "num_positive"):
+            for t, v in enumerate(vals):
+                metrics[f"{k}_task{t}"] = v.detach()
+    metrics["grad_norm"] = optimizer.step()
+    return metrics
+
+
+def bn_shifted_biases(model):
+    """Names of the conv biases that a training-mode BN follows directly
+    (the SubM convs of the backbone, the head's shared conv and its
+    branches' first convs). Batch statistics remove any per-channel shift,
+    so their gradient is zero in exact arithmetic and rounding noise in
+    practice; Adam scales that noise to steps of about the learning rate
+    in either direction, so two implementations agree on these biases only
+    to within twice the summed learning rates, and on nothing else."""
+    from ..models.backbones.base import MaskedConv
+
+    return sorted(f"{name}.bias" for name, m in model.named_modules()
+                  if isinstance(m, MaskedConv) and m.bias is not None
+                  and not name.endswith("_out"))

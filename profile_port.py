@@ -4,7 +4,7 @@
 Run from the repository root on a machine with the card:
 
     python3 profile_port.py [--config CONFIG] [--fused] [--tiled]
-                            [--mask-kernel] [--out record.json]
+                            [--mask-kernel] [--train] [--out record.json]
 
 Builds a config (default `configs/pillarnet/pillarnet34_nusc.py`) with
 seeded random weights (head outputs spread as in `chip_smoke.py`; an int8
@@ -26,6 +26,14 @@ Waymo 196,608 in one) and reports, after 3 warm-up requests:
 `--tiled` serves with `ops.scatter.set_backend("tiled")` (the sorted-run
 scatter-max), `--mask-kernel` with `test_cfg.nms.use_mask_kernel` (the
 suppression-mask kernel).
+
+`--train` profiles a training step of the config instead, at its
+`samples_per_gpu`, on seeded synthetic scenes with every class
+(`datasets.SynthDataset`): after 2 warm-up steps, the forward with the
+losses, the backward and the optimizer step (CUDA events, median of 3),
+kernel time by group over 2 steps (`torch.profiler`) with the busy share
+of their window, samples/s and peak memory; then the same with the
+backbone's `remat` off, for what remat costs and saves.
 
 The summary names the card's `nvidia-smi` name and power limit; `--out`
 takes the full record as JSON.
@@ -103,7 +111,9 @@ def kernel_table(prof):
 
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        # a user range (the optimizer's `step`) spans kernels counted alone
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -120,6 +130,109 @@ def group_of(kernel):
     return "other"
 
 
+def group_table(rows):
+    groups = defaultdict(float)
+    for k, ms, _ in rows:
+        groups[group_of(k)] += ms
+    return dict(groups)
+
+
+def train_profile(cfg, dev, remat):
+    """Step phases, kernel groups, samples/s and peak memory of training
+    `cfg` with the backbone's `remat` set as given."""
+    from pillarnet_lts_torch.apis import build_model_from_cfg, optimizer_from_cfg
+    from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
+    from pillarnet_lts_torch.runtime.train_step import (
+        batch_to_device, step_losses, train_step)
+
+    cfg["model"]["backbone"] = dict(cfg["model"]["backbone"], remat=remat)
+    bs = cfg["data"]["samples_per_gpu"]
+    ds = SynthDataset(cfg, bs, cfg["data"]["max_points"], seed=200,
+                      num_boxes=(10, 21))
+    batch = batch_to_device(collate_batch([ds[i] for i in range(bs)],
+                                          cfg["data"]["max_points"]), dev)
+    model = build_model_from_cfg(cfg, device=dev, seed=0)
+    opt = optimizer_from_cfg(model, cfg, 100)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(2):
+        train_step(model, opt, batch, cfg["train_cfg"])
+    phases = defaultdict(list)
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        total, _ = step_losses(model, batch, cfg["train_cfg"])
+        ev[1].record()
+        opt.zero_grad(set_to_none=True)
+        total.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        phases["step_host"].append((time.perf_counter() - t0) * 1e3)
+        for name, a, b in (("forward", 0, 1), ("backward", 1, 2),
+                           ("optimizer", 2, 3)):
+            phases[name].append(ev[a].elapsed_time(ev[b]))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            train_step(model, opt, batch, cfg["train_cfg"])
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    rows = kernel_table(prof)
+    groups = group_table(rows)
+    step = statistics.median(phases["step_host"])
+    return {"remat": remat, "batch": bs,
+            "phase_ms": {k: statistics.median(v) for k, v in phases.items()},
+            "samples_per_s": bs / step * 1e3,
+            "peak_allocated_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "profile_2_steps": {
+                "window_ms": window, "kernel_ms": sum(groups.values()),
+                "groups_ms": groups,
+                "top_kernels": [dict(name=k, ms=ms, count=c)
+                                for k, ms, c in rows[:25]]}}
+
+
+def profile_training(args):
+    from pillarnet_lts_torch.apis import load_config
+
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    rec = {"card": card, "config": args.config, "train": []}
+    for remat in (True, False):
+        try:
+            r = train_profile(load_config(args.config), dev, remat)
+        except torch.cuda.OutOfMemoryError as e:
+            r = {"remat": remat, "error": f"out of memory: {e}"}
+        rec["train"].append(r)
+        torch.cuda.empty_cache()
+        if "error" in r:
+            print(f"remat {remat}: {r['error'][:200]}")
+            continue
+        p, prof = r["phase_ms"], r["profile_2_steps"]
+        print(f"remat {remat}, bs={r['batch']}: step {p['step_host']:.1f} ms "
+              f"(forward + losses {p['forward']:.1f}, backward "
+              f"{p['backward']:.1f}, optimizer {p['optimizer']:.1f}; median "
+              f"of 3), {r['samples_per_s']:.3f} samples/s, peak allocated "
+              f"{r['peak_allocated_gib']:.3f} GiB; 2 steps: kernel time "
+              f"{prof['kernel_ms']:.1f} ms in a {prof['window_ms']:.1f} ms "
+              f"window (busy {100 * prof['kernel_ms'] / prof['window_ms']:.1f}"
+              f"%); by group: " + ", ".join(
+                  f"{g} {v:.1f} ms" for g, v in sorted(
+                      prof["groups_ms"].items(), key=lambda x: -x[1])))
+        for k in prof["top_kernels"][:8]:
+            print(f"  {k['ms']:9.2f} ms  x{k['count']:<5d} {k['name'][:110]}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(rec, f, indent=1)
+    print(f"card: {card}")
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default=FLAGSHIP)
@@ -129,12 +242,16 @@ def main():
                     help="the sorted-run scatter-max (set_backend('tiled'))")
     ap.add_argument("--mask-kernel", action="store_true",
                     help="NMS masks from the suppression-mask kernel")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a training step instead of serving")
     ap.add_argument("--out", help="write the full record here as JSON")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if args.train:
+        return profile_training(args)
     from pillarnet_lts_torch.datasets import synth_points_realistic
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -203,9 +320,7 @@ def main():
         torch.cuda.synchronize()
         window = (time.perf_counter() - t0) * 1e3
     rows = kernel_table(prof)
-    groups = defaultdict(float)
-    for k, ms, _ in rows:
-        groups[group_of(k)] += ms
+    groups = group_table(rows)
     busy = sum(groups.values())
     rec["profile_5_requests"] = {
         "window_ms": window, "kernel_ms": busy,

@@ -810,3 +810,154 @@ def test_served_request_does_not_sync_the_host(cuda, name):
         torch.cuda.set_sync_debug_mode(0)
     det = to_host(det)
     assert det["mask"].any() and np.isfinite(det["box3d_lidar"]).all()
+
+
+# ---- training (chip_smoke.py phase 13) ---------------------------------------
+
+_ROOT = os.path.join(os.path.dirname(__file__), "..")
+_DEMO = os.path.join(_ROOT, "configs", "demo", "pillarnet18_demo.py")
+
+
+def test_pillar_ids_on_the_card_equal_the_cpu(cuda):
+    """Every nuScenes pillar edge +-1 ulp, in x and y: the card multiplies
+    by the f32 reciprocal as the CPU does (`chip_smoke.py` phase 13 also
+    runs the 4 flagship clouds)."""
+    spec = tvox.PillarSpec(0.075, (-54.0, -54.0, -5.0, 54.0, 54.0, 3.0))
+    edge = np.float32(-54.0 + np.arange(spec.width + 1) * 0.075)
+    xs = np.concatenate([np.nextafter(edge, np.float32(-np.inf)), edge,
+                         np.nextafter(edge, np.float32(np.inf))])
+    pts = np.zeros((2, xs.size, 5), np.float32)
+    pts[0, :, 0] = pts[1, :, 1] = xs
+    pts[0, :, 1] = pts[1, :, 0] = np.float32(-54.0 + 0.3 * 0.075)
+    pts, msk = torch.from_numpy(pts), torch.ones(pts.shape[:2], dtype=bool)
+    _, ids, valid = tvox.voxelize_points(pts.to(cuda), msk.to(cuda), spec)
+    _, want_ids, want_valid = tvox.voxelize_points(pts, msk, spec)
+    assert torch.equal(ids.cpu(), want_ids)
+    assert torch.equal(valid.cpu(), want_valid)
+
+
+@pytest.mark.parametrize("backend", ["auto", "tiled"])
+def test_scatter_gradient_on_the_card_matches_plain(cuda, backend):
+    """The Function's gradient through K1 (or K1') is bit-equal to the
+    same backward over the plain version's grid and to the CPU's, with
+    positive points duplicated onto others (each gets the whole gradient)."""
+    feats, ids, valid, H, W = _scatter_inputs(9, True)
+    feats[:, 500:700] = feats[:, 100:300] = feats[:, 100:300] + 0.5
+    ids[:, 500:700] = ids[:, 100:300]
+    valid[:, 500:700] = valid[:, 100:300] = True
+    ids = np.where(valid, ids, H * W).astype(np.int32)
+    rng = np.random.RandomState(3)
+    dgrid = rng.randn(feats.shape[0], H, W, feats.shape[2]).astype(np.float32)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        x = torch.from_numpy(feats).to(dev).requires_grad_(True)
+        tscatter.set_backend(backend)
+        try:
+            grid, _ = pillar_scatter_max(x, torch.from_numpy(ids).to(dev),
+                                         torch.from_numpy(valid).to(dev), H,
+                                         W, nonneg=True)
+        finally:
+            tscatter.set_backend("auto")
+        (grads[dev.type],) = torch.autograd.grad(
+            grid, x, torch.from_numpy(dgrid).to(dev))
+    args = [torch.from_numpy(a).to(cuda) for a in (feats, ids, valid)]
+    plain = tvox.scatter_max_to_grid(*args, H, W)[0]
+    want = tscatter.scatter_max_backward(*args, plain,
+                                         torch.from_numpy(dgrid).to(cuda))
+    assert torch.equal(grads["cuda"], want)
+    assert torch.equal(grads["cuda"].cpu(), grads["cpu"])
+    tied = (grads["cpu"][:, 100:300] != 0) & (grads["cpu"][:, 500:700] != 0)
+    assert bool(tied.any())
+
+
+def _demo_step(dev, remat=False, seed=3):
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          optimizer_from_cfg)
+    from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
+    from pillarnet_lts_torch.runtime.train_step import (batch_to_device,
+                                                        train_step)
+
+    cfg = load_config(_DEMO)
+    cfg["model"]["backbone"] = dict(cfg["model"]["backbone"], remat=remat)
+    ds = SynthDataset(cfg, 2, 4096, seed=31)
+    batch = collate_batch([ds[0], ds[1]], cfg["data"]["max_points"])
+    model = build_model_from_cfg(cfg, device=dev, seed=seed)
+    opt = optimizer_from_cfg(model, cfg, 10)
+    m = train_step(model, opt, batch_to_device(batch, dev), cfg["train_cfg"])
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    return {k: float(v) for k, v in m.items()}, grads, state, model, opt
+
+
+def test_demo_train_step_on_the_card_matches_the_cpu(cuda):
+    """Metrics rtol 1e-4 (grad_norm 1e-3), running statistics rtol = atol
+    = 1e-4, parameters within two first Adam steps and 99.5% of them within
+    rtol = atol = 1e-4 (`chip_smoke.py::params_within_first_adam_step`)."""
+    from chip_smoke import params_within_first_adam_step
+    from pillarnet_lts_torch.runtime.train_step import bn_shifted_biases
+
+    mg, _, sg, model, opt = _demo_step(cuda)
+    mc, _, sc, _, _ = _demo_step(torch.device("cpu"))
+    for k in mc:
+        assert mg[k] == pytest.approx(
+            mc[k], rel=1e-3 if k == "grad_norm" else 1e-4), k
+    params = [n for n, _ in model.named_parameters()]
+    params_within_first_adam_step(torch, sg, sc, params,
+                                  set(bn_shifted_biases(model)),
+                                  opt.lr_fn(0))
+    for k in set(sc) - set(params):
+        torch.testing.assert_close(sg[k], sc[k], rtol=1e-4, atol=1e-4)
+
+
+def test_remat_on_equals_remat_off_on_the_card(cuda):
+    """With deterministic cuDNN: equal metrics, gradients and state, the
+    running statistics moved once."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        off = _demo_step(cuda, remat=False)
+        on = _demo_step(cuda, remat=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert on[3].backbone_net.remat
+    for a, b in zip(off[:3], on[:3]):
+        for k in a:
+            same = a[k] == b[k] if isinstance(a[k], float) \
+                else torch.equal(a[k], b[k])
+            assert same, k
+
+
+def test_checkpoint_resume_on_the_card(cuda, tmp_path):
+    """A trainer's checkpoint resumed into a fresh model on the card takes
+    the same next step as the trainer (deterministic cuDNN)."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          optimizer_from_cfg, train_detector)
+    from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
+    from pillarnet_lts_torch.runtime.checkpoint import load_checkpoint
+    from pillarnet_lts_torch.runtime.train_step import (batch_to_device,
+                                                        train_step)
+
+    cfg = load_config(_DEMO)
+    cfg["data"] = dict(cfg["data"], samples_per_gpu=2)
+    cfg["total_epochs"] = 2
+    ds = SynthDataset(cfg, 4, 4096, seed=6)
+    torch.backends.cudnn.deterministic = True
+    try:
+        tr = train_detector(build_model_from_cfg(cfg, device=cuda), ds, cfg,
+                            work_dir=str(tmp_path))
+        batch = batch_to_device(collate_batch([ds[0], ds[1]],
+                                              cfg["data"]["max_points"]),
+                                cuda)
+        ma = train_step(tr.model, tr.optimizer, batch, cfg["train_cfg"])
+        fresh = build_model_from_cfg(cfg, device=cuda, seed=9)
+        opt = optimizer_from_cfg(fresh, cfg, 4)
+        meta = load_checkpoint(str(tmp_path / "epoch_2.pth"), fresh, opt)
+        mb = train_step(fresh, opt, batch, cfg["train_cfg"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert meta["epoch"] == 2 and meta["iter"] == 4
+    for k in ma:
+        assert float(ma[k]) == pytest.approx(float(mb[k]), rel=1e-6,
+                                             abs=1e-6), k
+    sb = fresh.state_dict()
+    for k, v in tr.model.state_dict().items():
+        torch.testing.assert_close(sb[k], v, rtol=1e-6, atol=1e-6)
