@@ -175,16 +175,17 @@ class MaskedConv(Calibrated, nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
-def conv_bn_act(conv: MaskedConv, bn: MaskedBatchNorm, x, mask, act=True,
-                residual=None):
+def conv_bn_act(conv: MaskedConv, bn: MaskedBatchNorm, x, mask, train,
+                act=True, residual=None):
     """conv -> folded BN -> re-zero at inactive sites [-> + residual]
-    -> optional ReLU. mask: (B, 1, H, W) {0, 1} multiplier or None (dense).
+    -> optional ReLU. mask: (B, 1, H, W) {0, 1} multiplier or None (dense);
+    train: the calling module's `training` flag.
 
     The residual is zero at inactive sites, so relu(y * m + r) here and the
     int8 epilogue's relu(y + r) * m agree. In training the BN is not
     folded: conv with its bias, then the masked BN with batch statistics
     (which re-zeroes)."""
-    if bn.training:
+    if train:
         y = bn(conv(x), mask)
     elif conv.quant_ready():
         return conv.int8(x, bn, mask, residual, act)
@@ -212,8 +213,9 @@ class Sparse2DBasicBlock(nn.Module):
         return [(self.conv1, self.bn1), (self.conv2, self.bn2)]
 
     def forward(self, x, mask):
-        out = conv_bn_act(self.conv1, self.bn1, x, mask)
-        return conv_bn_act(self.conv2, self.bn2, out, mask, residual=x)
+        out = conv_bn_act(self.conv1, self.bn1, x, mask, self.training)
+        return conv_bn_act(self.conv2, self.bn2, out, mask, self.training,
+                           residual=x)
 
 
 class Sparse2DBasicBlockV(nn.Module):
@@ -231,9 +233,11 @@ class Sparse2DBasicBlockV(nn.Module):
                 (self.conv2, self.bn2)]
 
     def forward(self, x, mask):
-        x = conv_bn_act(self.conv0, self.bn0, x, mask, act=False)
-        out = conv_bn_act(self.conv1, self.bn1, x, mask)
-        return conv_bn_act(self.conv2, self.bn2, out, mask, residual=x)
+        x = conv_bn_act(self.conv0, self.bn0, x, mask, self.training,
+                        act=False)
+        out = conv_bn_act(self.conv1, self.bn1, x, mask, self.training)
+        return conv_bn_act(self.conv2, self.bn2, out, mask, self.training,
+                           residual=x)
 
 
 class SparseDownStage(nn.Module):
@@ -260,7 +264,7 @@ class SparseDownStage(nn.Module):
         new_occ = dilate_mask(occ, self.stride)
         mask = site_mask(new_occ, x.dtype)
         y = remat(self.remat, conv_bn_act, self.down_conv, self.down_bn, x,
-                  mask)
+                  mask, self.training)
         for i in range(self.num_blocks):
             y = remat(self.remat, getattr(self, f"block{i}"), y, mask)
         return y, new_occ
@@ -276,4 +280,4 @@ class DenseConvBNReLU(nn.Module):
         self.bn = MaskedBatchNorm(features, device=device)
 
     def forward(self, x):
-        return conv_bn_act(self.conv, self.bn, x, None)
+        return conv_bn_act(self.conv, self.bn, x, None, self.training)

@@ -83,7 +83,7 @@ class SepHead(nn.Module):
         hc = self.head_conv
         convs = [getattr(self, f"{h}_conv0") for h in self.heads]
         bns = [getattr(self, f"{h}_bn0") for h in self.heads]
-        if bns[0].training:
+        if self.training:
             y = F.conv2d(x, torch.cat([c.weight for c in convs]).to(x.dtype),
                          torch.cat([c.bias for c in convs]).to(x.dtype),
                          padding=1)
@@ -450,7 +450,7 @@ class CenterHead(nn.Module):
         for k in range(self.num_scales):
             conv = getattr(self, f"share_conv{k}")
             bn = getattr(self, f"share_bn{k}")
-            y = bn(conv(x[k])) if bn.training else \
+            y = bn(conv(x[k])) if self.training else \
                 conv.folded(x[k], *bn.fold_factors())
             share.append(F.relu(y))
         return [getattr(self, f"task{k}")(share[self.task_idx[k]])

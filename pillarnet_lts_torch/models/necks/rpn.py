@@ -39,7 +39,8 @@ class _ConvBNReLU(nn.Module):
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features, device=device)
 
     def forward(self, x):
-        return conv_bn_act(self.Conv_0, self.MaskedBatchNorm_0, x, None)
+        return conv_bn_act(self.Conv_0, self.MaskedBatchNorm_0, x, None,
+                           self.training)
 
 
 class _Block(nn.Module):

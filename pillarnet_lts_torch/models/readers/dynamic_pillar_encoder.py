@@ -100,7 +100,7 @@ class DynamicPFE(Calibrated, nn.Module):
         spec = self.spec
         x, flat_ids, valid = voxelize_points(points, points_mask, spec)
         x = x.to(self.dtype)
-        train = self.pfn_bn_0.training
+        train = self.training
         for k in range(self.num_layers):
             dense = getattr(self, f"pfn_dense_{k}")
             bn = getattr(self, f"pfn_bn_{k}")

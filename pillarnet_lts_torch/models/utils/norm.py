@@ -11,7 +11,8 @@ one-pass formulas (`norm.py:106-137`) over the sites where `mask` is set
   running_mean = (1 - m) running_mean + m mean
   running_var  = (1 - m) running_var + m var cnt / max(cnt - 1, 1)
 
-with m = 0.01 and eps = 1e-3. With `mask=None` the site count is a
+with m = 0.01 (`_MOMENTUM`, the JAX package's `norm.py:42`) and
+eps = 1e-3. With `mask=None` the site count is a
 constant of the shape, and the JAX package's division by it compiles to a
 multiply by its f32 reciprocal (XLA's simplifier); the port multiplies
 likewise. The output is re-zeroed at inactive sites. Under
@@ -21,10 +22,10 @@ left alone, so they move once per step as under JAX's `nn.remat`.
 
 At eval the norm is an affine y = x * inv + shift that the port folds into
 the preceding conv or matmul (`fold_factors`); `forward` applies it
-unfolded, as the JAX package does after a transposed conv. A norm is built
-in eval mode, as the port's models are built for serving, and the modules
-around it follow its mode: `model.train()` selects the training path of
-every module, `model.eval()` (or a module built on its own) the eval path.
+unfolded, as the JAX package does after a transposed conv. Each module
+chooses its path from its own `training` flag: `model.train()` selects the
+training path of every module, `model.eval()` the eval path (the builders
+return models in eval mode, as they are built for serving).
 
 Parameter names follow torch (`weight`, `bias`, `running_mean`,
 `running_var`); `runtime/convert.py` maps them from flax's
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+_MOMENTUM = 0.01
 _REPLAY = threading.local()
 
 
@@ -63,17 +65,15 @@ def _clamp0(v):
 
 
 class MaskedBatchNorm(nn.Module):
-    def __init__(self, features, eps=1e-3, momentum=0.01, device=None):
+    def __init__(self, features, eps=1e-3, device=None):
         super().__init__()
         self.eps = eps
-        self.momentum = momentum
         self.weight = nn.Parameter(torch.empty(features, device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("running_mean",
                              torch.empty(features, device=device))
         self.register_buffer("running_var", torch.empty(features, device=device))
         self.init_weights(None)
-        self.eval()  # built for serving; `module.train()` switches
 
     @torch.no_grad()
     def init_weights(self, generator):
@@ -129,7 +129,7 @@ class MaskedBatchNorm(nn.Module):
             with torch.no_grad():
                 unbiased = (var * bessel if mask is None
                             else var * cnt / (cnt - 1.0).clamp_min(1.0))
-                m = self.momentum
+                m = _MOMENTUM
                 self.running_mean.copy_(
                     (1.0 - m) * self.running_mean + m * mean)
                 self.running_var.copy_(

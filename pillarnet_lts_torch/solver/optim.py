@@ -99,13 +99,13 @@ class OptaxAdamW(torch.optim.Optimizer):
         norm = torch.sqrt(torch.stack(
             [(g * g).sum() for g in grads]).sum())
         if self.max_norm is not None:
-            # optax's select of g or (g / norm) * max_norm, by multiplying
-            # with the 0/1 trigger (exact) so that no host sync decides it
-            keep = (norm < self.max_norm).float()
+            # optax's select of g or (g / norm) * max_norm, on the device so
+            # that no host sync decides it; a select, as optax's, never
+            # reads the other branch (g / 0 is NaN for all-zero gradients)
+            keep = norm < self.max_norm
             clipped = torch._foreach_mul(torch._foreach_div(grads, norm),
                                          self.max_norm)
-            grads = torch._foreach_add(torch._foreach_mul(grads, keep),
-                                       torch._foreach_mul(clipped, 1 - keep))
+            grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
 
         lr = self.lr_fn(self.count)
         b1 = self.mom_fn(self.count)

@@ -235,8 +235,8 @@ def test_pfn_int8_and_scatter_payload_match_jax():
     want_grid, want_occ = jit_nofma(
         lambda v, p, m: jm.apply(v, p, m, train=False), variables, *args)
 
-    tm = load_jax_variables(DynamicPFE(**PFE_KW, dtype=torch.bfloat16),
-                            variables)
+    tm = load_jax_variables(
+        DynamicPFE(**PFE_KW, dtype=torch.bfloat16).eval(), variables)
     assert tm.quant_ready() and tm.pfn_dense_0.quant_ready()
     with torch.inference_mode():
         grid, occ = tm(torch.from_numpy(pts), torch.from_numpy(msk))

@@ -99,7 +99,7 @@ def test_dynamic_pfe_matches_flax():
     want_grid, want_occ = jit_apply(jm, variables, jnp.asarray(pts),
                                     jnp.asarray(mask))
 
-    tm = load_jax_variables(DynamicPFE(**kw), variables)
+    tm = load_jax_variables(DynamicPFE(**kw).eval(), variables)
     with torch.inference_mode():
         grid, occ = tm(torch.from_numpy(pts), torch.from_numpy(mask))
     np.testing.assert_array_equal(occ.numpy(), np.asarray(want_occ))
@@ -115,7 +115,8 @@ def test_pillar_resnet34_matches_flax():
     variables = random_variables(jm, 3, *args, train=False)
     want = jit_apply(jm, variables, *args)
 
-    tm = load_jax_variables(PillarResNet34(in_channels=8), variables)
+    tm = load_jax_variables(PillarResNet34(in_channels=8).eval(),
+                            variables)
     with torch.inference_mode():
         got = tm(torch.from_numpy(grid), torch.from_numpy(occ))
     assert sorted(got) == sorted(want) == [f"conv{i}" for i in range(1, 6)]
@@ -149,8 +150,8 @@ def test_rpn_matches_flax(neck):
     (want,) = jit_apply(jm, variables, jfeats)
 
     tm = load_jax_variables(
-        tcls(**kw, backbone_channels={k: s[-1] for k, s in shapes.items()}),
-        variables)
+        tcls(**kw, backbone_channels={k: s[-1] for k, s in shapes.items()})
+        .eval(), variables)
     tfeats = {k: (torch.from_numpy(v).permute(0, 3, 1, 2), None)
               for k, v in feats.items()}
     with torch.inference_mode():
@@ -175,7 +176,7 @@ def test_center_head_matches_flax():
     variables = random_variables(jm, 7, (jnp.asarray(x),), train=False)
     want = jit_apply(jm, variables, (jnp.asarray(x),))
 
-    tm = load_jax_variables(CenterHead(**kw), variables)
+    tm = load_jax_variables(CenterHead(**kw).eval(), variables)
     with torch.inference_mode():
         got = tm((torch.from_numpy(x).permute(0, 3, 1, 2),))
     assert len(got) == len(want) == 3

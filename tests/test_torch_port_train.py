@@ -47,7 +47,7 @@ from pillarnet_lts_tpu.models.utils.norm import (
 from pillarnet_lts_tpu.ops import voxelize as jvox
 from pillarnet_lts_tpu.ops.pallas import voxelize_kernel as jvk
 from pillarnet_lts_tpu.solver import optim as joptim
-from pillarnet_lts_torch.apis import load_config
+from pillarnet_lts_torch.apis import build_model_from_cfg, load_config
 from pillarnet_lts_torch.datasets import (SynthDataset, synth_points_realistic,
                                           synth_scene)
 from pillarnet_lts_torch.models.losses import centernet_loss as tloss
@@ -349,6 +349,62 @@ def test_losses_match_jax(seed):
                 j["pred_boxes"], j["mask"], j["ind"], j["gt"])), **tol)
 
 
+def _loss_cases(d, seed):
+    """{loss: (JAX function, its differentiable inputs, the port's)} on the
+    inputs of `_loss_inputs`; `reg_loss`'s per-dimension vector is weighted
+    by a random vector (as `code_weights` weight it)."""
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    w = np.random.RandomState(seed + 10).rand(8).astype(np.float32)
+    cases = {
+        "focal": (lambda o: jloss.fast_focal_loss(
+            o, j["target"], j["ind"], j["mask"], j["cat"]), ("hm",),
+            lambda o: tloss.fast_focal_loss(
+                o, _nchw(d["target"]), t["ind"], t["mask"], t["cat"])),
+        "reg": (lambda o: jloss.reg_loss(
+            o, j["mask"], j["ind"], j["target_box"]) @ jnp.asarray(w),
+            ("box_map",),
+            lambda o: tloss.reg_loss(o, t["mask"], t["ind"], t["target_box"])
+            @ torch.from_numpy(w)),
+        "iou": (lambda a, b: jloss.iou_loss(a, j["mask"], j["ind"], b,
+                                            j["gt"]),
+                ("iou_map", "pred_boxes"),
+                lambda a, b: tloss.iou_loss(a, t["mask"], t["ind"], b,
+                                            t["gt"])),
+    }
+    for kind in ("IoU", "GIoU", "DIoU"):
+        cases[kind] = (
+            functools.partial(lambda b, kind: jloss.iou_reg_loss(
+                b, j["mask"], j["ind"], j["gt"], kind), kind=kind),
+            ("pred_boxes",),
+            functools.partial(lambda b, kind: tloss.iou_reg_loss(
+                b, t["mask"], t["ind"], t["gt"], kind), kind=kind))
+    return cases
+
+
+@pytest.mark.parametrize("loss", ["focal", "reg", "iou", "IoU", "GIoU",
+                                  "DIoU"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_loss_gradients_match_jax(seed, loss):
+    """torch.autograd.grad of each loss against jax.grad, input by input:
+    rtol 1e-4 with atol 1e-6, and atol 1e-5 for `iou_loss`'s box gradient,
+    which runs through the rotated polygon clip of the aligned IoU (the
+    intersection vertices round differently; ~3e-6 on gradients of ~0.15).
+    The zeros (unmasked sites, unselected classes) must coincide."""
+    d = _loss_inputs(seed)
+    jf, args, tf = _loss_cases(d, seed)[loss]
+    want = jax.jit(jax.grad(jf, argnums=tuple(range(len(args)))))(
+        *[jnp.asarray(d[a]) for a in args])
+    inputs = [_nchw(d[a]).requires_grad_(True) for a in args]
+    got = torch.autograd.grad(tf(*inputs), inputs)
+    for name, g, w in zip(args, got, want):
+        w = np.asarray(w)
+        assert np.count_nonzero(w) > 0, name
+        atol = 1e-5 if (loss, name) == ("iou", "pred_boxes") else 1e-6
+        np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(), w,
+                                   rtol=1e-4, atol=atol, err_msg=name)
+
+
 def test_focal_loss_without_objects_has_a_finite_gradient():
     d = _loss_inputs(2)
     mask = np.zeros_like(d["mask"])
@@ -480,6 +536,33 @@ def test_adamw_with_clip_matches_optax_over_five_steps():
     assert opt.count == 5
 
 
+def test_adamw_with_all_zero_gradients_matches_optax():
+    """A global norm of 0: optax's clip selects the gradients as they are
+    and never reads g / 0; the update is the weight decay alone."""
+    rng = np.random.RandomState(6)
+    params = {"a": rng.randn(4, 3).astype(np.float32),
+              "b": rng.randn(5).astype(np.float32)}
+    tx = joptim.build_optimizer(dict(type="adam", wd=0.01), LR_CONFIG, 8,
+                                grad_clip_norm=35.0)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    zeros = {k: jnp.zeros_like(v) for k, v in jp.items()}
+    upd, _ = tx.update(zeros, tx.init(jp), jp)
+    want = optax.apply_updates(jp, upd)
+
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+          for k, v in params.items()}
+    opt = build_optimizer(list(tp.values()), dict(type="adam", wd=0.01),
+                          LR_CONFIG, 8, grad_clip_norm=35.0)
+    for p in tp.values():
+        p.grad = torch.zeros_like(p)
+    assert float(opt.step()) == 0.0
+    for k, p in tp.items():
+        assert bool(torch.isfinite(p).all()), k
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(want[k]),
+                                   rtol=1e-6, atol=1e-9)
+        assert not np.array_equal(p.detach().numpy(), params[k])
+
+
 def test_adamw_state_round_trips():
     p = torch.nn.Parameter(torch.ones(3))
     opt = build_optimizer([p], dict(type="adam"), LR_CONFIG, 10, 35.0)
@@ -496,6 +579,13 @@ def test_adamw_state_round_trips():
 
 
 # ---- the port alone --------------------------------------------------------
+
+def test_built_models_are_in_eval_mode_and_train_switches_every_module():
+    model = build_model_from_cfg(load_config(DEMO), device="cpu")
+    assert not any(m.training for m in model.modules())
+    model.train()
+    assert all(m.training for m in model.modules())
+
 
 def test_training_path_imports_no_jax(tmp_path):
     code = (

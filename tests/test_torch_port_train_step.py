@@ -1,6 +1,7 @@
-"""PyTorch port, whole training steps: three steps of the demo config in
-both packages from one JAX variables tree, remat on against off, and a
-trainer's checkpoint round trip.
+"""PyTorch port, whole training steps: the first step's gradients leaf by
+leaf and three steps of the demo config in both packages from one JAX
+variables tree, remat on against off, and a trainer's checkpoint round
+trip.
 
 Both packages start from one JAX variables tree (the JAX package's
 initialisers, BN affines and running statistics redrawn so that a wrong
@@ -12,9 +13,12 @@ TPU gradient (`test_torch_port_train.py::tpu_vjp_scatter`, patched into
 its reader for the module). Its updated variables come back through
 `load_jax_variables` for the comparison.
 
-Tolerances. The first step starts from one state in both packages: every
-loss within rtol 1e-4 and `grad_norm` within 1e-3; the running statistics
-within rtol = atol = 1e-4; at least 99.5% of the updated parameters within
+Tolerances. The first step's gradients: every parameter leaf within
+1e-3 of JAX's in norm, the JAX package's ReLUs taking the port's
+decisions (`test_first_step_gradients_match_jax_leaf_by_leaf`). The first
+step starts from one state in both packages: every loss within rtol 1e-4
+and `grad_norm` within 1e-3; the running statistics within rtol = atol =
+1e-4; at least 99.5% of the updated parameters within
 rtol = atol = 1e-4, and every one within two first Adam steps (2 lr) of
 JAX's (`chip_smoke.py::params_within_first_adam_step`, which phase 13
 holds the card to against the CPU). Adam's first step is lr * g / (|g| +
@@ -38,11 +42,13 @@ theirs (or 0.5%).
 
 import copy
 import os
+import types
 
 import numpy as np
 import pytest
 import torch
 
+import flax.linen
 import jax
 
 from pillarnet_lts_tpu.models import build_detector as build_jax_detector
@@ -54,10 +60,14 @@ from pillarnet_lts_tpu.solver import build_optimizer as jax_build_optimizer
 from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
                                       optimizer_from_cfg, train_detector)
 from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
+from pillarnet_lts_torch.models.backbones import base as tbase
+from pillarnet_lts_torch.models.bbox_heads import center_head as thead
+from pillarnet_lts_torch.models.necks import rpn as trpn
+from pillarnet_lts_torch.models.readers import dynamic_pillar_encoder as tdpe
 from pillarnet_lts_torch.runtime.convert import load_jax_variables
 from pillarnet_lts_torch.runtime.train_step import (batch_to_device,
                                                     bn_shifted_biases,
-                                                    train_step)
+                                                    step_losses, train_step)
 from chip_smoke import params_within_first_adam_step
 from test_torch_port_train import DEMO, tpu_vjp_scatter
 
@@ -191,6 +201,121 @@ def test_first_step_matches_jax(both_packages):
                                   bp["lr0"])
     for k in set(want) - set(params):
         torch.testing.assert_close(got[k], want[k], **TOL)
+
+
+class _RecordingF(types.ModuleType):
+    """torch.nn.functional whose relu records its decisions (x > 0)."""
+
+    def __init__(self, decisions):
+        super().__init__("F")
+        self.decisions = decisions
+
+    def __getattr__(self, name):
+        return getattr(torch.nn.functional, name)
+
+    def relu(self, x):
+        self.decisions.append((x > 0).detach().numpy())
+        return torch.nn.functional.relu(x)
+
+
+def _as_jax_layout(decision, shape):
+    """A port ReLU decision (NCHW maps, (B, N, C) point rows) in the JAX
+    package's layout: NHWC, space-to-depth packed where its stage 1 is."""
+    if decision.ndim == 4:
+        decision = decision.transpose(0, 2, 3, 1)
+        if decision.shape != tuple(shape):
+            b, h, w, c = decision.shape
+            decision = decision.reshape(b, h // 2, 2, w // 2, 2, c).transpose(
+                0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
+    assert decision.shape == tuple(shape), (decision.shape, shape)
+    return decision
+
+
+def first_step_gradients():
+    """The first step's gradients of both packages from one JAX variables
+    tree on one batch, as port-named numpy dicts: the port's `.grad` after
+    its training forward and backward, and jax.grad of the JAX package's
+    training loss (`parallel/train_step.py::loss_fn`) with every ReLU
+    taking the port's decision (`test_first_step_gradients_match_jax_leaf_
+    by_leaf`)."""
+    cfg = _cfg()
+    examples = _batches(cfg)[0]
+    jb = jax_collate(examples, max_points=cfg["data"]["max_points"])
+    jb.pop("metadata")
+    jmodel = build_jax_detector(copy.deepcopy(cfg["model"]),
+                                train_cfg=cfg["train_cfg"],
+                                test_cfg=cfg["test_cfg"])
+    variables = _jax_variables(jmodel, jb)
+
+    decisions = []
+    model = load_jax_variables(build_model_from_cfg(cfg, device="cpu"),
+                               variables)
+    batch = batch_to_device(collate_batch(examples, cfg["data"]["max_points"]),
+                            "cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (tbase, tdpe, trpn, thead):
+            mp.setattr(mod, "F", _RecordingF(decisions))
+        total, _ = step_losses(model, batch, cfg["train_cfg"])
+        total.backward()
+    port = {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
+
+    taken = []
+
+    def relu_as_the_port(x):
+        decision = _as_jax_layout(decisions[len(taken)], x.shape)
+        taken.append(decision)
+        return jax.numpy.where(decision, x, 0)
+
+    def loss_fn(params):
+        preds, _ = jmodel.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            jb["points"], jb["points_mask"], train=True,
+            mutable=["batch_stats"])
+        total = jax.numpy.asarray(0.0, jax.numpy.float32)
+        for task_loss in jmodel.loss(jb, preds, cfg["train_cfg"])["loss"]:
+            total = total + task_loss
+        return total
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jdpe, "pillar_scatter_max", tpu_vjp_scatter)
+        mp.setattr(flax.linen, "relu", relu_as_the_port)
+        grads = jax.jit(jax.grad(loss_fn))(variables["params"])
+    assert len(taken) == len(decisions) > 0
+    want = _as_port(cfg, {"params": jax.tree_util.tree_map(np.asarray, grads),
+                          "batch_stats": variables["batch_stats"]})
+    return want, port, set(bn_shifted_biases(model))
+
+
+@pytest.fixture(scope="module")
+def first_grads():
+    return first_step_gradients()
+
+
+@pytest.mark.parametrize("part", ["reader_net", "backbone_net", "neck_net",
+                                  "head_net"])
+def test_first_step_gradients_match_jax_leaf_by_leaf(first_grads, part):
+    """Every parameter leaf's first-step gradient against jax.grad:
+    ||g_port - g_jax|| <= 1e-3 ||g_jax|| per leaf, and no leaf's gradient
+    zero. (Measured: at most 1.6e-4, where the JAX package's own builds,
+    with and without XLA's fusion pass, differ by up to 2e-4.) The
+    BN-shifted biases are left out: their gradient is 0 in exact
+    arithmetic and rounding noise in both packages.
+
+    The JAX package's ReLUs take the port's decisions (x > 0, recorded in
+    the port's forward, in call order). Without that, the packages'
+    forwards, ~1e-5 apart, put a few pre-ReLU values on opposite sides of
+    0 (on this batch -6e-7 in the port's conv4 and -1.4e-5 in its neck's
+    deconv branch); each such site sends its gradient (0.55, 0.076) down
+    one package only and moves every leaf upstream of it by 1-4%. With the
+    same decisions the JAX forward differs only by those ~1e-6 values."""
+    want, got, shifted = first_grads
+    names = [k for k in got if k.split(".")[0] == part and k not in shifted]
+    assert names
+    for k in names:
+        ref = np.linalg.norm(want[k])
+        assert ref > 0, k
+        rel = np.linalg.norm(got[k] - want[k]) / ref
+        assert rel <= 1e-3, (k, rel)
 
 
 def _max_rel(a, b):
