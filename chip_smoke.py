@@ -88,7 +88,25 @@ Phases, each of which raises on failure:
      launched on every step, step time, samples/s, peak memory; (d) with
      deterministic cuDNN, the next step from the trained state and from
      its checkpoint resumed into a fresh model equal, its loss below the
-     first step's.
+     first step's;
+ 14. two-stage serving: `configs/pillarrcnn/pillarrcnn18_waymo.py` (full
+     width and depth, f32), seeded random weights with the first stage's
+     head spread, 3 warm-up + 10 timed requests at batch 1 on 196,608-point
+     single-sweep clouds through `ServingPipeline(make_infer_fn(model))`:
+     (a) K1 once and K2 once per task on every request (counts reset just
+     before the run, read just after); (b) the RoIs the second stage pools
+     are the detections `single_det` predicts on its own (labels, scores,
+     RoI grids bit-equal); (c) boxes (1, 500, 7) finite, scores in [0, 1],
+     labels {0, 1, 2}, kept boxes with positive dims; (d) one request under
+     `set_sync_debug_mode("error")`; (e) the demo two-stage config on the
+     card against the CPU from the same weights (RoI set, kept slots and
+     labels equal; boxes within 1e-3 m, scores within 1e-4); (f) p50/p90,
+     first- and second-stage device ms (CUDA events), kernel sums by group
+     over 5 requests (`torch.profiler`), busy share, peak memory, and the
+     second stage's kernels alone, every kernel and by group (the
+     bilinear gather's `index_select`, the heads' GEMMs, the convs); K1
+     replayed at the request's shape and K2 on both tasks' candidates as
+     in phases 2-3.
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
@@ -101,11 +119,15 @@ K3's operations are those of their near pairs (what `pairs_may_meet` lets
 through) plus the separation test on every pair they test; the old count
 (every pair clipped) is printed beside it.
 
-Before the last three lines stdout carries phase 13's JSON record
-(`{"training": ...}`); then the kernels' JSON record, the card's
-`nvidia-smi` name and power limit, and the last line
-`{"ok": true, "device": {...}}`. Without a CUDA device, or outside the
-repository, it exits non-zero and prints no result. No JAX is imported.
+Every `torch.profiler` number comes from `profiled`, which retakes a
+session that lost device events and keeps the one that lost the fewest; a
+`[profiler]` line counts the sessions. Before the last three lines stdout
+carries phase 13's and phase 14's JSON records (`{"training": ...}`,
+`{"two_stage": ...}`); then the kernels' JSON record (K1's and K2's rows
+also carry `two_stage_launches`), the card's `nvidia-smi` name and power
+limit, and the last line `{"ok": true, "device": {...}}`. Without a CUDA
+device, or outside the repository, it exits non-zero and prints no result.
+No JAX is imported.
 """
 
 import json
@@ -124,10 +146,19 @@ FLAGSHIP_INT8 = FLAGSHIP.replace(".py", "_int8.py")
 DEMO = os.path.join(ROOT, "configs", "demo", "pillarnet18_demo.py")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "golden_e2e_r3.npz")
 WAYMO = os.path.join(ROOT, "configs", "pillarnet", "pillarnet34_waymo.py")
+RCNN = os.path.join(ROOT, "configs", "pillarrcnn", "pillarrcnn18_waymo.py")
+RCNN_DEMO = os.path.join(ROOT, "configs", "demo", "pillarrcnn18_demo.py")
 
 N_POINTS = 262144
 NMS_TASKS, NMS_K = 6, 1000
 TIMING_ITERS = 20
+PROFILE_TRIES = 5  # profiled: sessions taken before the best is kept
+PROFILE_LOST = 0.01  # device_ms: the share of lost events it accepts
+PRIMER = "spin_kernel"  # torch.cuda._sleep's kernel, which pads a session
+PRIMERS = 8  # profiled: primer kernels before fn's and after them
+LAUNCH_CALLS = ("LaunchKernel", "cuLaunch", "Memset", "Memcpy")
+PROFILE_STATS = {"sessions": 0, "retaken": 0, "lossy": 0,
+                 "cuda_events": 0}
 PLAIN_ITERS = 3  # the int8 plain versions sum in float64: slow
 F32_PATH = {"pillar_scatter_max", "rotated_overlap"}  # kernels of phase 5
 HM_REL_BOUND = 0.2  # int8 vs bf16 heads, tests/test_quant_int8.py:88-106
@@ -135,6 +166,9 @@ WAYMO_K, WAYMO_THRESH = 2048, (0.8, 0.55, 0.55)  # the grouped per-class NMS
 # the mask kernel's IoU (shoelace areas) and the default route's (w * l
 # areas) may decide a pair differently only this close to its threshold
 MASK_EPS = 1e-4
+# phase 14e: the demo two-stage detections on the card against the CPU
+# (the golden replay's tolerances, `tests/test_golden_e2e.py`)
+RCNN_BOX_TOL, RCNN_SCORE_TOL = 1e-3, 1e-4
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 (no tensor
 # cores) and int8 (tensor cores, dense) operations/s
 HBM_BPS, F32_OPS, INT8_OPS = 3.35e12, 67e12, 1979e12
@@ -239,32 +273,153 @@ def scatter_library(torch, x, ids, valid, hw):
     return call
 
 
+def profiled(fn):
+    """Run fn() under `torch.profiler` (CPU and CUDA activities) and
+    return (rows, fn's result, lost): the device rows of `kernel_table`
+    and the share of the session's device events that the profiler lost.
+
+    On the H100 a profiler session now and then loses device events: at
+    times all of them, and late in a long run two or three in nearly
+    every session, whatever its size. Each session therefore wraps fn()
+    in PRIMERS primer kernels (`torch.cuda._sleep`, left out of the rows)
+    on each side, and one that holds fewer of fn's device events than fn's
+    launch calls (kernel launches, memsets and memcpys of the runtime and
+    driver APIs) is taken again, PROFILE_TRIES sessions in all; the one
+    that lost the fewest is returned. PROFILE_STATS counts the sessions."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    best = None
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            prime(torch)
+            out = fn()
+            torch.cuda.synchronize()
+            prime(torch)
+        events = prof.key_averages()
+        primed = device_events(e for e in events if PRIMER in e.key)
+        calls = launch_calls(events) - 2 * PRIMERS
+        lost = max(calls - device_events(events) + primed, 0)
+        PROFILE_STATS["sessions"] += 1
+        if best is None or lost < best[0]:
+            best = (lost, calls, primed, events, out)
+        if not lost:
+            break
+        PROFILE_STATS["retaken"] += 1
+    lost, calls, primed, events, out = best
+    if lost:
+        PROFILE_STATS["lossy"] += 1
+        print(f"[profiler] kept a session that lost {lost} of {calls} "
+              f"device events ({primed} of {2 * PRIMERS} primer kernels "
+              f"kept)")
+    return kernel_table(events), out, lost / max(calls, 1)
+
+
+def prime(torch):
+    for _ in range(PRIMERS):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def device_events(events):
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+
+
+def launch_calls(events):
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in events if e.device_type == DeviceType.CPU
+               and any(k in e.key for k in LAUNCH_CALLS))
+
+
 def device_ms(fn, iters=10):
     """Mean device time of the kernels and memsets that one fn() call
-    launches (`torch.profiler`'s sums over `iters` calls): the call's
-    kernels alone, without the host's launch gaps. Returns it and the
-    per-kernel means, longest first."""
+    launches (`profiled`'s sums over `iters` calls): the call's kernels
+    alone, without the host's launch gaps. Returns it and the per-kernel
+    means, longest first. Where every session lost more than PROFILE_LOST
+    of its device events, the time is the CUDA events' (`cuda_ms`, launch
+    gaps included) and the one per-kernel entry says so."""
     import torch
-    from torch.autograd import DeviceType
 
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    per = []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total", None)
-            us = e.self_cuda_time_total if t is None else t
-            per.append((us / 1e3 / iters, e.key))
-    total = sum(ms for ms, _ in per)
-    if total <= 0:
-        raise AssertionError("torch.profiler saw no device time")
-    return total, sorted(per, reverse=True)
+
+    rows, _, lost = profiled(calls)
+    if lost > PROFILE_LOST:
+        PROFILE_STATS["cuda_events"] += 1
+        ms = cuda_ms(fn, iters=iters)
+        return ms, [(ms, "CUDA events (the profiler lost device events)")]
+    per = sorted(((ms / iters, k) for k, ms, _ in rows), reverse=True)
+    return sum(ms for ms, _ in per), per
+
+
+# kernel groups of a `torch.profiler` window (`kernel_table`): the port's
+# kernels by name; the two scatter-max kernels share the streaming pass of
+# `csrc/pillar_grid.cuh` (`pillar_grid_fill_kernel`), told apart by its tag
+# (`SortedRuns` for K1', `ClaimedPillars` for K1); their head-map memsets
+# fall under "other", the sort of K1' under its cub kernels. The second
+# stage's bilinear gather is `index_select`'s row gather
+# (`vectorized_gather_kernel`; `indexSelect*` kernels on other PyTorch
+# versions); `torch.gather` elsewhere is an elementwise kernel. cuDNN's
+# convs (implicit-GEMM, FFT with its complex `cf32` GEMMs, the transposed
+# convs' `dgrad`) are told from cuBLAS's f32 GEMMs and GEMVs (the RoI and
+# point heads' Dense layers) by name, the convs first.
+GROUPS = (("K1' pillar_scatter_max_tiled", ("scatter_max_sorted",
+                                            "SortedRuns")),
+          ("K1 pillar_scatter_max", ("scatter_max_claim", "scatter_max_merge",
+                                     "ClaimedPillars")),
+          ("K2 rotated_overlap", ("rotated_overlap",)),
+          ("K3 suppression_mask", ("suppression_mask",)),
+          ("K4 int8_conv", ("int8_conv_kernel",)),
+          ("K5 int8_stage", ("int8_stage_kernel",)),
+          ("index_select", ("indexSelect", "vectorized_gather")),
+          ("conv", ("conv", "implicit_gemm", "cudnn", "winograd", "fft",
+                    "cf32", "dgrad", "wgrad", "fprop")),
+          ("gemm", ("gemm", "gemv")),
+          ("transpose", ("nchwToNhwc", "nhwcToNchw", "transpose")),
+          ("elementwise", ("elementwise", "vectorized", "reduce")))
+
+
+def kernel_table(events):
+    """(kernel name, ms, count) rows of a profile's device kernels
+    (`key_averages()`), longest first, without `profiled`'s primer."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in events:
+        # a user range (the optimizer's `step`) spans kernels counted alone
+        if (e.device_type != DeviceType.CUDA or PRIMER in e.key
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((e.key, us / 1e3, e.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def group_of(kernel):
+    low = kernel.lower()
+    for g, keys in GROUPS:
+        if any(k.lower() in low for k in keys):
+            return g
+    return "other"
+
+
+def group_table(rows):
+    groups = {}
+    for k, ms, _ in rows:
+        g = group_of(k)
+        groups[g] = groups.get(g, 0.0) + ms
+    return groups
 
 
 def check_scatter_equal(torch, tag, got, want, by_value=False):
@@ -1249,6 +1404,264 @@ def serve_waymo(torch, dev, card):
     return launches, k2_calls[0], (boxes, thresh)
 
 
+def capture_scatter(request):
+    """Run request() with the reader's K1 wrapper recorded: returns its
+    result and the (args, kwargs) of its K1 calls."""
+    from pillarnet_lts_torch.models.readers import dynamic_pillar_encoder
+
+    calls, real = [], dynamic_pillar_encoder.pillar_scatter_max
+
+    def recording(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    dynamic_pillar_encoder.pillar_scatter_max = recording
+    try:
+        out = request()
+    finally:
+        dynamic_pillar_encoder.pillar_scatter_max = real
+    return out, calls
+
+
+def check_rcnn_detections(det, posts, tag):
+    """Phase 14c: padded (1, R, 7) finite boxes, scores in [0, 1], labels
+    in {0, 1, 2}, every class keeps a box, kept boxes have positive
+    dimensions."""
+    R = sum(posts)
+    for key, shape in (("box3d_lidar", (1, R, 7)), ("scores", (1, R)),
+                       ("label_preds", (1, R)), ("mask", (1, R))):
+        if det[key].shape != shape:
+            raise AssertionError(f"{tag}: {key} shape {det[key].shape} != "
+                                 f"{shape}")
+    m = det["mask"].astype(bool)
+    if not (np.isfinite(det["box3d_lidar"]).all()
+            and np.isfinite(det["scores"]).all()):
+        raise AssertionError(f"{tag}: non-finite detections")
+    if not ((det["scores"] >= 0) & (det["scores"] <= 1)).all():
+        raise AssertionError(f"{tag}: a score outside [0, 1]")
+    labels = det["label_preds"][m]
+    if not set(np.unique(labels).tolist()) == {0, 1, 2}:
+        raise AssertionError(f"{tag}: kept labels {np.unique(labels)}")
+    if not (det["box3d_lidar"][m][:, 3:6] > 0).all():
+        raise AssertionError(f"{tag}: a kept box without positive dims")
+    return int(m.sum())
+
+
+def rcnn_stage_split(torch, model, cloud, iters=10):
+    """Phase 14f: device ms of the first stage (forward, decode, NMS) and
+    the second (RoI pooling, heads, decoding, post_process) by CUDA
+    events, median of `iters` requests; and the second stage's kernels
+    alone (`torch.profiler`, on the last request's first-stage outputs):
+    the total, by group, and every kernel."""
+    first_ms, second_ms = [], []
+    with torch.inference_mode():
+        for _ in range(iters):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            first, bev, feats, _ = model.first_stage(*cloud)
+            ev[1].record()
+            model.post_process(model.second_stage(first, bev, feats))
+            ev[2].record()
+            torch.cuda.synchronize()
+            first_ms.append(ev[0].elapsed_time(ev[1]))
+            second_ms.append(ev[1].elapsed_time(ev[2]))
+        alone, per = device_ms(lambda: model.post_process(
+            model.second_stage(first, bev, feats)))
+    groups = group_table([(k, ms, 1) for ms, k in per])
+    return {"first_stage_ms": statistics.median(first_ms),
+            "second_stage_ms": statistics.median(second_ms),
+            "second_stage_alone_ms": alone, "second_stage_groups_ms": groups,
+            "second_stage_kernels": [dict(name=k, ms=ms) for ms, k in per]}
+
+
+def rcnn_card_vs_cpu(torch, dev):
+    """Phase 14e: the demo two-stage config from the same weights and
+    cloud on the CPU and on the card: the same RoI set and kept slots,
+    labels equal, boxes within RCNN_BOX_TOL m and scores within
+    RCNN_SCORE_TOL."""
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, spread_head_outputs)
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.runtime.serving import to_host
+
+    cfg = load_config(RCNN_DEMO)
+    cloud = synth_points_realistic(1, cfg["data"]["max_points"],
+                                   cfg["point_cloud_range"], seed=7,
+                                   nsweeps=1)
+    cpu = build_model_from_cfg(cfg, device="cpu", seed=0)
+    spread_head_outputs(cpu, *on_card(torch, "cpu", cloud))
+    card = build_model_from_cfg(cfg, device=dev, seed=1)
+    card.load_state_dict(cpu.state_dict())
+
+    def serve(model, device):  # make_infer_fn's forward + post_process
+        with torch.inference_mode():
+            out = model(*on_card(torch, device, cloud))
+            return to_host(out), to_host(model.post_process(out))
+
+    (want_out, want), (got_out, got) = serve(cpu, "cpu"), serve(card, dev)
+    if not np.array_equal(got_out["roi_labels"], want_out["roi_labels"]):
+        raise AssertionError("card vs CPU: the RoI sets differ")
+    for key in ("mask", "label_preds"):
+        if not np.array_equal(got[key], want[key]):
+            raise AssertionError(f"card vs CPU: {key} differs")
+    m = want["mask"].astype(bool)
+    r = {"kept": int(m.sum()),
+         "roi_score_max_abs": float(np.abs(got_out["roi_scores"]
+                                           - want_out["roi_scores"]).max()),
+         "box_max_abs": float(np.abs(got["box3d_lidar"][m]
+                                     - want["box3d_lidar"][m]).max()),
+         "score_max_abs": float(np.abs(got["scores"][m]
+                                       - want["scores"][m]).max())}
+    if r["box_max_abs"] > RCNN_BOX_TOL or r["score_max_abs"] > RCNN_SCORE_TOL:
+        raise AssertionError(f"card vs CPU beyond tolerance: {r}")
+    print(f"[14e] demo two-stage card vs CPU: RoI set and {r['kept']} kept "
+          f"slots equal, labels equal; max |d| box {r['box_max_abs']:.3e} m "
+          f"(tolerance {RCNN_BOX_TOL}), score {r['score_max_abs']:.3e} "
+          f"({RCNN_SCORE_TOL}), RoI score {r['roi_score_max_abs']:.3e}")
+    return r
+
+
+def serve_rcnn(torch, dev, card):
+    """Phase 14: the two-stage config as a server. Returns the phase's
+    record, K1's mode record at the served shape and the (a, b) corners of
+    the K2 calls of its first request."""
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, spread_head_outputs)
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.models.second_stage import roi_grid_points
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.ops.scatter import pillar_scatter_max
+    from pillarnet_lts_torch.ops.voxelize import scatter_max_to_grid
+    from pillarnet_lts_torch.runtime.serving import ServingPipeline
+
+    cfg = load_config(RCNN)
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+    posts = cfg["test_cfg"]["nms"]["nms_post_max_size"]
+    model = build_model_from_cfg(cfg, device=dev, seed=0)
+    clouds = [synth_points_realistic(1, n, pc_range, seed=300 + s,
+                                      nsweeps=1) for s in range(13)]
+    spread_head_outputs(model, *on_card(torch, dev, synth_points_realistic(
+        1, n, pc_range, seed=99, nsweeps=1)))
+    infer = make_infer_fn(model)
+    pipe = ServingPipeline(infer, depth=1)
+
+    def request(i):
+        before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        det = list(pipe.map([on_card(torch, dev, clouds[i])]))[0]
+        dt = (time.perf_counter() - t0) * 1e3
+        for name, count in _kernels.LAUNCHES.items():
+            if (count > before[name]) != (name in F32_PATH):
+                raise AssertionError(f"two-stage request {i}: {name} "
+                                     f"launched={count > before[name]}")
+        return det, dt, check_rcnn_detections(det, posts,
+                                              f"two-stage request {i}")
+
+    # (a), (c): 3 warm-up + 10 timed requests, counts read just after
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launches()
+    lat, kept = [], []
+    for i in range(len(clouds)):
+        if i == 0:  # record what the first request hands K1 and K2
+            ((_, dt, k), k2_calls), k1_calls = capture_scatter(
+                lambda: capture_overlap(lambda: request(0)))
+        else:
+            _, dt, k = request(i)
+        if i >= 3:
+            lat.append(dt)
+            kept.append(k)
+    launches = {k: _kernels.LAUNCHES[k] for k in sorted(F32_PATH)}
+    peak = torch.cuda.max_memory_allocated(dev)
+    q = statistics.quantiles(lat, n=10)
+    rec = {"requests": len(clouds), "launches": launches,
+           "p50_ms": statistics.median(lat), "p90_ms": q[8],
+           "peak_allocated_gib": peak / 2**30,
+           "mean_kept": statistics.mean(kept), "slots": sum(posts)}
+    print(f"[14] two-stage pillarrcnn18_waymo bs=1, {len(lat)} timed "
+          f"requests (after 3 warm-up), host-synced latency: p50 "
+          f"{rec['p50_ms']:.2f} ms, p90 {rec['p90_ms']:.2f} ms; peak "
+          f"allocated {rec['peak_allocated_gib']:.3f} GiB; mean kept "
+          f"{rec['mean_kept']:.1f} of {sum(posts)}; launches over "
+          f"{len(clouds)} requests {launches}; card: {card}")
+
+    # (b) the RoIs pooled are the single-stage detections
+    pts, msk = on_card(torch, dev, clouds[3])
+    single = make_infer_fn(model.single_det)(pts, msk)
+    with torch.inference_mode():
+        out = model(pts, msk)
+    valid = single["mask"]
+    rois = single["box3d_lidar"] * valid[..., None]
+    if not (torch.equal(out["roi_labels"],
+                        (single["label_preds"] + 1) * valid)
+            and torch.equal(out["roi_scores"], single["scores"] * valid)
+            and torch.equal(out["point_coords"], roi_grid_points(rois, 7))):
+        raise AssertionError("the pooled RoIs are not single_det's "
+                             "detections")
+    print(f"[14b] the second stage pooled single_det's {int(valid.sum())} "
+          f"detections (+ {int((~valid).sum())} padded slots): labels, "
+          f"scores and RoI grids bit-equal")
+
+    # (d) no host sync inside a request
+    check_no_sync(torch, infer, *on_card(torch, dev, clouds[4]), "14d")
+    # (e)
+    rec["card_vs_cpu"] = rcnn_card_vs_cpu(torch, dev)
+
+    # (f) the stages' device time, kernel sums, busy share
+    rec.update(rcnn_stage_split(torch, model, on_card(torch, dev, clouds[5])))
+    requests = [on_card(torch, dev, c) for c in clouds[6:11]]
+
+    def five_requests():
+        t0 = time.perf_counter()
+        for c in requests:
+            infer(*c)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    rows, window, lost = profiled(five_requests)
+    groups = group_table(rows)
+    busy = sum(groups.values())
+    rec["profile_5_requests"] = {
+        "window_ms": window, "kernel_ms": busy, "lost_events": lost,
+        "groups_ms": groups,
+        "top_kernels": [dict(name=k, ms=ms, count=c) for k, ms, c in
+                        rows[:12]]}
+    print(f"[14f] device ms by CUDA events (median of 10): first stage "
+          f"{rec['first_stage_ms']:.2f}, second stage "
+          f"{rec['second_stage_ms']:.2f}; 5 requests: kernel time "
+          f"{busy:.2f} ms in a {window:.2f} ms window (busy "
+          f"{100 * busy / window:.1f}%; {lost:.2%} of the device events "
+          f"lost); by group: " + ", ".join(
+              f"{g} {v:.3f}" for g, v in sorted(groups.items(),
+                                                key=lambda x: -x[1])))
+    for k, ms, c in rows[:8]:
+        print(f"[14f]   {ms:9.3f} ms x{c:<5d} {k[:100]}")
+    print(f"[14f] second stage, kernels alone (profiler, mean of 10): "
+          f"{rec['second_stage_alone_ms']:.4f} ms; by group: " + ", ".join(
+              f"{g} {v:.4f}" for g, v in sorted(
+                  rec["second_stage_groups_ms"].items(),
+                  key=lambda x: -x[1])))
+    for k in rec["second_stage_kernels"][:10]:
+        print(f"[14f]   {k['ms']:8.4f} ms {k['name'][:100]}")
+
+    # K1 at the served shape against its plain version
+    (args, kwargs), = k1_calls
+    got = pillar_scatter_max(*args, **kwargs)
+    err = check_scatter_equal(torch, "two-stage K1", got,
+                              scatter_max_to_grid(*args))
+    x, ids, valid_pts, H, W = args
+    k1 = dict(scatter_times(
+        torch, f"[14] K1 f32 nonneg {tuple(x.shape)} -> {H}x{W} (the "
+        f"two-stage request's), bit-equal, {int(got[1].sum())} of {H * W} "
+        f"pillars occupied", lambda: pillar_scatter_max(*args, **kwargs),
+        lambda: scatter_max_to_grid(*args), x, ids, valid_pts, got, F32_OPS),
+        max_abs_err=err)
+    if len(k2_calls) != 2:
+        raise AssertionError(f"a two-stage request made {len(k2_calls)} K2 "
+                             f"calls (one per task expected)")
+    return rec, k1, k2_calls
+
+
 TRAIN_STEPS, TRAIN_WARMUP = 10, 2  # phase 13: flagship steps, untimed first
 TRAIN_DUPLICATES = 300  # phase 13a: points copied onto others (exact ties)
 
@@ -1603,6 +2016,14 @@ def main():
         torch, dev, cfg["point_cloud_range"], cfg["pillar_size"])}
     training["card_vs_cpu"] = train_card_vs_cpu(torch, dev)
     training["flagship"] = train_flagship(torch, dev, card)
+    two_stage, k1_rcnn, k2_rcnn = serve_rcnn(torch, dev, card)
+    scatter["modes"]["rcnn_waymo"] = k1_rcnn
+    scatter["max_abs_err"] = max(scatter["max_abs_err"],
+                                 k1_rcnn["max_abs_err"])
+    for task, (a, b) in enumerate(k2_rcnn):
+        overlaps[f"served_rcnn_task{task}"] = check_overlap(
+            torch, f"the served two-stage request's task {task} candidates",
+            a, b)
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
@@ -1654,10 +2075,20 @@ def main():
              alone_ms=stage["alone_ms"], per_conv_ms=stage["per_conv_ms"],
              per_conv_alone_ms=stage["per_conv_alone_ms"]),
     ]}
+    # the two-stage path's launches (phase 14, counts reset just before)
+    record["kernels"][0]["two_stage_launches"] = \
+        two_stage["launches"]["pillar_scatter_max"]
+    record["kernels"][2]["two_stage_launches"] = \
+        two_stage["launches"]["rotated_overlap"]
     for k in record["kernels"]:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")
+    print(f"[profiler] {PROFILE_STATS['sessions']} sessions, "
+          f"{PROFILE_STATS['retaken']} taken again for lost device events, "
+          f"{PROFILE_STATS['lossy']} kept with a loss, "
+          f"{PROFILE_STATS['cuda_events']} timed by CUDA events instead")
     print(json.dumps({"training": training}))
+    print(json.dumps({"two_stage": two_stage}))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

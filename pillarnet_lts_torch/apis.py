@@ -65,13 +65,15 @@ def spread_head_outputs(model, points, points_mask):
     centre leaves `post_center_limit_range` and NMS sees no valid candidate.
     Returns {(task, head): (scale, bias)}, numpy per output channel, so a
     JAX weight tree can take the same change (`kernel *= scale`,
-    `bias = bias`).
+    `bias = bias`). A two-stage model's first stage (`single_det`) takes
+    the change.
     """
-    preds = model(points, points_mask)
+    det = getattr(model, "single_det", model)
+    preds = det(points, points_mask)
     factors = {}
     for k, pd in enumerate(preds):
         for h, out in pd.items():
-            conv = getattr(getattr(model.head_net, f"task{k}"), f"{h}_out")
+            conv = getattr(getattr(det.head_net, f"task{k}"), f"{h}_out")
             z = (out - conv.bias).flatten(0, -2).cpu().numpy()
             med = np.median(z, axis=0)
             mad = 1.4826 * np.median(np.abs(z - med), axis=0)

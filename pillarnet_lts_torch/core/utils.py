@@ -1,9 +1,18 @@
 """Misc core helpers (the port's own copy of
 `pillarnet_lts_tpu/core/utils.py`, and the device constants of predict)."""
 
+import numpy as np
 import torch
 
 _CONSTANTS = {}
+
+
+def f32_reciprocal(v):
+    """1 / v rounded to f32: the constant XLA multiplies by where the JAX
+    package divides an f32 array by the constant v (its simplifier turns
+    A / c into A * (1 / c)). The port multiplies by it wherever the JAX
+    package divides by an inexact constant, so both give the same bits."""
+    return float(np.float32(1) / np.float32(v))
 
 
 def device_constant(values, device, dtype=torch.float32):

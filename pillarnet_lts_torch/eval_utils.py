@@ -10,11 +10,20 @@ def make_infer_fn(model, test_cfg=None):
     `eval_utils.make_infer_fn` (weights live in the module, so the callable
     takes only the inputs).
 
+    A two-stage model (no `predict`: `PillarRCNN`) runs its forward, with
+    `test_cfg` for its first stage's NMS, then `post_process`.
+
     Returns infer(points (B, N, C) f32, points_mask (B, N) bool) -> the
     padded detection dict, on the model's device, without a host sync."""
     if test_cfg is None:
         test_cfg = model.processed_test_cfg()
     model.eval()
+
+    if not hasattr(model, "predict"):
+        @torch.inference_mode()
+        def infer(points, points_mask):
+            return model.post_process(model(points, points_mask, test_cfg))
+        return infer
 
     @torch.inference_mode()
     def infer(points, points_mask):

@@ -91,16 +91,19 @@ def state_key(*tensors):
 class MaskedConv(Calibrated, nn.Module):
     """kxk conv over a masked-dense map; caller guarantees inactive sites are
     zero. `init` is 'kaiming' (He-normal over fan-out, the backbone and
-    head) or 'xavier' (uniform, the neck). `quant=True` adds the int8
-    deploy mode (calibrated input absmax buffer `in_absmax`)."""
+    head) or 'xavier' (uniform, the neck). `padding` defaults to
+    (k - 1) // 2 on each side; a k x k conv of stride k (the second
+    stage's down-path) takes 0, as flax's 'SAME' does there. `quant=True`
+    adds the int8 deploy mode (calibrated input absmax buffer
+    `in_absmax`)."""
 
     def __init__(self, in_features, features, kernel_size=3, stride=1,
                  use_bias=True, init="kaiming", bias_init=0.0, quant=False,
-                 device=None):
+                 padding=None, device=None):
         super().__init__()
         k = kernel_size
         self.stride = stride
-        self.padding = (k - 1) // 2
+        self.padding = (k - 1) // 2 if padding is None else padding
         self.init = init
         self.bias_init = bias_init
         self.weight = nn.Parameter(

@@ -108,6 +108,13 @@ class _PillarResNetBase(nn.Module):
             out["conv5"] = c * 8
         return out
 
+    @property
+    def backbone_strides(self):
+        out = {"conv1": 1, "conv2": 2, "conv3": 4, "conv4": 8}
+        if self.with_conv5:
+            out["conv5"] = 16
+        return out
+
     def forward(self, grid, occ):
         x = grid.permute(0, 3, 1, 2)
         if x.dtype == torch.float32:

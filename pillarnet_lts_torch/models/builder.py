@@ -12,8 +12,8 @@ detector-level key, as in the JAX package.
 
 import torch
 
-from .registry import (BACKBONES, DETECTORS, HEADS, NECKS, READERS,
-                       build_from_cfg)
+from .registry import (BACKBONES, DETECTORS, HEADS, NECKS, POINT_HEAD,
+                       READERS, ROI_HEAD, SECOND_STAGE, build_from_cfg)
 
 _DROPPED_KEYS = ("logger", "remat_policy", "s2d_stage1", "chunk_nc",
                  "chunk_min_w", "chunk_train", "hpack", "spatial_axis")
@@ -68,6 +68,21 @@ def build_neck(cfg, backbone_channels, device=None):
 def build_head(cfg, feat_channels, device=None):
     return build_from_cfg(_component(cfg, device), HEADS,
                           dict(feat_channels=feat_channels))
+
+
+def build_second_stage_module(cfg, backbone_channels, backbone_strides,
+                              device=None):
+    return build_from_cfg(_component(cfg, device), SECOND_STAGE,
+                          dict(backbone_channels=backbone_channels,
+                               backbone_strides=backbone_strides))
+
+
+def build_roi_head(cfg, device=None):
+    return build_from_cfg(_component(cfg, device), ROI_HEAD)
+
+
+def build_point_head(cfg, device=None):
+    return build_from_cfg(_component(cfg, device), POINT_HEAD)
 
 
 def build_detector(cfg, train_cfg=None, test_cfg=None, device=None):

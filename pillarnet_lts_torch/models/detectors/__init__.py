@@ -1,3 +1,4 @@
+from .pillar_rcnn import PillarRCNN
 from .pillarnet import PillarNet
 
-__all__ = ["PillarNet"]
+__all__ = ["PillarNet", "PillarRCNN"]

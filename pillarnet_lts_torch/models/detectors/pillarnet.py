@@ -66,3 +66,10 @@ class PillarNet(nn.Module):
         prediction dicts of (B, H, W, *) maps."""
         bev, _ = self.extract_feat(points, points_mask)
         return self.head_net(bev)
+
+    def forward_two_stage(self, points, points_mask):
+        """The forward that also returns what a second stage pools from:
+        (per-task predictions, the neck's tuple of NCHW maps, the
+        backbone's dict of (map, occupancy))."""
+        bev, feats = self.extract_feat(points, points_mask)
+        return self.head_net(bev), bev, feats

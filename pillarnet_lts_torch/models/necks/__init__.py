@@ -1,3 +1,3 @@
-from .rpn import RPNV1, RPNV2
+from .rpn import RPNG, RPNGV2, RPNV1, RPNV2
 
-__all__ = ["RPNV1", "RPNV2"]
+__all__ = ["RPNG", "RPNGV2", "RPNV1", "RPNV2"]

@@ -1,4 +1,4 @@
-"""Dense BEV FPN necks RPNV1 and RPNV2.
+"""Dense BEV FPN necks RPNV1, RPNV2, RPNG and RPNGV2.
 
 Port of `pillarnet_lts_tpu/models/necks/rpn.py`:
 
@@ -6,13 +6,17 @@ Port of `pillarnet_lts_tpu/models/necks/rpn.py`:
   at stride 8.
 - RPNV2: conv4 -> block -> deconv x2 -> concat conv3 -> block; one output
   at stride 4.
+- RPNG: top-down 5 -> 4 -> 3; two outputs, at strides 8 and 4 (the FPN
+  of the two-stage and `*_fpn_waymo` configs).
+- RPNGV2: RPNG with 3x3 'reduce' convs on the lateral maps.
 
 Inputs are the backbone's NCHW maps; the conv input widths come from
 `backbone_channels`, which the detector passes in (flax infers them from
 the input). Submodule names mirror the flax ones (`block_5.conv0.Conv_0`,
-`deblock_5.ConvTranspose_0`, ...). Convs compute in the input's dtype;
-with `quant=True` the calibrated 3x3 convs run the int8 core (K4 on CUDA)
-and the transposed convs stay in the compute dtype, as in the JAX package.
+`deblock_5.ConvTranspose_0`, `top_down_54.ConvTranspose_0`, ...). Convs
+compute in the input's dtype; with `quant=True` the calibrated 3x3 convs
+run the int8 core (K4 on CUDA) and the transposed convs stay in the
+compute dtype, as in the JAX package.
 In training (`module.train()`) every BN, the deconv branches' too, takes
 batch statistics over all sites (`models/utils/norm.py`).
 """
@@ -61,23 +65,24 @@ class _Block(nn.Module):
         return x
 
 
-class ConvTranspose2x2(nn.Module):
-    """Bias-free ConvTranspose2d(k=2, s=2). `weight` is torch's
-    (in, out, kh, kw); from flax's (kh, kw, in, out) it is transposed and
-    spatially flipped (`runtime/convert.py`)."""
+class ConvTranspose(nn.Module):
+    """Bias-free ConvTranspose2d(k, s=k) (k = `size`, 2 in the necks).
+    `weight` is torch's (in, out, kh, kw); from flax's (kh, kw, in, out) it
+    is transposed and spatially flipped (`runtime/convert.py`)."""
 
-    def __init__(self, in_features, features, device=None):
+    def __init__(self, in_features, features, size=2, device=None):
         super().__init__()
         self.weight = nn.Parameter(
-            torch.empty(in_features, features, 2, 2, device=device))
+            torch.empty(in_features, features, size, size, device=device))
 
     @torch.no_grad()
     def init_weights(self, generator):
-        i, o = self.weight.shape[:2]
-        xavier_uniform_(self.weight, 4 * i, 4 * o, generator)
+        i, o, k, _ = self.weight.shape
+        xavier_uniform_(self.weight, k * k * i, k * k * o, generator)
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), stride=2)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype),
+                                  stride=self.weight.shape[-1])
 
 
 class _DeBlock(nn.Module):
@@ -85,7 +90,8 @@ class _DeBlock(nn.Module):
 
     def __init__(self, in_features, features, device=None):
         super().__init__()
-        self.ConvTranspose_0 = ConvTranspose2x2(in_features, features, device)
+        self.ConvTranspose_0 = ConvTranspose(in_features, features,
+                                             device=device)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features, device=device)
 
     def forward(self, x):
@@ -150,3 +156,67 @@ class RPNV2(_TopDownNeck):
                  device=None):
         super().__init__(layer_nums, in_channels, num_filters,
                          backbone_channels, quant, device)
+
+
+@NECKS.register_module
+class RPNG(nn.Module):
+    """Two-scale top-down FPN: block on conv5, upsample, concat conv4,
+    block (the stride-8 output `x4b`), upsample, concat conv3, block (the
+    stride-4 output `x3b`). Returns (x4b, x3b)."""
+
+    def __init__(self, layer_nums: Sequence[int], in_channels: Sequence[int],
+                 num_filters: Sequence[int], backbone_channels, quant=False,
+                 device=None):
+        super().__init__()
+        c3, c4, c5 = (backbone_channels[k] for k in ("conv3", "conv4",
+                                                     "conv5"))
+        f4, f3 = num_filters
+        self.block_5 = _Block(c5, in_channels[0], layer_nums[0], quant,
+                              device)
+        self.top_down_54 = _DeBlock(in_channels[0], in_channels[1], device)
+        self.block_4 = _Block(c4 + in_channels[1], f4, layer_nums[0], quant,
+                              device)
+        self.top_down_43 = _DeBlock(f4, in_channels[2], device)
+        self.block_3 = _Block(c3 + in_channels[2], f3, layer_nums[1], quant,
+                              device)
+        self.out_channels = (f4, f3)
+
+    def forward(self, feats):
+        """feats: the backbone dict of (NCHW map, occupancy) pairs."""
+        up54 = self.top_down_54(self.block_5(feats["conv5"][0]))
+        x4b = self.block_4(torch.cat([feats["conv4"][0], up54], dim=1))
+        up43 = self.top_down_43(x4b)
+        x3b = self.block_3(torch.cat([feats["conv3"][0], up43], dim=1))
+        return (x4b, x3b)
+
+
+@NECKS.register_module
+class RPNGV2(nn.Module):
+    """RPNG whose lateral maps first pass a 3x3 conv + BN + ReLU to half
+    of their output block's width (`reduce_4`, `reduce_3`); the upsampled
+    maps are that wide too."""
+
+    def __init__(self, layer_nums: Sequence[int], in_channels: Sequence[int],
+                 num_filters: Sequence[int], backbone_channels, quant=False,
+                 device=None):
+        super().__init__()
+        c3, c4, c5 = (backbone_channels[k] for k in ("conv3", "conv4",
+                                                     "conv5"))
+        f4, f3 = num_filters
+        self.reduce_4 = _ConvBNReLU(c4, f4 // 2, quant, device)
+        self.block_5 = _Block(c5, in_channels[0], layer_nums[0], quant,
+                              device)
+        self.top_down_54 = _DeBlock(in_channels[0], f4 // 2, device)
+        self.block_4 = _Block(f4 // 2 * 2, f4, layer_nums[0], quant, device)
+        self.reduce_3 = _ConvBNReLU(c3, f3 // 2, quant, device)
+        self.top_down_43 = _DeBlock(f4, f3 // 2, device)
+        self.block_3 = _Block(f3 // 2 * 2, f3, layer_nums[1], quant, device)
+        self.out_channels = (f4, f3)
+
+    def forward(self, feats):
+        r4 = self.reduce_4(feats["conv4"][0])
+        up54 = self.top_down_54(self.block_5(feats["conv5"][0]))
+        x4b = self.block_4(torch.cat([r4, up54], dim=1))
+        r3 = self.reduce_3(feats["conv3"][0])
+        x3b = self.block_3(torch.cat([r3, self.top_down_43(x4b)], dim=1))
+        return (x4b, x3b)

@@ -38,3 +38,6 @@ BACKBONES = Registry("backbone")
 NECKS = Registry("neck")
 HEADS = Registry("head")
 DETECTORS = Registry("detector")
+SECOND_STAGE = Registry("second_stage")
+ROI_HEAD = Registry("roi_head")
+POINT_HEAD = Registry("point_head")

@@ -22,7 +22,8 @@ left alone, so they move once per step as under JAX's `nn.remat`.
 
 At eval the norm is an affine y = x * inv + shift that the port folds into
 the preceding conv or matmul (`fold_factors`); `forward` applies it
-unfolded, as the JAX package does after a transposed conv. Each module
+unfolded (and re-zeroes where a mask is given), as the JAX package does
+after a transposed conv. Each module
 chooses its path from its own `training` flag: `model.train()` selects the
 training path of every module, `model.eval()` the eval path (the builders
 return models in eval mode, as they are built for serving).
@@ -39,6 +40,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...core.utils import f32_reciprocal
+
 _MOMENTUM = 0.01
 _REPLAY = threading.local()
 
@@ -53,10 +56,6 @@ def recomputing():
         yield
     finally:
         _REPLAY.active = prev
-
-
-def _f32_reciprocal(n):
-    return float(np.float32(1) / np.float32(n))
 
 
 def _clamp0(v):
@@ -97,9 +96,9 @@ class MaskedBatchNorm(nn.Module):
         axis ((B, 1, H, W) or (B, N, 1)), or None for every site.
 
         Training: normalize with the batch statistics of the masked sites
-        and re-zero the others; eval: the running statistics (mask
-        ignored, as the JAX package's eval forward after a transposed
-        conv). Computed in f32, returned in x.dtype."""
+        and re-zero the others; eval: the running statistics, then the
+        re-zero, as the JAX package's eval forward. Computed in f32,
+        returned in x.dtype."""
         cdim = 1 if x.dim() == 4 else x.dim() - 1
         shape = [1] * x.dim()
         shape[cdim] = -1
@@ -108,18 +107,20 @@ class MaskedBatchNorm(nn.Module):
             inv = torch.rsqrt(self.running_var + self.eps) * self.weight
             y = (xf - self.running_mean.view(shape)) * inv.view(shape) \
                 + self.bias.view(shape)
+            if mask is not None:
+                y = y * mask.to(y.dtype)
             return y.to(x.dtype)
 
         dims = [d for d in range(x.dim()) if d != cdim]
         if mask is None:
             cnt = max(x.numel() // x.shape[cdim], 1)
-            rcp = _f32_reciprocal(cnt)
+            rcp = f32_reciprocal(cnt)
             mean = xf.sum(dims) * rcp
             var = _clamp0((xf * xf).sum(dims) * rcp - mean * mean)
             # cnt / (cnt - 1) for the running variance, folded into one
             # constant
             bessel = float(np.float32(cnt) * np.float32(
-                _f32_reciprocal(max(cnt - 1, 1))))
+                f32_reciprocal(max(cnt - 1, 1))))
         else:
             mf = mask.float()
             cnt = mf.sum().clamp_min(1.0)

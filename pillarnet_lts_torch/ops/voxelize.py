@@ -10,8 +10,9 @@ picks between the two by device.
 
 from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
+
+from ..core.utils import f32_reciprocal
 
 
 class PillarSpec(NamedTuple):
@@ -32,7 +33,7 @@ class PillarSpec(NamedTuple):
     def inv_pillar_size(self) -> float:
         """1 / pillar_size rounded to f32, the constant XLA multiplies by
         where the JAX package divides by the pillar size."""
-        return float(np.float32(1) / np.float32(self.pillar_size))
+        return f32_reciprocal(self.pillar_size)
 
     @property
     def x_offset(self) -> float:

@@ -9,7 +9,8 @@ a per-leaf transform:
   -----------------------------------------  ------------------------------
   conv `kernel` (kh, kw, I, O)               MaskedConv.weight (O, I, kh, kw)
   _PFNDense `kernel` (I, O)                  _PFNDense.weight (O, I)
-  ConvTranspose `kernel` (kh, kw, I, O)      ConvTranspose2x2.weight
+  Dense `kernel` (I, O) / `bias`             Dense.weight (O, I) / bias
+  ConvTranspose `kernel` (kh, kw, I, O)      ConvTranspose.weight
                                              (I, O, kh, kw), spatially flipped
   BN `scale` / `bias`                        weight / bias
   BN batch_stats `mean` / `var`              running_mean / running_var
@@ -37,8 +38,9 @@ import numpy as np
 import torch
 
 from ..models.backbones.base import MaskedConv
-from ..models.necks.rpn import ConvTranspose2x2
+from ..models.necks.rpn import ConvTranspose
 from ..models.readers.dynamic_pillar_encoder import DynamicPFE, _PFNDense
+from ..models.utils.dense import Dense
 from ..models.utils.norm import MaskedBatchNorm
 
 
@@ -61,8 +63,10 @@ _LEAVES = {
                  "in_absmax": ("quant", "in_absmax", None)},
     _PFNDense: {"weight": ("params", "kernel", _dense_kernel),
                 "in_absmax": ("quant", "in_absmax", None)},
+    Dense: {"weight": ("params", "kernel", _dense_kernel),
+            "bias": ("params", "bias", None)},
     DynamicPFE: {"scatter_absmax": ("quant", "scatter_absmax", None)},
-    ConvTranspose2x2: {"weight": ("params", "kernel", _conv_transpose_kernel)},
+    ConvTranspose: {"weight": ("params", "kernel", _conv_transpose_kernel)},
     MaskedBatchNorm: {"weight": ("params", "scale", None),
                       "bias": ("params", "bias", None),
                       "running_mean": ("batch_stats", "mean", None),

@@ -16,10 +16,15 @@ Waymo 196,608 in one) and reports, after 3 warm-up requests:
   - FLOPs of one bs=1 request (`torch.utils.flop_counter`; it does not see
     the port's own kernels, so an int8 config's count is its bf16 ops only);
   - per-stage device time (CUDA events around each module; median of 10):
-    reader, backbone and its conv1..conv5, neck, head, predict;
+    reader, backbone and its conv1..conv5, neck, head, predict; for a
+    two-stage config (`configs/pillarrcnn/pillarrcnn18_waymo.py`) those of
+    its first stage, then the second stage as a stage of its own
+    (`second_stage`: RoI pooling, heads, box decoding and post_process)
+    and its parts `roi_pool`, `point_head`, `roi_head`;
   - kernel time by kernel over 5 requests (`torch.profiler`), grouped into
-    the port's kernels, convolutions, elementwise, layout transposes and the
-    rest, with the device's busy share of the window;
+    the port's kernels, convolutions, GEMMs, the second stage's
+    `index_select` gathers, elementwise, layout transposes and the rest,
+    with the device's busy share of the window;
   - serial frames/s at pipeline depth 1 and 3, and per-request latency at
     bs=2 and bs=4.
 
@@ -48,34 +53,26 @@ from collections import defaultdict
 
 import torch
 
-from chip_smoke import FLAGSHIP, ROOT, card_line
-
-# the two scatter-max kernels share the streaming pass of
-# `csrc/pillar_grid.cuh` (`pillar_grid_fill_kernel`), told apart by its tag
-# (`SortedRuns` for K1', `ClaimedPillars` for K1); their head-map memsets
-# fall under "other", the sort of K1' under its cub kernels
-GROUPS = (("K1' pillar_scatter_max_tiled", ("scatter_max_sorted",
-                                            "SortedRuns")),
-          ("K1 pillar_scatter_max", ("scatter_max_claim", "scatter_max_merge",
-                                     "ClaimedPillars")),
-          ("K2 rotated_overlap", ("rotated_overlap",)),
-          ("K3 suppression_mask", ("suppression_mask",)),
-          ("K4 int8_conv", ("int8_conv_kernel",)),
-          ("K5 int8_stage", ("int8_stage_kernel",)),
-          ("conv", ("conv", "xmma", "implicit_gemm", "cudnn", "winograd")),
-          ("transpose", ("nchwToNhwc", "nhwcToNchw", "transpose")),
-          ("elementwise", ("elementwise", "vectorized", "reduce")))
-
+from chip_smoke import FLAGSHIP, ROOT, card_line, group_table, profiled
 
 class StageTimer:
-    """CUDA events around the top-level stage modules of a PillarNet."""
+    """CUDA events around the top-level stage modules of a PillarNet (a
+    two-stage model's `single_det`) and of a two-stage model's second
+    stage: the RoI-grid pooling, the point head and the RoI head."""
 
     def __init__(self, model):
         self.events, self.open = [], []
-        mods = [("reader", model.reader_net), ("backbone", model.backbone_net)]
-        for name, mod in model.backbone_net.named_children():
+        det = getattr(model, "single_det", model)
+        mods = [("reader", det.reader_net), ("backbone", det.backbone_net)]
+        for name, mod in det.backbone_net.named_children():
             mods.append((name.split("_")[0], mod))  # conv1_block0 -> conv1
-        mods += [("neck", model.neck_net), ("head", model.head_net)]
+        mods += [("neck", det.neck_net), ("head", det.head_net)]
+        if det is not model:
+            parts = (("roi_pool", "second_stage_0"),
+                     ("point_head", "point_head_net"),
+                     ("roi_head", "roi_head_net"))
+            mods += [(name, getattr(model, attr)) for name, attr in parts
+                     if getattr(model, attr, None) is not None]
         self.handles = []
         for stage, mod in mods:
             self.handles += [mod.register_forward_pre_hook(self._pre(stage)),
@@ -104,37 +101,6 @@ class StageTimer:
             ms[stage] += start.elapsed_time(end)
         self.events = []
         return ms
-
-
-def kernel_table(prof):
-    from torch.autograd import DeviceType
-
-    rows = []
-    for e in prof.key_averages():
-        # a user range (the optimizer's `step`) spans kernels counted alone
-        if (e.device_type != DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        rows.append((e.key, us / 1e3, e.count))
-    return sorted(rows, key=lambda r: -r[1])
-
-
-def group_of(kernel):
-    low = kernel.lower()
-    for g, keys in GROUPS:
-        if any(k.lower() in low for k in keys):
-            return g
-    return "other"
-
-
-def group_table(rows):
-    groups = defaultdict(float)
-    for k, ms, _ in rows:
-        groups[group_of(k)] += ms
-    return dict(groups)
 
 
 def train_profile(cfg, dev, remat):
@@ -174,16 +140,15 @@ def train_profile(cfg, dev, remat):
         for name, a, b in (("forward", 0, 1), ("backward", 1, 2),
                            ("optimizer", 2, 3)):
             phases[name].append(ev[a].elapsed_time(ev[b]))
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
+
+    def two_steps():
         t0 = time.perf_counter()
         for _ in range(2):
             train_step(model, opt, batch, cfg["train_cfg"])
         torch.cuda.synchronize()
-        window = (time.perf_counter() - t0) * 1e3
-    rows = kernel_table(prof)
+        return (time.perf_counter() - t0) * 1e3
+
+    rows, window, lost = profiled(two_steps)
     groups = group_table(rows)
     step = statistics.median(phases["step_host"])
     return {"remat": remat, "batch": bs,
@@ -192,7 +157,7 @@ def train_profile(cfg, dev, remat):
             "peak_allocated_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
             "profile_2_steps": {
                 "window_ms": window, "kernel_ms": sum(groups.values()),
-                "groups_ms": groups,
+                "lost_events": lost, "groups_ms": groups,
                 "top_kernels": [dict(name=k, ms=ms, count=c)
                                 for k, ms, c in rows[:25]]}}
 
@@ -265,7 +230,8 @@ def main():
     card = card_line()
     dev = torch.device("cuda", 0)
     cfg = load_config(args.config)
-    cfg["model"]["backbone"]["s2d_pallas"] = args.fused
+    first = cfg["model"].get("first_stage_cfg", cfg["model"])
+    first["backbone"]["s2d_pallas"] = args.fused
     n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
     nsweeps = cfg.get("nsweeps", 10)
     model = build_model_from_cfg(cfg, device=dev, seed=0)
@@ -295,35 +261,41 @@ def main():
     rec["gflop_per_frame"] = fc.get_total_flops() / 1e9
 
     timer = StageTimer(model)
+    det = getattr(model, "single_det", model)
     per_stage = defaultdict(list)
     for c in clouds:
         with torch.inference_mode():
-            preds = model(*c)
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            model.predict({}, preds, test_cfg)
-            end.record()
+            if det is model:
+                preds = model(*c)
+            else:
+                preds, bev, feats = det.forward_two_stage(*c)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            first = det.predict({}, preds, test_cfg)
+            ev[1].record()
+            if det is not model:
+                model.post_process(model.second_stage(first, bev, feats))
+            ev[2].record()
         for s, v in timer.take().items():
             per_stage[s].append(v)
-        per_stage["predict"].append(start.elapsed_time(end))
+        per_stage["predict"].append(ev[0].elapsed_time(ev[1]))
+        if det is not model:
+            per_stage["second_stage"].append(ev[1].elapsed_time(ev[2]))
     rec["stage_ms"] = {s: statistics.median(v) for s, v in per_stage.items()}
     timer.remove()
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
+    def five_requests():
         t0 = time.perf_counter()
         for c in clouds[:5]:
             infer(*c)
         torch.cuda.synchronize()
-        window = (time.perf_counter() - t0) * 1e3
-    rows = kernel_table(prof)
+        return (time.perf_counter() - t0) * 1e3
+
+    rows, window, lost = profiled(five_requests)
     groups = group_table(rows)
     busy = sum(groups.values())
     rec["profile_5_requests"] = {
-        "window_ms": window, "kernel_ms": busy,
+        "window_ms": window, "kernel_ms": busy, "lost_events": lost,
         "groups_ms": dict(groups),
         "top_kernels": [dict(name=k, ms=ms, count=c) for k, ms, c in rows[:20]]}
 

@@ -1,7 +1,9 @@
 """PyTorch port on the card: each CUDA kernel against its plain version, and
 the models' paths through the kernels (f32: scatter-max and overlap; int8
 deploy: also the int8 conv and the fused int8 stage; the switches: the
-sorted-run scatter-max and the suppression mask).
+sorted-run scatter-max and the suppression mask; the two-stage and RPNG
+Waymo configs: scatter-max and overlap, no host sync, the card against the
+CPU).
 
 This file imports no JAX, so it also runs where only PyTorch is installed.
 Every test needs a CUDA card with nvcc and skips without one. On the card,
@@ -961,3 +963,84 @@ def test_checkpoint_resume_on_the_card(cuda, tmp_path):
     sb = fresh.state_dict()
     for k, v in tr.model.state_dict().items():
         torch.testing.assert_close(sb[k], v, rtol=1e-6, atol=1e-6)
+
+
+# ---- two-stage serving (chip_smoke.py phase 14) -----------------------------
+
+_RPNG_CONFIGS = ["pillarrcnn/pillarrcnn18_waymo",
+                 "pillarnet/pillarnet18_fpn_waymo",
+                 "pillarnet/pillarnet34_fpn_waymo",
+                 "pillarnet/pillarnet18_fpn_iou_waymo"]
+
+
+def _waymo_request(cfg, dev, seed):
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+    return tuple(torch.from_numpy(a).to(dev) for a in synth_points_realistic(
+        1, n, pc_range, seed=seed, nsweeps=1))
+
+
+@pytest.mark.parametrize("name", _RPNG_CONFIGS)
+def test_rpng_config_serves_on_the_card(cuda, name):
+    """The two-stage config and the three RPNG single-stage Waymo configs
+    build on the card by default (full width and depth) and serve a
+    196,608-point request: K1 once, K2 once per task (the vehicle row of
+    2048, the pedestrian and cyclist rows of 1024), 500 padded slots."""
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, spread_head_outputs)
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+
+    cfg = load_config(os.path.join(_ROOT, "configs", name + ".py"))
+    model = build_model_from_cfg(cfg)
+    assert next(model.parameters()).device.type == "cuda"
+    pts, msk = _waymo_request(cfg, cuda, 11)
+    spread_head_outputs(model, pts, msk)
+    _kernels.reset_launches()
+    det = make_infer_fn(model)(pts, msk)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["pillar_scatter_max"] == 1
+    assert _kernels.LAUNCHES["rotated_overlap"] == 2
+    assert det["box3d_lidar"].shape == (1, 500, 7)
+    assert bool(torch.isfinite(det["box3d_lidar"]).all())
+    m = det["mask"][0]
+    assert bool(m.any())
+    scores = det["scores"][0]
+    assert bool(((scores >= 0) & (scores <= 1)).all())
+    assert set(det["label_preds"][0][m].tolist()) <= {0, 1, 2}
+
+
+def test_two_stage_request_does_not_sync_the_host(cuda):
+    """A full-size pillarrcnn18_waymo request, after one warm-up, queues
+    its first stage, proposals, RoI pooling, heads and post_process without
+    a host sync until its result is copied to the host."""
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, spread_head_outputs)
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.runtime.serving import to_host
+
+    cfg = load_config(os.path.join(_ROOT, "configs", "pillarrcnn",
+                                   "pillarrcnn18_waymo.py"))
+    model = build_model_from_cfg(cfg, device=cuda)
+    clouds = [_waymo_request(cfg, cuda, s) for s in (12, 13)]
+    spread_head_outputs(model, *clouds[0])
+    infer = make_infer_fn(model)
+    infer(*clouds[0])
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        det = infer(*clouds[1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    det = to_host(det)
+    assert det["mask"].any() and np.isfinite(det["box3d_lidar"]).all()
+
+
+def test_two_stage_demo_on_the_card_matches_the_cpu(cuda):
+    """The demo two-stage config from the same weights and cloud: the same
+    RoI set and kept slots, labels equal, boxes within 1e-3 m and scores
+    within 1e-4 (`chip_smoke.py::rcnn_card_vs_cpu`)."""
+    from chip_smoke import rcnn_card_vs_cpu
+
+    r = rcnn_card_vs_cpu(torch, cuda)
+    assert r["kept"] > 0

@@ -166,6 +166,35 @@ def test_chip_smoke_golden_config_is_the_fixture_config():
         model_cfg(), sort_keys=True)
 
 
+def test_chip_smoke_profile_completeness_counts():
+    """A profiler session is complete when its device events are at least
+    its launch calls; the session's primer kernel counts there but stays
+    out of the kernel rows."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from chip_smoke import device_events, kernel_table, launch_calls
+
+    def ev(key, device, count, us=0.0):
+        return SimpleNamespace(key=key, count=count, device_type=device,
+                               self_device_time_total=us)
+
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = [ev("cudaLaunchKernel", cpu, 3), ev("cuLaunchKernel", cpu, 2),
+              ev("cudaMemsetAsync", cpu, 1), ev("aten::copy_", cpu, 4),
+              ev("cudaDeviceSynchronize", cpu, 2),
+              ev("void at::cuda::spin_kernel(long)", cuda, 1, 5.0),
+              ev("rotated_overlap_kernel", cuda, 2, 40.0),
+              ev("elementwise_kernel", cuda, 2, 20.0),
+              ev("Memset (Device)", cuda, 1, 1.0)]
+    assert launch_calls(events) == 6 and device_events(events) == 6
+    assert device_events(events[:-1]) < launch_calls(events)
+    assert kernel_table(events) == [("rotated_overlap_kernel", 0.04, 2),
+                                    ("elementwise_kernel", 0.02, 2),
+                                    ("Memset (Device)", 0.001, 1)]
+
+
 def test_serving_pipeline_keeps_order_and_depth():
     model, data = _golden_model()
     infer = make_infer_fn(model)
