@@ -96,14 +96,16 @@ def optimizer_from_cfg(model, cfg, total_steps):
 
 
 def train_detector(model, dataset, cfg, logger=None, resume_from=None,
-                   cfg_text=None, work_dir=None, hooks=()):
+                   cfg_text=None, work_dir=None, hooks=(), seed=0):
     """Train `model` (on its device) on `dataset` as the config says:
     batches of `data.samples_per_gpu` padded to `data.max_points`, shuffled
     per epoch; the one-cycle AdamW over all `total_epochs`; a log every
     `log_config.interval` steps and a checkpoint every
     `checkpoint_config.interval` epochs under `work_dir` (default: the
     config's), then `hooks`. `resume_from` a checkpoint path, or True for
-    the latest. Returns the `Trainer`."""
+    the latest. `seed`: the run's, from which each step's generator (RoI
+    sampling, dropout) is made with the step count. Returns the
+    `Trainer`."""
     logger = logger or logging.getLogger("train")
     data = cfg["data"]
     loader = DataLoader(dataset, data["samples_per_gpu"], data["max_points"])
@@ -112,7 +114,8 @@ def train_detector(model, dataset, cfg, logger=None, resume_from=None,
     trainer = Trainer(model, optimizer, dict(cfg["train_cfg"]),
                       work_dir or cfg["work_dir"], logger=logger,
                       cfg_text=cfg_text,
-                      class_names=list(cfg.get("class_names") or []))
+                      class_names=list(cfg.get("class_names") or []),
+                      seed=seed)
     trainer.register_hook(IterTimerHook())
     trainer.register_hook(TextLoggerHook(
         (cfg.get("log_config") or {}).get("interval", 10), logger))

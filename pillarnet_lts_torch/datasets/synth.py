@@ -115,7 +115,8 @@ class SynthDataset:
     assigner, `Reformat`): example i is scene `seed + i`.
 
     cfg: a config (`apis.load_config`); the scenes take its
-    `point_cloud_range` (else the reader's `pc_range`), `class_names` and
+    `point_cloud_range` (else the reader's `pc_range`, of the first stage
+    in a two-stage config), `class_names` and
     `train_cfg["assigner"]`. `num_boxes` is passed to `synth_scene`."""
 
     def __init__(self, cfg, num_frames, num_points, seed=0,
@@ -124,8 +125,11 @@ class SynthDataset:
         self.num_points = num_points
         self.seed = seed
         self.num_boxes = num_boxes
-        self.pc_range = cfg.get("point_cloud_range",
-                                cfg["model"]["reader"]["pc_range"])
+        self.pc_range = cfg.get("point_cloud_range")
+        if self.pc_range is None:
+            model = cfg["model"]
+            model = model.get("first_stage_cfg", model)
+            self.pc_range = model["reader"]["pc_range"]
         self.class_names = list(cfg["class_names"])
         self.pipeline = [
             Preprocess(dict(mode="train", shuffle_points=False,

@@ -22,7 +22,8 @@ def make_infer_fn(model, test_cfg=None):
     if not hasattr(model, "predict"):
         @torch.inference_mode()
         def infer(points, points_mask):
-            return model.post_process(model(points, points_mask, test_cfg))
+            return model.post_process(model(points, points_mask,
+                                            test_cfg=test_cfg))
         return infer
 
     @torch.inference_mode()

@@ -1,7 +1,7 @@
-"""Pillar R-CNN two-stage detector, inference.
+"""Pillar R-CNN two-stage detector: inference and training.
 
-Port of the eval branch of `pillarnet_lts_tpu/models/detectors/
-pillar_rcnn.py::PillarRCNN` and its `post_process`: the first stage (a
+Port of `pillarnet_lts_tpu/models/detectors/pillar_rcnn.py::PillarRCNN`
+(its forward in both modes, `loss` and `post_process`): the first stage (a
 `PillarNet`, `single_det`) predicts padded proposals (decode and NMS, on
 the card without a host sync); every proposal slot, kept or padded,
 becomes a RoI (a padded one is the zero box with label 0 and score 0), so
@@ -16,10 +16,20 @@ Submodule names mirror flax's (`single_det`, `second_stage_0`,
 `roi_head_net`, `point_head_net`), so `runtime/convert.py` loads the JAX
 package's variables tree.
 
-Not ported yet: training (the proposal target sampling, the canonical
-RoI targets, the RCNN and point losses; `forward` in training mode
-raises), the bf16 and int8 two-stage configs, and `freeze` (it matters
-only in training).
+In training (`model.train()`) the first stage runs in training mode
+(unless `freeze`), its detached predictions go through the same predict
+(no gradient), and `proposal_target_layer` samples ROI_PER_IMAGE RoIs per
+sample against `gt_boxes_and_cls` with draws from the caller's
+`generator` (`sampler_draws`), which then also drives the RoI head's
+dropout. The second stage pools the sampled RoIs; `loss` adds the RCNN
+classification and regression losses and the point head's focal loss to
+the first task's CenterNet loss and lists each per task, as the JAX
+package does. With `freeze` the first stage runs in eval mode under
+`torch.no_grad()`: no gradient and no running-statistics update, the JAX
+package's `train=False` plus `stop_gradient`.
+
+Not ported yet: the bf16 and int8 two-stage configs (they raise), and
+`RoIFFNHead`'s IoU branch with its loss.
 """
 
 from typing import Optional, Sequence
@@ -28,13 +38,15 @@ import torch
 from torch import nn
 
 from .. import builder
+from ..point_heads.point_head import assign_point_targets_2d, point_cls_loss
 from ..registry import DETECTORS
-from ..roi_heads.roi_head_template import generate_predicted_boxes
+from ..roi_heads.proposal_target_layer import (proposal_target_layer,
+                                               sampler_draws)
+from ..roi_heads.roi_head_template import (box_cls_layer_loss,
+                                           box_reg_layer_loss,
+                                           canonicalize_roi_targets,
+                                           generate_predicted_boxes)
 from .pillarnet import PillarNet
-
-_TRAINING = ("Pillar R-CNN training (proposal target sampling, canonical "
-             "RoI targets, the RCNN and point losses) is not ported yet; "
-             "call model.eval()")
 
 
 @DETECTORS.register_module
@@ -48,7 +60,7 @@ class PillarRCNN(nn.Module):
                  test_cfg: Optional[dict] = None, pretrained=None,
                  dtype=torch.float32, device=None):
         super().__init__()
-        del num_point, use_final_feature, pretrained, freeze
+        del num_point, use_final_feature, pretrained
         if dtype != torch.float32:
             raise NotImplementedError(
                 "PillarRCNN: only the f32 two-stage is ported")
@@ -57,7 +69,13 @@ class PillarRCNN(nn.Module):
         fs = dict(first_stage_cfg)
         fs.pop("type", None)
         self.dtype = dtype
+        self.freeze = bool(freeze)
         self.code_size = int(roi_head.get("code_size", 7))
+        self.target_config = dict(roi_head["model_cfg"]["TARGET_CONFIG"])
+        self.loss_config = dict(roi_head["model_cfg"]["LOSS_CONFIG"])
+        self.point_loss_weight = (
+            point_head["model_cfg"]["LOSS_CONFIG"]["LOSS_WEIGHTS"]
+            ["point_cls_weight"] if point_head is not None else None)
         self.single_det = PillarNet(**fs, train_cfg=train_cfg,
                                     test_cfg=test_cfg, dtype=dtype,
                                     device=device)
@@ -80,20 +98,34 @@ class PillarRCNN(nn.Module):
         if (point_head or {}).get("model_cfg", {}).get("ATT_MODEL", False):
             raise NotImplementedError("PointHead ATT_MODEL is not ported yet")
 
+    def train(self, mode=True):
+        """torch's train(); a frozen first stage stays in eval mode."""
+        super().train(mode)
+        if self.freeze:
+            self.single_det.eval()
+        return self
+
     def processed_test_cfg(self):
         return self.single_det.processed_test_cfg()
 
     def first_stage(self, points, points_mask, test_cfg=None):
         """(padded first-stage detections, the neck's maps, the backbone's
-        dict, the head's per-task predictions)."""
-        preds, bev, feats = self.single_det.forward_two_stage(points,
-                                                              points_mask)
-        first = self.single_det.predict({}, preds, test_cfg)
+        dict, the head's per-task predictions). In training the detections
+        come from the detached predictions, without a gradient."""
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.freeze):
+            preds, bev, feats = self.single_det.forward_two_stage(
+                points, points_mask)
+        with torch.no_grad():
+            first = self.single_det.predict(
+                {}, [{k: v.detach() for k, v in p.items()} for p in preds],
+                test_cfg)
         return first, bev, feats, preds
 
-    def second_stage(self, first, bev, feats):
-        """Refine the first stage's padded detections: RoIs -> grid
-        pooling -> point head -> RoI head -> decoded boxes."""
+    def rois(self, first):
+        """The first stage's padded detections as RoIs: (rois (B, R,
+        code_size), labels (B, R) 1-based with 0 at padded slots, scores
+        (B, R)); a padded slot is the zero box."""
         boxes = first["box3d_lidar"]
         if self.code_size == 9 and boxes.shape[-1] == 9:  # yaw to slot 6
             boxes = torch.cat([boxes[..., :6], boxes[..., 8:],
@@ -101,10 +133,11 @@ class PillarRCNN(nn.Module):
         elif boxes.shape[-1] > self.code_size:
             boxes = torch.cat([boxes[..., :6], boxes[..., -1:]], dim=-1)
         valid = first["mask"]
-        rois = boxes * valid[..., None]
-        out = {"roi_labels": (first["label_preds"] + 1) * valid,
-               "roi_scores": first["scores"] * valid}
+        return (boxes * valid[..., None], (first["label_preds"] + 1) * valid,
+                first["scores"] * valid)
 
+    def _refine(self, bev, feats, rois, roi_scores, out, generator=None):
+        """Grid pooling, point head and RoI head over `rois`, into out."""
         roi_feats = point_feats = point_coords = None
         for k in range(self.num_second_stage):
             roi_feats, point_feats, point_coords = getattr(
@@ -112,29 +145,99 @@ class PillarRCNN(nn.Module):
         out["point_coords"] = point_coords
         if self.point_head_net is not None:
             out["point_logits"] = self.point_head_net(point_feats)
-        rcnn_cls, rcnn_reg = self.roi_head_net(roi_feats, rois,
-                                               out["roi_scores"])
-        out["rcnn_cls"], out["rcnn_reg"] = rcnn_cls, rcnn_reg
-        out["batch_cls_preds"], out["batch_box_preds"] = \
-            generate_predicted_boxes(rois, rcnn_cls, rcnn_reg)
+        out["rcnn_cls"], out["rcnn_reg"] = self.roi_head_net(
+            roi_feats, rois, roi_scores, generator)
         return out
 
-    def forward(self, points, points_mask, test_cfg=None):
-        """points (B, N, C) f32, points_mask (B, N) bool -> the eval output
-        dict of the JAX package (`one_stage_preds`, `roi_labels`,
-        `roi_scores`, `point_coords`, `point_logits`, `rcnn_cls`,
-        `rcnn_reg`, `batch_cls_preds`, `batch_box_preds`). `test_cfg`: the
-        first stage's, by default its processed config."""
-        if self.training:
-            raise NotImplementedError(_TRAINING)
+    def second_stage(self, first, bev, feats):
+        """Refine the first stage's padded detections: RoIs -> grid
+        pooling -> point head -> RoI head -> decoded boxes."""
+        rois, labels, scores = self.rois(first)
+        out = self._refine(bev, feats, rois, scores,
+                           {"roi_labels": labels, "roi_scores": scores})
+        out["batch_cls_preds"], out["batch_box_preds"] = \
+            generate_predicted_boxes(rois, out["rcnn_cls"], out["rcnn_reg"])
+        return out
+
+    def second_stage_train(self, first, bev, feats, gt_boxes_and_cls, draws,
+                           generator=None):
+        """The training second stage: sample RoI targets from the first
+        stage's detections (`draws`: `SamplerDraws`), canonicalize them,
+        refine the sampled RoIs (dropout from `generator`). Returns the
+        output dict with `targets`."""
+        rois, labels, scores = self.rois(first)
+        gt = gt_boxes_and_cls
+        if self.code_size == 7 and gt.shape[-1] == 10:  # drop velocity
+            gt = torch.cat([gt[..., :7], gt[..., 9:]], dim=-1)
+        targets = canonicalize_roi_targets(proposal_target_layer(
+            rois, scores, labels, gt, self.target_config, draws))
+        return self._refine(bev, feats, targets["rois"],
+                            targets["roi_scores"], {"targets": targets},
+                            generator)
+
+    def forward(self, points, points_mask, gt_boxes_and_cls=None,
+                generator=None, test_cfg=None):
+        """points (B, N, C) f32, points_mask (B, N) bool.
+
+        Eval: the output dict of the JAX package (`one_stage_preds`,
+        `roi_labels`, `roi_scores`, `point_coords`, `point_logits`,
+        `rcnn_cls`, `rcnn_reg`, `batch_cls_preds`, `batch_box_preds`);
+        `test_cfg`: the first stage's, by default its processed config.
+        Training: gt_boxes_and_cls (B, G, 8 or 10) and a `generator`
+        (the sampler's draws, then dropout's) are required; the output
+        carries `targets` in place of the decoded boxes."""
+        if self.training and (gt_boxes_and_cls is None or generator is None):
+            raise ValueError("PillarRCNN training needs gt_boxes_and_cls "
+                             "and a torch.Generator")
         first, bev, feats, preds = self.first_stage(points, points_mask,
                                                     test_cfg)
-        out = self.second_stage(first, bev, feats)
+        if not self.training:
+            out = self.second_stage(first, bev, feats)
+        else:
+            B, R = first["mask"].shape
+            draws = sampler_draws(generator, B, R,
+                                  int(self.target_config["ROI_PER_IMAGE"]),
+                                  points.device)
+            out = self.second_stage_train(first, bev, feats,
+                                          gt_boxes_and_cls, draws, generator)
         out["one_stage_preds"] = preds
         return out
 
+    def second_stage_losses(self, out):
+        """(RCNN classification loss, RCNN regression loss, point loss or
+        None) of a training output."""
+        targets = out["targets"]
+        weights = self.loss_config["LOSS_WEIGHTS"]
+        cls = box_cls_layer_loss(out["rcnn_cls"], targets["rcnn_cls_labels"],
+                                 weight=weights["rcnn_cls_weight"])
+        reg = box_reg_layer_loss(out["rcnn_reg"], targets["reg_valid_mask"],
+                                 targets["gt_of_rois"],
+                                 weights["code_weights"],
+                                 weight=weights["rcnn_reg_weight"])
+        point = None
+        if "point_logits" in out:
+            labels = assign_point_targets_2d(out["point_coords"],
+                                             targets["gt_of_rois_src"])
+            point = point_cls_loss(out["point_logits"], labels,
+                                   weight=self.point_loss_weight)
+        return cls, reg, point
+
     def loss(self, example, out, train_cfg=None):
-        raise NotImplementedError(_TRAINING)
+        """The first stage's per-task CenterNet losses, with the RCNN and
+        point losses added to task 0's `loss` and listed per task
+        (`roi_cls_loss`, `roi_reg_loss`, `point_loss`)."""
+        losses = self.single_det.loss(example, out["one_stage_preds"],
+                                      train_cfg)
+        cls, reg, point = self.second_stage_losses(out)
+        n = len(losses["loss"])
+        losses["roi_reg_loss"] = [reg] * n
+        losses["roi_cls_loss"] = [cls] * n
+        total = losses["loss"][0] + (cls + reg)
+        if point is not None:
+            losses["point_loss"] = [point] * n
+            total = total + point
+        losses["loss"][0] = total
+        return losses
 
     @staticmethod
     def post_process(out):

@@ -61,9 +61,13 @@ class PillarNet(nn.Module):
         feats = self.backbone_net(grid, occ)
         return self.neck_net(feats), feats
 
-    def forward(self, points, points_mask):
+    def forward(self, points, points_mask, gt_boxes_and_cls=None,
+                generator=None):
         """points (B, N, C) f32, points_mask (B, N) bool -> per-task
-        prediction dicts of (B, H, W, *) maps."""
+        prediction dicts of (B, H, W, *) maps. gt_boxes_and_cls and
+        generator are what the two-stage detector trains with; the single
+        stage takes them, as the JAX package's, and uses neither."""
+        del gt_boxes_and_cls, generator
         bev, _ = self.extract_feat(points, points_mask)
         return self.head_net(bev)
 

@@ -3,10 +3,12 @@
 Port of the forward of `pillarnet_lts_tpu/models/point_heads/
 point_head.py::PointHead`: Dense + BN + ReLU layers (`cls_fc{k}`,
 `cls_bn{k}`; the BN folded at eval) and a one-logit projection
-(`cls_out`). The training half (`assign_point_targets_2d`,
-`point_cls_loss`) is not ported yet.
+(`cls_out`), and its training half: the per-grid-point foreground
+targets (`assign_point_targets_2d`) and the sigmoid focal loss
+(`point_cls_loss`).
 """
 
+import torch
 from torch import nn
 
 from ..registry import POINT_HEAD
@@ -36,3 +38,37 @@ class PointHead(nn.Module):
             x = dense_bn_relu(getattr(self, f"cls_fc{k}"),
                               getattr(self, f"cls_bn{k}"), x, self.training)
         return self.cls_out(x)
+
+
+def assign_point_targets_2d(point_coords, gt_of_rois_src):
+    """(B, R, G, 2) grid points vs (B, R, code + 1) per-RoI GT boxes ->
+    (B, R, G) f32 labels: 1 where the point lies in its RoI's GT footprint
+    (the rotated BEV rectangle, edges included) and the GT is not an
+    all-zero padding row."""
+    gt = gt_of_rois_src
+    rel = point_coords - gt[..., None, 0:2]
+    ang = gt[..., 6]
+    c = torch.cos(ang)[..., None]
+    s = torch.sin(ang)[..., None]
+    lx = rel[..., 0] * c + rel[..., 1] * s
+    ly = -rel[..., 0] * s + rel[..., 1] * c
+    half_w = gt[..., 3][..., None] * 0.5
+    half_l = gt[..., 4][..., None] * 0.5
+    valid_gt = (gt[..., :6].abs().sum(-1) > 0)[..., None]
+    inside = (lx.abs() <= half_w) & (ly.abs() <= half_l) & valid_gt
+    return inside.to(torch.float32)
+
+
+def point_cls_loss(logits, labels, weight=1.0, alpha=0.25, gamma=2.0):
+    """Sigmoid focal loss over every grid point, divided by the number of
+    positives (at least 1)."""
+    logits = logits.reshape(-1)
+    labels = labels.reshape(-1)
+    pos_normalizer = (labels > 0).sum().to(torch.float32).clamp_min(1.0)
+    p = torch.sigmoid(logits)
+    alpha_w = labels * alpha + (1 - labels) * (1 - alpha)
+    pt = labels * (1.0 - p) + (1 - labels) * p
+    focal = alpha_w * torch.pow(pt, gamma)
+    bce = (logits.clamp_min(0) - logits * labels
+           + torch.log1p(torch.exp(-logits.abs())))
+    return (focal * bce * (1.0 / pos_normalizer)).sum() * weight

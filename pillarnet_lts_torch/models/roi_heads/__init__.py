@@ -1,4 +1,5 @@
-from . import roi_head_template
+from . import proposal_target_layer, roi_head_template
 from .roi_heads import RoIHead, RoIMIXHead
 
-__all__ = ["RoIHead", "RoIMIXHead", "roi_head_template"]
+__all__ = ["RoIHead", "RoIMIXHead", "proposal_target_layer",
+           "roi_head_template"]

@@ -1,14 +1,18 @@
-"""RoI head box math: decoding the refinement into world boxes.
+"""RoI head box math: the canonical RoI targets, the RCNN losses, and
+decoding the refinement into world boxes.
 
-Port of the eval half of `pillarnet_lts_tpu/models/roi_heads/
-roi_head_template.py` (`limit_period`, `rotate_points_along_z`,
-`generate_predicted_boxes`). The training half (`canonicalize_roi_targets`,
-the RCNN losses) and `proposal_target_layer` are not ported yet.
+Port of `pillarnet_lts_tpu/models/roi_heads/roi_head_template.py`
+(`limit_period`, `rotate_points_along_z`, `canonicalize_roi_targets`,
+`box_cls_layer_loss`, `box_reg_layer_loss`, `generate_predicted_boxes`).
+`box_iou_layer_loss` waits with `RoIFFNHead`, the only head that has an
+IoU branch.
 """
 
 import math
 
 import torch
+
+from ...core.utils import device_constant
 
 
 def limit_period(val, offset=0.5, period=math.pi):
@@ -24,6 +28,66 @@ def rotate_points_along_z(points, angle):
     xr = points[..., 0:1] * c + points[..., 1:2] * s
     yr = points[..., 0:1] * (-s) + points[..., 1:2] * c
     return torch.cat([xr, yr, points[..., 2:]], dim=-1)
+
+
+def canonicalize_roi_targets(targets):
+    """The regression targets in each RoI's frame: the GT box minus its
+    RoI (centre, dims, yaw), turned by minus the RoI's yaw, the heading
+    flipped by pi when it points backwards and clipped to [-pi/2, pi/2].
+
+    targets: `RoiTargets` (raw `gt_of_rois`); the RoI width (7, or 9 with
+    velocity) decides the code. Returns the dict of the JAX package's
+    (`rois`, `gt_of_rois` canonical, `gt_of_rois_src` raw, and the
+    sampler's other fields)."""
+    rois = targets.rois
+    src = targets.gt_of_rois
+    roi_ry = limit_period(rois[..., 6], offset=0.5, period=2 * math.pi)
+    gt = torch.cat([src[..., :6] - rois[..., :6],
+                    src[..., 6:7] - roi_ry[..., None], src[..., 7:]], dim=-1)
+    B, M = gt.shape[:2]
+    gt = rotate_points_along_z(gt.reshape(B * M, 1, -1),
+                               -roi_ry.reshape(B * M)).reshape(B, M, -1)
+    if rois.shape[-1] == 9:  # relative velocity
+        gt = torch.cat([gt[..., :7], gt[..., 7:-1] - rois[..., 7:],
+                        gt[..., -1:]], dim=-1)
+
+    heading = gt[..., 6] % (2 * math.pi)
+    opposite = (heading > math.pi * 0.5) & (heading < math.pi * 1.5)
+    heading = torch.where(opposite, (heading + math.pi) % (2 * math.pi),
+                          heading)
+    heading = torch.where(heading > math.pi, heading - 2 * math.pi, heading)
+    heading = heading.clamp(-math.pi / 2, math.pi / 2)
+    gt = torch.cat([gt[..., :6], heading[..., None], gt[..., 7:]], dim=-1)
+    return {"rois": rois, "gt_of_rois": gt, "gt_of_rois_src": src,
+            "gt_iou_of_rois": targets.gt_iou_of_rois,
+            "roi_scores": targets.roi_scores,
+            "roi_labels": targets.roi_labels,
+            "reg_valid_mask": targets.reg_valid_mask,
+            "rcnn_cls_labels": targets.rcnn_cls_labels}
+
+
+def box_cls_layer_loss(rcnn_cls, rcnn_cls_labels, weight=1.0):
+    """Binary cross entropy with soft labels, averaged over the RoIs whose
+    label is not -1 (ignored)."""
+    logits = rcnn_cls.reshape(-1)
+    labels = rcnn_cls_labels.reshape(-1)
+    p = torch.sigmoid(logits).clamp(1e-7, 1 - 1e-7)
+    per = -(labels * torch.log(p) + (1 - labels) * torch.log(1 - p))
+    valid = (labels >= 0).to(torch.float32)
+    return (per * valid).sum() / valid.sum().clamp_min(1.0) * weight
+
+
+def box_reg_layer_loss(rcnn_reg, reg_valid_mask, gt_of_rois, code_weights,
+                       weight=1.0):
+    """Code-weighted L1 between the refinement and the canonical targets,
+    averaged over the foreground RoIs (reg_valid_mask > 0)."""
+    code_size = rcnn_reg.shape[-1]
+    targets = gt_of_rois[..., :code_size].reshape(-1, code_size)
+    preds = rcnn_reg.reshape(-1, code_size)
+    fg = (reg_valid_mask.reshape(-1) > 0).to(torch.float32)
+    cw = device_constant(list(code_weights), preds.device, preds.dtype)
+    per = (preds - targets).abs() * cw
+    return (per.sum(-1) * fg).sum() / fg.sum().clamp_min(1.0) * weight
 
 
 def generate_predicted_boxes(rois, cls_preds, box_preds):

@@ -5,7 +5,9 @@ Port of `pillarnet_lts_tpu/models/roi_heads/roi_heads.py` (`_FCStack`,
 + ReLU layers (`fc{k}`, `bn{k}`; the BN folded at eval, batch statistics
 over the B * R rows in training) with dropout, then an optional
 projection with bias (`out`). Dropout runs only when the module's own
-`training` flag is set.
+`training` flag is set, and draws from the generator the caller passes
+(`dropout`: flax's `nn.Dropout`, keep mask and 1 / (1 - rate) scale);
+nothing draws from torch's global generator.
 
 Not ported yet: the token mixers (`mixer_type` "MLPMixer" / "ResMLP",
 `mlp_layers.py`) and `RoIFFNHead`; no config in `configs/` uses them, and
@@ -15,12 +17,22 @@ they raise.
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..registry import ROI_HEAD
 from ..utils.dense import Dense, dense_bn_relu
 from ..utils.norm import MaskedBatchNorm
+
+
+def dropout(x, rate, generator):
+    """Zero each element with probability `rate` and scale the rest by
+    1 / (1 - rate), as flax's `nn.Dropout`: keep = U < 1 - rate with U
+    uniform on [0, 1) from `generator` (on its own device; the mask moves
+    to x's)."""
+    keep_prob = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    keep = u.to(x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def _xavier_normal_std(fan_in, fan_out):
@@ -55,12 +67,18 @@ class _FCStack(nn.Module):
                    else _xavier_normal_std(c, out_channels))
             self.out = Dense(c, out_channels, init_std=std, device=device)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """generator: the dropout draws' source, needed in training when
+        dropout > 0."""
         for k in range(self.num_layers):
             x = dense_bn_relu(getattr(self, f"fc{k}"), getattr(self, f"bn{k}"),
                               x, self.training)
-            if self.dropout > 0 and self.drop_at[k]:
-                x = F.dropout(x, self.dropout, self.training)
+            if self.dropout > 0 and self.drop_at[k] and self.training:
+                if generator is None:
+                    raise ValueError("dropout in training draws from an "
+                                     "explicit torch.Generator; pass "
+                                     "generator=")
+                x = dropout(x, self.dropout, generator)
         return x if self.out is None else self.out(x)
 
 
@@ -85,16 +103,17 @@ class _RoIMLP(nn.Module):
         self.reg = _FCStack(c, cfg["REG_FC"], code_size, dp, True,
                             final_std=0.001, device=device)
 
-    def forward(self, roi_features, rois=None, roi_scores=None):
+    def forward(self, roi_features, rois=None, roi_scores=None,
+                generator=None):
         """roi_features (B, R, F) -> (rcnn_cls (B * R, ncls), rcnn_reg
-        (B * R, code_size))."""
+        (B * R, code_size)). generator: dropout's, in training."""
         B, R = roi_features.shape[:2]
         x = roi_features.reshape(B * R, -1)
         if self.add_box_param:
             x = torch.cat([x, rois.reshape(B * R, -1),
                            roi_scores.reshape(B * R, 1)], dim=-1)
-        x = self.shared_fc(x)
-        return self.cls(x), self.reg(x)
+        x = self.shared_fc(x, generator)
+        return self.cls(x, generator), self.reg(x, generator)
 
 
 @ROI_HEAD.register_module

@@ -243,6 +243,22 @@ def _height_overlap(za, ha, zb, hb):
     return (top - bot).clamp_min(0.0)
 
 
+def boxes_iou3d(boxes_a, boxes_b):
+    """Pairwise rotated 3D IoU (..., N, M) of det3d boxes (..., N, 7) and
+    (..., M, 7) with equal leading dims: the RoI-vs-GT IoU of the RoI
+    sampler. The BEV overlap is one `convex_intersection_area` call over
+    every leading dim (one K2 launch on a CUDA tensor); the volume sum is
+    clamped at 1e-6, so an all-zero (padding) box has IoU 0 with any box."""
+    overlap = rotated_overlap_bev(to_pcdet_bev(boxes_a),
+                                  to_pcdet_bev(boxes_b))
+    overlap = overlap * _height_overlap(
+        boxes_a[..., :, None, 2], boxes_a[..., :, None, 5],
+        boxes_b[..., None, :, 2], boxes_b[..., None, :, 5])
+    vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5])[..., :, None]
+    vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5])[..., None, :]
+    return overlap / (vol_a + vol_b - overlap).clamp_min(1e-6)
+
+
 def boxes_aligned_iou3d(boxes_a, boxes_b):
     """Row-aligned rotated 3D IoU (...,) of det3d 7-dim boxes (..., 7):
     the target of the IoU-aware head's loss. Plain PyTorch on every device

@@ -8,31 +8,50 @@ task losses are summed in task order, the optimizer clips and steps
 per-task `*_loss` and `num_positive` as `<key>_task<t>`, and `grad_norm`,
 the global norm of the unclipped gradients. Metrics stay on the device
 (0-d tensors); reading them syncs the host.
+
+The model gets the batch's `gt_boxes_and_cls` and a generator, which the
+two-stage detector draws its RoI samples and dropout from. The trainer
+makes one per step from (run seed, step) (`step_generator`), as the JAX
+package folds the step into its base key, so a step resumed from a
+checkpoint draws what the uninterrupted run drew.
 """
 
+import numpy as np
 import torch
 
 _TARGET_KEYS = ("hm", "anno_box", "ind", "mask", "cat", "gt_box")
+_ARRAY_KEYS = ("points", "points_mask", "gt_boxes_and_cls")
 
 
 def batch_to_device(batch, device):
     """The tensors of a collated numpy batch (`datasets/collate.py`) on
-    `device`: points, points_mask and the per-task target lists."""
+    `device`: points, points_mask, gt_boxes_and_cls and the per-task
+    target lists."""
     out = {k: torch.from_numpy(batch[k]).to(device)
-           for k in ("points", "points_mask")}
+           for k in _ARRAY_KEYS if k in batch}
     for k in _TARGET_KEYS:
         if k in batch:
             out[k] = [torch.from_numpy(a).to(device) for a in batch[k]]
     return out
 
 
-def step_losses(model, batch, train_cfg=None):
+def step_generator(seed, step, device):
+    """The generator of training step `step` of a run seeded `seed`, on
+    `device`: its seed is a hash of the pair (numpy's SeedSequence)."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+def step_losses(model, batch, train_cfg=None, generator=None):
     """The training forward of a device batch: (the summed loss, the
-    per-task loss dict)."""
+    per-task loss dict). generator: the step's (`step_generator`), which a
+    two-stage model needs."""
     if model.dtype != torch.float32:
         raise NotImplementedError("training is ported for f32 models only")
     model.train()
-    preds = model(batch["points"], batch["points_mask"])
+    preds = model(batch["points"], batch["points_mask"],
+                  gt_boxes_and_cls=batch.get("gt_boxes_and_cls"),
+                  generator=generator)
     losses = model.loss(batch, preds, train_cfg)
     total = losses["loss"][0]
     for task_loss in losses["loss"][1:]:
@@ -40,10 +59,10 @@ def step_losses(model, batch, train_cfg=None):
     return total, losses
 
 
-def train_step(model, optimizer, batch, train_cfg=None):
+def train_step(model, optimizer, batch, train_cfg=None, generator=None):
     """One step on a device batch (`batch_to_device`); returns the metrics
     dict of 0-d tensors."""
-    total, losses = step_losses(model, batch, train_cfg)
+    total, losses = step_losses(model, batch, train_cfg, generator)
     optimizer.zero_grad(set_to_none=True)
     total.backward()
     metrics = {"loss": total.detach()}

@@ -2,7 +2,8 @@
 
 Port of `pillarnet_lts_tpu/runtime/trainer.py` for one device: the epoch
 loop with hook calls (`runtime/hooks.py`), one `train_step` per batch
-(`runtime/train_step.py`), metrics read back into the `LogBuffer` every
+(`runtime/train_step.py`) with the step's generator from (seed, step),
+metrics read back into the `LogBuffer` every
 step (the JAX trainer's `device_get`), checkpoints with the config text
 and class names in their meta, and `resume`. The validation workflow
 waits.
@@ -14,13 +15,14 @@ import os
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .hooks import Hook
 from .log_buffer import LogBuffer
-from .train_step import batch_to_device, train_step
+from .train_step import batch_to_device, step_generator, train_step
 
 
 class Trainer:
     def __init__(self, model, optimizer, train_cfg, work_dir, logger=None,
-                 cfg_text=None, class_names=None):
+                 cfg_text=None, class_names=None, seed=0):
         self.model = model
+        self.seed = seed
         self.optimizer = optimizer
         self.train_cfg = train_cfg
         self.work_dir = work_dir
@@ -73,9 +75,10 @@ class Trainer:
         for i, batch in enumerate(data_loader):
             self.inner_iter = i
             self.call_hook("before_train_iter")
-            metrics = train_step(self.model, self.optimizer,
-                                 batch_to_device(batch, self.device),
-                                 self.train_cfg)
+            metrics = train_step(
+                self.model, self.optimizer,
+                batch_to_device(batch, self.device), self.train_cfg,
+                step_generator(self.seed, self.iter, self.device))
             self.log_buffer.update({k: float(v) for k, v in metrics.items()})
             self.call_hook("after_train_iter")
             self.iter += 1

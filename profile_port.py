@@ -32,7 +32,9 @@ Waymo 196,608 in one) and reports, after 3 warm-up requests:
 scatter-max), `--mask-kernel` with `test_cfg.nms.use_mask_kernel` (the
 suppression-mask kernel).
 
-`--train` profiles a training step of the config instead, at its
+`--train` profiles a training step of the config instead (a two-stage
+config too: `--config configs/pillarrcnn/pillarrcnn18_waymo.py`, each
+step with its own generator for the RoI sampler and dropout), at its
 `samples_per_gpu`, on seeded synthetic scenes with every class
 (`datasets.SynthDataset`): after 2 warm-up steps, the forward with the
 losses, the backward and the optimizer step (CUDA events, median of 3),
@@ -109,9 +111,10 @@ def train_profile(cfg, dev, remat):
     from pillarnet_lts_torch.apis import build_model_from_cfg, optimizer_from_cfg
     from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
     from pillarnet_lts_torch.runtime.train_step import (
-        batch_to_device, step_losses, train_step)
+        batch_to_device, step_generator, step_losses, train_step)
 
-    cfg["model"]["backbone"] = dict(cfg["model"]["backbone"], remat=remat)
+    det = cfg["model"].get("first_stage_cfg", cfg["model"])
+    det["backbone"] = dict(det["backbone"], remat=remat)
     bs = cfg["data"]["samples_per_gpu"]
     ds = SynthDataset(cfg, bs, cfg["data"]["max_points"], seed=200,
                       num_boxes=(10, 21))
@@ -119,16 +122,21 @@ def train_profile(cfg, dev, remat):
                                           cfg["data"]["max_points"]), dev)
     model = build_model_from_cfg(cfg, device=dev, seed=0)
     opt = optimizer_from_cfg(model, cfg, 100)
+    steps = iter(range(1000))
+
+    def gen():
+        return step_generator(0, next(steps), dev)
+
     torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(2):
-        train_step(model, opt, batch, cfg["train_cfg"])
+        train_step(model, opt, batch, cfg["train_cfg"], gen())
     phases = defaultdict(list)
     for _ in range(3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev[0].record()
-        total, _ = step_losses(model, batch, cfg["train_cfg"])
+        total, _ = step_losses(model, batch, cfg["train_cfg"], gen())
         ev[1].record()
         opt.zero_grad(set_to_none=True)
         total.backward()
@@ -144,7 +152,7 @@ def train_profile(cfg, dev, remat):
     def two_steps():
         t0 = time.perf_counter()
         for _ in range(2):
-            train_step(model, opt, batch, cfg["train_cfg"])
+            train_step(model, opt, batch, cfg["train_cfg"], gen())
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 

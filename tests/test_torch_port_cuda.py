@@ -3,7 +3,8 @@ the models' paths through the kernels (f32: scatter-max and overlap; int8
 deploy: also the int8 conv and the fused int8 stage; the switches: the
 sorted-run scatter-max and the suppression mask; the two-stage and RPNG
 Waymo configs: scatter-max and overlap, no host sync, the card against the
-CPU).
+CPU; two-stage training: the overlap kernel on the RoI sampler's padded
+zero boxes, the sampler and a demo step against the CPU).
 
 This file imports no JAX, so it also runs where only PyTorch is installed.
 Every test needs a CUDA card with nvcc and skips without one. On the card,
@@ -1044,3 +1045,81 @@ def test_two_stage_demo_on_the_card_matches_the_cpu(cuda):
 
     r = rcnn_card_vs_cpu(torch, cuda)
     assert r["kept"] > 0
+
+
+# ---- two-stage training -----------------------------------------------------
+
+_ZERO_CASES = ("zero_vs_zero", "zero_vs_real", "real_vs_zero", "mixed")
+
+
+def _zero_box_corners(dev, case, B=2, R=300, G=200):
+    """det3d boxes with padded (all-zero) rows, as the RoI sampler hands
+    K2: RoIs (B, R) against GT rows (B, G); zero rows on the side(s) the
+    case names (`mixed`: the last third of each side)."""
+    rng = np.random.RandomState(60)
+
+    def boxes(n, zero):
+        b = np.zeros((B, n, 7), np.float32)
+        b[..., :2] = rng.uniform(-20, 20, (B, n, 2))
+        b[..., 2] = rng.uniform(-1, 1, (B, n))
+        b[..., 3:6] = rng.uniform(0.5, 5, (B, n, 3))
+        b[..., 6] = rng.uniform(-np.pi, np.pi, (B, n))
+        b[:, zero:] = 0
+        return torch.from_numpy(b).to(dev)
+
+    za = {"zero_vs_zero": 0, "zero_vs_real": 0, "real_vs_zero": R,
+          "mixed": 2 * R // 3}[case]
+    zb = {"zero_vs_zero": 0, "zero_vs_real": G, "real_vs_zero": 0,
+          "mixed": 2 * G // 3}[case]
+    return boxes(R, za), boxes(G, zb)
+
+
+@pytest.mark.parametrize("case", _ZERO_CASES)
+def test_overlap_kernel_on_zero_boxes(cuda, case):
+    """K2 on the padded boxes of the RoI sampler (the zero box: four
+    corners at the origin): zero-vs-zero, zero-vs-real and real-vs-zero
+    pairs bit-equal to the plain version, exactly +0, no NaN, also out of
+    NaN-poisoned memory; `boxes_iou3d` of those rows is 0."""
+    a_box, b_box = _zero_box_corners(cuda, case)
+    a = tiou.box_corners_bev(tiou.to_pcdet_bev(a_box)).contiguous()
+    b = tiou.box_corners_bev(tiou.to_pcdet_bev(b_box)).contiguous()
+    poison = a.shape[0] * a.shape[1] * b.shape[1] * 4
+    (got, got2), poisoned = _twice(
+        cuda, "rotated_overlap",
+        lambda: tiou.convex_intersection_area(a, b), poison)
+    want = tiou._pairwise_area_plain(a, b)
+    assert poisoned and not bool(torch.isnan(got).any())
+    assert torch.equal(_bits(got), _bits(want)), \
+        int((_bits(got) != _bits(want)).sum())
+    assert torch.equal(_bits(got), _bits(got2))
+    zero_a = (a_box == 0).all(-1)
+    zero_b = (b_box == 0).all(-1)
+    pad = zero_a[:, :, None] | zero_b[:, None, :]
+    assert bool(pad.any())
+    assert torch.equal(_bits(got[pad]), torch.zeros_like(_bits(got[pad])))
+    if case == "mixed":
+        assert bool((got[~pad] > 0).any())
+    iou = tiou.boxes_iou3d(a_box, b_box)
+    assert bool(torch.isfinite(iou).all()) and not bool(iou[pad].any())
+
+
+def test_rcnn_sampler_on_the_card_equals_the_cpu(cuda):
+    """`chip_smoke.py::check_sampler` (phase 15a): the RoI sampler at
+    (4, 500, 500) -> 128 under `set_sync_debug_mode("error")`, one K2
+    launch, bit-equal to the CPU from the same draws given the card's IoU
+    matrix (the CPU's own within 1e-3), every quota branch."""
+    from chip_smoke import check_sampler
+
+    r = check_sampler(torch, cuda)
+    assert r["sampled_fg"][2] == 128 and r["sampled_fg"][3] == 0
+
+
+def test_two_stage_train_step_on_the_card_matches_the_cpu(cuda):
+    """`chip_smoke.py::rcnn_train_card_vs_cpu` (phase 15c): one demo
+    two-stage step, dropout off, the same weights, batch and draws: the
+    sampled RoIs, metrics, statistics and parameters within its
+    tolerances."""
+    from chip_smoke import rcnn_train_card_vs_cpu
+
+    r = rcnn_train_card_vs_cpu(torch, cuda)
+    assert r["rois_real"] > 0

@@ -567,14 +567,17 @@ def test_two_stage_serves_through_the_pipeline():
 
 
 def test_two_stage_training_raises():
+    """Training mode needs the GT and a generator (the RoI sampler's and
+    dropout's draws); the bf16 two-stage is not ported. Two-stage training
+    itself: `tests/test_torch_port_rcnn_train.py`."""
     port = build_model_from_cfg(load_config(DEMO), device="cpu")
     pts = torch.zeros((1, 64, 5))
     msk = torch.ones((1, 64), dtype=torch.bool)
     port.train()
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(ValueError, match="gt_boxes_and_cls"):
         port(pts, msk)
-    with pytest.raises(NotImplementedError, match="training"):
-        port.loss({}, {})
+    with pytest.raises(ValueError, match="Generator"):
+        port(pts, msk, gt_boxes_and_cls=torch.zeros((1, 100, 10)))
     cfg = load_config(os.path.join(ROOT, "configs", "pillarrcnn",
                                    "pillarrcnn18_waymo_bf16.py"))
     with pytest.raises(NotImplementedError, match="f32"):
