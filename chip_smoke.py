@@ -136,7 +136,33 @@ Phases, each of which raises on failure:
      sampler's again with 100 RoI rows of each sample zeroed; (f) (d)
      again with 100 of each sample's RoI slots near its GT, as a trained
      first stage's proposals are: fg RoIs and a nonzero regression loss
-     on every step, its last sampler K2 call replayed.
+     on every step, its last sampler K2 call replayed;
+ 16. evaluation through `python -m pillarnet_lts_torch.tools.dist_test`'s
+     main, seeded random weights with the heads spread on the first cloud
+     saved as a port checkpoint (`spread_checkpoint`, `--checkpoint`),
+     each run with the launch counts reset just before: (a) 8 frames of a
+     nuScenes-layout val set written to a temporary directory (a keyframe
+     and 9 sweep `.bin`s of 26,215 points each, 4 x 4 sweep transforms, GT
+     from the demo scenes), listed 12 times (96 frames) so that a pass
+     outlasts its warm-up, through `pillarnet34_nusc` at full width:
+     `--speed_test` (batch 1, middle-third ms on the host clock and on
+     CUDA events) and the pipelined default (batch 4, frames/s with the
+     loader over the pass and over its middle third of batches), K1 and K2
+     once a request, every K1 and K2 call of the pipelined pass replayed
+     against its plain version (bit-equal, timed as phases 2 and 3), the
+     two passes' detections bit-equal, mAP / NDS printed, GT as detections
+     mAP 1, the card's ms a frame at batch 4 and the loader's alone in 3
+     passes; (b) 4 Waymo-layout frames (196,608 points, 26 / 12 / 1 GT
+     boxes a frame) through `pillarnet34_waymo`: every K2 call of the
+     Waymo evaluator captured and replayed, the card's metrics equal to
+     the CPU evaluator's on the same detections, GT as detections AP 1;
+     (c) `pillarnet34_nusc` with double-flip TTA over 24 frames (4 clouds
+     a frame, one detection set a frame), its K1 and K2 calls replayed,
+     and the demo config with double-flip on the card against the CPU
+     from one checkpoint (phase 14e's tolerances); (d) the demo
+     `Trainer.run([('train', 1), ('val', 1)])` on the card logging what
+     `dist_test` gives on its checkpoint; (e) `--int8` over one batch of 4
+     of (a)'s frames, its K1, K2 and 51 K4 calls replayed (K4 as phase 6).
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
@@ -152,10 +178,12 @@ through) plus the separation test on every pair they test; the old count
 Every `torch.profiler` number comes from `profiled`, which retakes a
 session that lost device events and keeps the one that lost the fewest; a
 `[profiler]` line counts the sessions. Before the last three lines stdout
-carries phase 13's, 14's and 15's JSON records (`{"training": ...}`,
-`{"two_stage": ...}`, `{"two_stage_training": ...}`); then the kernels'
-JSON record (K1's and K2's rows also carry `two_stage_launches` and, under
-`two_stage_train`, phase 15's launches and replays), the card's
+carries phase 13's, 14's, 15's and 16's JSON records (`{"training": ...}`,
+`{"two_stage": ...}`, `{"two_stage_training": ...}`, `{"eval": ...}`);
+then the kernels' JSON record (K1's and K2's rows also carry
+`two_stage_launches`, under `two_stage_train` phase 15's launches and
+replays, and `eval_launches`, phase 16a's pipelined pass; K1's, K2's and
+K4's rows `eval_replays`, phase 16's replays by pass), the card's
 `nvidia-smi` name and power
 limit, and the last line `{"ok": true, "device": {...}}`. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
@@ -471,7 +499,8 @@ def scatter_times(torch, tag, call, plain, x, ids, valid, out, peak,
                   iters=TIMING_ITERS):
     """Phase 2 and 10 timings of one scatter-max case: the wrapper (CUDA
     events), its kernels alone (profiler), the plain version, the one-call
-    `scatter_reduce_` yardstick and the bound; printed and returned."""
+    `scatter_reduce_` yardstick and the bound; printed (unless `tag` is
+    None) and returned."""
     library = scatter_library(torch, x, ids, valid, out[1][0].numel())
     alone, per_kernel = device_ms(call, iters=min(iters, 10))
     r = {"ms": cuda_ms(call, iters=iters), "alone_ms": alone,
@@ -479,6 +508,8 @@ def scatter_times(torch, tag, call, plain, x, ids, valid, out, peak,
          "library_ms": cuda_ms(library, iters=iters)}
     r["bound_ms"], r["bound_by"] = bound(
         nbytes(x, ids, valid, *out), int(valid.sum()) * x.shape[-1], peak)
+    if tag is None:
+        return r
     print(f"{tag}: wrapper {r['ms']:.4f} ms, kernels alone "
           f"{r['alone_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
           f"scatter_reduce_ {r['library_ms']:.4f} ms, bound "
@@ -589,10 +620,11 @@ def pair_times(call, plain, plain_iters=5):
             "plain_ms": cuda_ms(plain, iters=plain_iters, warmup=1)}
 
 
-def check_overlap(torch, tag, a, b):
+def check_overlap(torch, tag, a, b, phase="3", quiet=False):
     """Phase 3: the rotated-overlap kernel (K2) on corners a, b against its
     plain version, bit-equal, timed three ways; its near-pair share and
-    recounted bound."""
+    recounted bound. `phase` labels the printed line; `quiet` leaves it
+    out."""
     from pillarnet_lts_torch.ops.iou3d import (
         _pairwise_area_plain, convex_intersection_area, pairs_may_meet)
 
@@ -613,7 +645,10 @@ def check_overlap(torch, tag, a, b):
              max_abs_err=err, shape=list(got.shape), near_share=near / pairs)
     r["bound"], r["bound_all_pairs"] = pair_bound(
         nbytes(a, b, got), near, pairs, OVERLAP_PAIR_OPS, pairs)
-    print(f"[3] K2 rotated overlap, {tag} {tuple(got.shape)}: bit-equal to "
+    if quiet:
+        return r
+    print(f"[{phase}] K2 rotated overlap, {tag} {tuple(got.shape)}: "
+          f"bit-equal to "
           f"plain ({int((want > 0).sum())} overlapping pairs); near pairs "
           f"{near} of {pairs} ({r['near_share']:.2%}); wrapper "
           f"{r['ms']:.4f} ms, kernels alone {r['alone_ms']:.4f} ms, plain "
@@ -848,24 +883,35 @@ def capture_int8_convs(torch, model, request):
     through `models/backbones/base.py`, so the masks and residuals are the
     served ones."""
     from pillarnet_lts_torch.eval_utils import make_infer_fn
-    from pillarnet_lts_torch.models.backbones import base
     from pillarnet_lts_torch.runtime.serving import ServingPipeline
 
-    calls, real = [], base.int8_conv_bn_act
+    calls = []
+    model.backbone_net.s2d_pallas = False
+    with recording_int8_convs(calls):
+        list(ServingPipeline(make_infer_fn(model), depth=1).map([request]))
+    torch.cuda.synchronize()
+    return calls
+
+
+@contextlib.contextmanager
+def recording_int8_convs(calls):
+    """Record (args, kwargs, output) of every K4 call inside the block in
+    `calls`: `MaskedConv.int8` reaches the wrapper through
+    `models/backbones/base.py::int8_conv_bn_act`."""
+    from pillarnet_lts_torch.models.backbones import base
+
+    real = base.int8_conv_bn_act
 
     def recording(*args, **kw):
         out = real(*args, **kw)
         calls.append((args, kw, out))
         return out
 
-    model.backbone_net.s2d_pallas = False
     base.int8_conv_bn_act = recording
     try:
-        list(ServingPipeline(make_infer_fn(model), depth=1).map([request]))
+        yield
     finally:
         base.int8_conv_bn_act = real
-    torch.cuda.synchronize()
-    return calls
 
 
 def plain_kwargs(kw):
@@ -919,12 +965,13 @@ def int8_conv_bound(torch, args, kw, out):
     return bound(n_bytes, 2 * 9 * cin * cout * sites, INT8_OPS), sites
 
 
-def check_int8_conv(torch, calls):
+def check_int8_conv(torch, calls, phase="6"):
     """Phase 6: every K4 call of one served int8 request replayed through
     the kernel and its plain version, bit-equal; each call timed with its
     wrapper and its plain version, each distinct shape with its kernels
     alone (`torch.profiler`), its bound and the cuDNN bf16 conv of the same
-    shape (a yardstick, not the same function); per-frame sums."""
+    shape (a yardstick, not the same function); per-frame sums. `phase`
+    labels the printed lines."""
     import torch.nn.functional as F
     from pillarnet_lts_torch.ops.quant import (
         int8_conv_bn_act, int8_conv_bn_act_plain)
@@ -982,14 +1029,15 @@ def check_int8_conv(torch, calls):
         rows.append(r)
         for k in frame:
             frame[k] += n * r[k]
-        print(f"[6] K4 {r['shape']}: {n} launches, bit-equal; wrapper "
+        print(f"[{phase}] K4 {r['shape']}: {n} launches, bit-equal; wrapper "
               f"{r['ms']:.4f} ms, kernels alone {r['alone_ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}; {r['bound_ms'] / r['alone_ms']:.0%} of it "
               f"alone), cuDNN bf16 conv of the shape (not the same function) "
               f"{bf16:.4f} ms; {r['active_sites']:.0f} active output sites, "
               f"{r['live_tiles']:.1%} of its 8 x 16 tiles live")
-    print(f"[6] K4 per int8 frame ({len(calls)} calls, fused stage off): "
+    print(f"[{phase}] K4 per int8 request ({len(calls)} calls, fused stage "
+          f"off): "
           f"wrapper {frame['ms']:.4f} ms, kernels alone "
           f"{frame['alone_ms']:.4f} ms, plain {frame['plain_ms']:.4f} ms, "
           f"bound {frame['bound_ms']:.4f} ms, cuDNN bf16 convs "
@@ -2708,6 +2756,567 @@ def train_two_stage(torch, dev, card):
     return rec, k1, replays
 
 
+# phase 16: evaluation through `pillarnet_lts_torch.tools.dist_test`
+EVAL_FRAMES, EVAL_SWEEP_POINTS = 8, 26215  # 16a: frames written; points a .bin
+EVAL_REPEAT = 12  # 16a: the info list holds the 8 frames 12 times (96)
+LOADER_PASSES = 3  # 16a: passes of the loader alone
+EVAL_WAYMO_FRAMES = 4  # 16b
+# 16b: GT boxes a Waymo frame, by class: the mean of the Waymo Open
+# Dataset's 3D labels (6.1M vehicles, 2.8M pedestrians, 67k cyclists over
+# 230k frames; Sun et al., CVPR 2020, Table 2), the cyclists rounded up
+WAYMO_GT_COUNTS = (26, 12, 1)
+# a config's double-flip TTA, as `apis.with_double_flip` sets it
+DOUBLE_FLIP = ("from pillarnet_lts_torch.apis import with_double_flip\n"
+               "globals().update(with_double_flip(dict(test_cfg=test_cfg, "
+               "data=data)))\n")
+
+
+def config_file(tmp, name, base, *lines):
+    """A config file `{tmp}/{name}.py`: `base` and then `lines`."""
+    path = os.path.join(tmp, f"{name}.py")
+    with open(path, "w") as f:
+        f.write(f"exec(open({base!r}).read())\n" + "".join(lines))
+    return path
+
+
+def eval_config(tmp, base, info, name, double_flip=False, **val):
+    """A config file under `tmp`: `base` with its val split read from the
+    info pkl `info` (its directory the root), `val`'s keys set, and
+    double-flip TTA if asked."""
+    extra = "".join(f", {k}={v!r}" for k, v in val.items())
+    return config_file(
+        tmp, name, base,
+        f"data['val'] = dict(data['val'], info_path={info!r}, "
+        f"root_path={os.path.dirname(info)!r}{extra})\n",
+        DOUBLE_FLIP if double_flip else "")
+
+
+def spread_checkpoint(torch, config, device, work_dir, seed=0):
+    """A port checkpoint of `config`'s model: weights from `seed`, the
+    head projections spread (`apis.spread_head_outputs`) on the first
+    cloud of its val set so that random weights give detections. Returns
+    its path, for `dist_test --checkpoint`."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.datasets import DataLoader, build_dataset
+    from pillarnet_lts_torch.runtime.checkpoint import save_checkpoint
+
+    cfg = load_config(config)
+    data = cfg["data"]
+    batch = next(iter(DataLoader(build_dataset(data["val"]), 1,
+                                 num_workers=1,
+                                 max_points=data.get("max_points"))))
+    model = build_model_from_cfg(cfg, device=device, seed=seed)
+    spread_head_outputs(model, *(torch.from_numpy(batch[k][:1]).to(device)
+                                 for k in ("points", "points_mask")))
+    os.makedirs(work_dir, exist_ok=True)
+    return save_checkpoint(work_dir, model,
+                           torch.optim.SGD(model.parameters(), lr=0.0), 0,
+                           {"epoch": 0, "iter": 0,
+                            "CLASSES": cfg["class_names"]})
+
+
+def repeat_infos(info, times):
+    """An info pkl beside `info` that lists its frames `times` times, each
+    copy under a token of its own (the same files): a pass long enough to
+    leave out its warm-up. Returns its path."""
+    import pickle
+
+    with open(info, "rb") as f:
+        infos = pickle.load(f)
+    out = [dict(i, token=f"{i['token']}_{k}",
+                gt_boxes_token=np.array([f"{t}_{k}"
+                                         for t in i["gt_boxes_token"]]))
+           for k in range(times) for i in infos]
+    path = info.replace(".pkl", f"_x{times}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+    return path
+
+
+def dist_test_run(torch, args):
+    """`tools/dist_test.py`'s main with every launch count set to 0 just
+    before; returns its result and the counts just after."""
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.tools import dist_test
+
+    _kernels.reset_launches()
+    out = dist_test.main(args)
+    torch.cuda.synchronize()
+    return out, dict(_kernels.LAUNCHES)
+
+
+def captured_run(torch, args, int8=False):
+    """`dist_test_run` with its K1 and K2 calls (and K4's, with `int8`)
+    recorded: returns (out, launches, k1_calls, k2_calls, k4_calls)."""
+    k4 = []
+    with (recording_int8_convs(k4) if int8 else contextlib.nullcontext()):
+        ((out, launches), k2), k1 = capture_scatter(
+            lambda: capture_overlap(lambda: dist_test_run(torch, args)))
+    if (len(k1), len(k2), len(k4)) != (launches["pillar_scatter_max"],
+                                       launches["rotated_overlap"],
+                                       launches["int8_conv"]):
+        raise AssertionError(f"captured {len(k1)} K1, {len(k2)} K2 and "
+                             f"{len(k4)} K4 calls of launches {launches}")
+    return out, launches, k1, k2, k4
+
+
+def replay_scatter(torch, calls):
+    """Each captured K1 call against `scatter_max_to_grid`, bit-equal, and
+    timed as phase 2 (wrapper, kernels alone, plain, `scatter_reduce_`,
+    bound); returns the per-call records."""
+    from pillarnet_lts_torch.ops.scatter import pillar_scatter_max
+    from pillarnet_lts_torch.ops.voxelize import scatter_max_to_grid
+
+    recs = []
+    for k, (args, kwargs) in enumerate(calls):
+        args = tuple(x.detach() if torch.is_tensor(x) else x for x in args)
+        got = pillar_scatter_max(*args, **kwargs)
+        err = check_scatter_equal(torch, f"K1 call {k}", got,
+                                  scatter_max_to_grid(*args))
+        x, ids, valid = args[:3]
+        peak = INT8_OPS if x.dtype == torch.int8 else F32_OPS
+        recs.append(dict(scatter_times(
+            torch, None, lambda: pillar_scatter_max(*args, **kwargs),
+            lambda: scatter_max_to_grid(*args), x, ids, valid, got, peak),
+            max_abs_err=err, shape=[*x.shape, args[3], args[4]]))
+    return recs
+
+
+def replay_overlap(torch, calls, tag):
+    """Each captured K2 call against `_pairwise_area_plain`, bit-equal, and
+    timed as phase 3; returns the per-call records."""
+    recs = []
+    for k, (a, b) in enumerate(calls):
+        r = check_overlap(torch, f"{tag} call {k}", a, b, quiet=True)
+        recs.append({f: r[f] for f in ("shape", "ms", "alone_ms",
+                                       "plain_ms", "near_share",
+                                       "max_abs_err")}
+                    | {"bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
+    return recs
+
+
+def replay_summary(recs):
+    """Calls, shapes and the worst error of a pass's replays, with the mean
+    and the [min, max] of each time, its bound and the near-pair share."""
+    out = {"calls": len(recs),
+           "shapes": sorted({str(r["shape"]) for r in recs}),
+           "max_abs_err": max(r["max_abs_err"] for r in recs),
+           "bound_by": sorted({r["bound_by"] for r in recs})}
+    for k in ("ms", "alone_ms", "plain_ms", "library_ms", "bound_ms",
+              "near_share"):
+        v = [r[k] for r in recs if k in r]
+        if v:
+            out[k] = statistics.mean(v)
+            out[f"{k}_range"] = [min(v), max(v)]
+    return out
+
+
+def print_replays(tag, name, s):
+    print(f"[{tag}] {name}: {s['calls']} calls {', '.join(s['shapes'])}, "
+          f"each bit-equal to its plain version; wrapper {s['ms']:.4f} ms "
+          f"({s['ms_range'][0]:.4f}-{s['ms_range'][1]:.4f}), kernels alone "
+          f"{s['alone_ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, bound "
+          f"{s['bound_ms']:.4g} ms ({'/'.join(s['bound_by'])})"
+          + (f", scatter_reduce_ {s['library_ms']:.4f} ms"
+             if "library_ms" in s else "")
+          + (f", near pairs {s['near_share']:.2%}"
+             if "near_share" in s else "") + "; means over the calls")
+
+
+def replay_pass(torch, tag, k1, k2, k2_name):
+    """K1's and K2's captured calls of one pass replayed and summed up:
+    returns ({"k1", "k2"} summaries, {"k1", "k2"} per-call records)."""
+    each = {"k1": replay_scatter(torch, k1),
+            "k2": replay_overlap(torch, k2, k2_name)}
+    summary = {k: replay_summary(v) for k, v in each.items()}
+    print_replays(tag, "K1 pillar_scatter_max", summary["k1"])
+    print_replays(tag, f"K2 rotated_overlap ({k2_name})", summary["k2"])
+    return summary, each
+
+
+def detection_diff(a, b):
+    """(equal, max |d| of boxes and scores) of two {token: detections}."""
+    if sorted(a) != sorted(b):
+        return False, math.inf
+    equal, worst = True, 0.0
+    for t in a:
+        for k in ("box3d_lidar", "scores", "label_preds"):
+            x, y = np.asarray(a[t][k]), np.asarray(b[t][k])
+            if x.shape != y.shape:
+                return False, math.inf
+            equal &= np.array_equal(x, y)
+            if x.size and k != "label_preds":
+                worst = max(worst, float(np.abs(x - y).max()))
+    return equal, worst
+
+
+def gt_as_detections(infos, class_names):
+    """Each frame's GT as its detections, score 1."""
+    return {i["token"]: {
+        "box3d_lidar": np.asarray(i["gt_boxes"], np.float32),
+        "scores": np.ones(len(i["gt_boxes"]), np.float32),
+        "label_preds": np.array([class_names.index(str(n))
+                                 for n in i["gt_names"]], np.int64),
+        "metadata": {"token": i["token"]}} for i in infos}
+
+
+def expect_launches(tag, got, k1, k2):
+    if (got["pillar_scatter_max"], got["rotated_overlap"]) != (k1, k2):
+        raise AssertionError(f"{tag}: launches {got}, expected K1 {k1} and "
+                             f"K2 {k2}")
+
+
+def card_ms_per_frame(torch, cfg, ckpt, dataset):
+    """The served model's card time a frame at the config's batch: 6
+    card-resident batches of `dataset` back to back (CUDA events, host
+    launches included), with `ckpt`'s weights."""
+    import logging
+
+    from pillarnet_lts_torch.apis import build_model_from_cfg
+    from pillarnet_lts_torch.datasets import DataLoader
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.tools.dist_test import load_weights, on_device
+
+    data = cfg["data"]
+    loader = DataLoader(dataset, data["samples_per_gpu"], num_workers=2,
+                        max_points=data["max_points"])
+    batches = [on_device(b, "cuda") for _, b in zip(range(6), loader)]
+    model = build_model_from_cfg(cfg, device="cuda")
+    load_weights(model, ckpt, logging.getLogger("chip_smoke"))
+    infer = make_infer_fn(model)
+    ms = cuda_ms(lambda: [infer(*b) for b in batches], iters=3, warmup=1)
+    del model, batches
+    torch.cuda.empty_cache()
+    return ms / (6 * data["samples_per_gpu"])
+
+
+def eval_nuscenes(torch, card, tmp):
+    """Phase 16a. Returns its record, the pipelined pass's launches and
+    replays (summaries), the info pkl of the written frames and the spread
+    checkpoint."""
+    from pillarnet_lts_torch.apis import load_config
+    from pillarnet_lts_torch.datasets import DataLoader, build_dataset
+    from pillarnet_lts_torch.datasets.synth import write_nuscenes_set
+
+    cfg = load_config(FLAGSHIP)
+    t0 = time.perf_counter()
+    info = write_nuscenes_set(os.path.join(tmp, "nusc"), EVAL_FRAMES,
+                              EVAL_SWEEP_POINTS, cfg["nsweeps"],
+                              cfg["class_names"], cfg["point_cloud_range"],
+                              seed=160)
+    t_write = time.perf_counter() - t0
+    path = eval_config(tmp, FLAGSHIP, repeat_infos(info, EVAL_REPEAT),
+                       "nusc")
+    frames = EVAL_FRAMES * EVAL_REPEAT
+    ckpt = spread_checkpoint(torch, path, "cuda", os.path.join(tmp, "ckpt"))
+    args = [path, "--checkpoint", ckpt, "--seed", "0", "--work_dir"]
+    speed, l_speed = dist_test_run(
+        torch, args + [os.path.join(tmp, "nusc_speed"), "--speed_test"])
+    pipe, l_pipe, k1, k2, _ = captured_run(
+        torch, args + [os.path.join(tmp, "nusc_pipe")])
+    bs = cfg["data"]["samples_per_gpu"]
+    batches = -(-frames // bs)
+    # K1 and K2 once a request (one NMS for the six tasks)
+    expect_launches("16a speed test", l_speed, frames, frames)
+    expect_launches("16a pipelined", l_pipe, batches, batches)
+    replays, each = replay_pass(torch, "16a", k1, k2, "NMS")
+    del k1, k2
+    torch.cuda.empty_cache()
+    equal, diff = detection_diff(speed["detections"], pipe["detections"])
+    kept = sum(len(d["scores"]) for d in pipe["detections"].values())
+    if not equal:
+        raise AssertionError(f"16a: batch 1 and batch {bs} detections "
+                             f"differ (max |d| {diff})")
+    if kept == 0:
+        raise AssertionError("16a: no detections")
+    text = pipe["result"]["results"]["nusc"]
+    if "mAP:" not in text or "NDS:" not in text:
+        raise AssertionError(f"16a: no mAP / NDS in {text!r}")
+    dataset = build_dataset(load_config(path)["data"]["val"])
+    perfect, _ = dataset.evaluation(
+        gt_as_detections(dataset._nusc_infos, cfg["class_names"]),
+        device="cuda")
+    if "mAP: 1.0000" not in perfect["results"]["nusc"]:
+        raise AssertionError(f"16a: GT as detections scored "
+                             f"{perfect['results']['nusc']!r}")
+    # the loader alone (the config's threads; the files in the page
+    # cache), pass by pass, against the card's time a frame at batch bs
+    loader_ms = []
+    for _ in range(LOADER_PASSES):
+        loader = DataLoader(dataset, bs,
+                            num_workers=cfg["data"]["workers_per_gpu"],
+                            max_points=cfg["data"]["max_points"],
+                            drop_last=False)
+        t0 = time.perf_counter()
+        n = sum(len(b["metadata"]) for b in loader)
+        loader_ms.append((time.perf_counter() - t0) / n * 1e3)
+    card_ms = card_ms_per_frame(torch, cfg, ckpt, dataset)
+    sp, pp = speed["speed"], pipe["speed"]
+    rec = {"frames": frames, "distinct_frames": EVAL_FRAMES,
+           "points_per_file": EVAL_SWEEP_POINTS,
+           "files_per_frame": cfg["nsweeps"], "write_s": t_write,
+           "speed_test": {k: sp[k] for k in ("host_ms", "device_ms",
+                                             "host_ms_all",
+                                             "device_ms_all")},
+           "pipelined": {"batch": bs, **pp},
+           "card_ms_per_frame_batched": card_ms,
+           "loader_ms_per_frame": loader_ms,
+           "loader_workers": cfg["data"]["workers_per_gpu"],
+           "kept_detections": kept, "speed_vs_pipelined_bit_equal": equal,
+           "launches_speed_test": l_speed, "launches_pipelined": l_pipe,
+           "replays": replays, "replays_each": each,
+           "result": text, "gt_result": perfect["results"]["nusc"]}
+    print(f"[16a] pillarnet34_nusc eval over {frames} nuScenes-layout "
+          f"frames ({EVAL_FRAMES} written, {cfg['nsweeps']} .bin of "
+          f"{EVAL_SWEEP_POINTS} points each), seeded weights, on {card}: "
+          f"speed test (batch 1, middle third of {frames}) "
+          f"{sp['host_ms']:.2f} ms a frame on the host clock, "
+          f"{sp['device_ms']:.2f} ms on CUDA events; pipelined (batch {bs}, "
+          f"loader included) {pp['frames_per_s']:.2f} frames/s over the "
+          f"pass, {pp['steady_frames_per_s']:.2f} over the middle third of "
+          f"its {pp['batches']} batches; the card alone {card_ms:.2f} ms a "
+          f"frame at batch {bs}; the loader alone "
+          f"({cfg['data']['workers_per_gpu']} threads, page cache) "
+          f"{', '.join(f'{t:.2f}' for t in loader_ms)} ms a frame in "
+          f"{LOADER_PASSES} passes; K1 / K2 once a request; the two "
+          f"passes' {kept} detections bit-equal; "
+          f"{text.strip().splitlines()[-1]}; GT as detections: mAP 1")
+    return rec, l_pipe, replays, info, ckpt
+
+
+def eval_waymo(torch, card, tmp):
+    """Phase 16b. Returns its record and the evaluator's K2 replays."""
+    from pillarnet_lts_torch.apis import load_config
+    from pillarnet_lts_torch.datasets import build_dataset
+    from pillarnet_lts_torch.datasets.synth import write_waymo_set
+    from pillarnet_lts_torch.datasets.waymo import waymo_eval
+    from pillarnet_lts_torch.ops import _kernels
+
+    cfg = load_config(WAYMO)
+    info = write_waymo_set(os.path.join(tmp, "waymo"), EVAL_WAYMO_FRAMES,
+                           cfg["data"]["max_points"], cfg["class_names"],
+                           cfg["point_cloud_range"], seed=161,
+                           class_counts=WAYMO_GT_COUNTS)
+    path = eval_config(tmp, WAYMO, info, "waymo")
+    ckpt = spread_checkpoint(torch, path, "cuda",
+                             os.path.join(tmp, "waymo_ckpt"))
+    calls, real = [], waymo_eval._iou_matrix
+
+    def recording(gt, pred, device="cuda"):
+        before = _kernels.LAUNCHES["rotated_overlap"]
+        out, k2 = capture_overlap(lambda: real(gt, pred, device))
+        launched = _kernels.LAUNCHES["rotated_overlap"] - before
+        if launched != len(k2) or launched != int(len(gt) > 0
+                                                  and len(pred) > 0):
+            raise AssertionError(f"16b: an IoU matrix ({len(gt)}, "
+                                 f"{len(pred)}) made {launched} launches")
+        calls.extend(k2)
+        return out
+
+    waymo_eval._iou_matrix = recording
+    try:
+        out, launches = dist_test_run(torch, [
+            path, "--checkpoint", ckpt, "--seed", "0", "--work_dir",
+            os.path.join(tmp, "waymo_out")])
+    finally:
+        waymo_eval._iou_matrix = real
+    if not calls:
+        raise AssertionError("16b: the evaluator launched no K2")
+    each = replay_overlap(torch, calls, "the Waymo evaluator's")
+    replays = replay_summary(each)
+    print_replays("16b", "K2 rotated_overlap (the Waymo evaluator's GT x "
+                  "predictions)", replays)
+    dataset = build_dataset(load_config(path)["data"]["val"])
+    cpu, _ = dataset.evaluation_native(out["detections"], device="cpu")
+    if cpu != out["result"]:
+        raise AssertionError(f"16b: card and CPU evaluators differ: "
+                             f"{out['result']} vs {cpu}")
+    perfect, _ = dataset.evaluation_native(
+        gt_as_detections(dataset._waymo_infos, cfg["class_names"]),
+        device="cuda")
+    if "mAP L1 1.0000 mAPH L1 1.0000" not in perfect["results"]["waymo"]:
+        raise AssertionError(f"16b: GT as detections scored "
+                             f"{perfect['results']['waymo']!r}")
+    text = out["result"]["results"]["waymo"]
+    rec = {"frames": EVAL_WAYMO_FRAMES, "points": cfg["data"]["max_points"],
+           "gt_per_frame": dict(zip(cfg["class_names"], WAYMO_GT_COUNTS)),
+           "launches": launches, "evaluator_launches": len(calls),
+           "evaluator_launches_per_frame": len(calls) / EVAL_WAYMO_FRAMES,
+           "replays": replays, "replays_each": each,
+           "card_equals_cpu": True, "result": text,
+           "gt_result": perfect["results"]["waymo"]}
+    print(f"[16b] pillarnet34_waymo eval over {EVAL_WAYMO_FRAMES} "
+          f"Waymo-layout frames with {sum(WAYMO_GT_COUNTS)} GT boxes each "
+          f"{WAYMO_GT_COUNTS}: the evaluator's {len(calls)} K2 calls (one "
+          f"per frame and class) each bit-equal to the plain version; card "
+          f"and CPU evaluators equal; {text.strip().splitlines()[-1]}; GT "
+          f"as detections: AP 1")
+    return rec, replays
+
+
+def eval_double_flip(torch, card, tmp, info, ckpt):
+    """Phase 16c. Returns its record and its K1 / K2 replays."""
+    from pillarnet_lts_torch.apis import load_config
+    from pillarnet_lts_torch.datasets import DataLoader, build_dataset
+    from pillarnet_lts_torch.tools import dist_test
+
+    path = eval_config(tmp, FLAGSHIP, repeat_infos(info, EVAL_REPEAT),
+                       "nusc_flip", double_flip=True, load_interval=4)
+    dataset = build_dataset(load_config(path)["data"]["val"])
+    frames = len(dataset)
+    if next(iter(DataLoader(dataset, 1, num_workers=1)))[
+            "points"].shape[0] != 4:
+        raise AssertionError("16c: a frame is not 4 clouds")
+    out, launches, k1, k2, _ = captured_run(torch, [
+        path, "--checkpoint", ckpt, "--seed", "0", "--speed_test",
+        "--work_dir", os.path.join(tmp, "nusc_flip")])
+    expect_launches("16c", launches, frames, frames)
+    tokens = [i["token"] for i in dataset._nusc_infos]
+    if sorted(out["detections"]) != sorted(tokens):
+        raise AssertionError("16c: not one detection set a frame")
+    kept = sum(len(d["scores"]) for d in out["detections"].values())
+    replays, each = replay_pass(torch, "16c", k1, k2, "NMS")
+    del k1, k2
+    torch.cuda.empty_cache()
+
+    demo = config_file(tmp, "demo_flip", DEMO, DOUBLE_FLIP)
+    args = [demo, "--checkpoint", spread_checkpoint(
+        torch, demo, "cpu", os.path.join(tmp, "demo_ckpt")), "--seed", "0",
+            "--work_dir"]
+    got, _ = dist_test_run(torch, args + [os.path.join(tmp, "demo_card")])
+    want = dist_test.main(args + [os.path.join(tmp, "demo_cpu"),
+                                  "--device", "cpu"])
+    g, w = got["detections"], want["detections"]
+    r = {"frames": frames, "clouds_per_frame": 4, "kept": kept,
+         "speed_test": out["speed"], "launches": launches,
+         "replays": replays, "replays_each": each,
+         "demo_kept": sum(len(d["scores"]) for d in w.values())}
+    if sorted(g) != sorted(w) or any(
+            not np.array_equal(g[t]["label_preds"], w[t]["label_preds"])
+            for t in w):
+        raise AssertionError("16c: demo double-flip card vs CPU: the kept "
+                             "detections or their labels differ")
+    r["demo_box_max_abs"] = max(float(np.abs(
+        g[t]["box3d_lidar"] - w[t]["box3d_lidar"]).max(initial=0))
+        for t in w)
+    r["demo_score_max_abs"] = max(float(np.abs(
+        g[t]["scores"] - w[t]["scores"]).max(initial=0)) for t in w)
+    if (r["demo_box_max_abs"] > RCNN_BOX_TOL
+            or r["demo_score_max_abs"] > RCNN_SCORE_TOL or not r["demo_kept"]):
+        raise AssertionError(f"16c: demo double-flip card vs CPU: {r}")
+    sp = out["speed"]
+    print(f"[16c] pillarnet34_nusc double-flip over {frames} frames (4 "
+          f"clouds each, one detection set each, {kept} kept): "
+          f"{sp['device_ms']:.2f} ms a frame on CUDA events, "
+          f"{sp['host_ms']:.2f} on the host clock (middle third); demo "
+          f"double-flip card vs CPU, the same checkpoint: {r['demo_kept']} "
+          f"kept detections and labels equal, max |d| box "
+          f"{r['demo_box_max_abs']:.3e} m, score "
+          f"{r['demo_score_max_abs']:.3e}")
+    return r, replays
+
+
+def eval_trainer(torch, dev, tmp):
+    """Phase 16d."""
+    import logging
+
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          spread_head_outputs,
+                                          train_detector)
+    from pillarnet_lts_torch.datasets import SynthDataset, build_dataset
+
+    path = config_file(tmp, "demo_train", DEMO,
+                       "data['samples_per_gpu'] = 2\n"
+                       "data['max_points'] = 4096\n")
+    cfg = load_config(path)
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    logger, lines = logging.getLogger("chip_smoke.train"), Lines()
+    logger.addHandler(lines)
+    logger.setLevel(logging.INFO)
+    model = build_model_from_cfg(cfg, device=dev, seed=3)
+    scene = SynthDataset(cfg, 1, 4096)[0]["points"][None]
+    spread_head_outputs(model, torch.from_numpy(scene).to(dev),
+                        torch.ones(scene.shape[:2], dtype=torch.bool,
+                                   device=dev))
+    work = os.path.join(tmp, "demo_run")
+    train_detector(model, SynthDataset(cfg, 4, 4096), cfg, logger=logger,
+                   work_dir=work,
+                   val_dataset=build_dataset(cfg["data"]["val"]))
+    logged = [s for s in lines.lines if s.startswith("Evaluation demo")]
+    out, _ = dist_test_run(torch, [path, "--checkpoint",
+                                   os.path.join(work, "epoch_1.pth"),
+                                   "--work_dir", os.path.join(tmp, "demo")])
+    want = f"Evaluation demo: {out['result']['results']['demo']}"
+    if logged != [want]:
+        raise AssertionError(f"16d: Trainer.val logged {logged}, dist_test "
+                             f"on its checkpoint {want!r}")
+    print(f"[16d] demo Trainer.run([('train', 1), ('val', 1)]) on the card "
+          f"logged what dist_test gives on its checkpoint: {want}")
+    return {"logged": logged[0]}
+
+
+def eval_int8(torch, tmp, info):
+    """Phase 16e: one batch of 4 frames. Returns its record, its K1 / K2
+    replays and its K4 replay (phase 6's record)."""
+    path = eval_config(tmp, FLAGSHIP_INT8, info, "nusc_int8", load_interval=2)
+    ckpt = spread_checkpoint(torch, path, "cuda",
+                             os.path.join(tmp, "int8_ckpt"))
+    out, launches, k1, k2, k4 = captured_run(torch, [
+        path, "--int8", "--checkpoint", ckpt, "--seed", "0", "--work_dir",
+        os.path.join(tmp, "nusc_int8")], int8=True)
+    dets = out["detections"]
+    # K1 in the calibration forward and in the request
+    if len(dets) != EVAL_FRAMES // 2 or (
+            launches["pillar_scatter_max"], launches["rotated_overlap"]) \
+            != (2, 1) or launches["int8_conv"] < 1:
+        raise AssertionError(f"16e: {len(dets)} frames, launches {launches}")
+    if not all(np.isfinite(d["box3d_lidar"]).all() for d in dets.values()):
+        raise AssertionError("16e: non-finite int8 detections")
+    replays, _ = replay_pass(torch, "16e", k1, k2, "NMS")
+    conv = check_int8_conv(torch, k4, phase="16e")
+    del k1, k2, k4
+    torch.cuda.empty_cache()
+    text = out["result"]["results"]["nusc"]
+    print(f"[16e] dist_test --int8 over {len(dets)} frames (one batch): "
+          f"launches {launches}; {text.strip().splitlines()[-1]}")
+    return ({"frames": len(dets), "launches": launches, "result": text,
+             "replays": replays, "int8_conv": conv}, replays, conv)
+
+
+def evaluate(torch, dev, card):
+    """Phase 16: evaluation. Returns its record, K1's and K2's launches of
+    the nuScenes eval pass, and every pass's replays ({"k1": {pass:
+    summary}, "k2": {pass: summary}, "k4": phase 6's record of 16e})."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="pillarnet_eval_") as tmp:
+        rec, replays = {}, {"k1": {}, "k2": {}}
+        rec["nuscenes"], launches, r, info, ckpt = eval_nuscenes(
+            torch, card, tmp)
+        replays["k1"]["16a_pipelined"] = r["k1"]
+        replays["k2"]["16a_pipelined"] = r["k2"]
+        rec["waymo"], replays["k2"]["16b_waymo_evaluator"] = eval_waymo(
+            torch, card, tmp)
+        rec["double_flip"], r = eval_double_flip(torch, card, tmp, info,
+                                                 ckpt)
+        replays["k1"]["16c_double_flip"] = r["k1"]
+        replays["k2"]["16c_double_flip"] = r["k2"]
+        rec["trainer"] = eval_trainer(torch, dev, tmp)
+        rec["int8"], r, replays["k4"] = eval_int8(torch, tmp, info)
+        replays["k1"]["16e_int8"] = r["k1"]
+        replays["k2"]["16e_int8"] = r["k2"]
+    return rec, launches, replays
+
+
 def main():
     import torch
 
@@ -2774,6 +3383,7 @@ def main():
     scatter["modes"]["rcnn_train"] = k1_train
     scatter["max_abs_err"] = max(scatter["max_abs_err"],
                                  k1_train["max_abs_err"])
+    evaluation, eval_launches, eval_replays = evaluate(torch, dev, card)
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
@@ -2847,6 +3457,24 @@ def main():
         "replays": {k: {f: r[f] for f in (
             "shape", "ms", "alone_ms", "plain_ms", "bound", "near_share",
             "max_abs_err")} for k, r in k2_train.items()}}
+    # the nuScenes eval pass through dist_test (phase 16a, counts reset
+    # just before), and every eval pass's K1, K2 and K4 calls replayed
+    # (16a's pipelined pass, 16b's Waymo evaluator, 16c, 16e)
+    record["kernels"][0]["eval_launches"] = \
+        eval_launches["pillar_scatter_max"]
+    record["kernels"][2]["eval_launches"] = eval_launches["rotated_overlap"]
+    for i, key in ((0, "k1"), (2, "k2")):
+        record["kernels"][i]["eval_replays"] = eval_replays[key]
+        record["kernels"][i]["max_abs_err"] = max(
+            [record["kernels"][i]["max_abs_err"]]
+            + [r["max_abs_err"] for r in eval_replays[key].values()])
+    conv16 = eval_replays["k4"]
+    record["kernels"][4]["eval_replays"] = {"16e_int8": {
+        "calls": sum(r["launches"] for r in conv16["shapes"]),
+        "max_abs_err": conv16["max_abs_err"], "request": conv16["frame"],
+        "shapes": conv16["shapes"]}}
+    record["kernels"][4]["max_abs_err"] = max(
+        record["kernels"][4]["max_abs_err"], conv16["max_abs_err"])
     for k in record["kernels"]:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")
@@ -2857,6 +3485,7 @@ def main():
     print(json.dumps({"training": training}))
     print(json.dumps({"two_stage": two_stage}))
     print(json.dumps({"two_stage_training": two_stage_training}))
+    print(json.dumps({"eval": evaluation}))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

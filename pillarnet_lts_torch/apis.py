@@ -12,7 +12,7 @@ from .models import build_detector
 from .models.utils import init_weights
 from .runtime.hooks import CheckpointHook, IterTimerHook, TextLoggerHook
 from .runtime.trainer import Trainer
-from .datasets.collate import DataLoader
+from .datasets.loader import DataLoader
 from .solver import build_optimizer
 
 
@@ -96,19 +96,32 @@ def optimizer_from_cfg(model, cfg, total_steps):
 
 
 def train_detector(model, dataset, cfg, logger=None, resume_from=None,
-                   cfg_text=None, work_dir=None, hooks=(), seed=0):
+                   cfg_text=None, work_dir=None, hooks=(), seed=0,
+                   val_dataset=None):
     """Train `model` (on its device) on `dataset` as the config says:
-    batches of `data.samples_per_gpu` padded to `data.max_points`, shuffled
-    per epoch; the one-cycle AdamW over all `total_epochs`; a log every
-    `log_config.interval` steps and a checkpoint every
-    `checkpoint_config.interval` epochs under `work_dir` (default: the
-    config's), then `hooks`. `resume_from` a checkpoint path, or True for
-    the latest. `seed`: the run's, from which each step's generator (RoI
-    sampling, dropout) is made with the step count. Returns the
-    `Trainer`."""
+    batches of `data.samples_per_gpu` padded to `data.max_points`,
+    shuffled per epoch (`np.random.RandomState(epoch)`), made by
+    `data.workers_per_gpu` loader threads; the one-cycle AdamW over all
+    `total_epochs`; a log every `log_config.interval` steps and a
+    checkpoint every `checkpoint_config.interval` epochs under `work_dir`
+    (default: the config's), then `hooks`. `resume_from` a checkpoint
+    path, or True for the latest. `seed`: the run's, from which each
+    step's generator (RoI sampling, dropout) is made with the step count.
+    With `val_dataset`, each epoch is followed by its evaluation
+    (`Trainer.run`'s workflow [('train', 1), ('val', 1)]), read in batches
+    of `data.samples_per_gpu`. Returns the `Trainer`."""
     logger = logger or logging.getLogger("train")
     data = cfg["data"]
-    loader = DataLoader(dataset, data["samples_per_gpu"], data["max_points"])
+    workers = data.get("workers_per_gpu", 2)
+    loader = DataLoader(dataset, data["samples_per_gpu"], shuffle=True,
+                        num_workers=workers, max_points=data["max_points"])
+    val_loader, workflow = None, None
+    if val_dataset is not None:
+        val_loader = DataLoader(val_dataset, data["samples_per_gpu"],
+                                num_workers=workers,
+                                max_points=data["max_points"],
+                                drop_last=False)
+        workflow = [("train", 1), ("val", 1)]
     total_epochs = cfg["total_epochs"]
     optimizer = optimizer_from_cfg(model, cfg, total_epochs * len(loader))
     trainer = Trainer(model, optimizer, dict(cfg["train_cfg"]),
@@ -125,5 +138,22 @@ def train_detector(model, dataset, cfg, logger=None, resume_from=None,
         trainer.register_hook(hook)
     if resume_from:
         trainer.resume(None if resume_from is True else resume_from)
-    trainer.run(loader, total_epochs)
+    trainer.run(loader, total_epochs, workflow=workflow,
+                val_loader=val_loader, val_dataset=val_dataset)
     return trainer
+
+
+def with_double_flip(cfg, split="val"):
+    """A copy of config `cfg` that serves with double-flip TTA: the
+    `split` pipeline gets `DoubleFlip` before its `Reformat`, which
+    returns the 4 clouds of each frame, and `test_cfg.double_flip` is set,
+    so that predict averages them back to one detection set per frame."""
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    cfg["test_cfg"]["double_flip"] = True
+    pipeline = cfg["data"][split]["pipeline"]
+    at = next(i for i, st in enumerate(pipeline) if st["type"] == "Reformat")
+    pipeline[at] = dict(pipeline[at], double_flip=True)
+    pipeline.insert(at, dict(type="DoubleFlip"))
+    return cfg

@@ -1,12 +1,12 @@
-"""Batch collation with static shapes, and the training data loader.
+"""Batch collation with static shapes.
 
 Port of `pillarnet_lts_tpu/parallel/collate.py::collate_batch`: clouds are
-padded into one (B, max_points, C) buffer with a validity mask, and the
+padded into one (B, N, C) buffer with a validity mask (N = `max_points`,
+or the next bucket above the largest cloud), double-flip groups (lists of
+4 examples from `Reformat(double_flip=True)`) are flattened, and the
 per-task targets are stacked. One layout change: the heatmap targets come
 out (B, C, H, W) per task, the layout of the port's head maps, so the loss
-reads them without a transpose. `DataLoader` is a plain synchronous
-loader (the JAX package's threads overlapped its compile-heavy host; the
-port's scenes are made in tens of milliseconds).
+reads them without a transpose.
 """
 
 import numpy as np
@@ -15,17 +15,31 @@ _TARGET_LIST_KEYS = ("hm", "anno_box", "ind", "mask", "cat", "gt_box")
 _STACK_KEYS = ("gt_boxes_and_cls",)
 
 
-def collate_batch(batch_list, max_points):
-    """Example dicts -> numpy batch: 'points' (B, max_points, C) f32,
-    'points_mask' (B, max_points) bool (points past max_points are
-    dropped), per-task stacked targets ('hm' as (B, C, H, W)),
-    'gt_boxes_and_cls' and 'metadata'."""
+def bucket_size(n):
+    """The smallest of 2048, 3072, 4608, ... (x1.5, truncated) that holds
+    n points: few distinct shapes when `max_points` is not set."""
+    b = 2048
+    while b < n:
+        b = int(b * 1.5)
+    return b
+
+
+def collate_batch(batch_list, max_points=None):
+    """Example dicts -> numpy batch: 'points' (B, N, C) f32, 'points_mask'
+    (B, N) bool (points past N are dropped), per-task stacked targets
+    ('hm' as (B, C, H, W)), 'gt_boxes_and_cls' and 'metadata'."""
+    flat = []
+    for ex in batch_list:
+        flat.extend(ex if isinstance(ex, list) else [ex])
+    batch_list = flat
+
+    clouds = [np.asarray(ex["points"]) for ex in batch_list]
+    if max_points is None:
+        max_points = bucket_size(max(p.shape[0] for p in clouds))
     B = len(batch_list)
-    num_feats = np.asarray(batch_list[0]["points"]).shape[1]
-    points = np.zeros((B, max_points, num_feats), np.float32)
+    points = np.zeros((B, max_points, clouds[0].shape[1]), np.float32)
     mask = np.zeros((B, max_points), bool)
-    for i, ex in enumerate(batch_list):
-        p = np.asarray(ex["points"])
+    for i, p in enumerate(clouds):
         n = min(p.shape[0], max_points)
         points[i, :n] = p[:n]
         mask[i, :n] = True
@@ -44,29 +58,3 @@ def collate_batch(batch_list, max_points):
             out[key] = np.stack([np.asarray(ex[key]) for ex in batch_list])
     out["metadata"] = [ex.get("metadata") for ex in batch_list]
     return out
-
-
-class DataLoader:
-    """Batches of `dataset` (indexable, with a length), collated to
-    `max_points`, in an order shuffled per epoch from the epoch number
-    (`set_epoch`); a last short batch is dropped."""
-
-    def __init__(self, dataset, batch_size, max_points):
-        self.dataset = dataset
-        self.batch_size = batch_size
-        self.max_points = max_points
-        self.epoch = 0
-
-    def set_epoch(self, epoch):
-        self.epoch = epoch
-
-    def __len__(self):
-        return len(self.dataset) // self.batch_size
-
-    def __iter__(self):
-        idx = np.arange(len(self.dataset))
-        np.random.RandomState(self.epoch).shuffle(idx)
-        for b in range(len(self)):
-            sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-            yield collate_batch([self.dataset[int(i)] for i in sel],
-                                self.max_points)

@@ -15,6 +15,7 @@ asks for them raises unless it sets `no_augmentation=True`.
 import numpy as np
 
 from ...core.target.center_target import draw_gaussian, gaussian_radius
+from ..registry import PIPELINES
 
 
 def limit_period(val, offset=0.5, period=np.pi):
@@ -34,10 +35,14 @@ def merge_multi_group_label(gt_classes, num_classes_by_task):
     return flatten(gt_classes)
 
 
+@PIPELINES.register_module
 class Preprocess:
     """Train mode: keep the boxes of `class_names` and number their classes
-    from 1; val mode: points only. `shuffle_points` shuffles with numpy's
-    global generator, as the JAX package does."""
+    from 1; val mode: points only. The cloud is `combined` (points and time
+    lag), or a single-sweep Waymo frame's `points`. `shuffle_points`
+    shuffles with the sample's generator (`res["rng"]`, which the
+    dataset makes), where the JAX package shuffles with numpy's global
+    one: the same seed, the same order."""
 
     def __init__(self, cfg):
         self.mode = cfg["mode"]
@@ -53,7 +58,12 @@ class Preprocess:
 
     def __call__(self, res, info):
         res["mode"] = self.mode
-        points = res["lidar"]["combined"]
+        if res["type"] == "WaymoDataset":
+            points = res["lidar"].get("combined", res["lidar"]["points"])
+        elif res["type"] in ("NuScenesDataset", "DemoDataset"):
+            points = res["lidar"]["combined"]
+        else:
+            raise NotImplementedError(f"dataset type {res['type']!r}")
         if self.mode == "train":
             anno = res["lidar"]["annotations"]
             names = np.array(anno["names"]).reshape(-1)
@@ -66,11 +76,12 @@ class Preprocess:
                 dtype=np.int32)
             res["lidar"]["annotations"] = gt_dict
         if self.shuffle_points:
-            np.random.shuffle(points)
+            res["rng"].shuffle(points)
         res["lidar"]["points"] = points
         return res, info
 
 
+@PIPELINES.register_module
 class AssignLabel:
     """CenterNet target encoding (`pipelines/preprocess.py:178-350`)."""
 

@@ -154,3 +154,114 @@ class SynthDataset:
         for stage in self.pipeline:
             res, info = stage(res, info)
         return res
+
+
+def _ego_motion(k, step=0.4, yaw=0.005):
+    """4 x 4 transform of sweep k into its keyframe: k steps of `step` m
+    forward and `yaw` rad of turn."""
+    c, s = np.cos(yaw * k), np.sin(yaw * k)
+    tm = np.eye(4)
+    tm[:2, :2] = [[c, -s], [s, c]]
+    tm[0, 3] = -step * k
+    return tm
+
+
+def write_nuscenes_set(root, num_frames, num_points, nsweeps, class_names,
+                       pc_range, seed=0, split="val"):
+    """A nuScenes-layout set in directory `root`, from the demo scenes:
+    per frame a keyframe `.bin` and (nsweeps - 1) sweep `.bin`s of
+    `num_points` points x 5 f32 (x, y, z, intensity, ring 0), each sweep
+    with its 4 x 4 transform into the keyframe (a small ego motion) and a
+    time lag of 0.05 s a step, and `infos_{split}.pkl` holding the frames'
+    infos with the scene's boxes as GT (`gt_boxes` (n, 9), `gt_names`,
+    `gt_boxes_velocity`, `gt_boxes_token`). Returns the info path."""
+    import os
+    import pickle
+
+    os.makedirs(os.path.join(root, "samples"), exist_ok=True)
+    os.makedirs(os.path.join(root, "sweeps"), exist_ok=True)
+
+    def write(path, points):
+        out = np.zeros((len(points), 5), np.float32)
+        out[:, :4] = points[:, :4]
+        out.tofile(path)
+        return path
+
+    infos = []
+    for i in range(num_frames):
+        points, boxes, names = synth_scene(seed + i, num_points, pc_range,
+                                           class_names)
+        token = f"nusc_{seed}_{i}"
+        sweeps = []
+        for k in range(1, nsweeps):
+            sweep, _, _ = synth_scene(seed + 1000 * k + i, num_points,
+                                      pc_range, class_names)
+            sweeps.append({
+                "lidar_path": write(os.path.join(
+                    root, "sweeps", f"{token}_{k}.bin"), sweep),
+                "transform_matrix": _ego_motion(k),
+                "time_lag": 0.05 * k,
+            })
+        infos.append({
+            "lidar_path": write(os.path.join(root, "samples",
+                                             f"{token}.bin"), points),
+            "token": token,
+            "sweeps": sweeps,
+            "gt_boxes": boxes.astype(np.float64),
+            "gt_names": names,
+            "gt_boxes_velocity": np.concatenate(
+                [boxes[:, 6:8], np.zeros((len(boxes), 1))], axis=1),
+            "gt_boxes_token": np.array([f"{token}_box{b}"
+                                        for b in range(len(boxes))]),
+        })
+    path = os.path.join(root, f"infos_{split}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(infos, f)
+    return path
+
+
+def write_waymo_set(root, num_frames, num_points, class_names, pc_range,
+                    seed=0, split="val", class_counts=None):
+    """A Waymo-layout single-sweep set in directory `root`, from the demo
+    scenes: per frame a pkl with `lidars.points_xyz` (n, 3) and
+    `lidars.points_feature` (n, 2) f32 (intensity, elongation), and
+    `infos_{split}.pkl` with the scene's boxes as GT (`gt_boxes` (n, 9),
+    upper-case `gt_names`, `num_points_in_gt`, `difficulty`). By default
+    a frame holds the demo's 3-8 boxes, the classes cycled; with
+    `class_counts` (one count per class) every frame holds that many boxes
+    of each class. Returns the info path."""
+    import os
+    import pickle
+
+    os.makedirs(os.path.join(root, split, "lidar"), exist_ok=True)
+    infos = []
+    num_boxes = (3, 9)
+    if class_counts is not None:
+        num_boxes = (sum(class_counts), sum(class_counts) + 1)
+    for i in range(num_frames):
+        points, boxes, names = synth_scene(seed + i, num_points, pc_range,
+                                           class_names, num_boxes)
+        if class_counts is not None:
+            names = np.repeat(np.asarray(class_names), class_counts)
+        token = f"seq_{seed}_frame_{i}.pkl"
+        path = os.path.join(root, split, "lidar", token)
+        elongation = np.random.RandomState(seed + i).uniform(
+            0, 1, len(points)).astype(np.float32)
+        with open(path, "wb") as f:
+            pickle.dump({"lidars": {
+                "points_xyz": np.ascontiguousarray(points[:, :3]),
+                "points_feature": np.stack(
+                    [points[:, 3] / 255.0, elongation], axis=1)}}, f)
+        infos.append({
+            "path": path,
+            "token": token,
+            "sweeps": [],
+            "gt_boxes": boxes,
+            "gt_names": np.char.upper(names.astype(str)),
+            "num_points_in_gt": np.full(len(boxes), 50),
+            "difficulty": np.zeros(len(boxes), np.int64),
+        })
+    path = os.path.join(root, f"infos_{split}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(infos, f)
+    return path

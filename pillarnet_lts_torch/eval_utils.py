@@ -34,6 +34,35 @@ def make_infer_fn(model, test_cfg=None):
     return infer
 
 
+def pipelined_infer(infer, batches, make_args, metas_of, depth=4,
+                    on_progress=None):
+    """Run `infer` over `batches` with up to `depth` calls in flight
+    (`runtime.serving.ServingPipeline`), yielding (host detections,
+    metadata) pairs in batch order: the JAX package's
+    `eval_utils.pipelined_infer`, shared by `Trainer.val` and
+    `tools/dist_test.py`.
+
+    make_args(batch) -> infer's argument tuple; metas_of(batch) -> the
+    per-sample metadata (one per frame: the caller takes every 4th under
+    double-flip); on_progress(i) is called per yielded batch. The metadata
+    queue fills as the argument generator is consumed, so it stays in
+    lockstep with the results."""
+    from .runtime.serving import ServingPipeline
+
+    pipe = ServingPipeline(infer, depth=depth)
+    metas_q = []
+
+    def _args():
+        for batch in batches:
+            metas_q.append(metas_of(batch))
+            yield make_args(batch)
+
+    for i, det in enumerate(pipe.map(_args())):
+        if on_progress is not None:
+            on_progress(i)
+        yield det, metas_q[i]
+
+
 def _numpy(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()

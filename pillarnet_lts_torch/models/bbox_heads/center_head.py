@@ -33,9 +33,12 @@ unfolded with their biases, each head's slice of the wide conv gets a BN
 of its own with batch statistics (JAX :123-135); `loss` returns the JAX
 package's per-task dict (`models/losses/centernet_loss.py`).
 
-Not ported yet: double-flip TTA, circular NMS and the head's int8 mode
-(they raise). `approx_topk` (the TPU's approximate top-k,
-`lax.approx_max_k`, set by no config) raises too.
+Double-flip TTA (`test_cfg.double_flip`): `predict` averages each group
+of 4 flipped clouds into one map set (`_average_double_flip`).
+
+Not ported yet: circular NMS and the head's int8 mode (they raise).
+`approx_topk` (the TPU's approximate top-k, `lax.approx_max_k`, set by
+no config) raises too.
 """
 
 from typing import Dict, Sequence, Tuple
@@ -121,10 +124,15 @@ class CenterHeadMath:
     def task_strides(self):
         return [int(t["stride"]) for t in self.tasks]
 
-    def _decode_dense_boxes(self, preds_dict, task_id, with_vel):
+    def _decode_dense_boxes(self, preds_dict, task_id, with_vel,
+                            pre_activated=False):
         """reg/height/dim/rot maps (B, H, W, *) -> metric (B, H, W, D) boxes,
-        in f32."""
-        dim = torch.exp(preds_dict["dim"].clamp(-1.2, 3.2))
+        in f32. pre_activated: `dim` is already exp-clamped (the
+        double-flip average)."""
+        if pre_activated:
+            dim = preds_dict["dim"]
+        else:
+            dim = torch.exp(preds_dict["dim"].clamp(-1.2, 3.2))
         rot = torch.atan2(preds_dict["rot"][..., 0:1],
                           preds_dict["rot"][..., 1:2])
         reg = preds_dict["reg"]
@@ -206,16 +214,23 @@ class CenterHeadMath:
         box3d_lidar (B, K, D), scores (B, K), label_preds (B, K) int32,
         mask (B, K) bool; K = sum of the per-task post sizes."""
         del example
-        if test_cfg.get("double_flip", False):
-            raise NotImplementedError("double-flip TTA is not ported yet")
+        pre_activated = bool(test_cfg.get("double_flip", False))
+        if pre_activated:
+            # the batch holds groups of 4 flipped clouds (`DoubleFlip`):
+            # one averaged, pre-activated map set per frame
+            preds_dicts = [_average_double_flip(pd) for pd in preds_dicts]
         task_inputs = []
         class_offsets, offset = [], 0
         for task_id, preds_dict in enumerate(preds_dicts):
             preds_dict = {k: v.float() for k, v in preds_dict.items()}
-            hm = torch.sigmoid(preds_dict["hm"])
+            hm = (preds_dict["hm"] if pre_activated
+                  else torch.sigmoid(preds_dict["hm"]))
             boxes = self._decode_dense_boxes(preds_dict, task_id,
-                                             "vel" in preds_dict)
-            if "iou" in preds_dict:
+                                             "vel" in preds_dict,
+                                             pre_activated)
+            if "iou" in preds_dict and pre_activated:
+                iou = preds_dict["iou"][..., 0]
+            elif "iou" in preds_dict:
                 iou = ((preds_dict["iou"][..., 0] + 1.0) * 0.5).clamp(0.0, 1.0)
             else:
                 iou = torch.ones(hm.shape[:3], dtype=hm.dtype, device=hm.device)
@@ -461,3 +476,44 @@ class CenterHead(nn.Module):
 
     def predict(self, example, preds_dicts, test_cfg):
         return self.math().predict(example, preds_dicts, test_cfg)
+
+
+def _average_double_flip(preds_dict):
+    """Double-flip TTA (JAX `center_head.py::_average_double_flip`): the
+    batch (4B, H, W, C) comes in groups of 4 (the cloud, its y-flip, its
+    x-flip, its xy-flip). Each map is flipped back; `hm` is sigmoided,
+    `dim` exp-clamped and `iou` mapped to [0, 1] before the 4-way mean,
+    as the reference orders them; `reg`, `rot` and `vel` are unflipped
+    (offsets mirrored, signs changed) and averaged raw. Returns (B, H, W,
+    C) maps; hm, dim and iou pre-activated."""
+    out = {}
+    for k, v in preds_dict.items():
+        Bq, H, W, C = v.shape
+        v = v.float().reshape(Bq // 4, 4, H, W, C)
+        out[k] = torch.stack([v[:, 0], v[:, 1].flip(1), v[:, 2].flip(2),
+                              v[:, 3].flip((1, 2))], dim=1)
+
+    out["hm"] = torch.sigmoid(out["hm"])
+    out["dim"] = torch.exp(out["dim"].clamp(-1.2, 3.2))
+    if "iou" in out:
+        out["iou"] = ((out["iou"] + 1.0) * 0.5).clamp(0.0, 1.0)
+
+    reg = out["reg"]  # a fresh tensor (stack): edited in place
+    reg[:, 1, ..., 1] = 1 - reg[:, 1, ..., 1]
+    reg[:, 2, ..., 0] = 1 - reg[:, 2, ..., 0]
+    reg[:, 3, ..., 0] = 1 - reg[:, 3, ..., 0]
+    reg[:, 3, ..., 1] = 1 - reg[:, 3, ..., 1]
+
+    rot = out["rot"]  # channels (sin, cos)
+    rot[:, 1, ..., 1] *= -1
+    rot[:, 2, ..., 0] *= -1
+    rot[:, 3, ..., 0] *= -1
+    rot[:, 3, ..., 1] *= -1
+
+    if "vel" in out:
+        vel = out["vel"]
+        vel[:, 1, ..., 1] *= -1
+        vel[:, 2, ..., 0] *= -1
+        vel[:, 3] *= -1
+
+    return {k: v.mean(dim=1) for k, v in out.items()}

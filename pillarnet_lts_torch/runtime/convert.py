@@ -28,7 +28,7 @@ calibration (the 'quant' collection of a calibrated JAX model) is one
 unit: without a 'quant' collection the quant buffers stay unset and the
 model uncalibrated; with one, every quant buffer must be in it. Reference
 `.pth` checkpoints are a different naming (the reference's module names);
-they go through the JAX package's `convert_state_dict` first.
+`runtime/torch_convert.py` maps them onto `variables_template(model)`.
 """
 
 import re
@@ -71,6 +71,14 @@ _LEAVES = {
                       "bias": ("params", "bias", None),
                       "running_mean": ("batch_stats", "mean", None),
                       "running_var": ("batch_stats", "var", None)},
+}
+
+
+# transform -> the flax leaf shape of a port tensor shape (its inverse)
+_FLAX_SHAPE = {
+    _conv_kernel: lambda s: (s[2], s[3], s[1], s[0]),
+    _dense_kernel: lambda s: (s[1], s[0]),
+    _conv_transpose_kernel: lambda s: (s[2], s[3], s[0], s[1]),
 }
 
 
@@ -133,6 +141,23 @@ def load_jax_variables(model, variables):
             if key[0] == "quant":
                 mod.calibrated = True
     return model
+
+
+def variables_template(model):
+    """The flax-layout tree ('params' and 'batch_stats', f32 numpy zeros)
+    that `load_jax_variables` fills `model` from: the JAX package's
+    variables tree of the same config, shape for shape."""
+    tree = {}
+    for key, (t, fn, _, _) in _targets(model).items():
+        if key[0] == "quant":
+            continue
+        shape = tuple(t.shape)
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = np.zeros(shape if fn is None
+                                 else _FLAX_SHAPE[fn](shape), np.float32)
+    return tree
 
 
 _KEYSTR = re.compile(r"\['([^']*)'\]")

@@ -4,7 +4,10 @@ deploy: also the int8 conv and the fused int8 stage; the switches: the
 sorted-run scatter-max and the suppression mask; the two-stage and RPNG
 Waymo configs: scatter-max and overlap, no host sync, the card against the
 CPU; two-stage training: the overlap kernel on the RoI sampler's padded
-zero boxes, the sampler and a demo step against the CPU).
+zero boxes, the sampler and a demo step against the CPU; evaluation: the
+Waymo evaluator's overlap calls and metrics against the CPU, double-flip
+`dist_test` on the demo against the CPU, the trainer's val workflow
+against `dist_test`).
 
 This file imports no JAX, so it also runs where only PyTorch is installed.
 Every test needs a CUDA card with nvcc and skips without one. On the card,
@@ -1123,3 +1126,67 @@ def test_two_stage_train_step_on_the_card_matches_the_cpu(cuda):
 
     r = rcnn_train_card_vs_cpu(torch, cuda)
     assert r["rois_real"] > 0
+
+
+def test_waymo_evaluator_on_the_card_equals_the_cpu(cuda):
+    """The native Waymo evaluator with its IoU matrices on the card: one
+    rotated-overlap launch per frame and class with boxes on both sides,
+    each call bit-equal to the plain version on the card, and every metric
+    equal to the CPU evaluator's on the same boxes (the fixture's scenes,
+    `tools/make_eval_fixture.py`)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+    from make_eval_fixture import synth_waymo_scenes
+    from chip_smoke import capture_overlap
+
+    from pillarnet_lts_torch.datasets.waymo import waymo_eval
+
+    gt, pred = synth_waymo_scenes(seed=1, n_tokens=4)
+    before = _kernels.LAUNCHES["rotated_overlap"]
+    got, calls = capture_overlap(
+        lambda: waymo_eval.evaluate_waymo(gt, pred, device="cuda"))
+    torch.cuda.synchronize()
+    pairs = sum(int(((gt[t]["names"] == c).any())
+                    and (pred[t]["names"] == c).any())
+                for t in gt for c in ("VEHICLE", "PEDESTRIAN", "CYCLIST"))
+    assert _kernels.LAUNCHES["rotated_overlap"] - before == len(calls) \
+        == pairs
+    for a, b in calls:
+        want = tiou._pairwise_area_plain(a, b)
+        assert torch.equal(tiou.convex_intersection_area(a, b), want)
+    assert got == waymo_eval.evaluate_waymo(gt, pred, device="cpu")
+    assert 0.0 < got["mAP_L1"] < 1.0
+
+
+def test_double_flip_demo_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """`tools/dist_test.py` on the demo config with double-flip TTA, one
+    checkpoint of seeded weights with the heads spread on the first cloud:
+    the card's detections against the CPU's (the same kept detections and
+    labels, boxes within 1e-3 m, scores within 1e-4: phase 14e's
+    tolerances)."""
+    from chip_smoke import DEMO, DOUBLE_FLIP, config_file, spread_checkpoint
+    from pillarnet_lts_torch.tools import dist_test
+
+    demo = config_file(str(tmp_path), "demo_flip", DEMO, DOUBLE_FLIP)
+    args = [demo, "--seed", "0", "--checkpoint", spread_checkpoint(
+        torch, demo, "cpu", str(tmp_path / "ckpt")), "--work_dir",
+            str(tmp_path)]
+    got = dist_test.main(args)["detections"]
+    want = dist_test.main(args + ["--device", "cpu"])["detections"]
+    assert sorted(got) == sorted(want)
+    assert sum(len(d["scores"]) for d in want.values()) > 0
+    for t, w in want.items():
+        np.testing.assert_array_equal(got[t]["label_preds"], w["label_preds"])
+        np.testing.assert_allclose(got[t]["box3d_lidar"], w["box3d_lidar"],
+                                   rtol=0, atol=1e-3)
+        np.testing.assert_allclose(got[t]["scores"], w["scores"], rtol=0,
+                                   atol=1e-4)
+
+
+def test_trainer_val_on_the_card_matches_dist_test(cuda, tmp_path):
+    """`chip_smoke.py::eval_trainer` (phase 16d): the demo
+    `Trainer.run([('train', 1), ('val', 1)])` on the card logs what
+    `tools/dist_test.py` gives on the checkpoint it saved."""
+    from chip_smoke import eval_trainer
+
+    assert eval_trainer(torch, cuda, str(tmp_path))["logged"].startswith(
+        "Evaluation demo: demo mAP")
