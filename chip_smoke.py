@@ -163,6 +163,25 @@ Phases, each of which raises on failure:
      `Trainer.run([('train', 1), ('val', 1)])` on the card logging what
      `dist_test` gives on its checkpoint; (e) `--int8` over one batch of 4
      of (a)'s frames, its K1, K2 and 51 K4 calls replayed (K4 as phase 6).
+ 17. training as the configs write it: (a) `pillarrcnn18_waymo` at full
+     width and depth (bs=4, remat, dropout 0.3) with its train pipeline as
+     written (GT-AUG sampling 15 / 10 / 10 VEHICLE / PEDESTRIAN / CYCLIST
+     objects, flips, global rotation, scaling and translation, shuffle)
+     over 16 Waymo-layout frames of 196,608 points (GT boxes a frame from
+     4 / 2 / 0 to 48 / 22 / 2, 26 / 12 / 1 on average, so that sparse
+     frames get vehicles and pedestrians pasted) written under a temporary
+     directory laid out as the config's `data_root`, with the GT database
+     the port builds there (`datasets/utils/create_gt_database.py`) at the
+     config's `db_info_path`: the loader alone (ms a sample on one thread,
+     also split by whether GT-AUG pasted vehicles or pedestrians, and on
+     the config's threads; GT-AUG boxes a class and points pasted a
+     sample, points past `max_points`), then one epoch (4 steps) through
+     `apis.train_detector` with the launch counts set to 0 just before:
+     K1 and K2 (predict and sampler) on every step, step ms (median after
+     the first), samples/s, peak memory, the last step's K1 and K2 calls
+     replayed bit-equal against their plain versions and timed as phases
+     2 and 3; (b) `python -m pillarnet_lts_torch.tools.train` on the demo
+     config in a subprocess on the card: exit 0, finite loss, a checkpoint.
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
@@ -178,12 +197,14 @@ through) plus the separation test on every pair they test; the old count
 Every `torch.profiler` number comes from `profiled`, which retakes a
 session that lost device events and keeps the one that lost the fewest; a
 `[profiler]` line counts the sessions. Before the last three lines stdout
-carries phase 13's, 14's, 15's and 16's JSON records (`{"training": ...}`,
-`{"two_stage": ...}`, `{"two_stage_training": ...}`, `{"eval": ...}`);
-then the kernels' JSON record (K1's and K2's rows also carry
-`two_stage_launches`, under `two_stage_train` phase 15's launches and
-replays, and `eval_launches`, phase 16a's pipelined pass; K1's, K2's and
-K4's rows `eval_replays`, phase 16's replays by pass), the card's
+carries phase 13's, 14's, 15's, 16's and 17's JSON records
+(`{"training": ...}`, `{"two_stage": ...}`, `{"two_stage_training": ...}`,
+`{"eval": ...}`, `{"training_as_written": ...}`); then the kernels' JSON
+record (K1's and K2's rows also carry `two_stage_launches`, under
+`two_stage_train` phase 15's launches and replays, `eval_launches`, phase
+16a's pipelined pass, and under `augmented_train` phase 17a's launches and
+replays; K1's, K2's and K4's rows `eval_replays`, phase 16's replays by
+pass), the card's
 `nvidia-smi` name and power
 limit, and the last line `{"ok": true, "device": {...}}`. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
@@ -658,23 +679,41 @@ def check_overlap(torch, tag, a, b, phase="3", quiet=False):
     return r
 
 
+@contextlib.contextmanager
+def patched(owner, name, make):
+    """`owner.name` (a module's or an object's) replaced by make(real)
+    while the context is open."""
+    real, own = getattr(owner, name), name in vars(owner)
+    setattr(owner, name, make(real))
+    try:
+        yield
+    finally:
+        if own:
+            setattr(owner, name, real)
+        else:
+            delattr(owner, name)
+
+
+def recording(owner, name, calls, keep=lambda a, k: (a, k)):
+    """`owner.name` with keep(args, kwargs) of each call appended to
+    `calls` while the context is open."""
+    def make(real):
+        def record(*args, **kwargs):
+            calls.append(keep(args, kwargs))
+            return real(*args, **kwargs)
+        return record
+    return patched(owner, name, make)
+
+
 def capture_overlap(request):
     """Run request() with `ops.iou3d.convex_intersection_area` recorded:
     returns its result and the (a_quad, b_quad) of its K2 calls."""
     from pillarnet_lts_torch.ops import iou3d
 
-    calls, real = [], iou3d.convex_intersection_area
-
-    def recording(a, b):
-        calls.append((a, b))
-        return real(a, b)
-
-    iou3d.convex_intersection_area = recording
-    try:
-        out = request()
-    finally:
-        iou3d.convex_intersection_area = real
-    return out, calls
+    calls = []
+    with recording(iou3d, "convex_intersection_area", calls,
+                   keep=lambda a, k: a):
+        return request(), calls
 
 
 def check_no_sync(torch, infer, pts, msk, tag):
@@ -900,18 +939,15 @@ def recording_int8_convs(calls):
     `models/backbones/base.py::int8_conv_bn_act`."""
     from pillarnet_lts_torch.models.backbones import base
 
-    real = base.int8_conv_bn_act
+    def make(real):
+        def record(*args, **kw):
+            out = real(*args, **kw)
+            calls.append((args, kw, out))
+            return out
+        return record
 
-    def recording(*args, **kw):
-        out = real(*args, **kw)
-        calls.append((args, kw, out))
-        return out
-
-    base.int8_conv_bn_act = recording
-    try:
+    with patched(base, "int8_conv_bn_act", make):
         yield
-    finally:
-        base.int8_conv_bn_act = real
 
 
 def plain_kwargs(kw):
@@ -1441,44 +1477,48 @@ def serve_waymo(torch, dev, card):
     # phase 12: the switches, on three of the same clouds
     mask_cfg = dict(test_cfg, nms=dict(test_cfg["nms"], use_mask_kernel=True))
     seen = []
-    real = nms.suppression_matrix
 
-    def recording(boxes, thresh):  # the candidates the mask kernel sees
-        out = real(boxes, thresh)
-        seen.append((boxes, thresh, out))
-        return out
+    def make(real):
+        def record(boxes, thresh):  # the candidates the mask kernel sees
+            out = real(boxes, thresh)
+            seen.append((boxes, thresh, out))
+            return out
+        return record
 
     _kernels.reset_launches()
     try:
         scatter.set_backend("tiled")
         tiled = ServingPipeline(make_infer_fn(model, test_cfg), depth=1)
         masked = ServingPipeline(make_infer_fn(model, mask_cfg), depth=1)
-        nms.suppression_matrix = recording
-        for i in (3, 7, 11):
-            det, dt = serve(tiled, clouds[i], {"pillar_scatter_max_tiled",
-                                               "rotated_overlap"},
-                            f"tiled request {i}")
-            for key in det:
-                if not np.array_equal(det[key], dets[i][key]):
-                    raise AssertionError(f"tiled request {i}: {key} differs "
-                                         f"from the default route's")
-            seen.clear()
-            det, dt_m = serve(masked, clouds[i], {"pillar_scatter_max_tiled",
-                                                  "suppression_mask"},
-                              f"mask-kernel request {i}")
-            (boxes, thresh, m_kernel), = seen
-            flips = mask_flips(torch, boxes, thresh, m_kernel,
-                               f"waymo request {i}")
-            same = all(np.array_equal(det[k], dets[i][k]) for k in det)
-            if not same and flips == 0:
-                raise AssertionError(f"mask-kernel request {i}: detections "
-                                     f"differ with equal masks")
-            print(f"[12] request {i}: tiled scatter {dt:.2f} ms, detections "
-                  f"identical; + mask kernel {dt_m:.2f} ms, {flips} pairs "
-                  f"decided otherwise (within {MASK_EPS}), detections "
-                  f"{'identical' if same else 'differ'}")
+        with patched(nms, "suppression_matrix", make):
+            for i in (3, 7, 11):
+                det, dt = serve(tiled, clouds[i],
+                                {"pillar_scatter_max_tiled",
+                                 "rotated_overlap"}, f"tiled request {i}")
+                for key in det:
+                    if not np.array_equal(det[key], dets[i][key]):
+                        raise AssertionError(f"tiled request {i}: {key} "
+                                             f"differs from the default "
+                                             f"route's")
+                seen.clear()
+                det, dt_m = serve(masked, clouds[i],
+                                  {"pillar_scatter_max_tiled",
+                                   "suppression_mask"},
+                                  f"mask-kernel request {i}")
+                (boxes, thresh, m_kernel), = seen
+                flips = mask_flips(torch, boxes, thresh, m_kernel,
+                                   f"waymo request {i}")
+                same = all(np.array_equal(det[k], dets[i][k]) for k in det)
+                if not same and flips == 0:
+                    raise AssertionError(f"mask-kernel request {i}: "
+                                         f"detections differ with equal "
+                                         f"masks")
+                print(f"[12] request {i}: tiled scatter {dt:.2f} ms, "
+                      f"detections identical; + mask kernel {dt_m:.2f} ms, "
+                      f"{flips} pairs decided otherwise (within "
+                      f"{MASK_EPS}), detections "
+                      f"{'identical' if same else 'differ'}")
     finally:
-        nms.suppression_matrix = real
         scatter.set_backend("auto")
     launches = dict(_kernels.LAUNCHES)
     print(f"[12] launches over 3 + 3 requests: {launches}")
@@ -1490,18 +1530,9 @@ def capture_scatter(request):
     result and the (args, kwargs) of its K1 calls."""
     from pillarnet_lts_torch.models.readers import dynamic_pillar_encoder
 
-    calls, real = [], dynamic_pillar_encoder.pillar_scatter_max
-
-    def recording(*args, **kwargs):
-        calls.append((args, kwargs))
-        return real(*args, **kwargs)
-
-    dynamic_pillar_encoder.pillar_scatter_max = recording
-    try:
-        out = request()
-    finally:
-        dynamic_pillar_encoder.pillar_scatter_max = real
-    return out, calls
+    calls = []
+    with recording(dynamic_pillar_encoder, "pillar_scatter_max", calls):
+        return request(), calls
 
 
 def check_rcnn_detections(det, posts, tag):
@@ -2255,20 +2286,17 @@ def recording_sampler(records):
     from pillarnet_lts_torch.models.detectors import pillar_rcnn
     from pillarnet_lts_torch.ops import _kernels
 
-    real = pillar_rcnn.proposal_target_layer
+    def make(real):
+        def record(*args, **kwargs):
+            before = _kernels.LAUNCHES["rotated_overlap"]
+            out, calls = capture_overlap(lambda: real(*args, **kwargs))
+            records.append((_kernels.LAUNCHES["rotated_overlap"] - before,
+                            out, calls))
+            return out
+        return record
 
-    def recording(*args, **kwargs):
-        before = _kernels.LAUNCHES["rotated_overlap"]
-        out, calls = capture_overlap(lambda: real(*args, **kwargs))
-        records.append((_kernels.LAUNCHES["rotated_overlap"] - before, out,
-                        calls))
-        return out
-
-    pillar_rcnn.proposal_target_layer = recording
-    try:
+    with patched(pillar_rcnn, "proposal_target_layer", make):
         yield records
-    finally:
-        pillar_rcnn.proposal_target_layer = real
 
 
 @contextlib.contextmanager
@@ -3101,26 +3129,26 @@ def eval_waymo(torch, card, tmp):
     path = eval_config(tmp, WAYMO, info, "waymo")
     ckpt = spread_checkpoint(torch, path, "cuda",
                              os.path.join(tmp, "waymo_ckpt"))
-    calls, real = [], waymo_eval._iou_matrix
+    calls = []
 
-    def recording(gt, pred, device="cuda"):
-        before = _kernels.LAUNCHES["rotated_overlap"]
-        out, k2 = capture_overlap(lambda: real(gt, pred, device))
-        launched = _kernels.LAUNCHES["rotated_overlap"] - before
-        if launched != len(k2) or launched != int(len(gt) > 0
-                                                  and len(pred) > 0):
-            raise AssertionError(f"16b: an IoU matrix ({len(gt)}, "
-                                 f"{len(pred)}) made {launched} launches")
-        calls.extend(k2)
-        return out
+    def make(real):
+        def record(gt, pred, device="cuda"):
+            before = _kernels.LAUNCHES["rotated_overlap"]
+            out, k2 = capture_overlap(lambda: real(gt, pred, device))
+            launched = _kernels.LAUNCHES["rotated_overlap"] - before
+            if launched != len(k2) or launched != int(len(gt) > 0
+                                                      and len(pred) > 0):
+                raise AssertionError(f"16b: an IoU matrix ({len(gt)}, "
+                                     f"{len(pred)}) made {launched} "
+                                     f"launches")
+            calls.extend(k2)
+            return out
+        return record
 
-    waymo_eval._iou_matrix = recording
-    try:
+    with patched(waymo_eval, "_iou_matrix", make):
         out, launches = dist_test_run(torch, [
             path, "--checkpoint", ckpt, "--seed", "0", "--work_dir",
             os.path.join(tmp, "waymo_out")])
-    finally:
-        waymo_eval._iou_matrix = real
     if not calls:
         raise AssertionError("16b: the evaluator launched no K2")
     each = replay_overlap(torch, calls, "the Waymo evaluator's")
@@ -3317,6 +3345,312 @@ def evaluate(torch, dev, card):
     return rec, launches, replays
 
 
+# phase 17: training as the configs write it (augmentations, GT-AUG)
+AUG_FRAMES = 16  # 17a: Waymo-layout frames written, one epoch of 4 steps
+# 17a: each frame's GT (VEHICLE, PEDESTRIAN, CYCLIST), a Waymo frame's mean
+# WAYMO_GT_COUNTS spread from sparse scenes, below GT-AUG's 15 / 10 / 10
+# quotas, to dense ones above them
+AUG_GT_COUNTS = list(zip(
+    (4, 8, 12, 16, 20, 22, 24, 26, 26, 28, 30, 32, 36, 40, 44, 48),
+    (2, 4, 6, 8, 10, 11, 12, 12, 12, 12, 13, 14, 16, 18, 20, 22),
+    (0, 0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2)))
+DATA_ROOT = "data/Waymo/"  # the Waymo configs' relative data_root
+
+
+def rooted(obj, tmp):
+    """A copy of a config value with every path under DATA_ROOT moved
+    under directory `tmp`."""
+    if isinstance(obj, dict):
+        return {k: rooted(v, tmp) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [rooted(v, tmp) for v in obj]
+    if isinstance(obj, str) and obj.startswith(DATA_ROOT):
+        return os.path.join(tmp, obj)
+    return obj
+
+
+def augmented_set(tmp, cfg):
+    """AUG_FRAMES Waymo-layout frames of the config's `max_points` points
+    with AUG_GT_COUNTS' boxes a class, under `tmp` laid out as the config's
+    `data_root`, the infos under the config's train name, and the GT
+    database the port builds over them at the config's `db_info_path`.
+    Returns (seconds to write, seconds to build, database infos)."""
+    from pillarnet_lts_torch.datasets.synth import write_waymo_set
+    from pillarnet_lts_torch.datasets.utils import (
+        create_groundtruth_database)
+
+    root = os.path.join(tmp, DATA_ROOT)
+    train = cfg["data"]["train"]
+    t0 = time.perf_counter()
+    info = write_waymo_set(root, AUG_FRAMES, cfg["data"]["max_points"],
+                           cfg["class_names"], cfg["point_cloud_range"],
+                           seed=170, split="train",
+                           class_counts=AUG_GT_COUNTS)
+    os.replace(info, os.path.join(tmp, train["info_path"]))
+    t_write = time.perf_counter() - t0
+    pre = next(st["cfg"] for st in cfg["train_pipeline"]
+               if st["type"] == "Preprocess")
+    t0 = time.perf_counter()
+    infos = create_groundtruth_database(
+        "WaymoDataset", root, os.path.join(tmp, train["info_path"]),
+        used_classes=cfg["class_names"],
+        dbinfo_path=os.path.join(tmp, pre["db_sampler"]["db_info_path"]))
+    return t_write, time.perf_counter() - t0, infos
+
+
+def timed(fn, sums, key):
+    """fn with its host seconds added to sums[key] on every call."""
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            sums[key] = sums.get(key, 0.0) + time.perf_counter() - t0
+    return call
+
+
+def gt_aug_sampler(dataset):
+    """The GT-AUG sampler of a dataset's `Preprocess`."""
+    return next(t for t in dataset.pipeline.transforms
+                if type(t).__name__ == "Preprocess").db_sampler
+
+
+@contextlib.contextmanager
+def timed_pipeline(dataset):
+    """The host seconds of each stage of a dataset's pipeline, of GT-AUG's
+    `sample_all` and of `points_in_rbbox` (GT-AUG's cut of the raw
+    points), summed into the yielded dict while the context is open."""
+    from pillarnet_lts_torch.core.bbox import box_np_ops
+
+    sums, stages = {}, dataset.pipeline.transforms
+    sampler, kept = gt_aug_sampler(dataset), list(stages)
+    stages[:] = [timed(t, sums, type(t).__name__) for t in kept]
+    try:
+        with patched(sampler, "sample_all",
+                     lambda f: timed(f, sums, "GT-AUG sample_all")), \
+                patched(box_np_ops, "points_in_rbbox",
+                        lambda f: timed(f, sums, "points_in_rbbox")):
+            yield sums
+    finally:
+        stages[:] = kept
+
+
+@contextlib.contextmanager
+def gt_aug_stats(dataset, class_names):
+    """While open, each GT-AUG draw of a dataset's `Preprocess` appends
+    ([boxes of each of `class_names`], points) to the yielded list."""
+    counts = []
+
+    def make(real):
+        def sample_all(*args, **kwargs):
+            out = real(*args, **kwargs)
+            names = np.asarray([] if out is None else out["gt_names"])
+            counts.append(([int((names == n).sum()) for n in class_names],
+                           0 if out is None else len(out["points"])))
+            return out
+        return sample_all
+
+    with patched(gt_aug_sampler(dataset), "sample_all", make):
+        yield counts
+
+
+def loader_groups(sample_ms, boxes, dropped):
+    """17a's one-thread loader split by what GT-AUG pasted: samples given
+    vehicles or pedestrians (their frames below those quotas) and samples
+    given only cyclists. Per group: samples, ms a sample, points dropped
+    at `max_points` a sample."""
+    out = {}
+    for group, take in (("vehicles_or_pedestrians", True),
+                        ("cyclists_only", False)):
+        idx = [i for i, b in enumerate(boxes) if (b[0] + b[1] > 0) == take]
+        out[group] = {
+            "samples": len(idx),
+            "ms_per_sample": (statistics.mean(sample_ms[i] for i in idx)
+                              if idx else None),
+            "dropped_per_sample": [dropped[i] for i in idx]}
+    return out
+
+
+def train_augmented(torch, dev, card, tmp):
+    """Phase 17a: `pillarrcnn18_waymo` at full width and depth (bs=4,
+    remat, dropout 0.3) with its train pipeline as written (GT-AUG of
+    15 / 10 / 10 VEHICLE / PEDESTRIAN / CYCLIST, flips, rotation,
+    scaling, translation, shuffle) over AUG_FRAMES written frames, one
+    epoch through `apis.train_detector` with the launch counts set to 0
+    just before; the loader alone first (one thread, then the config's);
+    K1 and K2 (predict and sampler) on every step; the last step's K1 and
+    K2 calls replayed bit-equal. Returns (record, launches, K1 and K2
+    replay summaries)."""
+    from pillarnet_lts_torch.apis import build_model_from_cfg, train_detector
+    from pillarnet_lts_torch.datasets import DataLoader, build_dataset
+    from pillarnet_lts_torch.models.readers import dynamic_pillar_encoder
+    from pillarnet_lts_torch.ops import _kernels, iou3d
+    from pillarnet_lts_torch.runtime.hooks import Hook
+
+    cfg = rcnn_train_cfg(RCNN)
+    cfg["total_epochs"] = 1
+    t_write, t_db, db = augmented_set(tmp, cfg)
+    cfg["data"] = rooted(cfg["data"], tmp)
+    data = cfg["data"]
+    bs, max_points = data["samples_per_gpu"], data["max_points"]
+
+    # the loader alone: each sample once on one thread, then a pass of the
+    # config's threads
+    names = cfg["class_names"]
+    dataset = build_dataset(data["train"])
+    sizes, sample_ms = [], []
+    with gt_aug_stats(dataset, names) as counts, \
+            timed_pipeline(dataset) as stage_s:
+        for i in range(len(dataset)):
+            t0 = time.perf_counter()
+            sizes.append(len(dataset[i]["points"]))
+            sample_ms.append((time.perf_counter() - t0) * 1e3)
+    serial_ms = statistics.mean(sample_ms)
+    stage_ms = {k: v / len(dataset) * 1e3 for k, v in stage_s.items()}
+    loader = DataLoader(dataset, bs, shuffle=True,
+                        num_workers=data["workers_per_gpu"],
+                        max_points=max_points, seed=1)
+    t0 = time.perf_counter()
+    n = sum(len(b["metadata"]) for b in loader)
+    threaded_ms = (time.perf_counter() - t0) / n * 1e3
+    boxes = [c[0] for c in counts]
+    pasted = [c[1] for c in counts]
+    dropped = [max(0, k - max_points) for k in sizes]
+    groups = loader_groups(sample_ms, boxes, dropped)
+    if min(map(sum, boxes)) < 1 or not all(
+            sum(b[c] for b in boxes) for c in range(len(names))):
+        raise AssertionError(f"17a: a sample without GT-AUG boxes or a "
+                             f"class never pasted: {boxes}")
+
+    # one epoch through train_detector, the last step's kernel calls kept
+    model = build_model_from_cfg(cfg, device=dev, seed=0)
+    dataset = build_dataset(data["train"])
+    k1_calls, k2_calls, per_step = [], [], []
+    steps = len(dataset) // bs
+
+    class LastStep(Hook):
+        def before_train_iter(self, trainer):
+            self.before = dict(_kernels.LAUNCHES)
+            self.stack = contextlib.ExitStack()
+            if trainer.iter == steps - 1:
+                self.stack.enter_context(recording(
+                    dynamic_pillar_encoder, "pillar_scatter_max", k1_calls))
+                self.stack.enter_context(recording(
+                    iou3d, "convex_intersection_area", k2_calls,
+                    keep=lambda a, k: a))
+
+        def after_train_iter(self, trainer):
+            self.stack.close()
+            n = {k: _kernels.LAUNCHES[k] - self.before[k]
+                 for k in ("pillar_scatter_max", "rotated_overlap")}
+            if n["pillar_scatter_max"] < 1 or n["rotated_overlap"] < 3:
+                raise AssertionError(f"17a step {trainer.iter}: {n}")
+            per_step.append(n)
+
+    work = os.path.join(tmp, "work")
+    with open(RCNN) as f:
+        cfg_text = f.read()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with gt_aug_stats(dataset, names) as train_counts:
+        _kernels.reset_launches()
+        trainer = train_detector(model, dataset, cfg, work_dir=work,
+                                 cfg_text=cfg_text, hooks=[LastStep()])
+        launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = trainer.log_buffer.val_history
+    for k, vals in hist.items():
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"17a: non-finite {k}: {vals}")
+    if trainer.iter != steps or not os.path.exists(
+            os.path.join(work, "epoch_1.pth")):
+        raise AssertionError(f"17a: {trainer.iter} steps, no checkpoint")
+    step_ms = [(t - d) * 1e3 for t, d in zip(hist["time"], hist["data_time"])]
+    med = statistics.median(step_ms[1:])
+    del trainer, model
+    if (len(k1_calls), len(k2_calls)) != (per_step[-1]["pillar_scatter_max"],
+                                          per_step[-1]["rotated_overlap"]):
+        raise AssertionError(f"17a: captured {len(k1_calls)} K1 and "
+                             f"{len(k2_calls)} K2 calls of {per_step[-1]}")
+    replays, _ = replay_pass(torch, "17a", k1_calls, k2_calls,
+                             "predict and RoI sampler")
+    del k1_calls, k2_calls
+    torch.cuda.empty_cache()
+    rec = {"config": "configs/pillarrcnn/pillarrcnn18_waymo.py",
+           "frames": AUG_FRAMES, "points_per_frame": max_points,
+           "gt_per_frame": AUG_GT_COUNTS, "batch": bs,
+           "steps": steps, "write_s": t_write, "gt_database_s": t_db,
+           "gt_database": {str(k): len(v) for k, v in db.items()},
+           "step_ms": step_ms, "median_step_ms_after_first": med,
+           "samples_per_s": bs / med * 1e3,
+           "data_ms": [d * 1e3 for d in hist["data_time"]],
+           "peak_allocated_gib": peak / 2**30, "loss": hist["loss"],
+           "loader_ms_per_sample_one_thread": serial_ms,
+           "loader_stage_ms_per_sample_one_thread": stage_ms,
+           "loader_ms_per_sample_threads": threaded_ms,
+           "loader_threads": data["workers_per_gpu"],
+           "loader_ms_one_thread_by_gt_aug": groups,
+           "sampled_boxes_per_sample_by_class": boxes,
+           "pasted_points_per_sample": pasted,
+           "points_per_sample": sizes, "dropped_at_max_points": dropped,
+           "train_sampled_boxes_by_class": [c[0] for c in train_counts],
+           "train_pasted_points": [c[1] for c in train_counts],
+           "per_step_launches": per_step, "launches": launches,
+           "replays": replays}
+    print(f"[17a] pillarrcnn18_waymo trained as written (GT-AUG "
+          f"15/10/10, flips, rotation, scaling, translation), bs={bs}, "
+          f"remat, dropout 0.3, {AUG_FRAMES} written frames of {max_points} "
+          f"points (GT a class {AUG_GT_COUNTS}; written "
+          f"in {t_write:.1f} s, GT database {rec['gt_database']} in "
+          f"{t_db:.1f} s): steps {', '.join(f'{t:.1f}' for t in step_ms)} "
+          f"ms, median after the first {med:.1f} ms, {bs / med * 1e3:.3f} "
+          f"samples/s, peak allocated {peak / 2**30:.3f} GiB, loss "
+          f"{hist['loss'][0]:.3f} -> {hist['loss'][-1]:.3f}; the loader "
+          f"alone {serial_ms:.1f} ms a sample on one thread ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
+          + f"), {threaded_ms:.1f} on {data['workers_per_gpu']}; by what "
+          f"GT-AUG pasted {groups}; GT-AUG boxes a sample by class "
+          f"{boxes}, points pasted {pasted}, points past max_points "
+          f"{dropped}; K1 / K2 a step {per_step}; card: {card}")
+    return rec, launches, replays
+
+
+def train_cli(torch, tmp):
+    """Phase 17b: `python -m pillarnet_lts_torch.tools.train` on the demo
+    config in a subprocess on the card: exit 0, finite losses, a
+    checkpoint."""
+    work = os.path.join(tmp, "cli")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "pillarnet_lts_torch.tools.train", DEMO,
+         "--work_dir", work, "--seed", "7"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"17b: the training CLI exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    with open(os.path.join(work, "log.json")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    if not losses or not all(math.isfinite(v) for v in losses) \
+            or not os.path.exists(os.path.join(work, "epoch_1.pth")):
+        raise AssertionError(f"17b: losses {losses}, {os.listdir(work)}")
+    print(f"[17b] python -m pillarnet_lts_torch.tools.train "
+          f"configs/demo/pillarnet18_demo.py --seed 7 on the card: exit 0 in "
+          f"{seconds:.1f} s, loss {losses}, checkpoint epoch_1.pth")
+    return {"seconds": seconds, "loss": losses}
+
+
+def train_as_written(torch, dev, card):
+    """Phase 17. Returns its record, 17a's launches and K1 / K2 replays."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="pillarnet_aug_") as tmp:
+        t0 = time.perf_counter()
+        rec, launches, replays = train_augmented(torch, dev, card, tmp)
+        rec["seconds"] = time.perf_counter() - t0
+        cli = train_cli(torch, tmp)
+    return {"augmented": rec, "cli": cli}, launches, replays
+
+
 def main():
     import torch
 
@@ -3384,6 +3718,8 @@ def main():
     scatter["max_abs_err"] = max(scatter["max_abs_err"],
                                  k1_train["max_abs_err"])
     evaluation, eval_launches, eval_replays = evaluate(torch, dev, card)
+    as_written, aug_launches, aug_replays = train_as_written(torch, dev,
+                                                             card)
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
@@ -3468,6 +3804,15 @@ def main():
         record["kernels"][i]["max_abs_err"] = max(
             [record["kernels"][i]["max_abs_err"]]
             + [r["max_abs_err"] for r in eval_replays[key].values()])
+    # training as the configs write it (phase 17a, counts reset just
+    # before), and its last step's K1 and K2 calls replayed
+    for i, key in ((0, "k1"), (2, "k2")):
+        name = ("pillar_scatter_max", "rotated_overlap")[i // 2]
+        record["kernels"][i]["augmented_train"] = {
+            "launches": aug_launches[name], "replays": aug_replays[key]}
+        record["kernels"][i]["max_abs_err"] = max(
+            record["kernels"][i]["max_abs_err"],
+            aug_replays[key]["max_abs_err"])
     conv16 = eval_replays["k4"]
     record["kernels"][4]["eval_replays"] = {"16e_int8": {
         "calls": sum(r["launches"] for r in conv16["shapes"]),
@@ -3486,6 +3831,7 @@ def main():
     print(json.dumps({"two_stage": two_stage}))
     print(json.dumps({"two_stage_training": two_stage_training}))
     print(json.dumps({"eval": evaluation}))
+    print(json.dumps({"training_as_written": as_written}))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

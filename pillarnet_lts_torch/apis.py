@@ -2,6 +2,7 @@
 
 import logging
 import os
+import pickle
 import runpy
 import types
 
@@ -10,7 +11,10 @@ import torch
 
 from .models import build_detector
 from .models.utils import init_weights
+from .runtime.checkpoint import is_port_checkpoint, load_pretrained
 from .runtime.hooks import CheckpointHook, IterTimerHook, TextLoggerHook
+from .runtime.torch_convert import (load_reference_checkpoint,
+                                    normalize_state_dict)
 from .runtime.trainer import Trainer
 from .datasets.loader import DataLoader
 from .solver import build_optimizer
@@ -95,18 +99,56 @@ def optimizer_from_cfg(model, cfg, total_steps):
                            clip["max_norm"] if clip else None)
 
 
+def apply_pretrained(model, model_cfg, logger=None):
+    """Load a config's `pretrained` weights into `model`, in place:
+    `model.pretrained` into the whole model, `model.first_stage_cfg.
+    pretrained` into a PillarRCNN's first stage (`single_det`). A source
+    is a checkpoint of the port's trainer (`runtime.checkpoint.
+    load_pretrained`, by name and shape) or a reference det3d `.pth`
+    (`runtime.torch_convert`, whole model only, non-strict). As in the
+    JAX package, a file that is missing or cannot be read logs a warning
+    and training goes on from the weights the model has."""
+    logger = logger or logging.getLogger("train")
+    specs = []
+    if model_cfg.get("pretrained"):
+        specs.append((model_cfg["pretrained"], None))
+    if (model_cfg.get("first_stage_cfg") or {}).get("pretrained"):
+        specs.append((model_cfg["first_stage_cfg"]["pretrained"],
+                      "single_det"))
+    for path, subtree in specs:
+        try:
+            blob = torch.load(path, map_location="cpu", weights_only=True)
+            if is_port_checkpoint(blob):
+                load_pretrained(model, blob, subtree=subtree, logger=logger)
+            elif subtree is not None:
+                raise ValueError("a reference checkpoint loads into the "
+                                 "whole model only")
+            else:
+                rep = load_reference_checkpoint(
+                    model, normalize_state_dict(blob), strict=False)
+                logger.info("converted reference checkpoint %s (%d leaves, "
+                            "%d missing)", path, len(rep["converted"]),
+                            len(rep["missing"]))
+            logger.info("init weight from %s", path)
+        except (OSError, RuntimeError, ValueError, KeyError,
+                pickle.UnpicklingError) as e:
+            logger.warning("no pretrained model at %s (%s)", path, e)
+
+
 def train_detector(model, dataset, cfg, logger=None, resume_from=None,
                    cfg_text=None, work_dir=None, hooks=(), seed=0,
                    val_dataset=None):
     """Train `model` (on its device) on `dataset` as the config says:
     batches of `data.samples_per_gpu` padded to `data.max_points`,
-    shuffled per epoch (`np.random.RandomState(epoch)`), made by
-    `data.workers_per_gpu` loader threads; the one-cycle AdamW over all
-    `total_epochs`; a log every `log_config.interval` steps and a
-    checkpoint every `checkpoint_config.interval` epochs under `work_dir`
-    (default: the config's), then `hooks`. `resume_from` a checkpoint
-    path, or True for the latest. `seed`: the run's, from which each
-    step's generator (RoI sampling, dropout) is made with the step count.
+    shuffled per epoch (`np.random.RandomState(seed + epoch)`, which also
+    seeds each sample's draws), made by `data.workers_per_gpu` loader
+    threads; the config's `pretrained` weights (`apply_pretrained`); its
+    optimizer and lr schedule over all `total_epochs`; a log every
+    `log_config.interval` steps and a checkpoint every
+    `checkpoint_config.interval` epochs under `work_dir` (default: the
+    config's), then `hooks`. `resume_from` a checkpoint path, or True for
+    the latest. `seed`: the run's, which seeds the loader and, with the
+    step count, each step's generator (RoI sampling, dropout).
     With `val_dataset`, each epoch is followed by its evaluation
     (`Trainer.run`'s workflow [('train', 1), ('val', 1)]), read in batches
     of `data.samples_per_gpu`. Returns the `Trainer`."""
@@ -114,7 +156,8 @@ def train_detector(model, dataset, cfg, logger=None, resume_from=None,
     data = cfg["data"]
     workers = data.get("workers_per_gpu", 2)
     loader = DataLoader(dataset, data["samples_per_gpu"], shuffle=True,
-                        num_workers=workers, max_points=data["max_points"])
+                        num_workers=workers, max_points=data["max_points"],
+                        seed=seed)
     val_loader, workflow = None, None
     if val_dataset is not None:
         val_loader = DataLoader(val_dataset, data["samples_per_gpu"],
@@ -136,6 +179,7 @@ def train_detector(model, dataset, cfg, logger=None, resume_from=None,
         (cfg.get("checkpoint_config") or {}).get("interval", 1)))
     for hook in hooks:
         trainer.register_hook(hook)
+    apply_pretrained(model, cfg["model"], logger)
     if resume_from:
         trainer.resume(None if resume_from is True else resume_from)
     trainer.run(loader, total_epochs, workflow=workflow,

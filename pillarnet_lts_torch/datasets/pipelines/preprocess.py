@@ -1,26 +1,45 @@
 """Train preprocessing and CenterNet target assignment (numpy, host).
 
 The port's own copy of `pillarnet_lts_tpu/datasets/pipelines/preprocess.py`
-(`Preprocess`, `flatten`, `merge_multi_group_label`, `AssignLabel`; lines
-165-350) and of `core/bbox/box_np_ops.py::limit_period`. `AssignLabel`
-gives the same arrays, bit for bit: per task `hm` (H, W, C), `anno_box`
-(max_objs, 10), `ind`, `mask`, `cat` (max_objs,) and `gt_box`
-(max_objs, 7), plus `gt_boxes_and_cls` (max_objs, 10).
-
-Not ported yet: `Preprocess`'s augmentations (flips, global rotation,
-scaling, translation) and the GT-AUG database sampler; a train config that
-asks for them raises unless it sets `no_augmentation=True`.
+(`Preprocess`, `flatten`, `merge_multi_group_label`, `AssignLabel`).
+`Preprocess` in train mode runs the JAX package's steps in its order:
+drop `DontCare` / `ignore` / `UNKNOWN` boxes, keep boxes with at least
+`min_points_in_gt` points, GT-AUG (`core/sampler/db_sampler.py`: the raw
+points inside the pasted boxes go, the pasted objects' points come
+first), keep the boxes of `class_names` and number them from 1, then flip,
+rotate, scale and translate the scene (`core/sampler/augment.py`), and
+shuffle the points. `no_augmentation=True` keeps only the class filter
+and the shuffle. Every draw but GT-AUG's comes from the sample's
+generator `res["rng"]` (which the dataset makes), where the JAX package
+draws from numpy's global state; GT-AUG draws from the sampler's own
+generator. `AssignLabel` gives the same arrays, bit for bit: per task `hm`
+(H, W, C), `anno_box` (max_objs, 10), `ind`, `mask`, `cat` (max_objs,) and
+`gt_box` (max_objs, 7), plus `gt_boxes_and_cls` (max_objs, 10).
 """
 
 import numpy as np
 
+from ...core.bbox import box_np_ops
+from ...core.bbox.box_np_ops import limit_period  # noqa: F401  (its old home)
+from ...core.sampler import augment
+from ...core.sampler.db_sampler import build_db_sampler
 from ...core.target.center_target import draw_gaussian, gaussian_radius
 from ..registry import PIPELINES
 
+_DROPPED_NAMES = ("DontCare", "ignore", "UNKNOWN")
 
-def limit_period(val, offset=0.5, period=np.pi):
-    """Wrap angles into one period."""
-    return val - np.floor(val / period + offset) * period
+
+def _dict_select(dict_, inds):
+    for k, v in dict_.items():
+        dict_[k] = v[inds]
+
+
+def shuffle_rows(rng, points):
+    """`rng.shuffle(points)`, in place, with the same draws and the same
+    order: the legacy shuffle swaps a 2-D array's rows one by one under
+    the interpreter lock, `permutation` makes the same swaps on an index
+    array, and one gather applies them."""
+    points[...] = points[rng.permutation(len(points))]
 
 
 def flatten(box):
@@ -37,24 +56,27 @@ def merge_multi_group_label(gt_classes, num_classes_by_task):
 
 @PIPELINES.register_module
 class Preprocess:
-    """Train mode: keep the boxes of `class_names` and number their classes
-    from 1; val mode: points only. The cloud is `combined` (points and time
-    lag), or a single-sweep Waymo frame's `points`. `shuffle_points`
-    shuffles with the sample's generator (`res["rng"]`, which the
-    dataset makes), where the JAX package shuffles with numpy's global
-    one: the same seed, the same order."""
+    """Train mode: the ground truth filtered and augmented (module
+    docstring) as `annotations` {gt_boxes, gt_names, gt_classes}; val
+    mode: points only. The cloud is `combined` (points and time lag), or
+    a single-sweep Waymo frame's `points`; the augmentations change it in
+    place."""
 
     def __init__(self, cfg):
         self.mode = cfg["mode"]
         self.shuffle_points = cfg["shuffle_points"]
+        self.min_points_in_gt = cfg.get("min_points_in_gt", -1)
+        self.no_augmentation = cfg.get("no_augmentation", False)
+        self.db_sampler = None
         if self.mode == "train":
             self.class_names = cfg["class_names"]
+        if self.mode == "train" and not self.no_augmentation:
+            self.global_rotation_noise = cfg["global_rot_noise"]
+            self.global_scaling_noise = cfg["global_scale_noise"]
+            self.global_translate_std = cfg.get("global_translate_std", 0)
             sampler = cfg.get("db_sampler")
-            if not cfg.get("no_augmentation", False) or (
-                    sampler is not None and sampler.get("enable", True)):
-                raise NotImplementedError(
-                    "training augmentations and GT-AUG are not ported yet; "
-                    "set no_augmentation=True and no db_sampler")
+            if sampler is not None and sampler.get("enable", True):
+                self.db_sampler = build_db_sampler(sampler)
 
     def __call__(self, res, info):
         res["mode"] = self.mode
@@ -66,19 +88,65 @@ class Preprocess:
             raise NotImplementedError(f"dataset type {res['type']!r}")
         if self.mode == "train":
             anno = res["lidar"]["annotations"]
-            names = np.array(anno["names"]).reshape(-1)
-            keep = np.array([n in self.class_names for n in names],
-                            dtype=np.bool_)
-            gt_dict = {"gt_boxes": anno["boxes"][keep],
-                       "gt_names": names[keep]}
+            gt_dict = {"gt_boxes": anno["boxes"],
+                       "gt_names": np.array(anno["names"]).reshape(-1)}
+            if self.no_augmentation:
+                keep = self._class_mask(gt_dict)
+            else:
+                points, keep = self._augment(res, points, gt_dict)
+            _dict_select(gt_dict, keep)
             gt_dict["gt_classes"] = np.array(
                 [self.class_names.index(n) + 1 for n in gt_dict["gt_names"]],
                 dtype=np.int32)
+            if not self.no_augmentation:
+                self._global_noise(res["rng"], gt_dict, points)
             res["lidar"]["annotations"] = gt_dict
         if self.shuffle_points:
-            res["rng"].shuffle(points)
+            shuffle_rows(res["rng"], points)
         res["lidar"]["points"] = points
         return res, info
+
+    def _class_mask(self, gt_dict):
+        return np.array([n in self.class_names for n in gt_dict["gt_names"]],
+                        dtype=np.bool_)
+
+    def _augment(self, res, points, gt_dict):
+        """The steps before the class filter: returns the cloud (with any
+        GT-AUG objects) and the class mask of `gt_dict`'s boxes."""
+        _dict_select(gt_dict, np.array(
+            [i for i, n in enumerate(gt_dict["gt_names"])
+             if n not in _DROPPED_NAMES], dtype=np.int64))
+        if self.min_points_in_gt > 0:
+            counts = box_np_ops.points_count_rbbox(points,
+                                                   gt_dict["gt_boxes"])
+            _dict_select(gt_dict, counts >= self.min_points_in_gt)
+        keep = self._class_mask(gt_dict)
+        if self.db_sampler is None:
+            return points, keep
+        sampled = self.db_sampler.sample_all(
+            res["metadata"]["image_prefix"], gt_dict["gt_boxes"],
+            gt_dict["gt_names"], res["metadata"]["num_point_features"])
+        if sampled is None:
+            return points, keep
+        gt_dict["gt_names"] = np.concatenate(
+            [gt_dict["gt_names"], sampled["gt_names"]], axis=0)
+        gt_dict["gt_boxes"] = np.concatenate(
+            [gt_dict["gt_boxes"], sampled["gt_boxes"]])
+        keep = np.concatenate([keep, sampled["gt_masks"]], axis=0)
+        inside = box_np_ops.points_in_rbbox(
+            points, sampled["gt_boxes"][sampled["gt_masks"]])
+        points = points[np.logical_not(inside.any(-1))]
+        return np.concatenate([sampled["points"], points], axis=0), keep
+
+    def _global_noise(self, rng, gt_dict, points):
+        boxes = gt_dict["gt_boxes"]
+        augment.random_flip_both(boxes, points, rng)
+        augment.global_rotation(boxes, points, rng,
+                                rotation=self.global_rotation_noise)
+        augment.global_scaling_v2(boxes, points, rng,
+                                  *self.global_scaling_noise)
+        augment.global_translate_(boxes, points, rng,
+                                  self.global_translate_std)
 
 
 @PIPELINES.register_module

@@ -228,21 +228,25 @@ def write_waymo_set(root, num_frames, num_points, class_names, pc_range,
     `infos_{split}.pkl` with the scene's boxes as GT (`gt_boxes` (n, 9),
     upper-case `gt_names`, `num_points_in_gt`, `difficulty`). By default
     a frame holds the demo's 3-8 boxes, the classes cycled; with
-    `class_counts` (one count per class) every frame holds that many boxes
-    of each class. Returns the info path."""
+    `class_counts` (one count per class, or one such row per frame) each
+    frame holds that many boxes of each class. Returns the info path."""
     import os
     import pickle
 
     os.makedirs(os.path.join(root, split, "lidar"), exist_ok=True)
     infos = []
-    num_boxes = (3, 9)
+    counts = None
     if class_counts is not None:
-        num_boxes = (sum(class_counts), sum(class_counts) + 1)
+        counts = np.broadcast_to(np.asarray(class_counts, np.int64),
+                                 (num_frames, len(class_names)))
     for i in range(num_frames):
+        num_boxes = (3, 9)
+        if counts is not None:
+            num_boxes = (int(counts[i].sum()), int(counts[i].sum()) + 1)
         points, boxes, names = synth_scene(seed + i, num_points, pc_range,
                                            class_names, num_boxes)
-        if class_counts is not None:
-            names = np.repeat(np.asarray(class_names), class_counts)
+        if counts is not None:
+            names = np.repeat(np.asarray(class_names), counts[i])
         token = f"seq_{seed}_frame_{i}.pkl"
         path = os.path.join(root, split, "lidar", token)
         elongation = np.random.RandomState(seed + i).uniform(

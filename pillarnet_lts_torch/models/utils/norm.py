@@ -44,6 +44,7 @@ from ...core.utils import f32_reciprocal
 
 _MOMENTUM = 0.01
 _REPLAY = threading.local()
+_EXACT = threading.local()
 
 
 @contextlib.contextmanager
@@ -56,6 +57,19 @@ def recomputing():
         yield
     finally:
         _REPLAY.active = prev
+
+
+@contextlib.contextmanager
+def exact_statistics():
+    """Within it a training forward sets each norm's running statistics
+    to its batch's own (momentum 1: `0 * running + mean` is the mean
+    exactly), what precise BN (`runtime/precise_bn.py`) collects."""
+    prev = getattr(_EXACT, "momentum", _MOMENTUM)
+    _EXACT.momentum = 1.0
+    try:
+        yield
+    finally:
+        _EXACT.momentum = prev
 
 
 def _clamp0(v):
@@ -130,7 +144,7 @@ class MaskedBatchNorm(nn.Module):
             with torch.no_grad():
                 unbiased = (var * bessel if mask is None
                             else var * cnt / (cnt - 1.0).clamp_min(1.0))
-                m = _MOMENTUM
+                m = getattr(_EXACT, "momentum", _MOMENTUM)
                 self.running_mean.copy_(
                     (1.0 - m) * self.running_mean + m * mean)
                 self.running_var.copy_(

@@ -28,7 +28,8 @@ calibration (the 'quant' collection of a calibrated JAX model) is one
 unit: without a 'quant' collection the quant buffers stay unset and the
 model uncalibrated; with one, every quant buffer must be in it. Reference
 `.pth` checkpoints are a different naming (the reference's module names);
-`runtime/torch_convert.py` maps them onto `variables_template(model)`.
+`runtime/torch_convert.py` maps them onto `variables_of(model)`, the
+model's own weights in flax layout.
 """
 
 import re
@@ -71,14 +72,6 @@ _LEAVES = {
                       "bias": ("params", "bias", None),
                       "running_mean": ("batch_stats", "mean", None),
                       "running_var": ("batch_stats", "var", None)},
-}
-
-
-# transform -> the flax leaf shape of a port tensor shape (its inverse)
-_FLAX_SHAPE = {
-    _conv_kernel: lambda s: (s[2], s[3], s[1], s[0]),
-    _dense_kernel: lambda s: (s[1], s[0]),
-    _conv_transpose_kernel: lambda s: (s[2], s[3], s[0], s[1]),
 }
 
 
@@ -143,20 +136,30 @@ def load_jax_variables(model, variables):
     return model
 
 
-def variables_template(model):
-    """The flax-layout tree ('params' and 'batch_stats', f32 numpy zeros)
-    that `load_jax_variables` fills `model` from: the JAX package's
-    variables tree of the same config, shape for shape."""
+# transform -> its inverse: a port tensor back to the flax leaf
+_TO_FLAX = {
+    _conv_kernel: lambda w: np.transpose(w, (2, 3, 1, 0)),
+    _dense_kernel: lambda w: np.transpose(w, (1, 0)),
+    _conv_transpose_kernel: lambda w: np.transpose(w, (2, 3, 0, 1))[::-1,
+                                                                    ::-1],
+}
+
+
+def variables_of(model):
+    """The model's current weights as a flax-layout tree ('params' and
+    'batch_stats', f32 numpy), the inverse of `load_jax_variables`: a
+    template whose leaves keep the model's values where a non-strict
+    conversion fills nothing."""
     tree = {}
     for key, (t, fn, _, _) in _targets(model).items():
         if key[0] == "quant":
             continue
-        shape = tuple(t.shape)
+        w = t.detach().float().cpu().numpy()
         node = tree
         for k in key[:-1]:
             node = node.setdefault(k, {})
-        node[key[-1]] = np.zeros(shape if fn is None
-                                 else _FLAX_SHAPE[fn](shape), np.float32)
+        node[key[-1]] = np.ascontiguousarray(
+            w if fn is None else _TO_FLAX[fn](w))
     return tree
 
 

@@ -1,7 +1,8 @@
-"""Trainer hooks: iteration timer, text/json logger, per-epoch checkpoint.
+"""Trainer hooks: iteration timer, text/json logger, TensorBoard logger,
+per-epoch checkpoint.
 
 Port of the JAX package's `runtime/hooks.py` (`Hook`, `IterTimerHook`,
-`TextLoggerHook`, `CheckpointHook`); the TensorBoard hook waits.
+`TextLoggerHook`, `TensorboardLoggerHook`, `CheckpointHook`).
 """
 
 import datetime
@@ -79,6 +80,40 @@ class TextLoggerHook(Hook):
         with open(self._json_path, "a") as f:
             f.write(json.dumps(record) + "\n")
         trainer.log_buffer.clear_output()
+
+
+class TensorboardLoggerHook(Hook):
+    """The metrics averaged over `interval` iterations as TensorBoard
+    scalars `train/<key>` at the global iteration, written through
+    `torch.utils.tensorboard` under `log_dir` (default
+    `{work_dir}/tf_logs`). Without the `tensorboard` package it does
+    nothing and logs one warning."""
+
+    def __init__(self, log_dir=None, interval=10):
+        self.log_dir = log_dir
+        self.interval = interval
+        self.writer = None
+
+    def before_run(self, trainer):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            trainer.logger.warning("TensorBoard logging is off (%s)", e)
+            return
+        self.writer = SummaryWriter(
+            self.log_dir or os.path.join(trainer.work_dir, "tf_logs"))
+
+    def after_train_iter(self, trainer):
+        if self.writer is None or (trainer.inner_iter + 1) % self.interval:
+            return
+        trainer.log_buffer.average(self.interval)
+        for k, v in trainer.log_buffer.output.items():
+            self.writer.add_scalar(f"train/{k}", v, trainer.iter)
+
+    def after_run(self, trainer):
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
 
 
 class CheckpointHook(Hook):

@@ -8,7 +8,7 @@ releases trained weights as torch ``.pth`` state_dicts (saved by
 them onto the flax variables layout (``{'params': ..., 'batch_stats':
 ...}``), whose module paths the port's modules mirror, with exact
 numerics; `load_reference_checkpoint` takes the target template from a
-port model (`convert.variables_template`) and fills the model, so no JAX
+port model (`convert.variables_of`) and fills the model, so no JAX
 hop is needed:
 
   torch module (state_dict key)                 ours (variables path)
@@ -676,14 +676,15 @@ def _merge_with_template(template, converted):
 
 def load_reference_checkpoint(model, path_or_state_dict, strict=True):
     """Fill port `model` from a reference det3d checkpoint (a `.pth` path
-    or a loaded state_dict): convert onto the model's flax-layout template
-    (`convert.variables_template`), then `convert.load_jax_variables`.
-    Returns the conversion report."""
-    from .convert import load_jax_variables, variables_template
+    or a loaded state_dict): convert onto the model's own weights in flax
+    layout (`convert.variables_of`), then `convert.load_jax_variables`.
+    With `strict=False` the leaves the checkpoint lacks keep the model's
+    values. Returns the conversion report."""
+    from .convert import load_jax_variables, variables_of
 
     sd = (load_torch_state_dict(path_or_state_dict)
           if isinstance(path_or_state_dict, str) else path_or_state_dict)
-    variables, report = convert_state_dict(sd, variables_template(model),
+    variables, report = convert_state_dict(sd, variables_of(model),
                                            strict=strict)
     load_jax_variables(model, variables)
     return report

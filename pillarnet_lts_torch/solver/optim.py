@@ -1,8 +1,9 @@
 """One-cycle AdamW with clipping by global norm, as the JAX package's optax
 chain computes it.
 
-Port of `pillarnet_lts_tpu/solver/optim.py` for the schedule every config
-uses (`optimizer.type="adam"`, `lr_config.type="one_cycle"`):
+Port of `pillarnet_lts_tpu/solver/optim.py`: `optimizer.type="adam"` with
+the lr schedules `one_cycle` (every config's), `exp_decay` and
+`manual_stepping` (b1 0.9 with the last two):
 
   optax.chain(clip_by_global_norm(max_norm),
               inject_hyperparams(adamw)(lr_fn, b1=mom_fn, b2=0.99,
@@ -63,6 +64,43 @@ def one_cycle_schedules(total_steps, lr_max, moms, div_factor, pct_start):
                      else _annealing_cos(moms[1], moms[0], p2))
 
     return lr_fn, mom_fn
+
+
+def exponential_decay_schedule(total_steps, init_lr, decay_length,
+                               decay_factor, staircase=True):
+    """lr = init_lr * decay_factor ** (step / decay_steps), the exponent
+    floored when `staircase`; decay_steps = decay_length (a share of the
+    run) x total_steps, at least 1. In f32, the division a multiply by
+    the f32 reciprocal."""
+    rcp = _F32(1) / _F32(max(int(decay_length * total_steps), 1))
+
+    def lr_fn(step):
+        p = _F32(step) * rcp
+        if staircase:
+            p = np.floor(p)
+        return float(_F32(init_lr) * np.power(_F32(decay_factor), p))
+
+    return lr_fn
+
+
+def manual_stepping_schedule(total_steps, boundaries, rates):
+    """lr = rates[i], i the number of boundaries (shares of the run, times
+    total_steps) the step has reached; len(rates) = len(boundaries) + 1."""
+    if len(boundaries) + 1 != len(rates):
+        raise ValueError("manual_stepping needs one rate more than "
+                         "boundaries")
+    bounds = np.array([b * total_steps for b in boundaries], _F32)
+    rates = np.array(rates, _F32)
+
+    def lr_fn(step):
+        return float(rates[int((_F32(step) >= bounds).sum())])
+
+    return lr_fn
+
+
+def _constant(value):
+    value = float(_F32(value))
+    return lambda step: value
 
 
 class OptaxAdamW(torch.optim.Optimizer):
@@ -141,16 +179,28 @@ class OptaxAdamW(torch.optim.Optimizer):
 
 
 def build_optimizer(params, cfg, lr_config, total_steps, grad_clip_norm=None):
-    """The optimizer of a config's `optimizer` and `lr_config` over
-    `total_steps` steps (`adam` + `one_cycle`, the only pair in
-    `configs/`; others raise)."""
+    """The optimizer of a config's `optimizer` (`adam`) and `lr_config`
+    (`one_cycle`, `exp_decay` or `manual_stepping`; others raise) over
+    `total_steps` steps."""
     if cfg.get("type", "adam").lower() != "adam":
         raise NotImplementedError(f"optimizer type {cfg.get('type')!r}")
-    if lr_config.get("type") != "one_cycle":
-        raise NotImplementedError(
-            f"lr schedule {lr_config.get('type')!r} is not ported")
-    lr_fn, mom_fn = one_cycle_schedules(
-        total_steps, lr_config["lr_max"], tuple(lr_config["moms"]),
-        lr_config["div_factor"], lr_config["pct_start"])
+    kind = lr_config.get("type")
+    if kind == "one_cycle":
+        lr_fn, mom_fn = one_cycle_schedules(
+            total_steps, lr_config["lr_max"], tuple(lr_config["moms"]),
+            lr_config["div_factor"], lr_config["pct_start"])
+    elif kind == "exp_decay":
+        lr_fn = exponential_decay_schedule(
+            total_steps, lr_config["init_lr"], lr_config["decay_length"],
+            lr_config["decay_factor"],
+            staircase=lr_config.get("staircase", True))
+        mom_fn = _constant(0.9)
+    elif kind == "manual_stepping":
+        lr_fn = manual_stepping_schedule(total_steps,
+                                         list(lr_config["boundaries"]),
+                                         list(lr_config["rates"]))
+        mom_fn = _constant(0.9)
+    else:
+        raise NotImplementedError(f"lr schedule {kind!r}")
     return OptaxAdamW(params, lr_fn, mom_fn, weight_decay=cfg.get("wd", 0.01),
                       max_norm=grad_clip_norm)

@@ -77,11 +77,12 @@ def load_weights(model, path, logger):
     """A port checkpoint (`{'model', 'optimizer', 'meta'}`) or a reference
     state_dict into `model`; an int8 model may miss only its calibration
     buffers, which `calibrate` sets."""
+    from ..runtime.checkpoint import is_port_checkpoint
     from ..runtime.torch_convert import (load_reference_checkpoint,
                                          normalize_state_dict)
 
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(blob, dict) and "model" in blob and "meta" in blob:
+    if is_port_checkpoint(blob):
         missing, unexpected = model.load_state_dict(blob["model"],
                                                     strict=False)
         bad = unexpected + [k for k in missing

@@ -3,8 +3,10 @@ the models' paths through the kernels (f32: scatter-max and overlap; int8
 deploy: also the int8 conv and the fused int8 stage; the switches: the
 sorted-run scatter-max and the suppression mask; the two-stage and RPNG
 Waymo configs: scatter-max and overlap, no host sync, the card against the
-CPU; two-stage training: the overlap kernel on the RoI sampler's padded
-zero boxes, the sampler and a demo step against the CPU; evaluation: the
+CPU; training: a demo step, also on a batch of the config's augmented
+train pipeline, against the CPU; two-stage training: the overlap kernel on
+the RoI sampler's padded zero boxes, the sampler and a demo step against
+the CPU; evaluation: the
 Waymo evaluator's overlap calls and metrics against the CPU, double-flip
 `dist_test` on the demo against the CPU, the trainer's val workflow
 against `dist_test`).
@@ -876,16 +878,22 @@ def test_scatter_gradient_on_the_card_matches_plain(cuda, backend):
     assert bool(tied.any())
 
 
-def _demo_step(dev, remat=False, seed=3):
+def _demo_step(dev, remat=False, seed=3, augmented=False):
+    """One demo-config step on `dev` from seeded weights: on two synthetic
+    scenes, or (`augmented`) on the config's own train set and pipeline
+    (flips, rotation, scaling, translation, shuffle; the samples' draws
+    from their own generators, so both devices get one batch)."""
     from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
                                           optimizer_from_cfg)
-    from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
+    from pillarnet_lts_torch.datasets import (SynthDataset, build_dataset,
+                                              collate_batch)
     from pillarnet_lts_torch.runtime.train_step import (batch_to_device,
                                                         train_step)
 
     cfg = load_config(_DEMO)
     cfg["model"]["backbone"] = dict(cfg["model"]["backbone"], remat=remat)
-    ds = SynthDataset(cfg, 2, 4096, seed=31)
+    ds = (build_dataset(cfg["data"]["train"]) if augmented
+          else SynthDataset(cfg, 2, 4096, seed=31))
     batch = collate_batch([ds[0], ds[1]], cfg["data"]["max_points"])
     model = build_model_from_cfg(cfg, device=dev, seed=seed)
     opt = optimizer_from_cfg(model, cfg, 10)
@@ -895,15 +903,12 @@ def _demo_step(dev, remat=False, seed=3):
     return {k: float(v) for k, v in m.items()}, grads, state, model, opt
 
 
-def test_demo_train_step_on_the_card_matches_the_cpu(cuda):
-    """Metrics rtol 1e-4 (grad_norm 1e-3), running statistics rtol = atol
-    = 1e-4, parameters within two first Adam steps and 99.5% of them within
-    rtol = atol = 1e-4 (`chip_smoke.py::params_within_first_adam_step`)."""
+def _card_step_matches_the_cpu(cuda, **kw):
     from chip_smoke import params_within_first_adam_step
     from pillarnet_lts_torch.runtime.train_step import bn_shifted_biases
 
-    mg, _, sg, model, opt = _demo_step(cuda)
-    mc, _, sc, _, _ = _demo_step(torch.device("cpu"))
+    mg, _, sg, model, opt = _demo_step(cuda, **kw)
+    mc, _, sc, _, _ = _demo_step(torch.device("cpu"), **kw)
     for k in mc:
         assert mg[k] == pytest.approx(
             mc[k], rel=1e-3 if k == "grad_norm" else 1e-4), k
@@ -913,6 +918,19 @@ def test_demo_train_step_on_the_card_matches_the_cpu(cuda):
                                   opt.lr_fn(0))
     for k in set(sc) - set(params):
         torch.testing.assert_close(sg[k], sc[k], rtol=1e-4, atol=1e-4)
+
+
+def test_demo_train_step_on_the_card_matches_the_cpu(cuda):
+    """Metrics rtol 1e-4 (grad_norm 1e-3), running statistics rtol = atol
+    = 1e-4, parameters within two first Adam steps and 99.5% of them within
+    rtol = atol = 1e-4 (`chip_smoke.py::params_within_first_adam_step`)."""
+    _card_step_matches_the_cpu(cuda)
+
+
+def test_augmented_demo_step_on_the_card_matches_the_cpu(cuda):
+    """One batch of the demo config's augmented train pipeline: the card's
+    step against the CPU's, the tolerances of the unaugmented step."""
+    _card_step_matches_the_cpu(cuda, augmented=True)
 
 
 def test_remat_on_equals_remat_off_on_the_card(cuda):

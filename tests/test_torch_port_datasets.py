@@ -171,6 +171,29 @@ def test_waymo_set_class_counts(tmp_path):
         assert_same_sample(got_ds[idx], jax_sample(want_ds, SEED, idx))
 
 
+def test_waymo_set_class_counts_per_frame(tmp_path):
+    """`write_waymo_set(class_counts=)` with one row per frame: frame i
+    holds row i's boxes of each class, absent classes included; a row
+    equal to a single `class_counts` writes the same frame."""
+    rows = [(4, 2, 0), (30, 14, 2), (5, 3, 1)]
+    args = (3, N_POINTS, WAYMO["class_names"], WAYMO["point_cloud_range"])
+    info = write_waymo_set(str(tmp_path / "rows"), *args, seed=8,
+                           class_counts=rows)
+    same = write_waymo_set(str(tmp_path / "one"), *args, seed=8,
+                           class_counts=(5, 3, 1))
+    with open(info, "rb") as f:
+        infos = pickle.load(f)
+    with open(same, "rb") as f:
+        want = pickle.load(f)[2]
+    for i, row in zip(infos, rows):
+        got = {n: int((i["gt_names"] == n).sum())
+               for n in ("VEHICLE", "PEDESTRIAN", "CYCLIST")}
+        assert tuple(got.values()) == row
+        assert len(i["gt_boxes"]) == sum(row)
+    for k in ("gt_boxes", "gt_names"):
+        np.testing.assert_array_equal(infos[2][k], want[k])
+
+
 @pytest.mark.parametrize("test_mode", [True, False], ids=["val", "train"])
 def test_demo_samples_equal_jax(test_mode):
     split = dict(DEMO["data"]["val" if test_mode else "train"], seed=4,

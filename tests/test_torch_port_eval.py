@@ -62,7 +62,7 @@ from pillarnet_lts_torch.models import build_detector
 from pillarnet_lts_torch.models.bbox_heads import center_head as thead
 from pillarnet_lts_torch.runtime import torch_convert as tconv
 from pillarnet_lts_torch.runtime.convert import (load_jax_variables,
-                                                 variables_template)
+                                                 variables_of)
 from pillarnet_lts_torch.tools import dist_test
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -585,7 +585,7 @@ def test_convert_state_dict_equals_jax(cfg_path):
     cfg = load_config(os.path.join(ROOT, cfg_path))
     model = build_detector(cfg["model"], train_cfg=cfg.get("train_cfg"),
                            test_cfg=cfg["test_cfg"], device="cpu")
-    port_tmpl = variables_template(model)
+    port_tmpl = variables_of(model)
     flat = jax.tree_util.tree_flatten_with_path
     assert ([(jax.tree_util.keystr(p), tuple(v.shape))
              for p, v in flat(port_tmpl)[0]]

@@ -768,8 +768,17 @@ def _demo_run(tmp_path, name, epochs, seed=1, resume_from=None, freeze=False):
 def test_demo_training_loss_falls(tmp_path):
     """Five steps of `pillarrcnn18_demo` (dropout 0.3) on one batch through
     `apis.train_detector`: every metric finite, the three new losses
-    logged per task, the loss after the fifth step below the first's."""
-    t = _demo_run(tmp_path, "a", 5)
+    logged per task, the loss after the fifth step below the first's. On
+    one intra-op thread: five steps from random weights through the
+    one-cycle peak part with the reduction order (the model moves a
+    gradient ~1e5 times a 1e-6 weight nudge, ROADMAP Queue 3), so on
+    torch's default threads the run would depend on the host's cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t = _demo_run(tmp_path, "a", 5)
+    finally:
+        torch.set_num_threads(before)
     hist = t.log_buffer.val_history
     for k in ("roi_cls_loss_task0", "roi_reg_loss_task1",
               "point_loss_task0", "point_loss_task1", "hm_loss_task1"):
@@ -984,3 +993,104 @@ def test_demo_training_forward_and_loss_match_jax():
             port_r = rel(got[k][i].numpy(), w)
             own = rel(want2[k][i], w)
             assert port_r <= max(2 * own, 1e-4), (k, i, port_r, own)
+
+
+@pytest.mark.slow
+def test_a_weight_nudge_moves_the_gradient_as_much_in_jax():
+    """The spread of the two-stage gradient is the model's: one
+    `pillarrcnn18_demo` training step (dropout off, first-stage head
+    spread, the sampler drawing from one key in both packages, as
+    `test_demo_training_forward_and_loss_match_jax`) from the weights and
+    from 3 copies times 1 + 1e-6 N(0, 1), in the JAX package (jitted) and
+    in the port: each group's relative gradient change under the nudges,
+    printed per package. The sampled RoI labels do not move. The port's
+    largest backbone change lies within a factor 2 of the JAX package's,
+    and the port's gradient is as near the JAX package's as the JAX
+    package's nudged gradients are to its own. Slow: it compiles the JAX
+    package's training step."""
+    from chip_smoke import grad_diffs
+    from pillarnet_lts_tpu.models.detectors import pillar_rcnn as jrcnn
+    from pillarnet_lts_tpu.parallel.collate import (
+        collate_batch as jax_collate)
+    from pillarnet_lts_torch.models.detectors import pillar_rcnn as trcnn
+    from test_torch_port_rcnn import spread_rcnn_heads
+
+    cfg = _demo_cfg(dp_ratio=0.0)
+    ds = SynthDataset(cfg, 2, 4096, seed=46)
+    examples = [ds[0], ds[1]]
+    batch = batch_to_device(collate_batch(examples, 16384), "cpu")
+    jb = jax_collate(examples, max_points=16384)
+    jb.pop("metadata")
+    jm = build_jax_detector(copy.deepcopy(cfg["model"]),
+                            train_cfg=cfg["train_cfg"],
+                            test_cfg=cfg["test_cfg"])
+    variables = jax.tree_util.tree_map(np.array, random_variables(
+        jm, 47, jnp.asarray(jb["points"]), jnp.asarray(jb["points_mask"]),
+        train=False))
+    spread_rcnn_heads(build_model_from_cfg(cfg, device="cpu"), variables,
+                      batch["points"], batch["points_mask"])
+    key = jax.random.PRNGKey(48)
+    rng = np.random.RandomState(16)
+    trees = [variables["params"]] + [jax.tree_util.tree_map(
+        lambda p: (p * (1 + 1e-6 * rng.randn(*p.shape))).astype(np.float32),
+        variables["params"]) for _ in range(3)]
+
+    def port_names(params):
+        m = load_jax_variables(build_model_from_cfg(cfg, device="cpu"), {
+            "params": jax.tree_util.tree_map(np.asarray, params),
+            "batch_stats": variables["batch_stats"]})
+        return m
+
+    def jloss(params, b):
+        o, _ = jm.apply({"params": params,
+                         "batch_stats": variables["batch_stats"]},
+                        b["points"], b["points_mask"],
+                        gt_boxes_and_cls=b["gt_boxes_and_cls"], train=True,
+                        mutable=["batch_stats"],
+                        rngs={"dropout": key, "sampler": key})
+        losses = jm.loss(b, o, cfg["train_cfg"])
+        total = jnp.asarray(0.0, jnp.float32)
+        for part in losses["loss"]:
+            total = total + part
+        return total, o["targets"]["roi_labels"]
+
+    jax_grads, labels = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jrcnn, "proposal_target_layer",
+                   lambda r, *a: jptl.proposal_target_layer(key, *a))
+        step = jax.jit(jax.value_and_grad(jloss, has_aux=True))
+        for t in trees:
+            (_, lab), g = step(t, jb)
+            labels.append(np.asarray(lab))
+            jax_grads.append({n: p.detach().clone() for n, p in
+                              port_names(g).named_parameters()})
+    port_grads = []
+    for t in trees:
+        m = port_names(t)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(trcnn, "sampler_draws",
+                       lambda g, B, R, M_, d: jax_draws(key, B, R, M_))
+            total, _ = step_losses(m, batch, cfg["train_cfg"],
+                                   torch.Generator())
+        total.backward()
+        port_grads.append({n: p.grad.detach().clone()
+                           for n, p in m.named_parameters()
+                           if p.grad is not None})
+    assert all(np.array_equal(lab, labels[0]) for lab in labels)
+
+    spread = {}
+    for name, grads in (("jax", jax_grads), ("port", port_grads)):
+        base = {k: v for k, v in grads[0].items() if k in port_grads[0]}
+        moves = [grad_diffs(torch, g, base)[0] for g in grads[1:]]
+        spread[name] = {k: max(m[k] for m in moves) for k in moves[0]}
+        print(f"{name}: the largest relative gradient change by group under "
+              f"a 1e-6 nudge: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in sorted(spread[name].items())))
+    apart = grad_diffs(torch, port_grads[0], {
+        k: v for k, v in jax_grads[0].items() if k in port_grads[0]})[0]
+    print("port vs JAX, unnudged: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in sorted(apart.items())))
+    bb = "single_det.backbone_net"
+    assert 0.5 <= spread["port"][bb] / spread["jax"][bb] <= 2.0, spread
+    assert spread["jax"][bb] > 1e-2  # the JAX package's own spread
+    assert apart[bb] <= spread["jax"][bb], (apart, spread)
