@@ -182,6 +182,24 @@ Phases, each of which raises on failure:
      replayed bit-equal against their plain versions and timed as phases
      2 and 3; (b) `python -m pillarnet_lts_torch.tools.train` on the demo
      config in a subprocess on the card: exit 0, finite loss, a checkpoint.
+ 18. the two-stage model in the precisions users serve and the rest of the
+     zoo: (a) `pillarrcnn18_waymo` after `enable_backbone_quant` (f32
+     compute, the int8 build) at full width, calibrated on 4 clouds, and
+     (b) `pillarrcnn18_waymo_bf16`, each serving 3 warm-up + 10 timed
+     requests at bs=1 and 1 warm-up + 2 timed at bs=4 (196,608-point
+     clouds) with the launch counts set to 0 just before: every request
+     launches K1 once, K2 once per task and (a) K4's f32 variant once per
+     quantized conv (41), and nothing else; p50 / p90, frames/s at bs=4, peak memory; one request
+     under sync debug mode; one request's K1 and K2 calls, and (a) its 41
+     K4 calls, replayed bit-equal (K4 per shape: wrapper, kernels alone,
+     plain, bound, the cuDNN f32 conv of the shape as a yardstick and the
+     bf16 variant on the same calls cast to bf16); the stage split, kernel
+     groups and busy share as phase 14f; (c) `dist_test --int8` on the f32
+     `pillarnet34_waymo` over 4 Waymo-layout frames (the int8 convs on
+     K4's f32 variant, each call equal to its plain version, finite
+     detections); (d) `twostage18_demo`, `voxelnet18_demo` and
+     `pillarnet18_demo` with circular NMS on the card against the CPU
+     (phase 14e's tolerances); phase 18's wall seconds.
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
@@ -197,14 +215,17 @@ through) plus the separation test on every pair they test; the old count
 Every `torch.profiler` number comes from `profiled`, which retakes a
 session that lost device events and keeps the one that lost the fewest; a
 `[profiler]` line counts the sessions. Before the last three lines stdout
-carries phase 13's, 14's, 15's, 16's and 17's JSON records
+carries phase 13's, 14's, 15's, 16's, 17's and 18's JSON records
 (`{"training": ...}`, `{"two_stage": ...}`, `{"two_stage_training": ...}`,
-`{"eval": ...}`, `{"training_as_written": ...}`); then the kernels' JSON
-record (K1's and K2's rows also carry `two_stage_launches`, under
-`two_stage_train` phase 15's launches and replays, `eval_launches`, phase
-16a's pipelined pass, and under `augmented_train` phase 17a's launches and
-replays; K1's, K2's and K4's rows `eval_replays`, phase 16's replays by
-pass), the card's
+`{"eval": ...}`, `{"training_as_written": ...}`, `{"precisions": ...}`);
+then the kernels' JSON record (K1's and K2's rows also carry
+`two_stage_launches`, under `two_stage_train` phase 15's launches and
+replays, `eval_launches`, phase 16a's pipelined pass, under
+`augmented_train` phase 17a's launches and replays, and under
+`precision_launches` / `precision_replays` phase 18a's and 18b's; K1's,
+K2's and K4's rows `eval_replays`, phase 16's replays by pass; K4's f32
+variant, `int8_conv_f32`, has a row of its own from phase 18a), the
+card's
 `nvidia-smi` name and power
 limit, and the last line `{"ok": true, "device": {...}}`. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
@@ -1001,16 +1022,32 @@ def int8_conv_bound(torch, args, kw, out):
     return bound(n_bytes, 2 * 9 * cin * cout * sites, INT8_OPS), sites
 
 
+def bf16_twin(torch, args, kw):
+    """A K4 call's arguments with its f32 activations, mask and residual
+    cast to bf16: the bf16 variant at the same shapes."""
+    def cast(t):
+        return t if t is None else t.to(torch.bfloat16)
+
+    return ((cast(args[0]),) + tuple(args[1:]),
+            dict(kw, mask=cast(kw.get("mask")),
+                 residual=cast(kw.get("residual"))))
+
+
 def check_int8_conv(torch, calls, phase="6"):
     """Phase 6: every K4 call of one served int8 request replayed through
     the kernel and its plain version, bit-equal; each call timed with its
     wrapper and its plain version, each distinct shape with its kernels
-    alone (`torch.profiler`), its bound and the cuDNN bf16 conv of the same
-    shape (a yardstick, not the same function); per-frame sums. `phase`
-    labels the printed lines."""
+    alone (`torch.profiler`), its bound and the cuDNN conv of the same
+    shape in the activations' dtype (a yardstick, not the same function);
+    per-frame sums. Calls of the f32 variant (`int8_conv_f32`, phase 18a)
+    also time the bf16 variant on the same calls cast to bf16 (wrapper and
+    alone). `phase` labels the printed lines."""
     import torch.nn.functional as F
     from pillarnet_lts_torch.ops.quant import (
         int8_conv_bn_act, int8_conv_bn_act_plain)
+
+    f32 = calls[0][0][0].dtype == torch.float32
+    yard = "f32_conv_ms" if f32 else "bf16_conv_ms"
 
     shapes, err = {}, 0.0
     for i, (args, kw, out) in enumerate(calls):
@@ -1041,27 +1078,39 @@ def check_int8_conv(torch, calls, phase="6"):
         s["live"].append(1.0 if kw.get("mask") is None
                          else live_tiles(torch, kw["mask"]))
 
-    rows, frame = [], {k: 0.0 for k in ("ms", "alone_ms", "plain_ms",
-                                        "bound_ms", "bf16_conv_ms")}
+    keys = ("ms", "alone_ms", "plain_ms", "bound_ms", yard) + (
+        ("bf16_variant_ms", "bf16_variant_alone_ms") if f32 else ())
+    rows, frame = [], {k: 0.0 for k in keys}
     for (xs, cout, stride, has_mask, has_res), s in shapes.items():
         n = len(s["calls"])
         alone, _ = device_ms(lambda: [int8_conv_bn_act(*a, **k)
                                       for a, k in s["calls"]], iters=5)
         x, w_q = s["calls"][0][0][0], s["calls"][0][0][1]
         xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC: channels_last
-        wc = w_q.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        wc = w_q.permute(3, 2, 0, 1).to(x.dtype).contiguous(
             memory_format=torch.channels_last)
-        bf16 = cuda_ms(lambda: F.conv2d(xc, wc, stride=stride, padding=1))
+        conv = cuda_ms(lambda: F.conv2d(xc, wc, stride=stride, padding=1))
         r = {"shape": f"{xs[0]}x{xs[1]}x{xs[2]}x{xs[3]} -> {cout}, stride "
                       f"{stride}" + (", mask" if has_mask else ", dense")
                       + (", residual" if has_res else ""),
              "launches": n, "ms": statistics.mean(s["ms"]),
              "alone_ms": alone / n, "plain_ms": statistics.mean(s["plain_ms"]),
              "bound_ms": statistics.mean(s["bound_ms"]),
-             "bound_by": s["bound_by"], "bf16_conv_ms": bf16,
+             "bound_by": s["bound_by"], yard: conv,
              "active_sites": statistics.mean(s["sites"]),
              "live_tiles": statistics.mean(s["live"]),
              "key": (has_res, xs[1] * xs[2])}
+        twin = ""
+        if f32:
+            bf = [bf16_twin(torch, a, k) for a, k in s["calls"]]
+            r["bf16_variant_ms"] = statistics.mean(
+                cuda_ms(lambda: int8_conv_bn_act(*a, **k)) for a, k in bf)
+            r["bf16_variant_alone_ms"] = device_ms(
+                lambda: [int8_conv_bn_act(*a, **k) for a, k in bf],
+                iters=5)[0] / n
+            twin = (f"; the bf16 variant on the same calls cast to bf16: "
+                    f"wrapper {r['bf16_variant_ms']:.4f} ms, alone "
+                    f"{r['bf16_variant_alone_ms']:.4f} ms")
         rows.append(r)
         for k in frame:
             frame[k] += n * r[k]
@@ -1069,15 +1118,19 @@ def check_int8_conv(torch, calls, phase="6"):
               f"{r['ms']:.4f} ms, kernels alone {r['alone_ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}; {r['bound_ms'] / r['alone_ms']:.0%} of it "
-              f"alone), cuDNN bf16 conv of the shape (not the same function) "
-              f"{bf16:.4f} ms; {r['active_sites']:.0f} active output sites, "
-              f"{r['live_tiles']:.1%} of its 8 x 16 tiles live")
-    print(f"[{phase}] K4 per int8 request ({len(calls)} calls, fused stage "
-          f"off): "
+              f"alone), cuDNN {yard[:-8]} conv of the shape (not the same "
+              f"function) {conv:.4f} ms; {r['active_sites']:.0f} active "
+              f"output sites, {r['live_tiles']:.1%} of its 8 x 16 tiles "
+              f"live" + twin)
+    print(f"[{phase}] K4 per int8 request ({len(calls)} calls of the "
+          f"{'f32' if f32 else 'bf16'} variant, fused stage off): "
           f"wrapper {frame['ms']:.4f} ms, kernels alone "
           f"{frame['alone_ms']:.4f} ms, plain {frame['plain_ms']:.4f} ms, "
-          f"bound {frame['bound_ms']:.4f} ms, cuDNN bf16 convs "
-          f"{frame['bf16_conv_ms']:.4f} ms")
+          f"bound {frame['bound_ms']:.4f} ms, cuDNN {yard[:-8]} convs "
+          f"{frame[yard]:.4f} ms" + (
+              f"; the bf16 variant: wrapper {frame['bf16_variant_ms']:.4f} "
+              f"ms, alone {frame['bf16_variant_alone_ms']:.4f} ms"
+              if f32 else ""))
     # the row's own numbers: the stage-1 residual conv (the largest map)
     main = max(rows, key=lambda r: r["key"])
     for r in rows:
@@ -1586,17 +1639,20 @@ def rcnn_stage_split(torch, model, cloud, iters=10):
             "second_stage_kernels": [dict(name=k, ms=ms) for ms, k in per]}
 
 
-def rcnn_card_vs_cpu(torch, dev):
-    """Phase 14e: the demo two-stage config from the same weights and
-    cloud on the CPU and on the card: the same RoI set and kept slots,
-    labels equal, boxes within RCNN_BOX_TOL m and scores within
-    RCNN_SCORE_TOL."""
+def card_vs_cpu(torch, dev, path, tag, edit=None):
+    """A demo config (`edit(cfg)` applied) from the same weights and cloud
+    on the CPU and on the card: the same kept slots (and, two-stage, the
+    same RoI set), labels equal, boxes within RCNN_BOX_TOL m and scores
+    within RCNN_SCORE_TOL (phase 14e's tolerances)."""
     from pillarnet_lts_torch.apis import (
         build_model_from_cfg, load_config, spread_head_outputs)
     from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
     from pillarnet_lts_torch.runtime.serving import to_host
 
-    cfg = load_config(RCNN_DEMO)
+    cfg = load_config(path)
+    if edit is not None:
+        edit(cfg)
     cloud = synth_points_realistic(1, cfg["data"]["max_points"],
                                    cfg["point_cloud_range"], seed=7,
                                    nsweeps=1)
@@ -1604,33 +1660,86 @@ def rcnn_card_vs_cpu(torch, dev):
     spread_head_outputs(cpu, *on_card(torch, "cpu", cloud))
     card = build_model_from_cfg(cfg, device=dev, seed=1)
     card.load_state_dict(cpu.state_dict())
+    two_stage = not hasattr(cpu, "predict")
 
-    def serve(model, device):  # make_infer_fn's forward + post_process
+    def serve(model, device):  # make_infer_fn's forward + decode
+        args = on_card(torch, device, cloud)
+        if not two_stage:
+            return None, to_host(make_infer_fn(model)(*args))
         with torch.inference_mode():
-            out = model(*on_card(torch, device, cloud))
+            out = model(*args)
             return to_host(out), to_host(model.post_process(out))
 
     (want_out, want), (got_out, got) = serve(cpu, "cpu"), serve(card, dev)
-    if not np.array_equal(got_out["roi_labels"], want_out["roi_labels"]):
-        raise AssertionError("card vs CPU: the RoI sets differ")
+    if two_stage and not np.array_equal(got_out["roi_labels"],
+                                        want_out["roi_labels"]):
+        raise AssertionError(f"{tag} card vs CPU: the RoI sets differ")
     for key in ("mask", "label_preds"):
         if not np.array_equal(got[key], want[key]):
-            raise AssertionError(f"card vs CPU: {key} differs")
+            raise AssertionError(f"{tag} card vs CPU: {key} differs")
     m = want["mask"].astype(bool)
     r = {"kept": int(m.sum()),
-         "roi_score_max_abs": float(np.abs(got_out["roi_scores"]
-                                           - want_out["roi_scores"]).max()),
          "box_max_abs": float(np.abs(got["box3d_lidar"][m]
                                      - want["box3d_lidar"][m]).max()),
          "score_max_abs": float(np.abs(got["scores"][m]
                                        - want["scores"][m]).max())}
-    if r["box_max_abs"] > RCNN_BOX_TOL or r["score_max_abs"] > RCNN_SCORE_TOL:
-        raise AssertionError(f"card vs CPU beyond tolerance: {r}")
-    print(f"[14e] demo two-stage card vs CPU: RoI set and {r['kept']} kept "
-          f"slots equal, labels equal; max |d| box {r['box_max_abs']:.3e} m "
-          f"(tolerance {RCNN_BOX_TOL}), score {r['score_max_abs']:.3e} "
-          f"({RCNN_SCORE_TOL}), RoI score {r['roi_score_max_abs']:.3e}")
+    if two_stage:
+        r["roi_score_max_abs"] = float(np.abs(
+            got_out["roi_scores"] - want_out["roi_scores"]).max())
+    if r["kept"] < 1 or r["box_max_abs"] > RCNN_BOX_TOL \
+            or r["score_max_abs"] > RCNN_SCORE_TOL:
+        raise AssertionError(f"{tag} card vs CPU beyond tolerance: {r}")
+    print(f"[{tag}] {os.path.basename(path)}{' (edited)' if edit else ''} "
+          f"card vs CPU: " + ("RoI set and " if two_stage else "")
+          + f"{r['kept']} kept slots equal, labels equal; max |d| box "
+          f"{r['box_max_abs']:.3e} m (tolerance {RCNN_BOX_TOL}), score "
+          f"{r['score_max_abs']:.3e} ({RCNN_SCORE_TOL})" + (
+              f", RoI score {r['roi_score_max_abs']:.3e}" if two_stage
+              else ""))
     return r
+
+
+def rcnn_card_vs_cpu(torch, dev):
+    """Phase 14e: the demo two-stage config on the card against the CPU."""
+    return card_vs_cpu(torch, dev, RCNN_DEMO, "14e")
+
+
+def profile_requests(torch, infer, requests, rec, tag):
+    """Requests served back to back under `profiled`: kernel time, window,
+    busy share, lost events, kernel groups and the top kernels; printed
+    beside `rec`'s stage split (`rcnn_stage_split`). Returns the
+    record."""
+    def serve():
+        t0 = time.perf_counter()
+        for c in requests:
+            infer(*c)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    rows, window, lost = profiled(serve)
+    groups = group_table(rows)
+    busy = sum(groups.values())
+    print(f"[{tag}] device ms by CUDA events (median of 10): first stage "
+          f"{rec['first_stage_ms']:.2f}, second stage "
+          f"{rec['second_stage_ms']:.2f}; {len(requests)} requests: kernel "
+          f"time {busy:.2f} ms in a {window:.2f} ms window (busy "
+          f"{100 * busy / window:.1f}%; {lost:.2%} of the device events "
+          f"lost); by group: " + ", ".join(
+              f"{g} {v:.3f}" for g, v in sorted(groups.items(),
+                                                key=lambda x: -x[1])))
+    for k, ms, c in rows[:8]:
+        print(f"[{tag}]   {ms:9.3f} ms x{c:<5d} {k[:100]}")
+    print(f"[{tag}] second stage, kernels alone (profiler, mean of 10): "
+          f"{rec['second_stage_alone_ms']:.4f} ms; by group: " + ", ".join(
+              f"{g} {v:.4f}" for g, v in sorted(
+                  rec["second_stage_groups_ms"].items(),
+                  key=lambda x: -x[1])))
+    for k in rec["second_stage_kernels"][:10]:
+        print(f"[{tag}]   {k['ms']:8.4f} ms {k['name'][:100]}")
+    return {"window_ms": window, "kernel_ms": busy, "lost_events": lost,
+            "groups_ms": groups,
+            "top_kernels": [dict(name=k, ms=ms, count=c) for k, ms, c in
+                            rows[:12]]}
 
 
 def serve_rcnn(torch, dev, card):
@@ -1721,40 +1830,9 @@ def serve_rcnn(torch, dev, card):
 
     # (f) the stages' device time, kernel sums, busy share
     rec.update(rcnn_stage_split(torch, model, on_card(torch, dev, clouds[5])))
-    requests = [on_card(torch, dev, c) for c in clouds[6:11]]
-
-    def five_requests():
-        t0 = time.perf_counter()
-        for c in requests:
-            infer(*c)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    rows, window, lost = profiled(five_requests)
-    groups = group_table(rows)
-    busy = sum(groups.values())
-    rec["profile_5_requests"] = {
-        "window_ms": window, "kernel_ms": busy, "lost_events": lost,
-        "groups_ms": groups,
-        "top_kernels": [dict(name=k, ms=ms, count=c) for k, ms, c in
-                        rows[:12]]}
-    print(f"[14f] device ms by CUDA events (median of 10): first stage "
-          f"{rec['first_stage_ms']:.2f}, second stage "
-          f"{rec['second_stage_ms']:.2f}; 5 requests: kernel time "
-          f"{busy:.2f} ms in a {window:.2f} ms window (busy "
-          f"{100 * busy / window:.1f}%; {lost:.2%} of the device events "
-          f"lost); by group: " + ", ".join(
-              f"{g} {v:.3f}" for g, v in sorted(groups.items(),
-                                                key=lambda x: -x[1])))
-    for k, ms, c in rows[:8]:
-        print(f"[14f]   {ms:9.3f} ms x{c:<5d} {k[:100]}")
-    print(f"[14f] second stage, kernels alone (profiler, mean of 10): "
-          f"{rec['second_stage_alone_ms']:.4f} ms; by group: " + ", ".join(
-              f"{g} {v:.4f}" for g, v in sorted(
-                  rec["second_stage_groups_ms"].items(),
-                  key=lambda x: -x[1])))
-    for k in rec["second_stage_kernels"][:10]:
-        print(f"[14f]   {k['ms']:8.4f} ms {k['name'][:100]}")
+    rec["profile_5_requests"] = profile_requests(
+        torch, infer, [on_card(torch, dev, c) for c in clouds[6:11]], rec,
+        "14f")
 
     # K1 at the served shape against its plain version
     (args, kwargs), = k1_calls
@@ -2881,9 +2959,9 @@ def captured_run(torch, args, int8=False):
     with (recording_int8_convs(k4) if int8 else contextlib.nullcontext()):
         ((out, launches), k2), k1 = capture_scatter(
             lambda: capture_overlap(lambda: dist_test_run(torch, args)))
-    if (len(k1), len(k2), len(k4)) != (launches["pillar_scatter_max"],
-                                       launches["rotated_overlap"],
-                                       launches["int8_conv"]):
+    if (len(k1), len(k2), len(k4)) != (
+            launches["pillar_scatter_max"], launches["rotated_overlap"],
+            launches["int8_conv"] + launches["int8_conv_f32"]):
         raise AssertionError(f"captured {len(k1)} K1, {len(k2)} K2 and "
                              f"{len(k4)} K4 calls of launches {launches}")
     return out, launches, k1, k2, k4
@@ -3651,6 +3729,263 @@ def train_as_written(torch, dev, card):
     return {"augmented": rec, "cli": cli}, launches, replays
 
 
+# phase 18: the two-stage model in the precisions users serve, and the
+# rest of the config zoo on the card
+PRECISION_REQUESTS, PRECISION_WARMUP = 13, 3  # 18a/b: bs=1, untimed first
+PRECISION_BATCHES, PRECISION_BS = 3, 4  # 18a/b: batched, untimed first
+CALIB_CLOUDS = 4  # 18a: calibration clouds
+RCNN_BF16 = RCNN.replace(".py", "_bf16.py")
+
+
+def precision_path(model, int8):
+    """{kernel: launches a request} of a two-stage request: K1 once, K2
+    once per task, and (int8 on f32 activations) K4's f32 variant once
+    per quantized conv; no other kernel."""
+    from pillarnet_lts_torch.models.backbones.base import MaskedConv
+
+    path = {"pillar_scatter_max": 1,
+            "rotated_overlap": len(model.single_det.head_net.tasks)}
+    if int8:
+        path["int8_conv_f32"] = sum(
+            1 for m in model.modules() if isinstance(m, MaskedConv)
+            and m.quant_ready())
+    return path
+
+
+def serve_precision(torch, dev, card, tag, int8):
+    """Phase 18a (`pillarrcnn18_waymo` after `enable_backbone_quant`,
+    f32 compute, calibrated on CALIB_CLOUDS clouds) or 18b
+    (`pillarrcnn18_waymo_bf16`) at full width as a server: 3 warm-up + 10
+    timed requests at bs=1 and 1 warm-up + 2 timed at bs=4 (the first
+    call at a new batch size picks its cuDNN algorithms) through
+    `ServingPipeline(
+    make_infer_fn(model))`, with the launch counts set to 0 just before
+    and read just after, every request raising exactly its path's counts
+    (`precision_path`); one request under sync debug mode; the K1 and K2
+    calls (and, int8, every K4 call) of one request replayed against
+    their plain versions; the stage split, kernel groups, busy share and
+    peak memory. Returns (record, launches, K1 / K2 replays, K4's
+    `check_int8_conv` record or None)."""
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, spread_head_outputs)
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.runtime.quantize import (
+        calibrate, enable_backbone_quant)
+    from pillarnet_lts_torch.runtime.serving import ServingPipeline
+
+    cfg = load_config(RCNN if int8 else RCNN_BF16)
+    if int8:
+        enable_backbone_quant(cfg["model"])
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+    posts = cfg["test_cfg"]["nms"]["nms_post_max_size"]
+    model = build_model_from_cfg(cfg, device=dev, seed=0)
+    spread_head_outputs(model, *on_card(torch, dev, synth_points_realistic(
+        1, n, pc_range, seed=99, nsweeps=1)))
+    rec = {"config": os.path.relpath(RCNN if int8 else RCNN_BF16, ROOT),
+           "int8": int8, "dtype": str(model.dtype)}
+    if int8:
+        calib = [on_card(torch, dev, synth_points_realistic(
+            1, n, pc_range, seed=400 + s, nsweeps=1))
+            for s in range(CALIB_CLOUDS)]
+        t0 = time.perf_counter()
+        calibrate(model, calib)
+        torch.cuda.synchronize()
+        rec["calibration_s"] = time.perf_counter() - t0
+        del calib
+    path = precision_path(model, int8)
+    infer = make_infer_fn(model)
+    pipe = ServingPipeline(infer, depth=1)
+    clouds = [synth_points_realistic(1, n, pc_range, seed=500 + s,
+                                      nsweeps=1)
+              for s in range(PRECISION_REQUESTS)]
+    batches = [synth_points_realistic(PRECISION_BS, n, pc_range,
+                                      seed=600 + s, nsweeps=1)
+               for s in range(PRECISION_BATCHES)]
+
+    def request(cloud, what):
+        before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        det = list(pipe.map([on_card(torch, dev, cloud)]))[0]
+        dt = (time.perf_counter() - t0) * 1e3
+        got = {k: v - before[k] for k, v in _kernels.LAUNCHES.items()
+               if v != before[k]}
+        if got != path:
+            raise AssertionError(f"{tag} {what}: launches {got}, the path "
+                                 f"is {path}")
+        return det, dt
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launches()
+    lat, kept = [], []
+    for i, cloud in enumerate(clouds):
+        det, dt = request(cloud, f"request {i}")
+        if i >= PRECISION_WARMUP:
+            lat.append(dt)
+            kept.append(check_rcnn_detections(det, posts,
+                                              f"{tag} request {i}"))
+    batch_ms = []
+    for i, cloud in enumerate(batches):
+        det, dt = request(cloud, f"batch {i}")
+        if i:
+            batch_ms.append(dt)
+        R = sum(posts)
+        if det["box3d_lidar"].shape != (PRECISION_BS, R, 7) \
+                or not np.isfinite(det["box3d_lidar"]).all() \
+                or not det["mask"].any(axis=1).all():
+            raise AssertionError(f"{tag} batch {i}: detections "
+                                 f"{det['box3d_lidar'].shape}")
+    launches = dict(_kernels.LAUNCHES)
+    for name, per in path.items():
+        if launches[name] != per * (len(clouds) + len(batches)):
+            raise AssertionError(f"{tag}: {name} launched {launches[name]}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    q = statistics.quantiles(lat, n=10)
+    rec.update({"requests": len(clouds), "launches": launches,
+                "path_per_request": path,
+                "p50_ms": statistics.median(lat), "p90_ms": q[8],
+                f"bs{PRECISION_BS}_ms": batch_ms,
+                f"bs{PRECISION_BS}_frames_per_s": PRECISION_BS * 1e3
+                / statistics.mean(batch_ms),
+                "peak_allocated_gib": peak / 2**30,
+                "mean_kept": statistics.mean(kept), "slots": sum(posts)})
+    print(f"[{tag}] {rec['config']}{' + enable_backbone_quant' if int8 else ''}"
+          f" ({rec['dtype']}) bs=1, {len(lat)} timed requests (after "
+          f"{PRECISION_WARMUP} warm-up), host-synced latency: p50 "
+          f"{rec['p50_ms']:.2f} ms, p90 {rec['p90_ms']:.2f} ms; bs="
+          f"{PRECISION_BS} (after 1 warm-up): "
+          f"{', '.join(f'{v:.2f}' for v in batch_ms)} ms "
+          f"({rec[f'bs{PRECISION_BS}_frames_per_s']:.2f} frames/s); peak "
+          f"allocated {rec['peak_allocated_gib']:.3f} GiB; mean kept "
+          f"{rec['mean_kept']:.1f} of {sum(posts)}; per request {path}, "
+          f"over the {len(clouds) + len(batches)} requests {launches}"
+          + (f"; calibration {rec['calibration_s']:.2f} s on "
+             f"{CALIB_CLOUDS} clouds" if int8 else "") + f"; card: {card}")
+
+    check_no_sync(torch, infer, *on_card(torch, dev, clouds[4]), tag)
+    k4 = []
+    with (recording_int8_convs(k4) if int8 else contextlib.nullcontext()):
+        (_, k2), k1 = capture_scatter(lambda: capture_overlap(
+            lambda: infer(*on_card(torch, dev, clouds[5]))))
+    torch.cuda.synchronize()
+    replays, _ = replay_pass(torch, tag, k1, k2, "NMS, one call per task")
+    conv = None
+    if int8:
+        if len(k4) != path["int8_conv_f32"]:
+            raise AssertionError(f"{tag}: captured {len(k4)} K4 calls")
+        conv = check_int8_conv(torch, k4, phase=tag)
+        rec["int8_conv_f32"] = {k: conv[k] for k in (
+            "max_abs_err", "ms", "alone_ms", "plain_ms", "main_shape",
+            "frame")} | {"calls": len(k4)}
+    del k1, k2, k4
+    rec["replays"] = replays
+    rec.update(rcnn_stage_split(torch, model, on_card(torch, dev,
+                                                      clouds[6])))
+    rec["profile_5_requests"] = profile_requests(
+        torch, infer, [on_card(torch, dev, c) for c in clouds[7:12]], rec,
+        tag)
+    del model, infer, pipe
+    torch.cuda.empty_cache()
+    return rec, launches, replays, conv
+
+
+def replay_int8_equal(torch, calls, tag):
+    """Every captured K4 call through the kernel and its plain version,
+    equal by value (untimed). Returns the call count and the largest
+    |d|."""
+    from pillarnet_lts_torch.ops.quant import (
+        int8_conv_bn_act, int8_conv_bn_act_plain)
+
+    err = 0.0
+    for i, (args, kw, out) in enumerate(calls):
+        got = int8_conv_bn_act(*args, **kw)
+        want = int8_conv_bn_act_plain(*args, **plain_kwargs(kw))
+        d = (got.float() - want.float()).abs().max().item()
+        err = max(err, d)
+        if not (torch.equal(got, want) and torch.equal(got, out)):
+            raise AssertionError(f"{tag}: K4 call {i} {tuple(args[0].shape)}"
+                                 f" differs from plain: max |d| {d}")
+    return len(calls), err
+
+
+def dist_test_int8_f32(torch, tmp):
+    """Phase 18c: `dist_test --int8` on the f32 `pillarnet34_waymo` over
+    16b's EVAL_WAYMO_FRAMES Waymo-layout frames: exit without error,
+    finite detections, the int8 convs on K4's f32 variant only, every K4
+    call replayed equal to its plain version."""
+    from pillarnet_lts_torch.apis import load_config
+    from pillarnet_lts_torch.datasets.synth import write_waymo_set
+
+    cfg = load_config(WAYMO)
+    info = write_waymo_set(os.path.join(tmp, "waymo"), EVAL_WAYMO_FRAMES,
+                           cfg["data"]["max_points"], cfg["class_names"],
+                           cfg["point_cloud_range"], seed=161,
+                           class_counts=WAYMO_GT_COUNTS)
+    path = eval_config(tmp, WAYMO, info, "waymo")
+    ckpt = spread_checkpoint(torch, path, "cuda",
+                             os.path.join(tmp, "waymo_ckpt"))
+    t0 = time.perf_counter()
+    out, launches, k1, k2, k4 = captured_run(torch, [
+        path, "--int8", "--checkpoint", ckpt, "--seed", "0", "--work_dir",
+        os.path.join(tmp, "waymo_int8")], int8=True)
+    seconds = time.perf_counter() - t0
+    dets = out["detections"]
+    if len(dets) != EVAL_WAYMO_FRAMES or launches["int8_conv"] \
+            or launches["int8_conv_f32"] < 1 \
+            or launches["pillar_scatter_max"] < 2:
+        raise AssertionError(f"18c: {len(dets)} frames, launches {launches}")
+    if not all(np.isfinite(d["box3d_lidar"]).all()
+               and np.isfinite(d["scores"]).all() for d in dets.values()):
+        raise AssertionError("18c: non-finite int8 detections")
+    calls, err = replay_int8_equal(torch, k4, "18c")
+    del k1, k2, k4
+    torch.cuda.empty_cache()
+    text = out["result"]["results"]["waymo"]
+    kept = sum(len(d["scores"]) for d in dets.values())
+    print(f"[18c] dist_test --int8 on the f32 pillarnet34_waymo over "
+          f"{len(dets)} Waymo-layout frames in {seconds:.1f} s: launches "
+          f"{launches}; {calls} K4 calls (f32 variant) each equal to its "
+          f"plain version; {kept} detections, all finite; "
+          f"{text.strip().splitlines()[-1]}")
+    return {"frames": len(dets), "launches": launches, "seconds": seconds,
+            "k4_calls": calls, "k4_max_abs_err": err, "detections": kept,
+            "result": text}
+
+
+def circular_nms(cfg):
+    """pillarnet18_demo's test config with circular NMS (the
+    CenterPoint-style route; squared radii per task)."""
+    cfg["test_cfg"].update(circular_nms=True, min_radius=[4.0, 0.175])
+
+
+def precisions(torch, dev, card):
+    """Phase 18. Returns its record, each path's launches, and the K1 / K2
+    replays and K4 f32 record of 18a."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    rec, launches = {}, {}
+    rec["rcnn_int8"], launches["rcnn_int8"], replays, conv = \
+        serve_precision(torch, dev, card, "18a", int8=True)
+    rec["rcnn_bf16"], launches["rcnn_bf16"], replays_bf16, _ = \
+        serve_precision(torch, dev, card, "18b", int8=False)
+    with tempfile.TemporaryDirectory(prefix="pillarnet_int8_f32_") as tmp:
+        rec["dist_test_int8_f32"] = dist_test_int8_f32(torch, tmp)
+    demo = os.path.join(ROOT, "configs", "demo")
+    rec["demo_card_vs_cpu"] = {
+        "twostage18_demo": card_vs_cpu(
+            torch, dev, os.path.join(demo, "twostage18_demo.py"), "18d"),
+        "voxelnet18_demo": card_vs_cpu(
+            torch, dev, os.path.join(demo, "voxelnet18_demo.py"), "18d"),
+        "pillarnet18_demo_circular_nms": card_vs_cpu(
+            torch, dev, DEMO, "18d", edit=circular_nms)}
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[18] phase 18 took {rec['seconds']:.1f} s")
+    return rec, launches, {"18a": replays, "18b": replays_bf16}, conv
+
+
 def main():
     import torch
 
@@ -3720,6 +4055,8 @@ def main():
     evaluation, eval_launches, eval_replays = evaluate(torch, dev, card)
     as_written, aug_launches, aug_replays = train_as_written(torch, dev,
                                                              card)
+    precision, prec_launches, prec_replays, conv_f32 = precisions(
+        torch, dev, card)
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
@@ -3770,6 +4107,13 @@ def main():
                  stage["plain_ms"], stage["bound"]),
              alone_ms=stage["alone_ms"], per_conv_ms=stage["per_conv_ms"],
              per_conv_alone_ms=stage["per_conv_alone_ms"]),
+        # K4's f32 variant: launches of phase 18a's path (counts reset just
+        # before), its calls replayed there (phase 6's record)
+        dict(row("int8_conv_f32", "int8_conv.cu", "s2d_conv_kernel.py:137",
+                 prec_launches["rcnn_int8"]["int8_conv_f32"], conv_f32,
+                 conv_f32["ms"], conv_f32["plain_ms"], conv_f32["bound"]),
+             alone_ms=conv_f32["alone_ms"], main_shape=conv_f32["main_shape"],
+             shapes=conv_f32["shapes"], frame=conv_f32["frame"]),
     ]}
     # the two-stage path's launches (phase 14, counts reset just before)
     record["kernels"][0]["two_stage_launches"] = \
@@ -3813,6 +4157,17 @@ def main():
         record["kernels"][i]["max_abs_err"] = max(
             record["kernels"][i]["max_abs_err"],
             aug_replays[key]["max_abs_err"])
+    # phase 18's paths (counts reset just before each), and 18a/b's K1 and
+    # K2 calls replayed
+    for i, name in ((0, "pillar_scatter_max"), (2, "rotated_overlap")):
+        k = record["kernels"][i]
+        k["precision_launches"] = {p: v[name]
+                                   for p, v in prec_launches.items()}
+        k["precision_replays"] = {t: r["k1" if i == 0 else "k2"]
+                                  for t, r in prec_replays.items()}
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            r["k1" if i == 0 else "k2"]["max_abs_err"]
+            for r in prec_replays.values()])
     conv16 = eval_replays["k4"]
     record["kernels"][4]["eval_replays"] = {"16e_int8": {
         "calls": sum(r["launches"] for r in conv16["shapes"]),
@@ -3832,6 +4187,7 @@ def main():
     print(json.dumps({"two_stage_training": two_stage_training}))
     print(json.dumps({"eval": evaluation}))
     print(json.dumps({"training_as_written": as_written}))
+    print(json.dumps({"precisions": precision}))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -42,14 +42,17 @@ def build_model_from_cfg(cfg, device="cuda", seed=0):
 def build_int8_model(cfg, calib_batches, device="cuda", seed=0,
                      reduce="max", variables=None):
     """Build an int8 deploy config (`configs/*_int8.py`, or any config
-    after `runtime.quantize.enable_backbone_quant(cfg["model"])`),
-    calibrate it and return the servable model.
+    after `runtime.quantize.enable_backbone_quant(cfg["model"])`: f32 or
+    bf16, single- or two-stage), calibrate it and return the servable
+    model.
 
     Weights come from `seed`, or from a JAX variables tree (`variables`,
     numpy leaves, without a 'quant' collection). calib_batches: a few
     (points, points_mask) pairs on `device`, the clouds the activation
-    scales are taken from (bf16 forwards; `reduce` 'max' or 'mean'). Serve
-    the result with `eval_utils.make_infer_fn`."""
+    scales are taken from (float forwards in the config's compute dtype;
+    `reduce` 'max' or 'mean'). The int8 convs then take activations in
+    that dtype (`ops/quant.py`: K4's bf16 or f32 variant on the card).
+    Serve the result with `eval_utils.make_infer_fn`."""
     from .runtime.convert import load_jax_variables
     from .runtime.quantize import calibrate
 

@@ -1,8 +1,8 @@
 // Device helpers shared by the int8 conv kernels (int8_conv.cu,
-// int8_stage.cu): quantize on load, the epilogue of
-// ops/quant.py::int8_conv_bn_act_plain on a pair of output channels, and the
-// int8 tensor-core micro-tile (ldmatrix, mma.sync.m16n8k32 s8 -> s32,
-// cp.async). The f32 products and sums are written with __fmul_rn /
+// int8_stage.cu): quantize on load (bf16 or f32 activations), the epilogue
+// of ops/quant.py::int8_conv_bn_act_plain on a pair of output channels (bf16
+// or f32), and the int8 tensor-core micro-tile (ldmatrix,
+// mma.sync.m16n8k32 s8 -> s32, cp.async). The f32 products and sums are written with __fmul_rn /
 // __fadd_rn (and the sources build with -fmad=false) so that they round as
 // the plain version does.
 //
@@ -61,6 +61,29 @@ __device__ __forceinline__ __nv_bfloat162 epilogue2(
   if (has_res) v = __hadd2(v, r);
   if (act) v = __hmax2(v, __float2bfloat162_rn(0.f));
   return __hmul2(v, m);
+}
+
+// 4 f32 (one 16-byte load) -> 4 int8 codes in one word, channel 0 lowest;
+// each value is quantized itself, never a bf16 copy of it
+__device__ __forceinline__ uint32_t quant_f4(float4 v, float inv_s) {
+  return (uint32_t)((quant_code(v.x, inv_s) & 0xff) |
+                    ((quant_code(v.y, inv_s) & 0xff) << 8) |
+                    ((quant_code(v.z, inv_s) & 0xff) << 16) |
+                    ((uint32_t)(quant_code(v.w, inv_s) & 0xff) << 24));
+}
+
+// epilogue2 for f32 activations: acc * dq + shift, + the residual pair `r`
+// (if `has_res`), ReLU (if `act`), times the site mask `m`, each an f32
+// operation rounded on its own, as the plain version computes in f32
+__device__ __forceinline__ float2 epilogue2_f32(int acc0, int acc1,
+                                                float2 dq, float2 shift,
+                                                bool has_res, float2 r,
+                                                bool act, float m) {
+  float2 v = make_float2(__fadd_rn(__fmul_rn((float)acc0, dq.x), shift.x),
+                         __fadd_rn(__fmul_rn((float)acc1, dq.y), shift.y));
+  if (has_res) v = make_float2(__fadd_rn(v.x, r.x), __fadd_rn(v.y, r.y));
+  if (act) v = make_float2(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f));
+  return make_float2(__fmul_rn(v.x, m), __fmul_rn(v.y, m));
 }
 
 // the int8 codes of a bf16 pair, channel 0 in the low byte

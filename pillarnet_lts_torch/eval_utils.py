@@ -10,8 +10,9 @@ def make_infer_fn(model, test_cfg=None):
     `eval_utils.make_infer_fn` (weights live in the module, so the callable
     takes only the inputs).
 
-    A two-stage model (no `predict`: `PillarRCNN`) runs its forward, with
-    `test_cfg` for its first stage's NMS, then `post_process`.
+    A two-stage model (no `predict`: `PillarRCNN`, `TwoStageDetector`;
+    f32, bf16 or int8) runs its forward, with `test_cfg` for its first
+    stage's NMS, then `post_process`.
 
     Returns infer(points (B, N, C) f32, points_mask (B, N) bool) -> the
     padded detection dict, on the model's device, without a host sync."""

@@ -18,9 +18,10 @@ Port of `pillarnet_lts_tpu/models/backbones/base.py` in the plain layout:
   activations are recomputed in the backward, the counterpart of the JAX
   package's `nn.remat`; the replay leaves the BN running statistics alone.
 - int8 deploy (`quant=True`, calibrated): the conv core runs int8 through
-  `ops/quant.py::int8_conv_bn_act` (the K4 kernel on CUDA), with the BN
-  fold riding the dequant vector and the re-zero, residual and ReLU fused
-  into its epilogue. Uncalibrated, a quant conv runs the bf16/f32 path.
+  `ops/quant.py::int8_conv_bn_act` (the K4 kernel on CUDA, its bf16 or f32
+  variant by the model's compute dtype), with the BN fold riding the
+  dequant vector and the re-zero, residual and ReLU fused into its
+  epilogue. Uncalibrated, a quant conv runs the bf16/f32 path.
 
 The TPU layout recasts (space-to-depth, H-packing, W-chunking) rearrange
 the same math for the MXU and are not ported; the JAX package's own tests

@@ -36,9 +36,15 @@ package's per-task dict (`models/losses/centernet_loss.py`).
 Double-flip TTA (`test_cfg.double_flip`): `predict` averages each group
 of 4 flipped clouds into one map set (`_average_double_flip`).
 
-Not ported yet: circular NMS and the head's int8 mode (they raise).
-`approx_topk` (the TPU's approximate top-k, `lax.approx_max_k`, set by
-no config) raises too.
+Circular NMS (`test_cfg.circular_nms`, the CenterPoint-style route set by
+no config): candidates ranked by score, suppressed where their squared
+centre distance is <= the task's `min_radius` (`ops/nms.py::circle_nms`),
+with the per-task `nms_pre_max_size` / `nms_post_max_size` / `min_radius`
+and tasks of equal settings batched, as the JAX package routes it.
+
+Not ported yet: the head's int8 mode (it raises). `approx_topk` (the
+TPU's approximate top-k, `lax.approx_max_k`, set by no config) raises
+too.
 """
 
 from typing import Dict, Sequence, Tuple
@@ -48,7 +54,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.utils import device_constant
-from ...ops.nms import _NMS_SWEEPS, rotated_nms, rotated_nms_dynamic
+from ...ops.nms import (_NMS_SWEEPS, circle_nms, rotated_nms,
+                        rotated_nms_dynamic)
 from ..backbones.base import MaskedConv
 from ..losses.centernet_loss import (fast_focal_loss, iou_loss, iou_reg_loss,
                                      reg_loss)
@@ -248,15 +255,16 @@ class CenterHeadMath:
         }
 
     def _post_process_grouped(self, task_inputs, test_cfg):
-        """With `use_rotate_nms`, tasks with identical static NMS settings
-        run through one batched rotated NMS (tasks stacked along the
-        batch); otherwise each task runs alone (`_post_process_task`)."""
+        """With `circular_nms` or `use_rotate_nms`, tasks with identical
+        static NMS settings run through one batched NMS (tasks stacked
+        along the batch): circular NMS on the scores, or rotated NMS on
+        the rectified scores; otherwise each task runs alone
+        (`_post_process_task`)."""
         nms_cfg = test_cfg["nms"]
-        if test_cfg.get("circular_nms", False):
-            raise NotImplementedError("circular NMS is not ported yet")
         if nms_cfg.get("approx_topk", False):
             raise NotImplementedError(
                 "approx_topk (the TPU's lax.approx_max_k) is not ported")
+        circle = bool(test_cfg.get("circular_nms", False))
         rotate = nms_cfg.get("use_rotate_nms", False)
 
         def p(x, task_id):
@@ -264,14 +272,19 @@ class CenterHeadMath:
 
         groups = {}
         for task_id, boxes, hm, iou in task_inputs:
-            if not rotate:
-                key = ("solo", task_id)
-            else:
-                key = (tuple(hm.shape[1:3]), boxes.shape[-1],
+            if circle:
+                key = ("circle", tuple(hm.shape[1:3]), boxes.shape[-1],
+                       int(p(nms_cfg["nms_pre_max_size"], task_id)),
+                       int(p(nms_cfg["nms_post_max_size"], task_id)),
+                       float(p(test_cfg["min_radius"], task_id)))
+            elif rotate:
+                key = ("rotate", tuple(hm.shape[1:3]), boxes.shape[-1],
                        int(p(nms_cfg["nms_pre_max_size"], task_id)),
                        int(p(nms_cfg["nms_post_max_size"], task_id)),
                        float(p(nms_cfg["nms_iou_threshold"], task_id)),
                        float(p(test_cfg.get("rectifier", 0.0), task_id)))
+            else:
+                key = ("solo", task_id)
             groups.setdefault(key, []).append((task_id, boxes, hm, iou))
 
         sweeps = int(nms_cfg.get("nms_sweeps", _NMS_SWEEPS))
@@ -283,7 +296,7 @@ class CenterHeadMath:
                 results[task_id] = self._post_process_task(
                     task_id, boxes, hm, iou, test_cfg)
                 continue
-            _, _, pre_max, post_max, thresh, rect = key
+            pre_max, post_max = key[3], key[4]
             B = members[0][2].shape[0]
             sc, lb, bx, io = [], [], [], []
             for _, boxes, hm, iou in members:
@@ -296,10 +309,17 @@ class CenterHeadMath:
             boxes, scores = torch.cat(bx), torch.cat(sc)
             labels, ious = torch.cat(lb), torch.cat(io)
             valid = _candidate_mask(boxes, scores, test_cfg)
-            rect_scores = torch.pow(scores, 1.0 - rect) * torch.pow(ious, rect)
-            out = _run_nms_batch(boxes, scores, labels, valid, rect_scores,
-                                 pre_max, post_max, thresh, sweeps,
-                                 use_mask_kernel=mask_kernel)
+            if key[0] == "circle":
+                out = _run_nms_batch(boxes, scores, labels, valid, scores,
+                                     pre_max, post_max, None, sweeps,
+                                     min_radius=key[5])
+            else:
+                thresh, rect = key[5], key[6]
+                rect_scores = (torch.pow(scores, 1.0 - rect)
+                               * torch.pow(ious, rect))
+                out = _run_nms_batch(boxes, scores, labels, valid,
+                                     rect_scores, pre_max, post_max, thresh,
+                                     sweeps, use_mask_kernel=mask_kernel)
             for i, (task_id, *_) in enumerate(members):
                 results[task_id] = tuple(o[i * B:(i + 1) * B] for o in out)
         return results
@@ -379,9 +399,10 @@ def _candidate_mask(boxes, scores, test_cfg):
 
 def _run_nms_batch(boxes, scores, labels, valid, order_scores, pre_max,
                    post_max, thresh, sweeps, pre_limits=None,
-                   use_mask_kernel=False):
+                   use_mask_kernel=False, min_radius=None):
     """Fixed-size pipeline over rows: mask -> top-`pre_max` by order_scores
-    -> rotated NMS -> first `post_max` kept.
+    -> rotated NMS (or, with `min_radius`, circular NMS on the centres,
+    `thresh` unused) -> first `post_max` kept.
 
     Ties in order_scores go to the lower index, as `lax.top_k` breaks them
     (a stable descending sort; `torch.topk` promises no order on CUDA);
@@ -403,10 +424,15 @@ def _run_nms_batch(boxes, scores, labels, valid, order_scores, pre_max,
     if pre_limits is not None:
         ar = torch.arange(pre_max, device=boxes.device)
         cand_valid = cand_valid & (ar[None, :] < pre_limits[:, None])
-    nms = rotated_nms_dynamic if torch.is_tensor(thresh) else rotated_nms
-    sel_idx, sel_mask = nms(cand_boxes, cand_scores, cand_valid, thresh,
-                            post_max, sweeps=sweeps,
-                            use_mask_kernel=use_mask_kernel)
+    if min_radius is not None:
+        sel_idx, sel_mask = circle_nms(cand_boxes[..., :2], cand_valid,
+                                       min_radius, post_max)
+    else:
+        nms = (rotated_nms_dynamic if torch.is_tensor(thresh)
+               else rotated_nms)
+        sel_idx, sel_mask = nms(cand_boxes, cand_scores, cand_valid, thresh,
+                                post_max, sweeps=sweeps,
+                                use_mask_kernel=use_mask_kernel)
     return (
         torch.gather(cand_boxes, 1, sel_idx[..., None].expand(-1, -1, D)),
         torch.gather(cand_scores, 1, sel_idx) * sel_mask,

@@ -70,19 +70,25 @@ def build_head(cfg, feat_channels, device=None):
                           dict(feat_channels=feat_channels))
 
 
-def build_second_stage_module(cfg, backbone_channels, backbone_strides,
-                              device=None):
-    return build_from_cfg(_component(cfg, device), SECOND_STAGE,
-                          dict(backbone_channels=backbone_channels,
-                               backbone_strides=backbone_strides))
+def build_second_stage_module(cfg, backbone_channels=None,
+                              backbone_strides=None, device=None):
+    """A second-stage module; the RoI-grid modules take the backbone's
+    geometry, the box-centre extractor none (None: not passed)."""
+    geometry = dict(backbone_channels=backbone_channels,
+                    backbone_strides=backbone_strides)
+    return build_from_cfg(
+        _component(cfg, device), SECOND_STAGE,
+        {k: v for k, v in geometry.items() if v is not None})
 
 
-def build_roi_head(cfg, device=None):
-    return build_from_cfg(_component(cfg, device), ROI_HEAD)
+def build_roi_head(cfg, device=None, dtype=torch.float32):
+    return build_from_cfg(_component(cfg, device), ROI_HEAD,
+                          dict(dtype=dtype))
 
 
-def build_point_head(cfg, device=None):
-    return build_from_cfg(_component(cfg, device), POINT_HEAD)
+def build_point_head(cfg, device=None, dtype=torch.float32):
+    return build_from_cfg(_component(cfg, device), POINT_HEAD,
+                          dict(dtype=dtype))
 
 
 def build_detector(cfg, train_cfg=None, test_cfg=None, device=None):

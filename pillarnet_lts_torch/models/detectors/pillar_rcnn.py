@@ -28,8 +28,17 @@ package does. With `freeze` the first stage runs in eval mode under
 `torch.no_grad()`: no gradient and no running-statistics update, the JAX
 package's `train=False` plus `stop_gradient`.
 
-Not ported yet: the bf16 and int8 two-stage configs (they raise), and
-`RoIFFNHead`'s IoU branch with its loss.
+`dtype` (f32 or bf16) is the compute dtype of both stages, as in the JAX
+package: the first stage computes in it, its detections (hence the RoIs)
+are decoded in f32, the grid pooling's convs run on its maps in dtype
+and samples them with f32 weights (f32 features), and the point and RoI
+heads cast those to dtype. A bf16 model serves; training is
+ported for f32 models only (`runtime/train_step.py` raises). An int8
+model (`runtime.quantize.enable_backbone_quant` on the config, then
+`calibrate`) quantizes the first stage's reader, backbone and neck in
+either dtype; the second stage stays in dtype.
+
+Not ported yet: `RoIFFNHead`'s IoU branch with its loss.
 """
 
 from typing import Optional, Sequence
@@ -60,15 +69,13 @@ class PillarRCNN(nn.Module):
                  test_cfg: Optional[dict] = None, pretrained=None,
                  dtype=torch.float32, device=None):
         super().__init__()
-        del num_point, use_final_feature, pretrained
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                "PillarRCNN: only the f32 two-stage is ported")
+        del use_final_feature, pretrained
         if roi_head is None:
             raise ValueError("PillarRCNN needs a roi_head")
         fs = dict(first_stage_cfg)
         fs.pop("type", None)
         self.dtype = dtype
+        self.num_point = num_point
         self.freeze = bool(freeze)
         self.code_size = int(roi_head.get("code_size", 7))
         self.target_config = dict(roi_head["model_cfg"]["TARGET_CONFIG"])
@@ -79,7 +86,6 @@ class PillarRCNN(nn.Module):
         self.single_det = PillarNet(**fs, train_cfg=train_cfg,
                                     test_cfg=test_cfg, dtype=dtype,
                                     device=device)
-        backbone = self.single_det.backbone_net
         bev_channels = self.single_det.neck_net.out_channels[-1]
         self.num_second_stage = len(second_stage_modules)
         for k, m in enumerate(second_stage_modules):
@@ -89,14 +95,20 @@ class PillarRCNN(nn.Module):
                     f"{m['in_channels']} != the neck's last map's "
                     f"{bev_channels}")
             setattr(self, f"second_stage_{k}",
-                    builder.build_second_stage_module(
-                        m, backbone.backbone_channels,
-                        backbone.backbone_strides, device))
-        self.roi_head_net = builder.build_roi_head(roi_head, device)
-        self.point_head_net = (builder.build_point_head(point_head, device)
-                               if point_head is not None else None)
+                    self._second_stage_module(m, device))
+        self.roi_head_net = builder.build_roi_head(roi_head, device, dtype)
+        self.point_head_net = (
+            builder.build_point_head(point_head, device, dtype)
+            if point_head is not None else None)
         if (point_head or {}).get("model_cfg", {}).get("ATT_MODEL", False):
             raise NotImplementedError("PointHead ATT_MODEL is not ported yet")
+
+    def _second_stage_module(self, cfg, device):
+        """A RoI-grid module, given the backbone's geometry."""
+        backbone = self.single_det.backbone_net
+        return builder.build_second_stage_module(
+            cfg, backbone.backbone_channels, backbone.backbone_strides,
+            device)
 
     def train(self, mode=True):
         """torch's train(); a frozen first stage stays in eval mode."""
@@ -136,12 +148,19 @@ class PillarRCNN(nn.Module):
         return (boxes * valid[..., None], (first["label_preds"] + 1) * valid,
                 first["scores"] * valid)
 
-    def _refine(self, bev, feats, rois, roi_scores, out, generator=None):
-        """Grid pooling, point head and RoI head over `rois`, into out."""
+    def _pool(self, bev, feats, rois):
+        """(roi features, point features, point coordinates) of `rois`:
+        RoI-grid pooling over the neck's last map (the legacy
+        `TwoStageDetector` pools at box centres instead)."""
         roi_feats = point_feats = point_coords = None
         for k in range(self.num_second_stage):
             roi_feats, point_feats, point_coords = getattr(
                 self, f"second_stage_{k}")(bev[-1], feats, rois)
+        return roi_feats, point_feats, point_coords
+
+    def _refine(self, bev, feats, rois, roi_scores, out, generator=None):
+        """Pooling, point head and RoI head over `rois`, into out."""
+        roi_feats, point_feats, point_coords = self._pool(bev, feats, rois)
         out["point_coords"] = point_coords
         if self.point_head_net is not None:
             out["point_logits"] = self.point_head_net(point_feats)

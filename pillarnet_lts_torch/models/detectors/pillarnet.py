@@ -32,6 +32,12 @@ class PillarNet(nn.Module):
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
         self.dtype = dtype
+        if (dtype == torch.float32 and backbone.get("quant")
+                and backbone.get("s2d_pallas")):
+            raise NotImplementedError(
+                "s2d_pallas: the fused int8 stage kernel (ops/int8_stage.py) "
+                "takes bf16 activations only; an f32 int8 model runs its "
+                "stride-1 stage per conv (leave s2d_pallas off)")
         self.reader_net = builder.build_reader(reader, device, dtype)
         self.backbone_net = builder.build_backbone(backbone, device)
         self.neck_net = builder.build_neck(

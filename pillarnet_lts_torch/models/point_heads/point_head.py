@@ -3,7 +3,8 @@
 Port of the forward of `pillarnet_lts_tpu/models/point_heads/
 point_head.py::PointHead`: Dense + BN + ReLU layers (`cls_fc{k}`,
 `cls_bn{k}`; the BN folded at eval) and a one-logit projection
-(`cls_out`), and its training half: the per-grid-point foreground
+(`cls_out`), computed in `dtype` (the grid features are cast to it, as
+flax's `Dense(dtype=...)` casts its input), and its training half: the per-grid-point foreground
 targets (`assign_point_targets_2d`) and the sigmoid focal loss
 (`point_cls_loss`).
 """
@@ -18,9 +19,11 @@ from ..utils.norm import MaskedBatchNorm
 
 @POINT_HEAD.register_module
 class PointHead(nn.Module):
-    def __init__(self, in_channels, num_class, model_cfg, device=None):
+    def __init__(self, in_channels, num_class, model_cfg,
+                 dtype=torch.float32, device=None):
         super().__init__()
         del num_class  # one logit, as the JAX package's (class-agnostic)
+        self.dtype = dtype
         self.num_layers = len(model_cfg["CLS_FC"])
         c = in_channels
         for k, ch in enumerate(model_cfg["CLS_FC"]):
@@ -32,8 +35,8 @@ class PointHead(nn.Module):
         self.cls_out = Dense(c, 1, device=device)
 
     def forward(self, point_features):
-        """point_features (B, R, G, C) -> logits (B, R, G, 1)."""
-        x = point_features
+        """point_features (B, R, G, C) -> logits (B, R, G, 1) in dtype."""
+        x = point_features.to(self.dtype)
         for k in range(self.num_layers):
             x = dense_bn_relu(getattr(self, f"cls_fc{k}"),
                               getattr(self, f"cls_bn{k}"), x, self.training)

@@ -9,6 +9,11 @@ projection with bias (`out`). Dropout runs only when the module's own
 (`dropout`: flax's `nn.Dropout`, keep mask and 1 / (1 - rate) scale);
 nothing draws from torch's global generator.
 
+`dtype` is the compute dtype: each RoI's row (its pooled features and,
+with `add_box_param`, its box and score) is cast to it before the first
+Dense, as flax's `Dense(dtype=...)` casts its input, and the layers run
+in it with their f32 parameters cast (bf16 serving: bf16 outputs).
+
 Not ported yet: the token mixers (`mixer_type` "MLPMixer" / "ResMLP",
 `mlp_layers.py`) and `RoIFFNHead`; no config in `configs/` uses them, and
 they raise.
@@ -88,8 +93,9 @@ class _RoIMLP(nn.Module):
     box and score."""
 
     def __init__(self, in_features, model_cfg, num_class, code_size,
-                 add_box_param, device):
+                 add_box_param, device, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         cfg = dict(model_cfg)
         dp = cfg.get("DP_RATIO", 0.0)
         self.add_box_param = add_box_param
@@ -112,7 +118,7 @@ class _RoIMLP(nn.Module):
         if self.add_box_param:
             x = torch.cat([x, rois.reshape(B * R, -1),
                            roi_scores.reshape(B * R, 1)], dim=-1)
-        x = self.shared_fc(x, generator)
+        x = self.shared_fc(x.to(self.dtype), generator)
         return self.cls(x, generator), self.reg(x, generator)
 
 
@@ -124,13 +130,13 @@ class RoIMIXHead(_RoIMLP):
 
     def __init__(self, in_channels, model_cfg, num_class=1, code_size=7,
                  add_box_param=False, test_cfg=None, mixer_type=None,
-                 num_patches=49, device=None):
+                 num_patches=49, dtype=torch.float32, device=None):
         del test_cfg
         if mixer_type:
             raise NotImplementedError(
                 f"RoIMIXHead mixer_type={mixer_type!r} is not ported yet")
         super().__init__(in_channels * num_patches, model_cfg, num_class,
-                         code_size, add_box_param, device)
+                         code_size, add_box_param, device, dtype)
 
 
 @ROI_HEAD.register_module
@@ -138,7 +144,8 @@ class RoIHead(_RoIMLP):
     """Flattened-feature head: `input_channels` features per RoI."""
 
     def __init__(self, input_channels, model_cfg, num_class=1, code_size=7,
-                 add_box_param=False, test_cfg=None, device=None):
+                 add_box_param=False, test_cfg=None, dtype=torch.float32,
+                 device=None):
         del test_cfg
         super().__init__(input_channels, model_cfg, num_class, code_size,
-                         add_box_param, device)
+                         add_box_param, device, dtype)

@@ -1,3 +1,5 @@
-from .bev_feature import BEVStrideFeature, bev_cells, roi_grid_points
+from .bev_feature import (BEVFeature, BEVFeatureExtractor, BEVStrideFeature,
+                          bev_cells, roi_grid_points)
 
-__all__ = ["BEVStrideFeature", "bev_cells", "roi_grid_points"]
+__all__ = ["BEVFeature", "BEVFeatureExtractor", "BEVStrideFeature",
+           "bev_cells", "roi_grid_points"]

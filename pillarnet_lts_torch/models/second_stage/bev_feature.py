@@ -1,9 +1,13 @@
-"""Second-stage BEV feature extraction (RoI-grid bilinear pooling).
+"""Second-stage BEV feature extraction: RoI-grid and box-centre bilinear
+pooling.
 
-Port of `pillarnet_lts_tpu/models/second_stage/bev_feature.py`
-(`roi_grid_points`, `BEVStrideFeature`): fuse the neck's last map with
-lateral backbone maps at `out_stride`, lay a rotated grid_size x grid_size
-grid of points over each RoI and bilinear-sample the fused map at them.
+Port of `pillarnet_lts_tpu/models/second_stage/bev_feature.py`:
+`roi_grid_points`, `BEVStrideFeature` and `BEVFeature` fuse the neck's
+last map with lateral backbone maps at `out_stride` (anchored at conv3
+and at conv4), lay a rotated grid_size x grid_size grid of points over
+each RoI and bilinear-sample the fused map at them; `BEVFeatureExtractor`
+(the legacy `TwoStageDetector`'s) bilinear-samples the neck map at given
+box-centre points.
 
 Maps are NCHW, as everywhere in the port; the fused map is copied once to
 channels-last so that every sample gathers contiguous rows of
@@ -16,9 +20,14 @@ At eval the BN of each plain conv is folded into it
 (`backbones/base.py::conv_bn_act`); after a transposed conv it runs
 unfolded, as in the necks. The down-path (a source finer than
 `out_stride`) is a k x k conv of stride k whose BN re-zeroes the sites
-outside the max-pooled occupancy. `BEVFeature` and `BEVFeatureExtractor`
-(served by no config outside the legacy two-stage detector) are not
-ported yet.
+outside the max-pooled occupancy.
+
+The convs compute in the dtype of the maps they are given, which is the
+detector's compute dtype (bf16 maps: bf16 convs, BN folded in f32 and
+cast); the grid follows the RoIs' dtype (f32: predict decodes in f32), so
+the bilinear weights and sums are f32 and the sampled features come out
+in f32 from a bf16 map too, as in the JAX package (an f32 weight times a
+bf16 corner promotes).
 """
 
 from typing import Dict, Optional, Sequence
@@ -36,7 +45,6 @@ from ..registry import SECOND_STAGE
 from ..utils.norm import MaskedBatchNorm
 
 _SOURCES = ("conv1", "conv2", "conv3", "conv4")
-_OUT_CHANNELS = {1: 32, 2: 64, 4: 128}
 
 
 def grid_fractions(grid_size):
@@ -78,11 +86,18 @@ def bev_cells(pts, pc_range, inv_cell):
             (pts[..., 1] - pc_range[1]) * inv_cell)
 
 
-@SECOND_STAGE.register_module
-class BEVStrideFeature(nn.Module):
-    """`in_channels`: channels of the BEV map it is given (the neck's last
-    output); `backbone_channels` / `backbone_strides`: the backbone's, which
-    the detector passes in."""
+class _BEVFusion(nn.Module):
+    """The fusion and RoI-grid pooling that `BEVStrideFeature` and
+    `BEVFeature` share; they differ in the map the top-down path starts
+    from (`anchor`), the widths per out_stride and which lateral ratios
+    take the up path (`_up(ratio, out_stride)`)."""
+
+    anchor = "conv3"
+    out_channels = {1: 32, 2: 64, 4: 128}
+
+    @staticmethod
+    def _up(ratio, out_stride):
+        return ratio >= 1
 
     def __init__(self, feature_sources: Sequence[str], pillar_size,
                  pc_range: Sequence[float], out_stride=4, grid_size=7,
@@ -91,18 +106,19 @@ class BEVStrideFeature(nn.Module):
                  backbone_strides: Optional[Dict[str, int]] = None,
                  device=None):
         super().__init__()
-        if out_stride not in _OUT_CHANNELS:
+        if out_stride not in self.out_channels:
             raise ValueError(f"out_stride {out_stride} not in "
-                             f"{sorted(_OUT_CHANNELS)}")
-        out_ch = _OUT_CHANNELS[out_stride]
-        strides = backbone_strides or {"conv3": 4}
+                             f"{sorted(self.out_channels)}")
+        out_ch = self.out_channels[out_stride]
+        strides = backbone_strides or {self.anchor: 2 ** (
+            _SOURCES.index(self.anchor))}
         self.grid_size = grid_size
         self.pc_range = list(pc_range)
         self.inv_cell = f32_reciprocal(out_stride * pillar_size)
 
-        def lateral(c_in, ratio):
+        def lateral(c_in, ratio, up):
             """(conv, stride of the down-path or 0)."""
-            if ratio >= 1:
+            if up:
                 k = int(ratio)
                 if k > 1:
                     return ConvTranspose(c_in, out_ch, k, device=device), 0
@@ -112,18 +128,19 @@ class BEVStrideFeature(nn.Module):
             return MaskedConv(c_in, out_ch, k, stride=k, use_bias=True,
                               init="xavier", padding=0, device=device), k
 
-        self.top_down_conv, _ = lateral(in_channels,
-                                        strides["conv3"] / out_stride)
+        self.top_down_conv, _ = lateral(
+            in_channels, strides[self.anchor] / out_stride, True)
         self.top_down_bn = MaskedBatchNorm(out_ch, device=device)
         self.sources = []
         for src in feature_sources:
             if src not in _SOURCES:
                 continue
             if backbone_channels is None:
-                raise ValueError("BEVStrideFeature needs backbone_channels "
-                                 "for its lateral sources")
-            conv, down = lateral(backbone_channels[src],
-                                 strides[src] / out_stride)
+                raise ValueError(f"{type(self).__name__} needs "
+                                 "backbone_channels for its lateral sources")
+            ratio = strides[src] / out_stride
+            conv, down = lateral(backbone_channels[src], ratio,
+                                 self._up(ratio, out_stride))
             setattr(self, f"lat_{src}", conv)
             setattr(self, f"lat_bn_{src}", MaskedBatchNorm(out_ch,
                                                            device=device))
@@ -156,7 +173,7 @@ class BEVStrideFeature(nn.Module):
                            torch.cat(feats, dim=1), None, self.training)
 
     def forward(self, bev_feature, backbone_features, rois):
-        """bev_feature: (B, C, H3, W3) NCHW neck map at the conv3 scale;
+        """bev_feature: (B, C, H, W) NCHW neck map at the anchor's scale;
         backbone_features: the backbone's dict of (map, occupancy);
         rois: (B, R, 7+).
 
@@ -171,3 +188,72 @@ class BEVStrideFeature(nn.Module):
             im, xs.reshape(B, -1), ys.reshape(B, -1)).reshape(
                 B, R, pts.shape[-2], -1)
         return point_feats.reshape(B, R, -1), point_feats, pts
+
+
+@SECOND_STAGE.register_module
+class BEVStrideFeature(_BEVFusion):
+    """Top-down from the neck's conv3-scale map. `in_channels`: channels
+    of the BEV map it is given (the neck's last output);
+    `backbone_channels` / `backbone_strides`: the backbone's, which the
+    detector passes in."""
+
+
+@SECOND_STAGE.register_module
+class BEVFeature(_BEVFusion):
+    """The conv4-anchored variant (reference `bev_interpolation.py:18-158`):
+    the top-down path starts from the stride-8 neck map, out_stride may be
+    8, and a lateral source at the out_stride itself takes the down path
+    (a 1 x 1 conv with bias, masked BN over its occupancy) unless
+    out_stride is 8."""
+
+    anchor = "conv4"
+    out_channels = {1: 32, 2: 64, 4: 128, 8: 256}
+
+    @staticmethod
+    def _up(ratio, out_stride):
+        return ratio > 1 or (out_stride == 8 and ratio == 1)
+
+    def __init__(self, feature_sources: Sequence[str], pillar_size,
+                 pc_range: Sequence[float], out_stride=4, grid_size=7,
+                 in_channels=256, share_channels=64,
+                 backbone_channels: Optional[Dict[str, int]] = None,
+                 backbone_strides: Optional[Dict[str, int]] = None,
+                 device=None):
+        super().__init__(feature_sources, pillar_size, pc_range, out_stride,
+                         grid_size, in_channels, share_channels,
+                         backbone_channels, backbone_strides, device)
+
+
+@SECOND_STAGE.register_module
+class BEVFeatureExtractor(nn.Module):
+    """Box-centre BEV pooling (reference `bird_eye_view.py:11-40`):
+    bilinear-sample the neck map at given points. Has no parameters.
+
+    The continuous cell coordinate is (p - pc_start) times the f32
+    reciprocal of voxel_size[0] * out_stride (the x voxel size on both
+    axes, as the JAX package), XLA's compiled division by that constant.
+    With `num_point` > 1 the points come as num_point sections of K
+    (`legacy.box_center_points`: centres, then the four edge midpoints),
+    and each RoI's sections are laid side by side along the channels:
+    (B, K, num_point * C)."""
+
+    def __init__(self, pc_start: Sequence[float], voxel_size, out_stride,
+                 num_point=1, device=None):
+        super().__init__()
+        del device
+        self.pc_start = list(pc_start)
+        self.inv_cell = f32_reciprocal(voxel_size[0] * out_stride)
+        self.num_point = num_point
+
+    def forward(self, bev_feature, batch_centers):
+        """bev_feature (B, C, H, W) NCHW; batch_centers (B, N, 2) ->
+        (B, N / num_point, num_point * C) in the promotion of the map's
+        dtype with the points' (f32 points: f32)."""
+        xs, ys = bev_cells(batch_centers, self.pc_start, self.inv_cell)
+        im = bev_feature.permute(0, 2, 3, 1).contiguous()
+        feats = bilinear_interpolate(im, xs, ys)
+        if self.num_point > 1:
+            sec = feats.shape[1] // self.num_point
+            feats = torch.cat([feats[:, i * sec:(i + 1) * sec]
+                               for i in range(self.num_point)], dim=-1)
+        return feats

@@ -9,8 +9,8 @@ holds a value: `runtime/quantize.py::calibrate` or
 `runtime/convert.py::load_jax_variables` sets it.
 
 While `observing` is on (`runtime/quantize.py::calibration_mode`) the
-module runs its bf16 path and records the running max of what it observes
-in `observed`; outside calibration nothing is observed.
+module runs its float path (f32 or bf16) and records the running max of
+what it observes in `observed`; outside calibration nothing is observed.
 """
 
 import torch

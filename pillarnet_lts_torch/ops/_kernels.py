@@ -12,7 +12,9 @@ nvcc's stderr; nothing falls back.
 after its launch succeeds and nowhere else, so a caller can zero the counts,
 run the model and see which kernels the run went through. A wrapper that
 calls two entry points of one source (the sorted-run scatter-max makes its
-sort keys first) counts once, as its kernel; an entry point that only
+sort keys first) counts once, as its kernel; the int8 conv's bf16 and f32
+variants (`int8_conv`, `int8_conv_f32`, one source) count apart; an entry
+point that only
 exposes a kernel's staged values for a check
 (`suppression_mask_corners`) counts nothing.
 """
@@ -27,7 +29,7 @@ import threading
 
 LAUNCHES = {"pillar_scatter_max": 0, "pillar_scatter_max_tiled": 0,
             "rotated_overlap": 0, "suppression_mask": 0, "int8_conv": 0,
-            "int8_stage": 0}
+            "int8_conv_f32": 0, "int8_stage": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -74,6 +76,10 @@ KERNELS = {
     ),
     "int8_conv": (
         "int8_conv.cu", _NO_FMA, "int8_conv_bf16",
+        [_P] * 8 + [_INT] * 9 + [_P],
+    ),
+    "int8_conv_f32": (
+        "int8_conv.cu", _NO_FMA, "int8_conv_f32",
         [_P] * 8 + [_INT] * 9 + [_P],
     ),
     "int8_stage": (

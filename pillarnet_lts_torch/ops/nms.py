@@ -1,6 +1,8 @@
-"""Rotated greedy NMS with static shapes, batched over tasks and samples.
+"""Rotated and circular greedy NMS with static shapes, batched over tasks
+and samples.
 
-Port of `pillarnet_lts_tpu/ops/nms.py` (the rotated paths). Suppression is
+Port of `pillarnet_lts_tpu/ops/nms.py` (the rotated paths and
+`circle_nms`). Suppression is
 the fixed-sweep fixpoint of `_greedy_suppress` (batched matvecs), so the
 whole NMS runs on the device with no host sync: fixed K candidates in, fixed
 `post_max_size` slots out (padded, validity-masked).
@@ -226,6 +228,28 @@ def suppression_mask_corners(boxes):
             _kernels.stream_handle(boxes.device))
     _kernels.raise_on_error(name, err)
     return ca, cb
+
+
+def circle_nms(centers, valid, min_radius, post_max_size):
+    """Greedy centre-distance NMS over score-descending candidates (the
+    reference's `circle_nms_jit`): j suppresses a later i where their
+    squared BEV distance is <= `min_radius` (the reference compares the
+    squared distance with the config's `min_radius` as it is). The JAX
+    package computes it without a Pallas kernel; here too, plain tensor
+    ops on both devices.
+
+    Args:
+      centers: (..., K, 2) xy, score-descending along K.
+      valid: (..., K) bool.
+      min_radius: the squared-distance threshold (m^2).
+      post_max_size: output size.
+    Returns:
+      (sel_idx, sel_mask): (..., post_max_size), as `rotated_nms`.
+    """
+    d2 = ((centers[..., :, None, :] - centers[..., None, :, :]) ** 2).sum(-1)
+    overlap = (d2 <= min_radius).to(torch.float32)
+    keep = _greedy_suppress(overlap, valid, 0.5)
+    return _select_topk_sorted(keep, post_max_size)
 
 
 def rotated_nms(boxes, scores, valid, nms_thresh, post_max_size,

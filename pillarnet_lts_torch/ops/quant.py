@@ -10,8 +10,9 @@ kernel (the BN fold factor rides the dequant vector), symmetric per-tensor
 activation scales from a calibrated absmax, int32 sums, f32 dequant.
 
 Public functions keep the JAX package's layouts: activations NHWC, kernels
-HWIO. `int8_conv_bn_act` launches `csrc/int8_conv.cu` on a CUDA tensor and
-runs its plain version on a CPU tensor; nothing falls back. The kernel reads
+HWIO. `int8_conv_bn_act` launches `csrc/int8_conv.cu` on a CUDA tensor (its
+bf16 or its f32 variant, by the activations' dtype) and runs its plain
+version on a CPU tensor; nothing falls back, and nothing casts f32 to bf16. The kernel reads
 its weights as `pack_kernel(w_q)`, which a caller may compute once and pass
 as `w_pack`; when it is passed, the plain version runs on
 `unpack_kernel(w_pack)`, so both devices read the same tensor.
@@ -33,6 +34,8 @@ from . import _kernels
 # tiles of 32 or 64
 _CIN_CHUNK = 32
 _COUT_TILE = 32
+# activation dtype -> the int8 conv kernel's variant (and launch counter)
+_CONV_VARIANTS = {torch.bfloat16: "int8_conv", torch.float32: "int8_conv_f32"}
 
 INV_127 = 1.0 / 127.0  # applied to f32 tensors, it rounds to f32(1 / 127)
 
@@ -129,7 +132,9 @@ def int8_conv_bn_act(x, w_q, inv_s, dq, shift, stride, mask=None,
                      residual=None, act=True, w_pack=None):
     """One int8 3x3 conv (padding 1) with the fused eval epilogue.
 
-    x:        (B, H, W, Cin) bf16 activations (f32 accepted on the CPU);
+    x:        (B, H, W, Cin) bf16 or f32 activations (the model's compute
+              dtype: bf16 configs and f32 configs after
+              `enable_backbone_quant`);
     w_q:      (3, 3, Cin, Cout) int8 kernel (`kernel_int8`);
     inv_s:    0-dim f32 tensor, 1 / activation scale (computed in f32);
     dq:       (Cout,) f32 dequant vector s_x * s_w * inv (BN fold included);
@@ -142,11 +147,13 @@ def int8_conv_bn_act(x, w_q, inv_s, dq, shift, stride, mask=None,
               (the CPU through `unpack_kernel`); when absent, the wrapper
               packs w_q itself on the card.
 
-    Quantizes x on load (round half to even, clip to +-127), sums in int32,
-    then (acc * dq + shift) -> x.dtype, + residual, ReLU if `act`, times the
-    mask. Returns (B, Ho, Wo, Cout) in x.dtype. A CPU tensor takes the
-    plain version; a CUDA tensor launches `csrc/int8_conv.cu` or raises."""
-    name = "int8_conv"
+    Quantizes x on load (round half to even, clip to +-127; an f32 x is
+    quantized itself), sums in int32, then (acc * dq + shift) -> x.dtype,
+    + residual, ReLU if `act`, times the mask, each in x.dtype. Returns
+    (B, Ho, Wo, Cout) in x.dtype. A CPU tensor takes the plain version; a
+    CUDA tensor launches `csrc/int8_conv.cu`'s variant for x.dtype
+    (`int8_conv` bf16, `int8_conv_f32` f32) or raises."""
+    name = _CONV_VARIANTS.get(x.dtype, "int8_conv")
     if w_pack is not None:
         check_pack(name, w_pack, w_q)
     if x.device.type == "cpu":
@@ -167,9 +174,9 @@ def int8_conv_bn_act(x, w_q, inv_s, dq, shift, stride, mask=None,
     _kernels.check_args(name, **tensors)
     _kernels.check_args(name, align=16, x=x, w_pack=w_pack,
                         **({} if residual is None else {"residual": residual}))
-    if x.dtype != torch.bfloat16 or w_q.dtype != torch.int8:
-        raise TypeError(f"{name}: bf16 activations and an int8 kernel, got "
-                        f"{x.dtype} and {w_q.dtype}")
+    if x.dtype not in _CONV_VARIANTS or w_q.dtype != torch.int8:
+        raise TypeError(f"{name}: bf16 or f32 activations and an int8 "
+                        f"kernel, got {x.dtype} and {w_q.dtype}")
     for arg in ("inv_s", "dq", "shift"):
         if tensors[arg].dtype != torch.float32:
             raise TypeError(f"{name}: {arg} must be f32")

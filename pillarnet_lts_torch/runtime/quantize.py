@@ -3,12 +3,16 @@
 Port of `pillarnet_lts_tpu/runtime/quantize.py`. A model built with the
 int8 flags (`enable_backbone_quant`, or the `*_int8.py` configs) holds one
 activation absmax per quantized module (`models/utils/quant.py`). Until
-they are set it serves its bf16 path. `calibrate` runs bf16 eval forwards
-over a few representative clouds inside `calibration_mode`, where each
-module records the max |activation| it sees (per input channel for the
-reader MLP), merges the per-batch values, and sets them; the model then
-serves int8. Outside `calibration_mode` nothing is recorded, so serving
-never pays for the reductions.
+they are set it serves its float path. `calibrate` runs eval forwards in
+the model's compute dtype (f32 or bf16) over a few representative clouds
+inside `calibration_mode`, where each module records the max |activation|
+it sees (per input channel for the reader MLP), merges the per-batch
+values, and sets them; the model then serves int8. A two-stage model
+(`PillarRCNN`, `TwoStageDetector`) calibrates through its whole forward:
+the first stage's modules observe while the second stage runs on its
+detections, as the JAX package's `calibrate` applies the whole model.
+Outside `calibration_mode` nothing is recorded, so serving never pays for
+the reductions.
 """
 
 import contextlib
@@ -42,7 +46,7 @@ def observers(model):
 
 @contextlib.contextmanager
 def calibration_mode(model):
-    """Within: every quant module runs its bf16 path and records its
+    """Within: every quant module runs its float path and records its
     absmax in `observed`. Yields the observing modules."""
     obs = observers(model)
     if not obs:

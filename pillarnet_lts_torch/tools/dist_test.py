@@ -22,8 +22,9 @@ the middle third of the frames, on CUDA events and on the host clock.
 Default: the pipelined pass (`eval_utils.pipelined_infer`, up to 4
 batches in flight), timed with the loader: frames/s over the whole pass
 and over the batches of its middle third. `--int8`: the int8 deploy build
-of the config (`runtime.quantize.enable_backbone_quant`) calibrated on
-the first 8 batches. Double-flip TTA is the config's
+of the config (`runtime.quantize.enable_backbone_quant`; any config, f32
+or bf16, single- or two-stage: the int8 convs take the config's dtype)
+calibrated on the first 8 batches. Double-flip TTA is the config's
 (`test_cfg.double_flip` with `DoubleFlip` in its val pipeline, as
 `apis.with_double_flip` sets them): 4 clouds a frame, one detection set a
 frame.

@@ -1,15 +1,17 @@
 """PyTorch port on the card: each CUDA kernel against its plain version, and
 the models' paths through the kernels (f32: scatter-max and overlap; int8
-deploy: also the int8 conv and the fused int8 stage; the switches: the
-sorted-run scatter-max and the suppression mask; the two-stage and RPNG
-Waymo configs: scatter-max and overlap, no host sync, the card against the
-CPU; training: a demo step, also on a batch of the config's augmented
-train pipeline, against the CPU; two-stage training: the overlap kernel on
-the RoI sampler's padded zero boxes, the sampler and a demo step against
-the CPU; evaluation: the
-Waymo evaluator's overlap calls and metrics against the CPU, double-flip
-`dist_test` on the demo against the CPU, the trainer's val workflow
-against `dist_test`).
+deploy: also the int8 conv, its f32 variant and the fused int8 stage; the
+switches: the sorted-run scatter-max and the suppression mask; the
+two-stage and RPNG Waymo configs: scatter-max and overlap, no host sync,
+the card against the CPU; the two-stage model in int8 on f32 activations
+(every int8 conv call against the plain version) and in bf16 (against the
+CPU); the legacy detectors and circular NMS against the CPU; training: a
+demo step, also on a batch of the config's augmented train pipeline,
+against the CPU; two-stage training: the overlap kernel on the RoI
+sampler's padded zero boxes, the sampler and a demo step against the CPU;
+evaluation: the Waymo evaluator's overlap calls and metrics against the
+CPU, double-flip `dist_test` on the demo against the CPU, the trainer's
+val workflow against `dist_test`).
 
 This file imports no JAX, so it also runs where only PyTorch is installed.
 Every test needs a CUDA card with nvcc and skips without one. On the card,
@@ -212,8 +214,8 @@ def test_int8_conv_kernel_matches_plain(cuda, stride, cin, cout, use_mask,
 def test_int8_conv_kernel_rejects_unsupported_inputs(cuda):
     a = _int8_conv_args(cuda, 1, 1, 8, 8, 32, 32, 1)
     args = (a["w_q"], a["inv_s"], a["dq"], a["shift"], 1)
-    with pytest.raises(TypeError, match="bf16"):
-        tquant.int8_conv_bn_act(a["x"].float(), *args)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        tquant.int8_conv_bn_act(a["x"].half(), *args)
     with pytest.raises(ValueError, match="contiguous"):
         tquant.int8_conv_bn_act(a["x"].transpose(1, 2), *args)
 
@@ -261,7 +263,10 @@ _K4_CLASSES = {"32-32": (32, 32, 1), "32-64-s2": (32, 64, 2),
 _K4_CASES = ("masked", "dense", "corners", "poisoned")
 
 
-def _k4_case(dev, case, cin, cout, stride):
+def _k4_case(dev, case, cin, cout, stride, dtype=torch.bfloat16):
+    """(args, kwargs) of one K4 edge case; activations, mask and residual
+    in `dtype` (bf16, or f32 for the f32 variant)."""
+    bf = dtype
     rng = np.random.RandomState(cin + cout + stride + len(case))
     B, H, W = (2, 181, 163) if case == "poisoned" else (2, 37, 45)
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
@@ -277,7 +282,6 @@ def _k4_case(dev, case, cin, cout, stride):
         mask[1] = False
     res = rng.randn(B, Ho, Wo, cout).astype(np.float32) * mask[..., None]
     amax = np.abs(x).max() * (0.5 if case == "masked" else 1.0)
-    bf = torch.bfloat16
     args = (torch.from_numpy(x).to(dev, bf),
             torch.from_numpy(rng.randint(-127, 128, (3, 3, cin, cout))
                              .astype(np.int8)).to(dev),
@@ -323,6 +327,42 @@ def test_int8_conv_kernel_on_edge_cases(cuda, cls, case):
         assert not bool(got[1].any())  # the all-zero mask: exactly 0
     elif case == "corners":
         assert int((got.float().abs().sum(-1) > 0).sum()) <= 6
+
+
+@pytest.mark.parametrize("case", _K4_CASES)
+@pytest.mark.parametrize("cls", sorted(_K4_CLASSES))
+def test_int8_conv_f32_kernel_on_edge_cases(cuda, cls, case):
+    """K4's f32 variant (`int8_conv_f32`) on the same edge cases: f32
+    activations quantized themselves, the f32 epilogue, equal by value to
+    the plain version, counted under its own name."""
+    cin, cout, stride = _K4_CLASSES[cls]
+    args, kw = _k4_case(cuda, case, cin, cout, stride, torch.float32)
+    want = tquant.int8_conv_bn_act_plain(*args, **kw)
+    pack = tquant.pack_kernel(args[1])
+    out_bytes = want.numel() * want.element_size()
+    if case == "poisoned":
+        poisoned = _poison(cuda, out_bytes)
+    before = dict(_kernels.LAUNCHES)
+    got = tquant.int8_conv_bn_act(*args, **kw, w_pack=pack)
+    got2 = tquant.int8_conv_bn_act(
+        *args, **kw, w_pack=None if case == "masked" else pack)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["int8_conv_f32"] == \
+        before["int8_conv_f32"] + 2
+    assert _kernels.LAUNCHES["int8_conv"] == before["int8_conv"]
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, want), (got - want).abs().max()
+    assert torch.equal(got.view(torch.int32), got2.view(torch.int32))
+    assert got.abs().max() > 0
+    if case == "masked":  # some codes clip
+        assert (args[0] * args[2]).abs().max() > 127
+    elif case == "poisoned":
+        start, end = got.data_ptr(), got.data_ptr() + out_bytes
+        assert any(lo < end and start < hi for lo, hi in poisoned)
+        assert not bool(torch.isnan(got).any())
+        assert not bool(got[1].any())
+    elif case == "corners":
+        assert int((got.abs().sum(-1) > 0).sum()) <= 6
 
 
 @pytest.mark.parametrize("density", ["sparse", "dense"])
@@ -1065,6 +1105,156 @@ def test_two_stage_demo_on_the_card_matches_the_cpu(cuda):
     from chip_smoke import rcnn_card_vs_cpu
 
     r = rcnn_card_vs_cpu(torch, cuda)
+    assert r["kept"] > 0
+
+
+# ---- the two-stage precisions, the legacy detectors, circular NMS --------
+
+_RCNN_DEMO = os.path.join(_ROOT, "configs", "demo", "pillarrcnn18_demo.py")
+
+
+def _demo_cloud(cfg, dev, seed):
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+
+    return tuple(torch.from_numpy(a).to(dev) for a in synth_points_realistic(
+        1, cfg["data"]["max_points"], cfg["point_cloud_range"], seed=seed,
+        nsweeps=1))
+
+
+def test_int8_f32_two_stage_request_runs_the_f32_kernel(cuda):
+    """`pillarrcnn18_demo` at the int8 kernels' 32-channel widths after
+    `enable_backbone_quant` (f32 compute), calibrated on the card: a
+    request launches K1 once, K2 once per task and K4's f32 variant once
+    per quantized conv, nothing else, with no host sync; each of its K4
+    calls equal by value to the plain version; finite detections."""
+    from chip_smoke import plain_kwargs, recording_int8_convs
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, spread_head_outputs)
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.models.backbones.base import MaskedConv
+    from pillarnet_lts_torch.runtime.quantize import (
+        calibrate, enable_backbone_quant)
+    from pillarnet_lts_torch.runtime.serving import to_host
+
+    cfg = load_config(_RCNN_DEMO)
+    enable_backbone_quant(cfg["model"])
+    fs = cfg["model"]["first_stage_cfg"]
+    fs["reader"]["num_filters"] = (32,)
+    fs["backbone"]["in_channels"] = 32
+    model = build_model_from_cfg(cfg, device=cuda)
+    assert model.dtype == torch.float32
+    clouds = [_demo_cloud(cfg, cuda, s) for s in (21, 22, 23)]
+    spread_head_outputs(model, *clouds[0])
+    calibrate(model, [clouds[0], clouds[1]])
+    n_k4 = sum(1 for m in model.modules()
+               if isinstance(m, MaskedConv) and m.quant_ready())
+    infer = make_infer_fn(model)
+    infer(*clouds[1])
+    torch.cuda.synchronize()
+    calls = []
+    _kernels.reset_launches()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        with recording_int8_convs(calls):
+            det = infer(*clouds[2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    det = to_host(det)
+    launched = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    assert launched == {"pillar_scatter_max": 1, "rotated_overlap": 2,
+                        "int8_conv_f32": n_k4}, launched
+    assert n_k4 == len(calls) > 30
+    for args, kw, out in calls:
+        assert args[0].dtype == torch.float32
+        want = tquant.int8_conv_bn_act_plain(*args, **plain_kwargs(kw))
+        assert torch.equal(out, want), (out - want).abs().max()
+    assert det["mask"].any() and np.isfinite(det["box3d_lidar"]).all()
+
+
+def _to(tree, dev):
+    if torch.is_tensor(tree):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree
+
+
+def _close_to_scale(got, want, frac, what):
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = float(want.abs().max()) + 1e-6
+    err = float((got - want).abs().max())
+    assert err <= frac * scale, f"{what}: max |d| {err} > {frac} x {scale}"
+
+
+def test_bf16_two_stage_on_the_card_matches_the_cpu(cuda):
+    """`pillarrcnn18_demo` in bf16 from the same weights and cloud: the
+    first stage's maps on the card within 5e-2 of each map's max |value|
+    of the CPU's (cuDNN's and ATen's bf16 convs round in other places), and
+    the second stage given the CPU's RoIs and maps within 4e-2 (point
+    logits, RoI head outputs) of max |value|, scores within 1e-2; the
+    bf16 request makes no host sync."""
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, spread_head_outputs)
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.runtime.serving import to_host
+
+    cfg = load_config(_RCNN_DEMO)
+    cfg["model"]["dtype"] = "bfloat16"
+    cloud = _demo_cloud(cfg, "cpu", 24)
+    cpu = build_model_from_cfg(cfg, device="cpu")
+    spread_head_outputs(cpu, *cloud)
+    card = build_model_from_cfg(cfg, device=cuda, seed=1)
+    card.load_state_dict(cpu.state_dict())
+    with torch.inference_mode():
+        first, bev, feats, preds = cpu.first_stage(*cloud)
+        _, gbev, _, gpreds = card.first_stage(*_to(cloud, cuda))
+        want = cpu.second_stage(first, bev, feats)
+        got = card.second_stage(_to(first, cuda), _to(bev, cuda),
+                                _to(feats, cuda))
+    for p, q in zip(gpreds, preds):
+        for h in p:
+            assert p[h].dtype == torch.bfloat16
+            _close_to_scale(p[h], q[h], 5e-2, h)
+    for a, b in zip(gbev, bev):
+        _close_to_scale(a, b, 5e-2, "bev")
+    assert torch.equal(got["roi_labels"].cpu(), want["roi_labels"])
+    for k in ("point_logits", "rcnn_cls", "rcnn_reg"):
+        assert got[k].dtype == torch.bfloat16
+        _close_to_scale(got[k], want[k], 4e-2, k)
+    gdet, wdet = card.post_process(got), cpu.post_process(want)
+    m = wdet["mask"]
+    assert torch.equal(gdet["mask"].cpu(), m) and bool(m.any())
+    assert float((gdet["scores"].cpu() - wdet["scores"])[m].abs().max()) \
+        <= 1e-2
+    infer = make_infer_fn(card)
+    request = _to(cloud, cuda)
+    infer(*request)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        det = infer(*request)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert np.isfinite(to_host(det)["box3d_lidar"]).all()
+
+
+@pytest.mark.parametrize("name", ["twostage18_demo", "voxelnet18_demo",
+                                  "pillarnet18_demo_circular_nms"])
+def test_legacy_and_circular_demo_on_the_card_match_the_cpu(cuda, name):
+    """The legacy detectors' demo configs and the demo config with
+    circular NMS from the same weights and cloud: kept slots (and the RoI
+    set) equal, labels equal, boxes within 1e-3 m, scores within 1e-4
+    (`chip_smoke.py::card_vs_cpu`, phase 18d)."""
+    from chip_smoke import card_vs_cpu, circular_nms
+
+    demo = os.path.join(_ROOT, "configs", "demo")
+    if name.endswith("_circular_nms"):
+        r = card_vs_cpu(torch, cuda, _DEMO, "18d", edit=circular_nms)
+    else:
+        r = card_vs_cpu(torch, cuda, os.path.join(demo, name + ".py"),
+                        "18d")
     assert r["kept"] > 0
 
 

@@ -478,7 +478,8 @@ def _load_full_width(path):
     return port, variables, load_jax_variables(port, variables)
 
 
-@pytest.mark.parametrize("name", ["pillarrcnn/pillarrcnn18_waymo"]
+@pytest.mark.parametrize("name", ["pillarrcnn/pillarrcnn18_waymo",
+                                  "pillarrcnn/pillarrcnn18_waymo_bf16"]
                          + ["pillarnet/" + n for n in FPN])
 def test_load_jax_variables_full_width(name):
     """The flax tree of the full-width config (abstract init: shapes only)
@@ -568,8 +569,8 @@ def test_two_stage_serves_through_the_pipeline():
 
 def test_two_stage_training_raises():
     """Training mode needs the GT and a generator (the RoI sampler's and
-    dropout's draws); the bf16 two-stage is not ported. Two-stage training
-    itself: `tests/test_torch_port_rcnn_train.py`."""
+    dropout's draws); training the bf16 two-stage is not ported. Two-stage
+    training itself: `tests/test_torch_port_rcnn_train.py`."""
     port = build_model_from_cfg(load_config(DEMO), device="cpu")
     pts = torch.zeros((1, 64, 5))
     msk = torch.ones((1, 64), dtype=torch.bool)
@@ -578,10 +579,17 @@ def test_two_stage_training_raises():
         port(pts, msk)
     with pytest.raises(ValueError, match="Generator"):
         port(pts, msk, gt_boxes_and_cls=torch.zeros((1, 100, 10)))
+    # the bf16 twin serves (`test_torch_port_rcnn_precisions.py`); its
+    # training is not ported and raises
+    from pillarnet_lts_torch.runtime.train_step import step_losses
+
     cfg = load_config(os.path.join(ROOT, "configs", "pillarrcnn",
                                    "pillarrcnn18_waymo_bf16.py"))
+    model = build_model_from_cfg(cfg, device="cpu")
+    assert model.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="f32"):
-        build_model_from_cfg(cfg, device="cpu")
+        step_losses(model, {"points": pts, "points_mask": msk},
+                    generator=torch.Generator())
 
 
 def test_two_stage_runs_without_importing_jax():
