@@ -200,6 +200,46 @@ Phases, each of which raises on failure:
      detections); (d) `twostage18_demo`, `voxelnet18_demo` and
      `pillarnet18_demo` with circular NMS on the card against the CPU
      (phase 14e's tolerances); phase 18's wall seconds.
+ 19. data-parallel training and sharded evaluation
+     (`pillarnet_lts_torch/parallel/`). NCCL refuses two ranks on one
+     card, so the two-rank runs are two gloo ranks that share card 0
+     (CUDA tensors on both, the backend passed explicitly, `LOCAL_RANK`
+     0 on both), spawned with torchrun's environment (`spawn_ranks`, a
+     join timeout; each rank's group start and collectives time out on
+     their own); the smoke
+     process frees its cached memory before they start. (a)
+     `pillarnet34_nusc` at full width, 13c's global batch of 4 as 2 a
+     rank through `apis.train_detector` (`--dp-rank`), 2 steps, against
+     the one-process bs=4 step on the ranks' rows in rank order from the state
+     each step started from, computed in the ranks' order (`dp_reference`,
+     `in_rank_order`: convs, matmuls and BN sums on each rank's rows apart;
+     `check_dp_training`): the ranks' parameters and BN buffers bit-identical
+     to one another; the metrics (losses 1e-5 relative, `grad_norm` 1e-3;
+     against the plain one-process step losses 1e-4; read also against the step
+     with only its convs and matmuls so), the parameters (two Adam steps, at
+     most 0.5% beyond 1e-4), the running statistics (1e-4) and the gradients by
+     module group (1e-3), each also within twice the one process's own spread
+     under a 1e-6 weight nudge (phase 15c's measure), a group's gradients never
+     beyond DP_GRAD_CAP (0.1); K1 once a step a rank, and each rank's last-step
+     K1 calls replayed bit-equal and timed as phase 2, one rank
+     after the other; step ms and peak memory per rank; (b) the same for
+     `pillarrcnn18_waymo` (15d's batch of 4, dropout 0.3), its RoI
+     sampler given boxes about each sample's GT drawn for the global batch
+     (`proposals_at_gt`: the first stage's own proposals can differ where
+     a rounding tips its NMS at a near tie), with dropout's draws and the
+     sampler's draws, proposals and targets bit-equal to the one-process
+     rows, K2 three times a step a rank (predict's two, the sampler's)
+     and its calls replayed as phase 3; (c) `torchrun
+     --nproc_per_node 1` (NCCL, a real group of one) runs `tools.train
+     --validate` on 17a's written frames (one loader thread), and the
+     same CLI without torchrun, both under deterministic algorithms
+     (`--cli-rank`): the checkpoints bit-equal; (d) `tools.dist_test`
+     over 2 gloo ranks (torchrun, `cli_rank --share-card`) at the one-process
+     run's batch size on 16a's 8 written frames through
+     `pillarnet34_nusc`: the merged detections bit-equal to the
+     one-process run's (or within phase 14e's tolerances); every K1 and
+     K2 call of 19c and 19d held bit-equal to its plain version; phase
+     19's wall seconds.
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
@@ -215,21 +255,25 @@ through) plus the separation test on every pair they test; the old count
 Every `torch.profiler` number comes from `profiled`, which retakes a
 session that lost device events and keeps the one that lost the fewest; a
 `[profiler]` line counts the sessions. Before the last three lines stdout
-carries phase 13's, 14's, 15's, 16's, 17's and 18's JSON records
+carries phase 13's, 14's, 15's, 16's, 17's, 18's and 19's JSON records
 (`{"training": ...}`, `{"two_stage": ...}`, `{"two_stage_training": ...}`,
-`{"eval": ...}`, `{"training_as_written": ...}`, `{"precisions": ...}`);
+`{"eval": ...}`, `{"training_as_written": ...}`, `{"precisions": ...}`,
+`{"data_parallel": ...}`);
 then the kernels' JSON record (K1's and K2's rows also carry
 `two_stage_launches`, under `two_stage_train` phase 15's launches and
 replays, `eval_launches`, phase 16a's pipelined pass, under
 `augmented_train` phase 17a's launches and replays, and under
 `precision_launches` / `precision_replays` phase 18a's and 18b's; K1's,
 K2's and K4's rows `eval_replays`, phase 16's replays by pass; K4's f32
-variant, `int8_conv_f32`, has a row of its own from phase 18a), the
+variant, `int8_conv_f32`, has a row of its own from phase 18a; K1's and
+K2's rows carry phase 19's launches per rank and replays under
+`data_parallel`), the
 card's
 `nvidia-smi` name and power
 limit, and the last line `{"ok": true, "device": {...}}`. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
-No JAX is imported.
+No JAX is imported. `--dp-rank SPEC` and `--cli-rank OUT TOOL ARGS` are
+phase 19's rank processes, which the smoke starts itself.
 """
 
 import contextlib
@@ -2377,13 +2421,30 @@ def recording_sampler(records):
         yield records
 
 
+def near_gt(gt, u):
+    """Boxes jittered about GT rows picked by uniforms u (B, n, 8): the
+    centre moved by up to 25% of the dims, the dims scaled by 0.8-1.25,
+    the yaw turned by up to 0.25 (IoU ~0.2-0.95), the GT's class, a score
+    in [0.3, 1); and whether the sample has a real GT row. Returns (boxes
+    (B, n, 7), classes, scores, has (B, 1))."""
+    import torch
+
+    B, G = gt.shape[:2]
+    count = (gt[..., -1] > 0).sum(-1, keepdim=True)  # real rows first
+    pick = (u[..., 0] * count).long().clamp_max(G - 1)
+    src = torch.gather(gt, 1, pick[..., None].expand(-1, -1, gt.shape[-1]))
+    box = src[..., :7].clone()
+    box[..., :2] += (u[..., 1:3] - 0.5) * 0.5 * src[..., 3:5]
+    box[..., 3:6] *= 0.8 + 0.45 * u[..., 3:6]
+    box[..., 6] += (u[..., 6] - 0.5) * 0.5
+    return box, src[..., -1], 0.3 + 0.7 * u[..., 7], count > 0
+
+
 @contextlib.contextmanager
 def proposals_near_gt(torch, n, seed):
     """`PillarRCNN`'s sampler given RoIs whose first n slots in each sample
-    are boxes jittered about its real GT rows, as a trained first stage's
-    proposals cluster on the objects: the centre moved by up to 25% of the
-    dims, the dims scaled by 0.8-1.25, the yaw turned by up to 0.25 (IoU
-    ~0.2-0.95), the GT's class, a score in [0.3, 1); the other slots keep
+    are boxes jittered about its real GT rows (`near_gt`), as a trained
+    first stage's proposals cluster on the objects; the other slots keep
     the first stage's proposals. The jitter comes from one CPU generator
     seeded `seed`, so the card and the CPU get the same boxes."""
     from pillarnet_lts_torch.models.detectors import pillar_rcnn
@@ -2391,27 +2452,48 @@ def proposals_near_gt(torch, n, seed):
     real = pillar_rcnn.proposal_target_layer
     gen = torch.Generator().manual_seed(seed)
 
-    def near_gt(rois, scores, labels, gt, cfg, draws):
-        B, G = gt.shape[:2]
-        u = torch.rand(B, n, 8, generator=gen).to(rois.device)
-        count = (gt[..., -1] > 0).sum(-1, keepdim=True)  # real rows first
-        pick = (u[..., 0] * count).long().clamp_max(G - 1)
-        src = torch.gather(gt, 1, pick[..., None].expand(-1, -1,
-                                                         gt.shape[-1]))
-        box = src[..., :7].clone()
-        box[..., :2] += (u[..., 1:3] - 0.5) * 0.5 * src[..., 3:5]
-        box[..., 3:6] *= 0.8 + 0.45 * u[..., 3:6]
-        box[..., 6] += (u[..., 6] - 0.5) * 0.5
-        has = count > 0
+    def sample(rois, scores, labels, gt, cfg, draws):
+        u = torch.rand(gt.shape[0], n, 8, generator=gen).to(rois.device)
+        box, cls, score, has = near_gt(gt, u)
         rois, scores, labels = rois.clone(), scores.clone(), labels.clone()
         rois[:, :n] = torch.where(has[..., None], box, rois[:, :n])
-        labels[:, :n] = torch.where(has, src[..., -1].to(labels.dtype),
-                                    labels[:, :n])
-        scores[:, :n] = torch.where(has, 0.3 + 0.7 * u[..., 7],
-                                    scores[:, :n])
+        labels[:, :n] = torch.where(has, cls.to(labels.dtype), labels[:, :n])
+        scores[:, :n] = torch.where(has, score, scores[:, :n])
         return real(rois, scores, labels, gt, cfg, draws)
 
-    pillar_rcnn.proposal_target_layer = near_gt
+    pillar_rcnn.proposal_target_layer = sample
+    try:
+        yield
+    finally:
+        pillar_rcnn.proposal_target_layer = real
+
+
+@contextlib.contextmanager
+def proposals_at_gt(torch, seed, first_call=0):
+    """`PillarRCNN`'s sampler given, in every slot, a box jittered about
+    one of its sample's real GT rows (`near_gt`), in place of the first
+    stage's proposals, whose NMS a rounding can tip at a near tie. Call
+    k's jitter is drawn for the global batch from a CPU generator seeded
+    (seed, first_call + k), each rank keeping its rows
+    (`parallel.mesh.rank_rows`): the rows one process gets, so the
+    sampler sees the same proposals in both runs."""
+    from pillarnet_lts_torch.models.detectors import pillar_rcnn
+    from pillarnet_lts_torch.parallel.mesh import rank_rows
+
+    real = pillar_rcnn.proposal_target_layer
+    calls = [first_call]
+
+    def sample(rois, scores, labels, gt, cfg, draws):
+        gen = torch.Generator().manual_seed(seed * 1000 + calls[0])
+        calls[0] += 1
+        u = rank_rows(lambda size: torch.rand(size, generator=gen),
+                      gt.shape[0], rois.shape[1], 8).to(rois.device)
+        box, cls, score, has = near_gt(gt, u)
+        if not bool(has.all()):
+            raise AssertionError("a sample without GT")
+        return real(box, score, cls.to(labels.dtype), gt, cfg, draws)
+
+    pillar_rcnn.proposal_target_layer = sample
     try:
         yield
     finally:
@@ -3986,6 +4068,962 @@ def precisions(torch, dev, card):
     return rec, launches, {"18a": replays, "18b": replays_bf16}, conv
 
 
+
+# phase 19: data-parallel training and sharded evaluation. NCCL refuses
+# two ranks on one card, so the two-rank runs are gloo ranks that share the
+# card (CUDA tensors on both, the backend passed explicitly); the NCCL path
+# is driven by a group of one (19c)
+DP_WORLD = 2  # 19a/b/d: ranks
+DP_STEPS = 2  # 19a/b: steps from one state
+DP_TIMEOUT = 900  # s: a spawned run that has not ended by then is killed
+DP_INIT_TIMEOUT = 300  # s: a rank that waits longer for the others raises
+# 19a/b: every loss of the ranks against the one-process step computed in the
+# ranks' order (`in_rank_order`), and against the plain one-process step, whose
+# BN sums and reader matmul run over the 4 frames at once: phase 13b's
+# card-vs-CPU metric tolerance, since that order moves a loss by up to ~2e-5
+# (the readings side by side show it)
+DP_LOSS_RTOL = 1e-5
+DP_LOSS_RTOL_PLAIN = 1e-4
+DP_GRAD_RTOL = 1e-3  # grad_norm, as phase 13b holds the card to the CPU
+DP_STAT_TOL = 1e-4  # BN running statistics, rtol = atol, as phase 13b
+# a module group's gradient may differ from one process's by at most twice
+# the one process's own spread, and never by more than this: a rank that
+# averages the gradients (0.5) or a BN whose sum over the ranks passes no
+# gradient back lies beyond it (tests/test_torch_port_parallel.py)
+DP_GRAD_CAP = 0.1
+DP_NUDGES = 2  # 19a/b: one-process steps from nudged weights (the spread)
+
+
+def spawn_ranks(argv, world, timeout, env=None):
+    """Run `argv` from the repository root as `world` ranks of one node,
+    each with torchrun's environment (`RANK`, `WORLD_SIZE`,
+    `LOCAL_WORLD_SIZE`, a free port on localhost) and `env`, and
+    `LOCAL_RANK` 0: on the card the ranks share card 0. When a rank fails
+    or `timeout` seconds pass, every rank still running is killed.
+    Returns [(exit code, output)] in rank order."""
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    path = os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH"))
+                           if p)
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(tempfile.TemporaryFile("w+"))
+            procs.append(subprocess.Popen(
+                argv, cwd=ROOT, stdout=logs[-1], stderr=subprocess.STDOUT,
+                env=dict(os.environ, **(env or {}), PYTHONPATH=path,
+                         RANK=str(r), WORLD_SIZE=str(world),
+                         LOCAL_RANK="0", LOCAL_WORLD_SIZE=str(world),
+                         MASTER_ADDR="localhost", MASTER_PORT=str(port))))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(
+                    p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def run_ranks(tag, argv, world=DP_WORLD, env=None, timeout=DP_TIMEOUT):
+    """`spawn_ranks` that raises unless every rank exits 0; the ranks'
+    `[19...]` lines are printed. Returns the wall seconds."""
+    t0 = time.perf_counter()
+    res = spawn_ranks(argv, world, timeout, env)
+    seconds = time.perf_counter() - t0
+    for r, (rc, out) in enumerate(res):
+        for line in out.splitlines():
+            if line.startswith("[19"):
+                print(line)
+        if rc != 0:
+            raise AssertionError(f"{tag}: rank {r} of {world} exited {rc}:\n"
+                                 f"{out[-4000:]}")
+    return seconds
+
+
+def dp_spec(config, device, out, **kw):
+    """A phase-19 training run: the config, a global batch of `batch`
+    synthetic scenes of `points` points with every class a step, `steps`
+    steps (one epoch), weights from `model_seed` (the first stage's heads
+    spread on the first scene with `spread`), the run's `seed`, a val set
+    of `val_frames` demo frames (0: none); with `at_gt` the two-stage
+    sampler's proposals are boxes about the GT (`proposals_at_gt`)."""
+    spec = dict(config=config, device=device, backend="gloo", out=out,
+                batch=4, points=N_POINTS, steps=DP_STEPS, seed=3,
+                model_seed=5, data_seed=200, num_boxes=[10, 21],
+                dp_ratio=None, spread=False, at_gt=False, val_frames=0,
+                workers=2, threads=None)
+    spec.update(kw)
+    return spec
+
+
+def dp_setup(torch, spec, dev):
+    """(config, training set, model) of a phase-19 run on `dev`."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.datasets import SynthDataset
+
+    cfg = rcnn_train_cfg(spec["config"], spec["dp_ratio"])
+    cfg["data"] = dict(cfg["data"], samples_per_gpu=spec["batch"],
+                       max_points=spec["points"], workers_per_gpu=spec[
+                           "workers"])
+    cfg["total_epochs"] = 1
+    if spec["val_frames"]:
+        cfg["data"]["val"] = dict(cfg["data"]["val"],
+                                  num_frames=spec["val_frames"],
+                                  num_points=spec["points"])
+    ds = SynthDataset(cfg, spec["batch"] * spec["steps"], spec["points"],
+                      seed=spec["data_seed"],
+                      num_boxes=tuple(spec["num_boxes"]))
+    model = build_model_from_cfg(cfg, device=dev, seed=spec["model_seed"])
+    if spec["spread"]:
+        pts = torch.from_numpy(ds[0]["points"][None]).to(dev)
+        spread_head_outputs(model, pts, torch.ones(
+            pts.shape[:2], dtype=bool, device=dev))
+    return cfg, ds, model
+
+
+def dp_rows(ds, spec, world=DP_WORLD):
+    """Each step's global batch as frame indices, the ranks' rows in rank
+    order: the shards of the loader that `apis.train_detector` gives each
+    rank."""
+    from pillarnet_lts_torch.datasets import DataLoader
+
+    per = spec["batch"] // world
+    shards = [DataLoader(ds, per, shuffle=True, seed=spec["seed"],
+                         num_shards=world, shard_index=r)._indices()
+              for r in range(world)]
+    return [[int(i) for idx in shards for i in idx[s * per:(s + 1) * per]]
+            for s in range(spec["steps"])]
+
+
+@contextlib.contextmanager
+def recording_draws(rec):
+    """Appended to rec: "targets", each call of `PillarRCNN`'s
+    `proposal_target_layer` as (its proposals, its `RoiTargets`);
+    "sampler", the sampler's draws (`pillar_rcnn.sampler_draws`);
+    "dropout", dropout's uniforms (`roi_heads.rank_rows`)."""
+    from pillarnet_lts_torch.models.detectors import pillar_rcnn
+    from pillarnet_lts_torch.models.roi_heads import roi_heads
+
+    def keep(key, inputs=False):
+        def wrap(real):
+            def record(*args, **kwargs):
+                out = real(*args, **kwargs)
+                rec[key].append((args[0], out) if inputs else out)
+                return out
+            return record
+        return wrap
+
+    with patched(pillar_rcnn, "proposal_target_layer",
+                 keep("targets", inputs=True)), \
+            patched(pillar_rcnn, "sampler_draws", keep("sampler")), \
+            patched(roi_heads, "rank_rows", keep("dropout")):
+        yield rec
+
+
+def on_cpu(torch, tree):
+    """A nest of tuples, lists and dicts of tensors, every tensor on the
+    CPU."""
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: on_cpu(torch, v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(on_cpu(torch, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(on_cpu(torch, v) for v in tree)
+    return tree
+
+
+def state_of(torch, model):
+    return {k: v.detach().cpu().clone()
+            for k, v in model.state_dict().items()}
+
+
+def grads_of(torch, model):
+    return {n: p.grad.detach().cpu().clone() for n, p in
+            model.named_parameters() if p.grad is not None}
+
+
+@contextlib.contextmanager
+def in_rank_order(torch, bn_sums, world=DP_WORLD):
+    """A one-process step that computes as the ranks do, on a batch whose
+    rows are the ranks' in rank order: every 2-D convolution, transposed
+    convolution and `F.linear` of a batch that `world` divides on each
+    rank's rows apart, the results concatenated (cuDNN and cuBLAS, or the
+    CPU, pick the algorithms a rank picks); with `bn_sums` also the
+    masked BN's sums (`norm._site_sum`), each rank's rows summed apart and
+    the partial sums added, as the ranks' all-reduce adds theirs."""
+    import torch.nn.functional as F
+
+    from pillarnet_lts_torch.models.utils import norm
+
+    def split(batched):  # whether an input's dim 0 is the batch
+        def make(real):
+            def op(x, *args, **kwargs):
+                if not batched(x) or x.shape[0] % world:
+                    return real(x, *args, **kwargs)
+                return torch.cat([real(c, *args, **kwargs)
+                                  for c in x.chunk(world)])
+            return op
+        return make
+
+    def rank_sum(real):
+        def site_sum(t, dims):
+            if t.shape[0] % world:
+                raise ValueError(f"in_rank_order: {world} ranks do not "
+                                 f"split a batch of {t.shape[0]}")
+            parts = [real(c, dims) for c in t.chunk(world)]
+            total = parts[0]
+            for part in parts[1:]:
+                total = total + part
+            return total
+        return site_sum
+
+    with contextlib.ExitStack() as stack:
+        conv = split(lambda x: x.dim() == 4)
+        stack.enter_context(patched(F, "conv2d", conv))
+        stack.enter_context(patched(F, "conv_transpose2d", conv))
+        stack.enter_context(patched(F, "linear", split(
+            lambda x: x.dim() >= 2)))
+        if bn_sums:
+            stack.enter_context(patched(norm, "_site_sum", rank_sum))
+        yield
+
+
+def dp_reference(torch, spec, dev, ranks, nudges=DP_NUDGES):
+    """Phase 19's one-process steps: each step of `dp_spec` on its global
+    batch (`dp_rows`) from the state the ranks started it from (the
+    seeded weights, then rank 0's model and optimizer state after the
+    step before), with the trainer's step generator, on `dev`, computed
+    in the ranks' order (`in_rank_order`). Returns per step its metrics,
+    state, gradients and learning rate, the sampler's targets and
+    dropout's draws; the metrics of the same step computed plainly and
+    with only its convs and matmuls on the ranks' rows apart; and the one
+    process's own spread: the step in the ranks' order from the
+    parameters times 1 + 1e-6 N(0, 1) (`nudges` draws), as phase 15c
+    measures it."""
+    from pillarnet_lts_torch.apis import optimizer_from_cfg
+    from pillarnet_lts_torch.datasets import collate_batch
+    from pillarnet_lts_torch.runtime.train_step import (
+        batch_to_device, bn_shifted_biases, step_generator, train_step)
+
+    cfg, ds, model = dp_setup(torch, spec, dev)
+    opt = optimizer_from_cfg(model, cfg, spec["steps"])
+    params = [n for n, _ in model.named_parameters()]
+    shifted = set(bn_shifted_biases(model))
+    rec = {"metrics": [], "states": [], "grads": [], "targets": [],
+           "sampler": [], "dropout": [], "spread": [], "params": params,
+           "metrics_plain": [], "metrics_convs_matmuls": [],
+           "shifted": sorted(shifted),
+           "lr": [opt.lr_fn(s) for s in range(spec["steps"])]}
+    start = (state_of(torch, model), opt.state_dict())
+    g = torch.Generator().manual_seed(16)
+    for s, rows in enumerate(dp_rows(ds, spec)):
+        if s:
+            start = (ranks[0]["states"][s - 1], ranks[0]["optim"][s - 1])
+        batch = batch_to_device(
+            collate_batch([ds[i] for i in rows], spec["points"]), dev)
+        runs = []
+        # the ranks' order (the reference), plain, convs and matmuls alone
+        # on the ranks' rows, nudged in the ranks' order
+        for k in range(3 + nudges):
+            weights = start[0] if k < 3 else {
+                n: v * (1 + 1e-6 * torch.randn(v.shape, generator=g))
+                if n in params else v for n, v in start[0].items()}
+            model.load_state_dict(weights)
+            opt.load_state_dict(start[1])
+            with (recording_draws(rec) if k == 0
+                  else contextlib.nullcontext()), (
+                    in_rank_order(torch, bn_sums=k != 2) if k != 1
+                    else contextlib.nullcontext()), (
+                    proposals_at_gt(torch, spec["seed"], first_call=s)
+                    if spec["at_gt"] else contextlib.nullcontext()):
+                m = train_step(model, opt, batch, cfg["train_cfg"],
+                               step_generator(spec["seed"], s, dev))
+            m = {key: float(v) for key, v in m.items()}
+            if k in (1, 2):
+                rec["metrics_plain" if k == 1
+                    else "metrics_convs_matmuls"].append(m)
+                continue
+            runs.append((m, state_of(torch, model), grads_of(torch, model)))
+        (m0, s0, g0), nudged = runs[0], runs[1:]
+        rec["metrics"].append(m0)
+        rec["states"].append(s0)
+        rec["grads"].append(g0)
+        groups = [grad_diffs(torch, gr, g0)[0] for _, _, gr in nudged]
+        rec["spread"].append({
+            "metrics": {k: max(rel_diff(m[k], m0[k]) for m, _, _ in nudged)
+                        for k in m0},
+            "params_share": max(params_within_first_adam_step(
+                torch, st, s0, params, shifted, rec["lr"][s],
+                max_share=1.0)[0] for _, st, _ in nudged),
+            "grad_groups": {k: max(gr[k] for gr in groups)
+                            for k in groups[0]}})
+    for key in ("targets", "sampler", "dropout"):
+        rec[key] = on_cpu(torch, rec[key])
+    return rec
+
+
+def rel_diff(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def dp_rank(spec_path):
+    """A rank of a phase-19 training run (`python3 chip_smoke.py --dp-rank
+    SPEC`, spawned by `spawn_ranks`): the run of `dp_spec` through
+    `apis.train_detector` on this rank's shard, the group started by
+    `parallel.dist.init_from_env`; per step the metrics, the state, the
+    gradients and the optimizer state, the RoI sampler's proposals,
+    draws and targets and dropout's draws; on the card the launch counts
+    (set to 0 just before), step ms, peak memory and the last step's K1
+    and K2 calls replayed against their plain versions, one rank after
+    the other. With `val_frames`, `Trainer.val` over the sharded val set.
+    Saved to `{out}/rank{r}.pt`."""
+    import datetime
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from pillarnet_lts_torch.apis import train_detector
+    from pillarnet_lts_torch.datasets import build_dataset
+    from pillarnet_lts_torch.ops import _kernels, iou3d
+    from pillarnet_lts_torch.models.readers import dynamic_pillar_encoder
+    from pillarnet_lts_torch.parallel import dist
+    from pillarnet_lts_torch.runtime.hooks import Hook
+    from pillarnet_lts_torch.runtime.trainer import Trainer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec["threads"]:
+        torch.set_num_threads(spec["threads"])
+    dev = dist.init_from_env(spec["device"], backend=spec["backend"],
+                             timeout=datetime.timedelta(
+                                 seconds=DP_INIT_TIMEOUT))
+    r, cuda = dist.rank(), dev.type == "cuda"
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, ds, model = dp_setup(torch, spec, dev)
+    rec = {"rank": r, "world": dist.process_count(), "device": str(dev),
+           "states": [], "grads": [], "optim": [], "targets": [],
+           "sampler": [], "dropout": [], "val": []}
+    k1, k2, steps = [], [], spec["steps"]
+
+    class Record(Hook):
+        def before_train_iter(self, trainer):
+            self.stack = contextlib.ExitStack()
+            if cuda and trainer.iter == steps - 1:
+                self.stack.enter_context(recording(
+                    dynamic_pillar_encoder, "pillar_scatter_max", k1))
+                self.stack.enter_context(recording(
+                    iou3d, "convex_intersection_area", k2,
+                    keep=lambda a, k: a))
+
+        def after_train_iter(self, trainer):
+            self.stack.close()
+            rec["states"].append(state_of(torch, trainer.model))
+            rec["grads"].append(grads_of(torch, trainer.model))
+            rec["optim"].append(on_cpu(torch,
+                                       trainer.optimizer.state_dict()))
+
+    def keep_val(real):
+        def val(*args, **kwargs):
+            out = real(*args, **kwargs)
+            rec["val"].append(out)
+            return out
+        return val
+
+    val_ds = (build_dataset(cfg["data"]["val"]) if spec["val_frames"]
+              else None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launches()
+    with recording_draws(rec), patched(Trainer, "val", keep_val), (
+            proposals_at_gt(torch, spec["seed"]) if spec["at_gt"]
+            else contextlib.nullcontext()):
+        trainer = train_detector(model, ds, cfg, seed=spec["seed"],
+                                 work_dir=os.path.join(spec["out"], "work"),
+                                 hooks=[Record()], val_dataset=val_ds)
+    rec["launches"] = dict(_kernels.LAUNCHES)
+    hist = trainer.log_buffer.val_history
+    rec["metrics"] = [{k: v[s] for k, v in hist.items()
+                       if k not in ("time", "data_time")}
+                      for s in range(steps)]
+    rec["step_ms"] = [(t - d) * 1e3 for t, d in zip(hist["time"],
+                                                     hist["data_time"])]
+    for key in ("targets", "sampler", "dropout"):
+        rec[key] = on_cpu(torch, rec[key])
+    if cuda:
+        rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        del trainer, model
+        # the replays are timed one rank at a time: the ranks share a card
+        for turn in range(rec["world"]):
+            if turn == r:
+                rec["replays"] = {"k1": replay_summary(
+                    replay_scatter(torch, k1))}
+                print_replays(f"19 rank {r}", "K1 pillar_scatter_max",
+                              rec["replays"]["k1"])
+                if k2:
+                    rec["replays"]["k2"] = replay_summary(
+                        replay_overlap(torch, k2, "predict and sampler"))
+                    print_replays(f"19 rank {r}", "K2 rotated_overlap "
+                                  "(predict and RoI sampler)",
+                                  rec["replays"]["k2"])
+            dist.barrier()
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "pillarnet_lts_tpu")]
+    if bad:
+        raise AssertionError(f"a rank imported {bad[:4]}")
+    torch.save(rec, os.path.join(spec["out"], f"rank{r}.pt"))
+    dist.shutdown()
+    return 0
+
+
+def run_dp_training(torch, spec, tag, timeout=DP_TIMEOUT, rank_argv=None):
+    """The ranks of `spec` spawned (`dp_rank`, or `rank_argv` + [the spec's
+    path]; killed after `timeout` seconds); returns their records in rank
+    order and the wall seconds."""
+    os.makedirs(spec["out"], exist_ok=True)
+    path = os.path.join(spec["out"], "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = {"OMP_NUM_THREADS": str(spec["threads"])} if spec["threads"] \
+        else None
+    argv = rank_argv or [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                         "--dp-rank"]
+    seconds = run_ranks(tag, argv + [path], env=env, timeout=timeout)
+    return [torch.load(os.path.join(spec["out"], f"rank{r}.pt"),
+                       weights_only=False)
+            for r in range(DP_WORLD)], seconds
+
+
+def rank_chunk(t, r, world=DP_WORLD):
+    """Rank r's rows of a tensor of the global batch (dim 0)."""
+    return t.chunk(world)[r]
+
+
+def check_metrics(tag, s, got, want, spread, loss_rtol):
+    """The ranks' metrics of step s against one process's: the
+    `num_positive` counts equal, `grad_norm` within max(2 x the one
+    process's own spread, DP_GRAD_RTOL), every loss within max(2 x the
+    spread, loss_rtol). Returns each metric's relative difference and
+    tolerance."""
+    if set(got) != set(want):
+        raise AssertionError(f"{tag}: metric keys {sorted(got)} vs "
+                             f"{sorted(want)}")
+    rel = {k: rel_diff(got[k], want[k]) for k in want}
+    tol = {k: 0.0 if k.startswith("num_positive") else max(
+        2 * spread[k], DP_GRAD_RTOL if k == "grad_norm" else loss_rtol)
+        for k in want}
+    for k, d in rel.items():
+        if d > tol[k]:
+            raise AssertionError(
+                f"{tag} step {s} {k}: ranks {got[k]} vs one process "
+                f"{want[k]} (rel {d:.2e}, tolerance {tol[k]:.2e})")
+    return rel, tol
+
+
+def check_grad_groups(torch, tag, s, got, want, spread):
+    """The ranks' gradients of step s against one process's by module
+    group (`grad_diffs`), each within min(max(2 x the one process's own
+    spread, DP_GRAD_RTOL), DP_GRAD_CAP). Returns the differences, the
+    bounds and the worst leaf."""
+    groups, leaf = grad_diffs(torch, got, want)
+    bounds = {k: min(max(2 * spread[k], DP_GRAD_RTOL), DP_GRAD_CAP)
+              for k in groups}
+    for k, d in groups.items():
+        if d > bounds[k]:
+            raise AssertionError(f"{tag} step {s}: the {k} gradients "
+                                 f"{d:.2e} from one process's (bound "
+                                 f"{bounds[k]:.2e})")
+    return groups, bounds, leaf
+
+
+def check_dp_training(torch, tag, ref, ranks):
+    """Phase 19a/b's checks of the ranks against the one-process steps
+    (`dp_reference`, in the ranks' order): after every step every rank's state
+    bit-identical to rank 0's and its metrics equal; the metrics
+    (`check_metrics`) within DP_LOSS_RTOL, and within DP_LOSS_RTOL_PLAIN of the
+    plain step's; every parameter within two Adam steps of the step's learning
+    rate and at most max(2 x the spread's share, 0.5%) beyond 1e-4
+    (`params_within_first_adam_step`); the running statistics within
+    DP_STAT_TOL; the gradients by module group (`check_grad_groups`); the
+    sampler's discrete targets and dropout's draws bit-equal to the one-process
+    rows. Returns the record of the differences, with the metrics' relative
+    differences also to the step whose convs and matmuls alone ran on the
+    ranks' rows apart (a reading: what their batch size moves)."""
+    out = {"steps": []}
+    for s, want in enumerate(ref["metrics"]):
+        for rk in ranks[1:]:
+            if rk["metrics"][s] != ranks[0]["metrics"][s]:
+                raise AssertionError(f"{tag} step {s}: rank {rk['rank']}'s "
+                                     f"metrics differ from rank 0's")
+            for k, v in ranks[0]["states"][s].items():
+                if not torch.equal(rk["states"][s][k], v):
+                    raise AssertionError(f"{tag} step {s}: rank "
+                                         f"{rk['rank']}'s {k} differs")
+        got, spread = ranks[0]["metrics"][s], ref["spread"][s]
+        rel, tol = check_metrics(tag, s, got, want, spread["metrics"],
+                                 DP_LOSS_RTOL)
+        rel_plain, _ = check_metrics(
+            f"{tag} (the plain one-process step)", s, got,
+            ref["metrics_plain"][s], spread["metrics"], DP_LOSS_RTOL_PLAIN)
+        rel_split = {k: rel_diff(got[k], v) for k, v in
+                     ref["metrics_convs_matmuls"][s].items()}
+        gs, ws = ranks[0]["states"][s], ref["states"][s]
+        share, worst = params_within_first_adam_step(
+            torch, gs, ws, ref["params"], set(ref["shifted"]), ref["lr"][s],
+            max_share=max(2 * spread["params_share"], 5e-3))
+        for k in ws:
+            if k not in ref["params"] and not torch.allclose(
+                    gs[k], ws[k], rtol=DP_STAT_TOL, atol=DP_STAT_TOL):
+                raise AssertionError(f"{tag} step {s}: running statistic "
+                                     f"{k} beyond {DP_STAT_TOL}")
+        groups, bounds, leaf = check_grad_groups(
+            torch, tag, s, ranks[0]["grads"][s], ref["grads"][s],
+            spread["grad_groups"])
+        worst_k = max(rel, key=lambda k: rel[k] / max(tol[k], 1e-30))
+        out["steps"].append({
+            "loss": [got["loss"], want["loss"]],
+            "metrics_rel": rel, "metrics_spread": spread["metrics"],
+            "metrics_rel_plain": rel_plain,
+            "metrics_rel_convs_matmuls": rel_split,
+            "closest_metric": worst_k,
+            "params_share_beyond_1e-4": share, "params_max_abs": worst,
+            "params_spread_share": spread["params_share"],
+            "grad_rel_by_group": groups,
+            "grad_rel_by_group_spread": spread["grad_groups"],
+            "grad_bound_by_group": bounds,
+            "grad_worst_leaf": {"name": leaf[1], "rel": leaf[2]}})
+    if ref["targets"]:
+        out["targets"] = check_dp_draws(torch, tag, ref, ranks)
+    return out
+
+
+def check_dp_draws(torch, tag, ref, ranks):
+    """The two-stage draws and targets of each rank against the
+    one-process rows, call by call, bit-equal: dropout's uniforms, the RoI
+    sampler's draws, the proposals it was given (`proposals_at_gt`: the
+    first stage's own can differ where a rounding tips its NMS at a near
+    tie) and its targets. Returns the sampled RoI slots compared."""
+    slots = 0
+    for rk in ranks:
+        r = rk["rank"]
+        for key in ("targets", "sampler", "dropout"):
+            if len(rk[key]) != len(ref[key]):
+                raise AssertionError(f"{tag}: rank {r} made {len(rk[key])} "
+                                     f"{key} calls, one process "
+                                     f"{len(ref[key])}")
+        for i, (got, want) in enumerate(zip(rk["dropout"], ref["dropout"])):
+            if not bit_equal(torch, got, rank_chunk(want, r)):
+                raise AssertionError(f"{tag}: rank {r}'s dropout draw {i} "
+                                     f"is not the one-process rows'")
+        for i, (got, want) in enumerate(zip(rk["sampler"], ref["sampler"])):
+            if not all(torch.equal(a, rank_chunk(b, r))
+                       for a, b in zip(got, want)):
+                raise AssertionError(f"{tag}: rank {r}'s sampler draws {i} "
+                                     f"are not the one-process rows'")
+        for i, ((rois, got), (ref_rois, want)) in enumerate(
+                zip(rk["targets"], ref["targets"])):
+            pairs = [("proposals", rois, ref_rois)] + [
+                (f, getattr(got, f), getattr(want, f)) for f in got._fields]
+            for name, a, b in pairs:
+                if not torch.equal(a, rank_chunk(b, r)):
+                    raise AssertionError(f"{tag}: rank {r}'s sampler {name} "
+                                         f"(call {i}) differ from the "
+                                         f"one-process rows'")
+            slots += got.rois.shape[0] * got.rois.shape[1]
+    return {"sampled_slots": slots}
+
+
+def run_torchrun(tag, nproc, argv, cwd=ROOT):
+    """`torchrun --standalone --nproc_per_node nproc argv` from `cwd`
+    (the package on PYTHONPATH); raises unless it exits 0 within
+    DP_TIMEOUT (then torchrun is told to stop its ranks, and killed).
+    The ranks' `[19...]` lines are printed. Returns the wall seconds."""
+    import signal
+
+    path = os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH"))
+                           if p)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc)] + argv, cwd=cwd,
+        env=dict(os.environ, PYTHONPATH=path), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    seconds = time.perf_counter() - t0
+    for line in out.splitlines():
+        if line.startswith("[19"):
+            print(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: torchrun exited {proc.returncode}:\n"
+                             f"{out[-4000:]}")
+    return seconds
+
+
+def replay_equal(torch, k1, k2, tag):
+    """Each captured K1 call bit-equal to `scatter_max_to_grid` and each
+    K2 call to `_pairwise_area_plain` (untimed); returns {"k1", "k2"}:
+    the calls and the largest |d|."""
+    from pillarnet_lts_torch.ops.iou3d import (_pairwise_area_plain,
+                                               convex_intersection_area)
+    from pillarnet_lts_torch.ops.scatter import pillar_scatter_max
+    from pillarnet_lts_torch.ops.voxelize import scatter_max_to_grid
+
+    err1 = err2 = 0.0
+    for k, (args, kwargs) in enumerate(k1):
+        args = tuple(x.detach() if torch.is_tensor(x) else x for x in args)
+        err1 = max(err1, check_scatter_equal(
+            torch, f"{tag} K1 call {k}", pillar_scatter_max(*args, **kwargs),
+            scatter_max_to_grid(*args)))
+    for k, (a, b) in enumerate(k2):
+        got, want = convex_intersection_area(a, b), _pairwise_area_plain(a, b)
+        err2 = max(err2, (got - want).abs().max().item() if got.numel()
+                   else 0.0)
+        if not bit_equal(torch, got, want):
+            raise AssertionError(f"{tag} K2 call {k} differs from plain")
+    return {"k1": {"calls": len(k1), "max_abs_err": err1},
+            "k2": {"calls": len(k2), "max_abs_err": err2}}
+
+
+def cli_rank(argv):
+    """`python3 chip_smoke.py --cli-rank OUT train|dist_test ARGS...`: a
+    rank of phase 19c/d under torchrun (or, without its environment, the
+    one process): the CLI's main on the card, the launch counts set to 0
+    just before, its K1 and K2 calls captured and each held bit-equal to
+    its plain version (`replay_equal`); training under deterministic
+    algorithms (cuDNN's and torch's), so that two runs give the same bits.
+    With `--share-card` before ARGS the ranks are gloo ranks that share
+    card 0 (torchrun's `LOCAL_RANK` read as 0). The process group's
+    backend and size are recorded. Writes {OUT}/rank{r}.json."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.parallel import dist
+    from pillarnet_lts_torch.tools import dist_test, train
+
+    out, tool, args = argv[0], argv[1], argv[2:]
+    share = args[:1] == ["--share-card"]
+    if share:
+        args = args[1:]
+        os.environ["LOCAL_RANK"] = "0"
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if tool == "train":
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    group = {}
+
+    def noting(real):
+        def init(*a, **k):
+            dev = real(*a, **(dict(k, backend="gloo") if share else k))
+            if dist.is_initialized():
+                group.update(backend=str(torch.distributed.get_backend()),
+                             world=dist.process_count(), rank=dist.rank())
+            group["device"] = str(dev)
+            return dev
+        return init
+
+    main = {"train": train.main, "dist_test": dist_test.main}[tool]
+    t0 = time.perf_counter()
+    with patched(train, "init_from_env", noting), \
+            patched(dist_test, "init_from_env", noting):
+        _kernels.reset_launches()
+        (res, k2), k1 = capture_scatter(
+            lambda: capture_overlap(lambda: main(args)))
+        launches = dict(_kernels.LAUNCHES)
+    seconds = time.perf_counter() - t0
+    r = group.get("rank", 0)
+    rec = dict(group, launches=launches, seconds=seconds,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30
+               if torch.cuda.is_available() else None,
+               replays=replay_equal(torch, k1, k2, f"19 {tool} rank {r}"))
+    if tool == "dist_test":
+        rec["speed"] = res["speed"]
+        rec["frames"] = len(res["detections"])
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, f"rank{r}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def read_ranks(out, world):
+    recs = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def dp_train_phase(torch, dev, card, tag, config, name, **kw):
+    """Phase 19a/b: `config` at full width trained 2 steps (global batch 4,
+    2 a rank) by 2 gloo ranks on the card (`dp_rank`), against the
+    one-process steps (`dp_reference`, `check_dp_training`). Returns its
+    record and the ranks' launches and K1 / K2 replays."""
+    import shutil
+
+    spec = dp_spec(config, "cuda", os.path.join(
+        ROOT, "build", f"chip_smoke_dp_{tag}"), **kw)
+    shutil.rmtree(spec["out"], ignore_errors=True)
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    ranks, seconds = run_dp_training(torch, spec, tag)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ref = dp_reference(torch, spec, dev, ranks)
+    ref_s = time.perf_counter() - t0
+    ref_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    out = check_dp_training(torch, tag, ref, ranks)
+    del ref
+    torch.cuda.empty_cache()
+    k2_per_step = 3 if "rcnn" in name else 0  # predict's 2, the sampler's
+    for rk in ranks:
+        got = rk["launches"]
+        if (got["pillar_scatter_max"], got["rotated_overlap"]) != (
+                spec["steps"], k2_per_step * spec["steps"]):
+            raise AssertionError(f"{tag} rank {rk['rank']}: launches {got}")
+    rec = {"config": name, "ranks": DP_WORLD, "global_batch": spec["batch"],
+           "points": spec["points"], "steps": spec["steps"],
+           "spawn_seconds": seconds, "reference_seconds": ref_s,
+           "reference_peak_gib": ref_peak,
+           "step_ms_per_rank": [rk["step_ms"] for rk in ranks],
+           "peak_gib_per_rank": [rk["peak_gib"] for rk in ranks],
+           "launches_per_rank": [rk["launches"] for rk in ranks],
+           "checks": out}
+    launches = rec["launches_per_rank"]
+    k12 = [(n["pillar_scatter_max"], n["rotated_overlap"]) for n in launches]
+    def losses(key):  # the largest relative difference of a loss metric
+        return max(v for st in out["steps"] for k, v in st[key].items()
+                   if "loss" in k)
+
+    worst = [losses("metrics_rel"), losses("metrics_rel_convs_matmuls"),
+             losses("metrics_rel_plain"),
+             max(s["metrics_rel"]["grad_norm"] for s in out["steps"])]
+    print(f"[{tag}] {name} at full width, 2 gloo ranks sharing the card x "
+          f"{spec['batch'] // DP_WORLD} frames of {spec['points']} points, "
+          f"{spec['steps']} steps against one process at bs={spec['batch']} "
+          f"from the same state: ranks bit-identical; losses' rel diff up "
+          f"to {worst[0]:.2e} with one process in the ranks' order (convs, "
+          f"matmuls and BN sums on the ranks' rows apart), {worst[1]:.2e} "
+          f"with its "
+          f"convs and matmuls alone so, {worst[2]:.2e} plain; grad_norm "
+          f"{worst[3]:.2e}; parameters beyond 1e-4: "
+          f"{[s['params_share_beyond_1e-4'] for s in out['steps']]}; "
+          f"gradients by group "
+          f"{[s['grad_rel_by_group'] for s in out['steps']]} (bounds "
+          f"{[s['grad_bound_by_group'] for s in out['steps']]})"
+          + (f"; dropout's and the RoI sampler's draws, proposals and "
+             f"targets ({out['targets']['sampled_slots']} sampled RoI "
+             f"slots) bit-equal to the one-process rows"
+             if "targets" in out else "")
+          + f"; step ms per rank {rec['step_ms_per_rank']}, peak GiB per "
+          f"rank {rec['peak_gib_per_rank']} (one process "
+          f"{ref_peak:.3f}); launches (K1, K2) per rank "
+          f"{k12}; {seconds:.1f} s for the ranks; card: {card}")
+    return rec, launches, [rk["replays"] for rk in ranks]
+
+
+def dp_train_cli(torch, card, tmp):
+    """Phase 19c: `torchrun --nproc_per_node 1` (NCCL, a real group of one)
+    runs `tools.train` with `--validate` on phase 17a's on-disk set
+    (`augmented_set`: `pillarrcnn18_waymo` as written, one epoch of 4
+    steps, one loader thread, so that GT-AUG's shared stream draws in
+    sample order; the val split on the same frames), and the same CLI
+    runs without torchrun: both under deterministic algorithms
+    (`cli_rank`), the checkpoints bit-equal."""
+    cfg = rcnn_train_cfg(RCNN)
+    augmented_set(tmp, cfg)
+    path = config_file(
+        tmp, "rcnn19c", RCNN, "data['workers_per_gpu'] = 1\n",
+        "data['val'] = dict(data['val'], info_path=data['train']"
+        "['info_path'], ann_file=data['train']['info_path'])\n",
+        "total_epochs = 1\n")
+    runs = {}
+    for how in ("torchrun", "plain"):
+        out = os.path.join(tmp, f"19c_{how}")
+        argv = [os.path.join(ROOT, "chip_smoke.py"), "--cli-rank", out,
+                "train", path, "--work_dir", os.path.join(out, "work"),
+                "--validate", "--seed", "0"]
+        if how == "torchrun":
+            seconds = run_torchrun("19c", 1, argv, cwd=tmp)
+        else:
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable] + argv, cwd=tmp,
+                                 capture_output=True, text=True,
+                                 timeout=DP_TIMEOUT, env=dict(
+                                     os.environ, PYTHONPATH=ROOT))
+            seconds = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError(f"19c: the plain run exited "
+                                     f"{res.returncode}: {res.stdout[-2000:]}"
+                                     f"{res.stderr[-2000:]}")
+        rec = read_ranks(out, 1)[0]
+        rec["wall_seconds"] = seconds
+        runs[how] = (rec, torch.load(os.path.join(out, "work", "epoch_1.pth"),
+                                     weights_only=False))
+    (dist_rec, a), (plain_rec, b) = runs["torchrun"], runs["plain"]
+    if (dist_rec.get("backend"), dist_rec.get("world")) != ("nccl", 1) \
+            or "backend" in plain_rec:
+        raise AssertionError(f"19c: groups {dist_rec}, {plain_rec}")
+    check_same_checkpoint(torch, "19c", a, b)
+    for rec in (dist_rec, plain_rec):
+        if rec["launches"]["pillar_scatter_max"] < 4 \
+                or rec["launches"]["rotated_overlap"] < 12:
+            raise AssertionError(f"19c: launches {rec['launches']}")
+    print(f"[19c] torchrun --nproc_per_node 1 (nccl, a group of 1) "
+          f"tools.train --validate pillarrcnn18_waymo on 17a's "
+          f"{AUG_FRAMES} written frames (one epoch, 4 steps, then val): "
+          f"checkpoint bit-equal to the run without torchrun (model and "
+          f"optimizer state, meta); {dist_rec['wall_seconds']:.1f} s / "
+          f"{plain_rec['wall_seconds']:.1f} s; launches "
+          f"{dist_rec['launches']}; K1 {dist_rec['replays']['k1']['calls']}"
+          f" and K2 {dist_rec['replays']['k2']['calls']} calls each "
+          f"bit-equal to plain; peak {dist_rec['peak_gib']:.3f} GiB; "
+          f"card: {card}")
+    return {"torchrun": dist_rec, "plain": plain_rec}
+
+
+def check_same_checkpoint(torch, tag, a, b):
+    """Two loaded trainer checkpoints with the same bits: every tensor of
+    the model and optimizer states, every other value and the meta."""
+    for part in ("model", "optimizer", "meta"):
+        flat_a, flat_b = dict(_flat(a[part])), dict(_flat(b[part]))
+        if flat_a.keys() != flat_b.keys() or not all(
+                torch.equal(v, flat_b[k]) if torch.is_tensor(v)
+                else v == flat_b[k] for k, v in flat_a.items()):
+            raise AssertionError(f"{tag}: the checkpoints' {part} differ")
+
+
+def _flat(tree, prefix=""):
+    """(dotted key, leaf) pairs of a nest of dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flat(v, f"{prefix}{i}.")
+    else:
+        yield prefix, tree
+
+
+def dp_dist_test(torch, card, tmp):
+    """Phase 19d: `tools.dist_test` over 2 gloo ranks sharing the card
+    (torchrun, `cli_rank --share-card`), each at the one-process run's batch
+    size, on phase 16a's 8 written nuScenes-layout frames through
+    `pillarnet34_nusc` at full width (a spread-head checkpoint): rank 0's
+    merged detections against the one-process run's per token, bit-equal or
+    within phase 14e's tolerances (boxes RCNN_BOX_TOL m, scores RCNN_SCORE_TOL,
+    the same tokens and kept counts); every K1 and K2 call of both runs held
+    bit-equal to its plain version."""
+    import pickle
+
+    from pillarnet_lts_torch.apis import load_config
+    from pillarnet_lts_torch.datasets.synth import write_nuscenes_set
+
+    cfg = load_config(FLAGSHIP)
+    info = write_nuscenes_set(os.path.join(tmp, "nusc19"), EVAL_FRAMES,
+                              EVAL_SWEEP_POINTS, cfg["nsweeps"],
+                              cfg["class_names"], cfg["point_cloud_range"],
+                              seed=160)
+    path = eval_config(tmp, FLAGSHIP, info, "nusc19")
+    ckpt = spread_checkpoint(torch, path, "cuda", os.path.join(tmp, "ck19"))
+    args = [path, "--checkpoint", ckpt, "--seed", "0"]
+    t0 = time.perf_counter()
+    one, l_one, k1, k2, _ = captured_run(torch, args + [
+        "--work_dir", os.path.join(tmp, "19d_one")])
+    one_s = time.perf_counter() - t0
+    one_replays = replay_equal(torch, k1, k2, "19d one process")
+    del k1, k2
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "19d_ranks")
+    seconds = run_torchrun("19d", DP_WORLD, [
+        os.path.join(ROOT, "chip_smoke.py"), "--cli-rank", out, "dist_test",
+        "--share-card", *args, "--work_dir", os.path.join(out, "work")])
+    ranks = read_ranks(out, DP_WORLD)
+    with open(os.path.join(out, "work", "prediction.pkl"), "rb") as f:
+        merged = pickle.load(f)
+    equal, worst = detection_diff(merged, one["detections"])
+    if not equal:
+        kept = {t: len(d["scores"]) for t, d in merged.items()}
+        if kept != {t: len(d["scores"]) for t, d in
+                    one["detections"].items()} or worst > RCNN_BOX_TOL:
+            raise AssertionError(f"19d: merged detections differ from the "
+                                 f"one-process run's (max |d| {worst})")
+    bs = cfg["data"]["samples_per_gpu"]
+    for rk in ranks:
+        if rk["backend"] != "gloo" or rk["frames"] != EVAL_FRAMES:
+            raise AssertionError(f"19d rank {rk['rank']}: {rk}")
+        expect_launches(f"19d rank {rk['rank']}", rk["launches"],
+                        EVAL_FRAMES // DP_WORLD // bs,
+                        EVAL_FRAMES // DP_WORLD // bs)
+    rec = {"frames": EVAL_FRAMES, "batch": bs, "bit_equal": equal,
+           "max_abs_diff": worst, "one_process_seconds": one_s,
+           "ranks_seconds": seconds, "one_process_launches": l_one,
+           "one_process_replays": one_replays, "ranks": ranks,
+           "result": one["result"]["results"]}
+    print(f"[19d] tools.dist_test over {DP_WORLD} gloo ranks sharing the "
+          f"card (batch {bs} a rank) on {EVAL_FRAMES} nuScenes-layout "
+          f"frames through pillarnet34_nusc: merged detections "
+          + ("bit-equal to" if equal else f"within {worst:.2e} of")
+          + f" the one-process run's, every token once; per rank "
+          f"{[rk['speed']['frames_per_s'] for rk in ranks]} frames/s, peak "
+          f"{[round(rk['peak_gib'], 3) for rk in ranks]} GiB, launches "
+          f"{[rk['launches'] for rk in ranks]}; every K1 / K2 call of both "
+          f"runs bit-equal to plain; {seconds:.1f} s (one process "
+          f"{one_s:.1f} s); card: {card}")
+    return rec
+
+
+def data_parallel(torch, dev, card):
+    """Phase 19. Returns its record, and 19a's and 19b's per-rank K1 / K2
+    launches and replays."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    rec, launches, replays = {}, {}, {}
+    rec["19a"], launches["19a"], replays["19a"] = dp_train_phase(
+        torch, dev, card, "19a", FLAGSHIP, "pillarnet34_nusc")
+    rec["19b"], launches["19b"], replays["19b"] = dp_train_phase(
+        torch, dev, card, "19b", RCNN, "pillarrcnn18_waymo",
+        points=load_cfg_points(RCNN), data_seed=400, at_gt=True)
+    with tempfile.TemporaryDirectory(prefix="pillarnet_dp_") as tmp:
+        rec["19c"] = dp_train_cli(torch, card, tmp)
+        rec["19d"] = dp_dist_test(torch, card, tmp)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[19] phase 19 took {rec['seconds']:.1f} s")
+    return rec, launches, replays
+
+
+def load_cfg_points(path):
+    from pillarnet_lts_torch.apis import load_config
+
+    return load_config(path)["data"]["max_points"]
+
+
 def main():
     import torch
 
@@ -4057,6 +5095,7 @@ def main():
                                                              card)
     precision, prec_launches, prec_replays, conv_f32 = precisions(
         torch, dev, card)
+    data_par, dp_launches, dp_replays = data_parallel(torch, dev, card)
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
@@ -4168,6 +5207,29 @@ def main():
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             r["k1" if i == 0 else "k2"]["max_abs_err"]
             for r in prec_replays.values()])
+    # phase 19: 19a/b's launches per rank (counts set to 0 in each rank
+    # just before its run) and each rank's last-step calls replayed and
+    # timed; 19c/d's calls held bit-equal (untimed)
+    for i, key in ((0, "k1"), (2, "k2")):
+        name = ("pillar_scatter_max", "rotated_overlap")[i // 2]
+        k = record["kernels"][i]
+        k["data_parallel"] = {tag: {
+            "launches_per_rank": [n[name] for n in dp_launches[tag]],
+            "replays_per_rank": [r[key] for r in dp_replays[tag] if key in r]}
+            for tag in dp_launches}
+        k["data_parallel"]["19c"] = {
+            run: data_par["19c"][run]["replays"][key]
+            for run in ("torchrun", "plain")}
+        k["data_parallel"]["19d"] = {
+            "one_process": data_par["19d"]["one_process_replays"][key],
+            "ranks": [rk["replays"][key] for rk in data_par["19d"]["ranks"]]}
+        k["max_abs_err"] = max(
+            [k["max_abs_err"]]
+            + [r["max_abs_err"] for tag in dp_replays
+               for r in k["data_parallel"][tag]["replays_per_rank"]]
+            + [r["max_abs_err"] for r in k["data_parallel"]["19c"].values()]
+            + [k["data_parallel"]["19d"]["one_process"]["max_abs_err"]]
+            + [r["max_abs_err"] for r in k["data_parallel"]["19d"]["ranks"]])
     conv16 = eval_replays["k4"]
     record["kernels"][4]["eval_replays"] = {"16e_int8": {
         "calls": sum(r["launches"] for r in conv16["shapes"]),
@@ -4188,6 +5250,7 @@ def main():
     print(json.dumps({"eval": evaluation}))
     print(json.dumps({"training_as_written": as_written}))
     print(json.dumps({"precisions": precision}))
+    print(json.dumps({"data_parallel": data_par}))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4197,4 +5260,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--cli-rank"]:
+        sys.exit(cli_rank(sys.argv[2:]))
     sys.exit(main())

@@ -11,8 +11,11 @@ import torch
 
 from .models import build_detector
 from .models.utils import init_weights
+from .parallel.dist import barrier, process_count, rank
+from .parallel.mesh import rank_batch_size, replicate
 from .runtime.checkpoint import is_port_checkpoint, load_pretrained
-from .runtime.hooks import CheckpointHook, IterTimerHook, TextLoggerHook
+from .runtime.hooks import (CheckpointHook, Hook, IterTimerHook,
+                            TextLoggerHook)
 from .runtime.torch_convert import (load_reference_checkpoint,
                                     normalize_state_dict)
 from .runtime.trainer import Trainer
@@ -138,6 +141,14 @@ def apply_pretrained(model, model_cfg, logger=None):
             logger.warning("no pretrained model at %s (%s)", path, e)
 
 
+class _EpochBarrier(Hook):
+    """Every rank waits at the end of an epoch until rank 0 has run its
+    hooks before this one (the checkpoint); nothing without a group."""
+
+    def after_train_epoch(self, trainer):
+        barrier()
+
+
 def train_detector(model, dataset, cfg, logger=None, resume_from=None,
                    cfg_text=None, work_dir=None, hooks=(), seed=0,
                    val_dataset=None):
@@ -154,19 +165,30 @@ def train_detector(model, dataset, cfg, logger=None, resume_from=None,
     step count, each step's generator (RoI sampling, dropout).
     With `val_dataset`, each epoch is followed by its evaluation
     (`Trainer.run`'s workflow [('train', 1), ('val', 1)]), read in batches
-    of `data.samples_per_gpu`. Returns the `Trainer`."""
+    of `data.samples_per_gpu`. Returns the `Trainer`.
+
+    In a data-parallel group (`parallel.dist.init_from_env`) a step takes
+    `samples_per_gpu` frames per node, as the JAX package's mesh does:
+    each rank loads its `samples_per_gpu / LOCAL_WORLD_SIZE` rows of the
+    global batch through the loader's shards (`num_shards` = the ranks,
+    `shard_index` = its rank) and validates its shard of the val set; the
+    model starts from rank 0's state (`parallel.mesh.replicate`, after the
+    pretrained weights and the resume). The hooks that write files
+    (`Hook.writes`: the logs, the checkpoints, `hooks` of that kind) run
+    on rank 0 only, and every rank waits at the end of an epoch until
+    rank 0 has written its checkpoint."""
     logger = logger or logging.getLogger("train")
     data = cfg["data"]
     workers = data.get("workers_per_gpu", 2)
-    loader = DataLoader(dataset, data["samples_per_gpu"], shuffle=True,
-                        num_workers=workers, max_points=data["max_points"],
-                        seed=seed)
+    batch = rank_batch_size(data["samples_per_gpu"])
+    shards = dict(num_shards=process_count(), shard_index=rank())
+    loader = DataLoader(dataset, batch, shuffle=True, num_workers=workers,
+                        max_points=data["max_points"], seed=seed, **shards)
     val_loader, workflow = None, None
     if val_dataset is not None:
-        val_loader = DataLoader(val_dataset, data["samples_per_gpu"],
-                                num_workers=workers,
+        val_loader = DataLoader(val_dataset, batch, num_workers=workers,
                                 max_points=data["max_points"],
-                                drop_last=False)
+                                drop_last=False, **shards)
         workflow = [("train", 1), ("val", 1)]
     total_epochs = cfg["total_epochs"]
     optimizer = optimizer_from_cfg(model, cfg, total_epochs * len(loader))
@@ -175,16 +197,19 @@ def train_detector(model, dataset, cfg, logger=None, resume_from=None,
                       cfg_text=cfg_text,
                       class_names=list(cfg.get("class_names") or []),
                       seed=seed)
-    trainer.register_hook(IterTimerHook())
-    trainer.register_hook(TextLoggerHook(
-        (cfg.get("log_config") or {}).get("interval", 10), logger))
-    trainer.register_hook(CheckpointHook(
-        (cfg.get("checkpoint_config") or {}).get("interval", 1)))
-    for hook in hooks:
-        trainer.register_hook(hook)
+    for hook in [IterTimerHook(),
+                 TextLoggerHook(
+                     (cfg.get("log_config") or {}).get("interval", 10),
+                     logger),
+                 CheckpointHook(
+                     (cfg.get("checkpoint_config") or {}).get("interval", 1)),
+                 _EpochBarrier(), *hooks]:
+        if rank() == 0 or not hook.writes:
+            trainer.register_hook(hook)
     apply_pretrained(model, cfg["model"], logger)
     if resume_from:
         trainer.resume(None if resume_from is True else resume_from)
+    replicate(model)
     trainer.run(loader, total_epochs, workflow=workflow,
                 val_loader=val_loader, val_dataset=val_dataset)
     return trainer

@@ -55,8 +55,12 @@ WAYMO_IOU_THRESH = {"VEHICLE": 0.7, "PEDESTRIAN": 0.5, "CYCLIST": 0.5}
 
 
 def _to7(boxes):
-    """det3d 9-dim [x y z w l h vx vy r] (or 7-dim) -> 7-dim IoU layout."""
-    boxes = np.asarray(boxes, np.float64).reshape(len(boxes), -1)
+    """det3d 9-dim [x y z w l h vx vy r] (or 7-dim) -> 7-dim IoU layout;
+    no boxes (a frame without detections) -> (0, 7)."""
+    boxes = np.asarray(boxes, np.float64)
+    if boxes.size == 0:
+        return np.zeros((0, 7))
+    boxes = boxes.reshape(len(boxes), -1)
     if boxes.shape[1] == 9:
         boxes = boxes[:, [0, 1, 2, 3, 4, 5, 8]]
     return boxes

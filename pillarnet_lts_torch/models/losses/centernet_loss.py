@@ -14,11 +14,18 @@ index y * W + x. One deviation: the focal loss of a task with no object
 in the batch is -neg_loss with a finite gradient, as in the reference
 (`centernet_loss.py:34-63`, its early return); the JAX package's branchless
 `where` also divides by the zero count there, and its gradient is NaN.
+
+Under a data-parallel process group each loss is this rank's share of the
+loss of the global batch: its own numerator over the global count (the
+object count, summed over the ranks by `parallel.dist.sum_over_ranks`),
+so the losses summed over the ranks are the global batch's. The focal
+loss's no-object branch tests the global count.
 """
 
 import torch
 
 from ...ops.iou3d import boxes_aligned_iou3d
+from ...parallel.dist import sum_over_ranks
 
 
 def gather_feat(feat, ind):
@@ -36,7 +43,7 @@ def fast_focal_loss(out, target, ind, mask, cat):
     neg = (1.0 - target).square()
     neg_loss = (torch.log(1.0 - out) * out.square() * neg.square()).sum()
     pos_pred = gather_feat(out, ind).gather(2, cat.long()[..., None])
-    num_pos = maskf.sum()
+    num_pos = sum_over_ranks(maskf.sum())
     pos_loss = (torch.log(pos_pred) * (1.0 - pos_pred).square()
                 * maskf[..., None]).sum()
     return torch.where(num_pos == 0, -neg_loss,
@@ -49,7 +56,7 @@ def reg_loss(output, mask, ind, target):
     pred = gather_feat(output, ind)
     maskf = mask.float()[..., None]
     loss = (pred * maskf - target * maskf).abs()
-    loss = loss / (maskf.sum() + 1e-4)
+    loss = loss / (sum_over_ranks(maskf.sum()) + 1e-4)
     return loss.sum(dim=(0, 1))
 
 
@@ -62,7 +69,7 @@ def iou_loss(iou_pred, mask, ind, box_pred, box_gt):
     pred_box = gather_feat(box_pred, ind)
     target = 2.0 * boxes_aligned_iou3d(pred_box, box_gt) - 1.0
     loss = ((pred - target).abs() * maskf).sum()
-    return loss / (maskf.sum() + 1e-4)
+    return loss / (sum_over_ranks(maskf.sum()) + 1e-4)
 
 
 def _corners2d(box):
@@ -136,4 +143,5 @@ def iou_reg_loss(box_pred, mask, ind, box_gt, kind="IoU"):
     (B, M, 7) ground truth, averaged over the objects."""
     maskf = mask.float()
     iou = _IOU_FUNCS[kind](gather_feat(box_pred, ind), box_gt)
-    return ((1.0 - iou) * maskf).sum() / (maskf.sum() + 1e-4)
+    return (((1.0 - iou) * maskf).sum()
+            / (sum_over_ranks(maskf.sum()) + 1e-4))

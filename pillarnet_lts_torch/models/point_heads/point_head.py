@@ -12,6 +12,7 @@ targets (`assign_point_targets_2d`) and the sigmoid focal loss
 import torch
 from torch import nn
 
+from ...parallel.dist import sum_over_ranks
 from ..registry import POINT_HEAD
 from ..utils.dense import Dense, dense_bn_relu
 from ..utils.norm import MaskedBatchNorm
@@ -64,10 +65,11 @@ def assign_point_targets_2d(point_coords, gt_of_rois_src):
 
 def point_cls_loss(logits, labels, weight=1.0, alpha=0.25, gamma=2.0):
     """Sigmoid focal loss over every grid point, divided by the number of
-    positives (at least 1)."""
+    positives (at least 1; over the ranks of a data-parallel group)."""
     logits = logits.reshape(-1)
     labels = labels.reshape(-1)
-    pos_normalizer = (labels > 0).sum().to(torch.float32).clamp_min(1.0)
+    pos_normalizer = sum_over_ranks(
+        (labels > 0).sum().to(torch.float32)).clamp_min(1.0)
     p = torch.sigmoid(logits)
     alpha_w = labels * alpha + (1 - labels) * (1 - alpha)
     pt = labels * (1.0 - p) + (1 - labels) * p

@@ -28,6 +28,7 @@ import torch
 
 from ...core.utils import f32_reciprocal
 from ...ops.iou3d import boxes_iou3d
+from ...parallel.mesh import rank_rows
 
 _INT_DRAW_HIGH = 2**31 - 1  # jnp.iinfo(jnp.int32).max, exclusive
 
@@ -50,11 +51,15 @@ class SamplerDraws(NamedTuple):
 def sampler_draws(generator, batch, num_rois, roi_per_image, device):
     """The sampler's draws for one call, from `generator` on its own device,
     moved to `device` (the card's generator on the card's tensors draws
-    without a host round trip)."""
+    without a host round trip). In a data-parallel group each rank draws
+    for the global batch and keeps its `batch` rows
+    (`parallel.mesh.rank_rows`): the rows one process draws for them."""
     gdev = generator.device
-    u = torch.rand((batch, 3, num_rois), generator=generator, device=gdev)
-    r = torch.randint(0, _INT_DRAW_HIGH, (batch, 3, roi_per_image),
-                      generator=generator, device=gdev)
+    u = rank_rows(lambda size: torch.rand(size, generator=generator,
+                                          device=gdev), batch, 3, num_rois)
+    r = rank_rows(lambda size: torch.randint(
+        0, _INT_DRAW_HIGH, size, generator=generator, device=gdev),
+        batch, 3, roi_per_image)
     return SamplerDraws(u.to(device), r.to(device))
 
 

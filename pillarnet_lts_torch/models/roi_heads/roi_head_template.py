@@ -13,6 +13,7 @@ import math
 import torch
 
 from ...core.utils import device_constant
+from ...parallel.dist import sum_over_ranks
 
 
 def limit_period(val, offset=0.5, period=math.pi):
@@ -68,26 +69,29 @@ def canonicalize_roi_targets(targets):
 
 def box_cls_layer_loss(rcnn_cls, rcnn_cls_labels, weight=1.0):
     """Binary cross entropy with soft labels, averaged over the RoIs whose
-    label is not -1 (ignored)."""
+    label is not -1 (ignored; over the ranks of a data-parallel group)."""
     logits = rcnn_cls.reshape(-1)
     labels = rcnn_cls_labels.reshape(-1)
     p = torch.sigmoid(logits).clamp(1e-7, 1 - 1e-7)
     per = -(labels * torch.log(p) + (1 - labels) * torch.log(1 - p))
     valid = (labels >= 0).to(torch.float32)
-    return (per * valid).sum() / valid.sum().clamp_min(1.0) * weight
+    return ((per * valid).sum()
+            / sum_over_ranks(valid.sum()).clamp_min(1.0) * weight)
 
 
 def box_reg_layer_loss(rcnn_reg, reg_valid_mask, gt_of_rois, code_weights,
                        weight=1.0):
     """Code-weighted L1 between the refinement and the canonical targets,
-    averaged over the foreground RoIs (reg_valid_mask > 0)."""
+    averaged over the foreground RoIs (reg_valid_mask > 0; over the ranks
+    of a data-parallel group)."""
     code_size = rcnn_reg.shape[-1]
     targets = gt_of_rois[..., :code_size].reshape(-1, code_size)
     preds = rcnn_reg.reshape(-1, code_size)
     fg = (reg_valid_mask.reshape(-1) > 0).to(torch.float32)
     cw = device_constant(list(code_weights), preds.device, preds.dtype)
     per = (preds - targets).abs() * cw
-    return (per.sum(-1) * fg).sum() / fg.sum().clamp_min(1.0) * weight
+    return ((per.sum(-1) * fg).sum()
+            / sum_over_ranks(fg.sum()).clamp_min(1.0) * weight)
 
 
 def generate_predicted_boxes(rois, cls_preds, box_preds):

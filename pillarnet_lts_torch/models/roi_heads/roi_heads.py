@@ -24,6 +24,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ...parallel.mesh import rank_rows
 from ..registry import ROI_HEAD
 from ..utils.dense import Dense, dense_bn_relu
 from ..utils.norm import MaskedBatchNorm
@@ -33,9 +34,13 @@ def dropout(x, rate, generator):
     """Zero each element with probability `rate` and scale the rest by
     1 / (1 - rate), as flax's `nn.Dropout`: keep = U < 1 - rate with U
     uniform on [0, 1) from `generator` (on its own device; the mask moves
-    to x's)."""
+    to x's). x's rows are its samples' RoIs, sample-major; in a
+    data-parallel group U is drawn for the global batch's rows and each
+    rank keeps its own (`parallel.mesh.rank_rows`)."""
     keep_prob = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    u = rank_rows(lambda size: torch.rand(size, generator=generator,
+                                          device=generator.device),
+                  *x.shape)
     keep = u.to(x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 

@@ -20,6 +20,17 @@ likewise. The output is re-zeroed at inactive sites. Under
 `recomputing()` marks that replay, and the running statistics are then
 left alone, so they move once per step as under JAX's `nn.remat`.
 
+Under a data-parallel process group (`parallel/dist.py`) the batch is
+the global one, as over the JAX package's sharded batch: sum(x),
+sum(x^2) and the site count are summed over the ranks in one collective,
+with a gradient through the sum, before the mean and variance are
+formed, so every rank normalizes with, and moves its running statistics
+by, the same global statistics. The count of the dense branch is the
+local one times the ranks (every rank's batch has one shape). The replay
+of a checkpointed forward runs the collective again: every rank replays
+the same segments in the same order, and the same inputs give the same
+sums.
+
 At eval the norm is an affine y = x * inv + shift that the port folds into
 the preceding conv or matmul (`fold_factors`); `forward` applies it
 unfolded (and re-zeroes where a mask is given), as the JAX package does
@@ -41,6 +52,7 @@ import torch
 from torch import nn
 
 from ...core.utils import f32_reciprocal
+from ...parallel import dist
 
 _MOMENTUM = 0.01
 _REPLAY = threading.local()
@@ -70,6 +82,21 @@ def exact_statistics():
         yield
     finally:
         _EXACT.momentum = prev
+
+
+def _site_sum(t, dims):
+    """`t` summed over `dims`, this rank's sites: one function for every
+    sum of the statistics, so a test can take them in another order."""
+    return t.sum(dims)
+
+
+def _sum_over_ranks(*sums):
+    """The per-rank sums `sums` summed over the ranks in one collective,
+    differentiable (the sums themselves without a process group)."""
+    if dist.process_count() == 1:
+        return sums
+    flat = dist.sum_with_grad(torch.cat([t.reshape(-1) for t in sums]))
+    return flat.split([t.numel() for t in sums])
 
 
 def _clamp0(v):
@@ -127,19 +154,25 @@ class MaskedBatchNorm(nn.Module):
 
         dims = [d for d in range(x.dim()) if d != cdim]
         if mask is None:
-            cnt = max(x.numel() // x.shape[cdim], 1)
+            # the global site count: every rank's batch has this shape
+            cnt = max(x.numel() // x.shape[cdim], 1) * dist.process_count()
             rcp = f32_reciprocal(cnt)
-            mean = xf.sum(dims) * rcp
-            var = _clamp0((xf * xf).sum(dims) * rcp - mean * mean)
+            s1, s2 = _sum_over_ranks(_site_sum(xf, dims),
+                                     _site_sum(xf * xf, dims))
+            mean = s1 * rcp
+            var = _clamp0(s2 * rcp - mean * mean)
             # cnt / (cnt - 1) for the running variance, folded into one
             # constant
             bessel = float(np.float32(cnt) * np.float32(
                 f32_reciprocal(max(cnt - 1, 1))))
         else:
             mf = mask.float()
-            cnt = mf.sum().clamp_min(1.0)
-            mean = (xf * mf).sum(dims) / cnt
-            var = _clamp0((xf * xf * mf).sum(dims) / cnt - mean * mean)
+            s1, s2, cnt = _sum_over_ranks(_site_sum(xf * mf, dims),
+                                          _site_sum(xf * xf * mf, dims),
+                                          mf.sum())
+            cnt = cnt.clamp_min(1.0)
+            mean = s1 / cnt
+            var = _clamp0(s2 / cnt - mean * mean)
         if not getattr(_REPLAY, "active", False):
             with torch.no_grad():
                 unbiased = (var * bessel if mask is None

@@ -1,0 +1,13 @@
+"""Data-parallel training and sharded evaluation over `torch.distributed`
+(the counterpart of `pillarnet_lts_tpu/parallel/`).
+
+- `dist`: the process group from torchrun's environment and the
+  collectives (`parallel/dist.py` there);
+- `mesh`: one state on every rank and each rank's rows of the global
+  batch (`make_mesh` / `shard_batch` / `replicate` there).
+
+The rest of the JAX package's `parallel/` has its counterpart elsewhere:
+`train_step.py` in `runtime/train_step.py`, `train_state.py` in the
+module + optimizer pair, `collate.py` in `datasets/collate.py`.
+`spatial.py` (the TPU mesh's halo exchange) is not ported.
+"""

@@ -2,7 +2,9 @@
 per-epoch checkpoint.
 
 Port of the JAX package's `runtime/hooks.py` (`Hook`, `IterTimerHook`,
-`TextLoggerHook`, `TensorboardLoggerHook`, `CheckpointHook`).
+`TextLoggerHook`, `TensorboardLoggerHook`, `CheckpointHook`). A hook that
+writes files says so (`writes`): in a data-parallel group
+`apis.train_detector` registers it on rank 0 only.
 """
 
 import datetime
@@ -13,6 +15,8 @@ import time
 
 
 class Hook:
+    writes = False  # whether it writes log or checkpoint files
+
     def before_run(self, trainer):
         pass
 
@@ -50,6 +54,8 @@ class IterTimerHook(Hook):
 class TextLoggerHook(Hook):
     """Metrics averaged over `interval` iterations, logged and appended to
     `{work_dir}/log.json` as one json record per event."""
+
+    writes = True
 
     def __init__(self, interval=10, logger=None):
         self.interval = interval
@@ -89,6 +95,8 @@ class TensorboardLoggerHook(Hook):
     `{work_dir}/tf_logs`). Without the `tensorboard` package it does
     nothing and logs one warning."""
 
+    writes = True
+
     def __init__(self, log_dir=None, interval=10):
         self.log_dir = log_dir
         self.interval = interval
@@ -118,6 +126,8 @@ class TensorboardLoggerHook(Hook):
 
 class CheckpointHook(Hook):
     """A checkpoint every `interval` epochs."""
+
+    writes = True
 
     def __init__(self, interval=1):
         self.interval = interval

@@ -12,6 +12,12 @@ the running one); the port reads them off one pass with momentum 1
 (`models/utils/norm.py::exact_statistics`). A norm that the forward does
 not reach keeps its statistics, as under the JAX package's
 extrapolation.
+
+In a data-parallel group each rank passes its rows of the same global
+batches. The cross-replica norm (`models/utils/norm.py`) sums the
+statistics over the ranks, so each pass gives the statistics of the
+global batch, as the JAX package's pass over its sharded batch does, and
+every rank sets the same running statistics.
 """
 
 import torch

@@ -1,7 +1,8 @@
 """One training step: forward, losses, backward, clip and AdamW update.
 
 Port of `pillarnet_lts_tpu/parallel/train_step.py::make_train_step` (and
-the update of `parallel/train_state.py`) for one device: the model runs in
+the update of `parallel/train_state.py`), on one device or on each rank
+of a data-parallel group (`train_step`): the model runs in
 training mode (batch statistics, running statistics updated once), the
 task losses are summed in task order, the optimizer clips and steps
 (`solver/optim.py`), and the metrics carry the JAX keys: `loss`, every
@@ -18,6 +19,9 @@ checkpoint draws what the uninterrupted run drew.
 
 import numpy as np
 import torch
+
+from ..parallel.dist import (is_initialized, sum_gradients_over_ranks,
+                             sum_over_ranks)
 
 _TARGET_KEYS = ("hm", "anno_box", "ind", "mask", "cat", "gt_box")
 _ARRAY_KEYS = ("points", "points_mask", "gt_boxes_and_cls")
@@ -61,15 +65,29 @@ def step_losses(model, batch, train_cfg=None, generator=None):
 
 def train_step(model, optimizer, batch, train_cfg=None, generator=None):
     """One step on a device batch (`batch_to_device`); returns the metrics
-    dict of 0-d tensors."""
+    dict of 0-d tensors.
+
+    In a data-parallel group (`parallel/dist.py`) the batch is this rank's
+    rows of the global one and `generator` is the same on every rank. The
+    rank's loss is its share of the global loss (the losses divide by
+    global counts), so the gradients are summed over the ranks (one
+    collective, a sum and not DDP's mean) before the clip and the update,
+    which are then the global ones, as is `grad_norm`; the other metrics
+    are summed over the ranks (one more collective), which makes them the
+    global batch's."""
     total, losses = step_losses(model, batch, train_cfg, generator)
     optimizer.zero_grad(set_to_none=True)
     total.backward()
+    sum_gradients_over_ranks([p for g in optimizer.param_groups
+                              for p in g["params"]])
     metrics = {"loss": total.detach()}
     for k, vals in losses.items():
         if k != "loss" and (k.endswith("_loss") or k == "num_positive"):
             for t, v in enumerate(vals):
                 metrics[f"{k}_task{t}"] = v.detach()
+    if is_initialized():
+        summed = sum_over_ranks(torch.stack(list(metrics.values())))
+        metrics = dict(zip(metrics, summed.unbind()))
     metrics["grad_norm"] = optimizer.step()
     return metrics
 

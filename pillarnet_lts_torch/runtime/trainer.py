@@ -1,6 +1,7 @@
 """Epoch-based trainer.
 
-Port of `pillarnet_lts_tpu/runtime/trainer.py` for one device: the epoch
+Port of `pillarnet_lts_tpu/runtime/trainer.py`, on one device or on each
+rank of a data-parallel group (`parallel/`): the epoch
 loop with hook calls (`runtime/hooks.py`), one `train_step` per batch
 (`runtime/train_step.py`) with the step's generator from (seed, step),
 metrics read back into the `LogBuffer` every
@@ -8,7 +9,9 @@ step (the JAX trainer's `device_get`), checkpoints with the config text
 and class names in their meta, `resume`, and the validation workflow:
 `run(..., workflow=[('train', k), ('val', 1)])` infers over the val
 loader (`eval_utils.pipelined_infer`), scores the detections with the
-dataset's `evaluation` and logs the result.
+dataset's `evaluation` and logs the result. In a group each rank trains
+on its shard of every global batch and validates its shard of the val
+set; rank 0 scores the gathered detections.
 """
 
 import logging
@@ -16,6 +19,7 @@ import os
 
 import torch
 
+from ..parallel.dist import gather_detections, rank
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .hooks import Hook
 from .log_buffer import LogBuffer
@@ -94,7 +98,12 @@ class Trainer:
         """Infer over `data_loader` in eval mode, score the detections
         with `dataset.evaluation` (on the trainer's device; results in
         `output_dir`, default `{work_dir}/eval`), log each result line and
-        return (detections {token: dict}, the evaluation's result)."""
+        return (detections {token: dict}, the evaluation's result).
+
+        In a data-parallel group `data_loader` is this rank's shard: the
+        ranks' detections are gathered and merged by token (which drops
+        the shards' wrap-around duplicates), and rank 0 scores them; the
+        other ranks return the merged detections and None."""
         from ..eval_utils import (detections_to_host, make_infer_fn,
                                   pipelined_infer)
 
@@ -124,6 +133,9 @@ class Trainer:
             for sample in detections_to_host(det, metas):
                 detections[sample["metadata"]["token"]] = sample
 
+        detections = gather_detections(detections)
+        if rank() != 0:
+            return detections, None
         out_dir = output_dir or os.path.join(self.work_dir, "eval")
         os.makedirs(out_dir, exist_ok=True)
         result, _ = dataset.evaluation(detections, output_dir=out_dir,

@@ -1,9 +1,10 @@
 """Evaluation and latency CLI of the port (the JAX package's
-`tools/dist_test.py`, one process).
+`tools/dist_test.py`).
 
     python -m pillarnet_lts_torch.tools.dist_test CONFIG
         [--checkpoint P] [--seed N] [--speed_test] [--testset] [--int8]
         [--work_dir D] [--device cuda|cpu]
+    torchrun --nproc_per_node N -m pillarnet_lts_torch.tools.dist_test ...
 
 The flow: the config's `data.val` (`data.test` with `--testset`) through
 `build_dataset` and the threaded `DataLoader` (`samples_per_gpu` frames a
@@ -28,6 +29,13 @@ calibrated on the first 8 batches. Double-flip TTA is the config's
 (`test_cfg.double_flip` with `DoubleFlip` in its val pipeline, as
 `apis.with_double_flip` sets them): 4 clouds a frame, one detection set a
 frame.
+
+Under `torchrun` each rank (`parallel/dist.py`: NCCL on the card
+`cuda:LOCAL_RANK`, gloo with `--device cpu`) serves its shard of the set (the loader's `num_shards` / `shard_index`, wrap-padded to equal
+shards) at `samples_per_gpu` frames a batch, with the speed test or the
+pipelined pass timed per rank; `--int8` calibrates every rank on the
+same first batches of the whole set. The detections are gathered and
+merged by token, and rank 0 writes `prediction.pkl` and scores them.
 """
 
 import argparse
@@ -43,6 +51,8 @@ import torch
 from ..apis import build_model_from_cfg, load_config
 from ..datasets import DataLoader, build_dataset
 from ..eval_utils import detections_to_host, make_infer_fn, pipelined_infer
+from ..parallel.dist import (gather_detections, init_from_env,
+                             process_count, rank, shutdown)
 from ..runtime.serving import to_host
 
 CALIB_BATCHES = 8
@@ -181,11 +191,21 @@ def pipelined(infer, loader, device, metas_of, logger):
 
 def main(argv=None):
     """Run the CLI; returns {'detections', 'result', 'speed', 'work_dir'}
-    (the speed record of whichever pass ran)."""
+    (the speed record of whichever pass ran; under torchrun the rank's
+    speed record, every rank the merged detections, rank 0 the result and
+    the others None)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    resolve_device(args.device)
+    device = init_from_env(args.device)
+    try:
+        return _evaluate(args, device)
+    finally:
+        shutdown()
+
+
+def _evaluate(args, device):
     logger = logging.getLogger("test")
-    device = resolve_device(args.device)
     cfg = load_config(args.config)
     work_dir = args.work_dir or cfg["work_dir"]
     os.makedirs(work_dir, exist_ok=True)
@@ -196,10 +216,13 @@ def main(argv=None):
 
     data = cfg["data"]
     dataset = build_dataset(data["test" if args.testset else "val"])
-    loader = DataLoader(
-        dataset, batch_size=1 if args.speed_test else data["samples_per_gpu"],
+    loader_args = dict(
+        dataset=dataset,
+        batch_size=1 if args.speed_test else data["samples_per_gpu"],
         num_workers=data.get("workers_per_gpu", 2),
         max_points=data.get("max_points"), seed=args.seed, drop_last=False)
+    loader = DataLoader(**loader_args, num_shards=process_count(),
+                        shard_index=rank())
 
     model = build_model_from_cfg(cfg, device=device, seed=args.seed)
     if args.checkpoint:
@@ -207,8 +230,8 @@ def main(argv=None):
     if args.int8:
         from ..runtime.quantize import calibrate
 
-        first = [on_device(b, device)
-                 for b in itertools.islice(loader, CALIB_BATCHES)]
+        first = [on_device(b, device) for b in itertools.islice(
+            DataLoader(**loader_args), CALIB_BATCHES)]
         logger.info("int8: calibrating on %d batches", len(first))
         calibrate(model, first)
     infer = make_infer_fn(model)
@@ -222,6 +245,13 @@ def main(argv=None):
 
     run = speed_test if args.speed_test else pipelined
     detections, speed = run(infer, loader, device, metas_of, logger)
+    if process_count() > 1:
+        logger.info("rank %d of %d on %s: %s", rank(), process_count(),
+                    device, speed)
+    detections = gather_detections(detections)
+    if rank() != 0:
+        return {"detections": detections, "result": None, "speed": speed,
+                "work_dir": work_dir}
 
     with open(os.path.join(work_dir, "prediction.pkl"), "wb") as f:
         pickle.dump(detections, f)

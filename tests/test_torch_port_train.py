@@ -594,6 +594,7 @@ def test_training_path_imports_no_jax(tmp_path):
         "from pillarnet_lts_torch.apis import (build_model_from_cfg, "
         "load_config, train_detector)\n"
         "from pillarnet_lts_torch.datasets import SynthDataset\n"
+        "from pillarnet_lts_torch.parallel import dist, mesh\n"
         "cfg = load_config('configs/demo/pillarnet18_demo.py')\n"
         "cfg['data'] = dict(cfg['data'], samples_per_gpu=2, max_points=2048)\n"
         "cfg['total_epochs'] = 1\n"
