@@ -240,6 +240,46 @@ Phases, each of which raises on failure:
      one-process run's (or within phase 14e's tolerances); every K1 and
      K2 call of 19c and 19d held bit-equal to its plain version; phase
      19's wall seconds.
+ 20. the compact sparse path (`reader.compact_kmax`: conv1 and conv2 as
+     gather convs over the active sites, `ops/compact.py`,
+     `models/backbones/compact_exec.py`), each compact model with the
+     weights of its dense twin; every cloud's active sites (k_valid) and
+     the coarse sites conv2 needs are printed, and where a cloud needs
+     more coarse sites than the default budget, `compact_kmax2` is set
+     explicitly (a truncated table makes compact and dense differ, as in
+     the JAX package): (a) `pillarnet34_nusc` with `compact_kmax` =
+     262,144 (its `max_points`) serving 3 warm-up + 10 timed requests at
+     bs=1 and 2 at bs=2 through `ServingPipeline(make_infer_fn(model))`,
+     the launch counts set to 0 just before and read just after: every
+     request launches K2 as the dense twin's does and nothing else (no
+     K1), every K2 call replayed bit-equal against its plain version; the
+     detections against the dense twin's on the same clouds (kept slots
+     identical, each kept box matched to a dense box of its label by
+     centre, boxes within 5e-3 m and scores within 1e-3,
+     `tests/test_compact_backbone.py:164-172`, or twice the dense route's
+     own difference under a 1e-6 weight nudge where that is larger: a
+     random-weight box dimension is exp of a head output); p50 / p90 and
+     peak memory
+     of both routes; the first cloud's compact tables (site ids, k_valid,
+     the SubM, strided and coarse tables, the coarse sites, the densified
+     occupancy) bit-equal card vs CPU, and its segment-max rows of the
+     same features; one request under `set_sync_debug_mode("error")`;
+     (b) conv1 + conv2 (`PillarResNet.conv12`) of both routes on 3 clouds
+     in f32 and in bf16: device ms from `torch.profiler` kernel sums, the
+     compact route split into table building, gathers, matmuls, densify
+     and the rest, each reader alone, MACs, serial p50, peak memory above
+     the input; (c) `pillarnet34_nusc_bf16` with the compact reader,
+     4 requests: launches and K2 replays as (a), every head map within
+     max(5e-2, the port's bf16 bound, and twice the dense twin's own bf16
+     error against the f32 model of the same weights) of its max |value|
+     of the dense twin's, the kept boxes matched to the dense twin's by
+     label and centre and reported; (d) `pillarrcnn18_waymo` with
+     `compact_kmax` = 196,608, 4 requests as (a), detections as (a);
+     (e) two training steps of (a)'s model at bs=4 on 13c's batch against
+     the dense route from the same state (losses and gradients by group
+     within phase 19's bounds from the dense step's own 1e-6 nudge
+     spread), no kernel launched on the compact step, step ms and peak
+     memory of both routes; phase 20's wall seconds.
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
@@ -258,7 +298,7 @@ session that lost device events and keeps the one that lost the fewest; a
 carries phase 13's, 14's, 15's, 16's, 17's, 18's and 19's JSON records
 (`{"training": ...}`, `{"two_stage": ...}`, `{"two_stage_training": ...}`,
 `{"eval": ...}`, `{"training_as_written": ...}`, `{"precisions": ...}`,
-`{"data_parallel": ...}`);
+`{"data_parallel": ...}`) and phase 20's (`{"compact": ...}`);
 then the kernels' JSON record (K1's and K2's rows also carry
 `two_stage_launches`, under `two_stage_train` phase 15's launches and
 replays, `eval_launches`, phase 16a's pipelined pass, under
@@ -267,7 +307,8 @@ replays, `eval_launches`, phase 16a's pipelined pass, under
 K2's and K4's rows `eval_replays`, phase 16's replays by pass; K4's f32
 variant, `int8_conv_f32`, has a row of its own from phase 18a; K1's and
 K2's rows carry phase 19's launches per rank and replays under
-`data_parallel`), the
+`data_parallel`; K2's row phase 20's launches and replays under
+`compact`, K1's `compact_launches`, 0 on every compact path), the
 card's
 `nvidia-smi` name and power
 limit, and the last line `{"ok": true, "device": {...}}`. Without a CUDA
@@ -5018,6 +5059,725 @@ def data_parallel(torch, dev, card):
     return rec, launches, replays
 
 
+# phase 20: the compact sparse path (`reader.compact_kmax`)
+COMPACT_KMAX = N_POINTS  # 20a-c, e: pillarnet34_nusc's max_points
+RCNN_COMPACT_KMAX = 196608  # 20d: pillarrcnn18_waymo's max_points
+# detections of the compact path against the dense one from the same
+# weights (f32): tests/test_compact_backbone.py:164-172
+COMPACT_BOX_TOL, COMPACT_SCORE_TOL = 5e-3, 1e-3
+# bf16 head maps against the dense twin's, relative to each map's max
+# |value| (the port's bf16 bound: tests/test_torch_port_cuda.py, 18b)
+COMPACT_BF16_REL = 5e-2
+COMPACT_MATCH_M = 0.05  # a kept box's centre, matched by label
+COMPACT_REQUESTS, COMPACT_WARMUP, COMPACT_BATCHES = 13, 3, 2  # 20a
+COMPACT_FEW = 4  # 20c, 20d: requests, the first untimed
+CONV12_CLOUDS = 3  # 20b: clouds a route's conv1 + conv2 is timed on
+
+
+def compact_config(path, kmax):
+    """A config with `reader.compact_kmax = kmax` (the first stage's,
+    two-stage)."""
+    from pillarnet_lts_torch.apis import load_config
+
+    cfg = load_config(path)
+    inner = cfg["model"].get("first_stage_cfg", cfg["model"])
+    inner["reader"]["compact_kmax"] = kmax
+    return cfg
+
+
+def first_stage(model):
+    return getattr(model, "single_det", model)
+
+
+def compact_budgets(torch, tag, model, clouds):
+    """Each cloud's active sites (k_valid) and the coarse sites conv2
+    needs (untruncated); where one exceeds the default coarse budget,
+    `compact_kmax2` is set explicitly to cover every cloud (a truncated
+    coarse table makes compact and dense differ, the JAX package's
+    semantics too) and said so. Returns the record."""
+    from pillarnet_lts_torch.ops.compact import downsample_site_ids
+
+    det = first_stage(model)
+    kv, k2 = [], []
+    with torch.inference_mode():
+        for cloud in clouds:
+            cp, _ = det.reader_net(*cloud)
+            full = (cp.height // 2) * (cp.width // 2)
+            _, need = downsample_site_ids(cp.site_ids, cp.k_valid,
+                                          cp.height, cp.width, full)
+            kv += cp.k_valid.tolist()
+            k2 += need.tolist()
+    kmax = cp.site_ids.shape[1]
+    default = det.backbone_net.coarse_budget(kmax)
+    rec = {"kmax": kmax, "k_valid": kv, "k2_needed": k2,
+           "kmax2_default": default, "fine_truncated": max(kv) >= kmax}
+    if rec["fine_truncated"]:
+        raise AssertionError(f"{tag}: a cloud fills the reader budget "
+                             f"{kmax}: {kv}")
+    if max(k2) > default:
+        det.backbone_net.compact_kmax2 = (max(k2) + 7) // 8 * 8
+    rec["kmax2"] = det.backbone_net.coarse_budget(kmax)
+    print(f"[{tag}] budgets: {kmax} fine sites, k_valid per cloud {kv}; "
+          f"coarse sites needed {k2} of a default budget {default}"
+          + (f": compact_kmax2 set to {rec['kmax2']} explicitly"
+             if rec["kmax2"] != default else ", no truncation"))
+    return rec
+
+
+def compact_pair(torch, dev, path, kmax, seed_cloud):
+    """The dense model of a config (seeded weights, heads spread on the
+    cloud) and its compact twin with the same weights."""
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, spread_head_outputs)
+
+    dense = build_model_from_cfg(load_config(path), device=dev, seed=0)
+    spread_head_outputs(dense, *seed_cloud)
+    compact = build_model_from_cfg(compact_config(path, kmax), device=dev,
+                                   seed=1)
+    compact.load_state_dict(dense.state_dict())
+    return dense, compact
+
+
+def served_run(torch, dev, model, clouds, warmup, capture):
+    """Requests through `ServingPipeline(make_infer_fn(model))` with the
+    launch counts set to 0 just before and read just after, each request's
+    launch deltas recorded (and, with `capture`, its K2 calls). Returns
+    the detections, host-synced ms, per-request deltas, the run's
+    launches, peak memory and the K2 calls."""
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.runtime.serving import ServingPipeline
+
+    pipe = ServingPipeline(make_infer_fn(model), depth=1)
+    dets, ms, deltas, k2 = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launches()
+    for cloud in clouds:
+        before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        if capture:
+            out, calls = capture_overlap(lambda: list(pipe.map(
+                [on_card(torch, dev, cloud)]))[0])
+            k2.append(calls)
+        else:
+            out = list(pipe.map([on_card(torch, dev, cloud)]))[0]
+        ms.append((time.perf_counter() - t0) * 1e3)
+        dets.append(out)
+        deltas.append({k: v - before[k] for k, v in _kernels.LAUNCHES.items()
+                       if v != before[k]})
+    launches = dict(_kernels.LAUNCHES)
+    return {"dets": dets, "ms": ms, "timed_ms": ms[warmup:],
+            "deltas": deltas, "launches": launches,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "k2_calls": k2}
+
+
+def matched_gap(got, want, radius=COMPACT_MATCH_M):
+    """Each kept box of `got` matched to the kept box of `want` with its
+    label and the nearest centre (within `radius` m): the largest box and
+    score |d| over the matched pairs and the boxes without a match. Slots
+    may reorder where scores nearly tie; the match does not care."""
+    r = {"box_max_abs": 0.0, "score_max_abs": 0.0, "matched": 0,
+         "unmatched": 0, "box_by_component": {}}
+    for g, w in zip(got, want):
+        gm, wm = g["mask"].astype(bool), w["mask"].astype(bool)
+        wb, wl, ws = (w["box3d_lidar"][wm], w["label_preds"][wm],
+                      w["scores"][wm])
+        for b, lab, sc in zip(g["box3d_lidar"][gm], g["label_preds"][gm],
+                              g["scores"][gm]):
+            d = np.linalg.norm(wb[:, :2] - b[:2], axis=-1)
+            d[wl != lab] = np.inf
+            j = int(d.argmin()) if d.size else -1
+            if j < 0 or d[j] > radius:
+                r["unmatched"] += 1
+                continue
+            r["matched"] += 1
+            d = np.abs(wb[j] - b)
+            r["box_max_abs"] = max(r["box_max_abs"], float(d.max()))
+            for c, v in enumerate(d):
+                if v >= r["box_by_component"].get(c, (0.0, 0.0))[0]:
+                    r["box_by_component"][c] = (float(v), float(wb[j][c]))
+            r["score_max_abs"] = max(r["score_max_abs"],
+                                     float(abs(ws[j] - sc)))
+    return r
+
+
+def nudge_spread(torch, dev, model, clouds, want, draws=2, seed=20):
+    """The dense route's own spread (phases 15c and 19's measure): the
+    detections of `model` from its parameters times 1 + 1e-6 N(0, 1)
+    (`draws` draws) on the clouds against its own (`want`), box by box
+    (`matched_gap`): the largest box and score |d| and the boxes that
+    found no match. The model's weights are restored."""
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.runtime.serving import to_host
+
+    params = {n for n, _ in model.named_parameters()}
+    start = state_of(torch, model)
+    g = torch.Generator().manual_seed(seed)
+    out = {"box_max_abs": 0.0, "score_max_abs": 0.0, "unmatched": 0}
+    infer = make_infer_fn(model)
+    try:
+        for _ in range(draws):
+            model.load_state_dict({
+                n: v * (1 + 1e-6 * torch.randn(v.shape, generator=g))
+                if n in params else v for n, v in start.items()})
+            gap = matched_gap([to_host(infer(*on_card(torch, dev, c)))
+                               for c in clouds], want)
+            out["box_max_abs"] = max(out["box_max_abs"], gap["box_max_abs"])
+            out["score_max_abs"] = max(out["score_max_abs"],
+                                       gap["score_max_abs"])
+            out["unmatched"] += gap["unmatched"]
+    finally:
+        model.load_state_dict(start)
+    return out
+
+
+def compare_detections(tag, got, want, box_tol, score_tol, spread):
+    """The kept slots identical on every request and every kept box
+    matched to a dense one of its label (`matched_gap`: a near score tie
+    may swap two slots, the two-stage RoIs above all); the matched boxes
+    within max(box_tol, 2 x the dense route's own nudge spread) m and
+    their scores within max(score_tol, 2 x its spread) (`nudge_spread`:
+    with random weights a box dimension is exp of a head output, so f32
+    summation order moves a 20 m box by ~1e-2 m). Returns the differences
+    and the bounds."""
+    r = matched_gap(got, want)
+    r["kept"] = sum(int(w["mask"].sum()) for w in want)
+    r["same_slots"] = all(np.array_equal(g["mask"], w["mask"])
+                          for g, w in zip(got, want))
+    r["box_bound"] = max(box_tol, 2 * spread["box_max_abs"])
+    r["score_bound"] = max(score_tol, 2 * spread["score_max_abs"])
+    r["nudge_spread"] = spread
+    if not r["same_slots"] or r["unmatched"] or r["kept"] < 1 \
+            or r["box_max_abs"] > r["box_bound"] \
+            or r["score_max_abs"] > r["score_bound"]:
+        raise AssertionError(f"{tag} compact vs dense beyond tolerance: {r}")
+    return r
+
+
+def check_compact_launches(tag, compact, dense):
+    """Every compact request launched K2 as its dense twin did and nothing
+    else (no K1); returns the per-request K2 launches."""
+    per = []
+    for i, (c, d) in enumerate(zip(compact["deltas"], dense["deltas"])):
+        k2 = d.get("rotated_overlap", 0)
+        if c != {"rotated_overlap": k2} or k2 < 1 \
+                or d.get("pillar_scatter_max", 0) < 1:
+            raise AssertionError(f"{tag} request {i}: compact launches {c}, "
+                                 f"dense {d}")
+        per.append(k2)
+    if compact["launches"]["pillar_scatter_max"]:
+        raise AssertionError(f"{tag}: K1 launched on the compact path")
+    return per
+
+
+def replay_compact_k2(torch, tag, calls):
+    """Every captured K2 call of the compact run bit-equal to its plain
+    version (untimed) and the first timed as phase 3; returns the
+    record."""
+    flat = [c for req in calls for c in req]
+    rec = replay_equal(torch, [], flat, tag)["k2"]
+    rec["first"] = check_overlap(torch, f"{tag}'s first compact request",
+                                 *flat[0], phase=tag)
+    return rec
+
+
+def serve_compact(torch, dev, card, tag, path, kmax, requests, warmup,
+                  batches=0, bs=2, nsweeps=10):
+    """Phase 20a / 20c / 20d: `path` with `reader.compact_kmax = kmax` and
+    its dense twin from the same seeded weights, serving the same clouds
+    (`requests` at bs=1, the first `warmup` untimed, then `batches` at
+    bs=`bs`), the compact run with the launch counts set to 0 just before
+    and read just after. Returns the record and the two models."""
+    from pillarnet_lts_torch.apis import load_config
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+
+    cfg = load_config(path)
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+    clouds = [synth_points_realistic(1, n, pc_range, seed=2000 + s,
+                                     nsweeps=nsweeps)
+              for s in range(requests)]
+    clouds += [synth_points_realistic(bs, n, pc_range, seed=2100 + s,
+                                      nsweeps=nsweeps)
+               for s in range(batches)]
+    dense, compact = compact_pair(torch, dev, path, kmax, on_card(
+        torch, dev, synth_points_realistic(1, n, pc_range, seed=99,
+                                           nsweeps=nsweeps)))
+    rec = {"config": os.path.relpath(path, ROOT), "compact_kmax": kmax,
+           "dtype": str(first_stage(compact).dtype),
+           "budgets": compact_budgets(torch, tag, compact, [
+               on_card(torch, dev, c) for c in clouds])}
+    d = served_run(torch, dev, dense, clouds, warmup, capture=False)
+    c = served_run(torch, dev, compact, clouds, warmup, capture=True)
+    rec["k2_per_request"] = check_compact_launches(tag, c, d)
+    rec["launches"] = c["launches"]
+    for name, run in (("compact", c), ("dense", d)):
+        q = statistics.quantiles(run["timed_ms"][:requests - warmup], n=10)
+        rec[name] = {"p50_ms": statistics.median(
+            run["timed_ms"][:requests - warmup]), "p90_ms": q[8],
+            "batch_ms": run["ms"][requests:],
+            "peak_allocated_gib": run["peak_gib"]}
+    rec["k2_replays"] = replay_compact_k2(torch, tag, c["k2_calls"])
+    rec["_dets"] = (c["dets"], d["dets"], clouds)
+    print(f"[{tag}] {rec['config']} ({rec['dtype']}) compact_kmax={kmax}, "
+          f"{len(clouds)} requests ({requests} at bs=1, the first "
+          f"{warmup} untimed; {batches} at bs={bs}): compact p50 "
+          f"{rec['compact']['p50_ms']:.2f} ms (p90 "
+          f"{rec['compact']['p90_ms']:.2f}), dense p50 "
+          f"{rec['dense']['p50_ms']:.2f} ms (p90 "
+          f"{rec['dense']['p90_ms']:.2f}); peak allocated compact "
+          f"{rec['compact']['peak_allocated_gib']:.3f} GiB, dense "
+          f"{rec['dense']['peak_allocated_gib']:.3f}; compact launches "
+          f"{c['launches']} (K2 per request {rec['k2_per_request']}, K1 "
+          f"none); {rec['k2_replays']['calls']} K2 calls replayed "
+          f"bit-equal; card: {card}")
+    return rec, dense, compact
+
+
+def compact_tables_card_vs_cpu(torch, dev, model, cloud, tag):
+    """The first cloud's compact integer tables (site ids, k_valid, the
+    SubM, strided and coarse tables, the coarse sites) from the card's
+    pillar ids and the CPU's, bit-equal, and the segment-max rows from
+    the card's MLP features on both devices, bit-equal."""
+    from pillarnet_lts_torch.ops import compact as oc
+    from pillarnet_lts_torch.ops.voxelize import voxelize_points
+
+    det = first_stage(model)
+    reader, backbone = det.reader_net, det.backbone_net
+    spec, kmax = reader.spec, reader.compact_kmax
+    H, W = spec.height, spec.width
+    k2max = backbone.coarse_budget(kmax)
+
+    def tables(device, feats):
+        pts, msk = on_card(torch, device, cloud)
+        _, ids, valid = voxelize_points(pts, msk, spec)
+        rows, sites, k = oc.compact_segment_max(
+            feats.to(device), ids, valid, H * W, kmax)
+        ids2, k2 = oc.downsample_site_ids(sites, k, H, W, k2max)
+        return {"rows": rows, "site_ids": sites, "k_valid": k,
+                "nbr1": oc.subm_neighbor_table(sites, k, H, W, kmax),
+                "site_ids2": ids2, "k2_valid": k2,
+                "nbr_down": oc.down_conv_neighbor_table(ids2, k2, sites, k,
+                                                        H, W, kmax),
+                "nbr2": oc.subm_neighbor_table(ids2, k2, H // 2, W // 2,
+                                               k2max),
+                "occupancy": oc.compact_to_dense(rows, sites, k, H, W)[1]}
+
+    g = torch.Generator().manual_seed(20)
+    feats = torch.relu(torch.randn((1, cloud[0].shape[1], 32), generator=g))
+    with torch.inference_mode():
+        got = tables(dev, feats)
+        want = tables("cpu", feats)
+    for key, w in want.items():
+        if not (got[key].dtype == w.dtype
+                and torch.equal(got[key].cpu(), w)):
+            raise AssertionError(f"{tag}: {key} differs card vs CPU")
+    print(f"[{tag}] the first cloud's compact tables card vs CPU bit-equal: "
+          f"{', '.join(want)} (k_valid {want['k_valid'].tolist()}, k2 "
+          f"{want['k2_valid'].tolist()})")
+    return {"k_valid": want["k_valid"].tolist(),
+            "k2_valid": want["k2_valid"].tolist(), "bit_equal": list(want)}
+
+
+def conv12_inputs(torch, dev, dense, compact, clouds):
+    """Each cloud's dense reader output and compact table."""
+    with torch.inference_mode():
+        return ([first_stage(dense).reader_net(*c) for c in clouds],
+                [first_stage(compact).reader_net(*c)[0] for c in clouds])
+
+
+def compact_tables(torch, backbone, cp):
+    """The tables `_conv12_compact` builds from one reader table."""
+    from pillarnet_lts_torch.ops import compact as oc
+
+    H, W = cp.height, cp.width
+    kmax = cp.site_ids.shape[1]
+    k2max = backbone.coarse_budget(kmax)
+    nbr1 = oc.subm_neighbor_table(cp.site_ids, cp.k_valid, H, W, kmax)
+    ids2, k2 = oc.downsample_site_ids(cp.site_ids, cp.k_valid, H, W, k2max)
+    return (nbr1.long(), ids2, k2,
+            oc.down_conv_neighbor_table(ids2, k2, cp.site_ids, cp.k_valid,
+                                        H, W, kmax).long(),
+            oc.subm_neighbor_table(ids2, k2, H // 2, W // 2, k2max).long())
+
+
+def peak_of(torch, dev, fn):
+    """Peak memory allocated by fn() above what was allocated before, GiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+
+
+def conv12_times(torch, dev, tag, dense, compact, clouds):
+    """Phase 20b on one precision: device time of conv1 + conv2
+    (`PillarResNet.conv12`) by each route on the same clouds, from
+    `torch.profiler` kernel sums, a cloud's mean; each reader alone;
+    the compact route split into table building (`compact_tables`), the
+    im2col gathers and the matmuls of its 16 gather convs (replayed from
+    the recorded `gather_conv` calls of one cloud), the densify
+    (`compact_to_dense` of conv1's and conv2's rows) and the rest (bias,
+    BN fold, re-zero, ReLU, residual adds); each route's kernel groups,
+    serial p50 (host clock, synced) and peak memory above its input."""
+    from pillarnet_lts_torch.models.backbones import compact_exec
+    from pillarnet_lts_torch.ops import compact as oc
+
+    bd, bc = first_stage(dense).backbone_net, first_stage(compact).backbone_net
+    d_in, c_in = conv12_inputs(torch, dev, dense, compact, clouds)
+    n = len(clouds)
+    rec = {"clouds": n, "k_valid": [int(cp.k_valid[0]) for cp in c_in]}
+    with torch.inference_mode():
+        for name, fn in (
+                ("reader_dense", lambda: [first_stage(dense).reader_net(*c)
+                                          for c in clouds]),
+                ("reader_compact", lambda: [
+                    first_stage(compact).reader_net(*c) for c in clouds]),
+                ("conv12_dense", lambda: [bd.conv12(*x) for x in d_in]),
+                ("conv12_compact", lambda: [bc.conv12(cp, None)
+                                            for cp in c_in]),
+                ("tables", lambda: [compact_tables(torch, bc, cp)
+                                    for cp in c_in])):
+            ms, per = device_ms(fn, iters=2)
+            rec[f"{name}_ms"] = ms / n
+            if name.startswith("conv12"):
+                groups = {}
+                for k_ms, k in per:
+                    g = group_of(k)
+                    groups[g] = groups.get(g, 0.0) + k_ms / n
+                rec[f"{name}_groups_ms"] = groups
+                rec[f"{name}_top"] = [{"name": k[:100], "ms": k_ms / n}
+                                      for k_ms, k in per[:6]]
+        calls = []  # (rows, index, weight) of each gather conv
+        with recording(compact_exec, "gather_conv", calls,
+                       keep=lambda a, k: (a[0], a[1].idx, a[2])):
+            out = bc.conv12(c_in[0], None)
+        rec["gather_convs"] = len(calls)
+        rec["gather_ms"] = device_ms(lambda: [oc._take(r, nb)
+                                              for r, nb, _ in calls],
+                                     iters=2)[0]
+        cols = [oc._take(r, nb).reshape(nb.shape[0], nb.shape[1], -1)
+                for r, nb, _ in calls]
+        rec["matmul_ms"] = device_ms(lambda: [g @ w for g, (_, _, w) in
+                                              zip(cols, calls)], iters=2)[0]
+        rec["gather_bytes"] = sum(nbytes(r, nb, c) for c, (r, nb, _)
+                                  in zip(cols, calls))
+        rec["gather_bound_ms"] = bound(rec["gather_bytes"], 0, F32_OPS)[0]
+        rec["matmul_flop"] = sum(2 * c.shape[0] * c.shape[1] * c.shape[2]
+                                 * w.shape[1] for c, (_, _, w) in
+                                 zip(cols, calls))
+        del cols
+        cp = c_in[0]
+        _, ids2, k2, _, _ = compact_tables(torch, bc, cp)
+        x1 = torch.zeros_like(cp.rows[:, :, :1]).expand(
+            -1, -1, bc.in_channels).contiguous()
+        x2 = x1.new_zeros((1, ids2.shape[1] + 1, 2 * bc.in_channels))
+        rec["densify_ms"] = device_ms(lambda: (
+            oc.compact_to_dense(compact_exec._ext(x1), cp.site_ids,
+                                cp.k_valid, cp.height, cp.width),
+            oc.compact_to_dense(x2, ids2, k2, cp.height // 2,
+                                cp.width // 2)), iters=2)[0]
+        rec["compact_rest_ms"] = (rec["conv12_compact_ms"] - rec["tables_ms"]
+                                  - rec["gather_ms"] - rec["matmul_ms"]
+                                  - rec["densify_ms"])
+        del out, calls
+        # MACs of the two routes' convs: dense over every site of the grid,
+        # compact over the budget's rows (and over the active rows alone)
+        H, W, c = cp.height, cp.width, bc.in_channels
+        convs1 = 2 * bc.conv1_blocks + 1
+        convs2 = 1 + 2 * bc.conv2.num_blocks
+        k2max = ids2.shape[1]
+        per1, per2 = 9 * c * c * convs1, 9 * c * c * (2 + 4 * (convs2 - 1))
+        rec["macs_dense"] = per1 * H * W + per2 * (H // 2) * (W // 2)
+        rec["macs_compact"] = per1 * cp.site_ids.shape[1] + per2 * k2max
+        rec["macs_compact_active"] = (per1 * int(cp.k_valid[0])
+                                      + per2 * int(k2[0]))
+        for name, fn in (("dense", lambda: bd.conv12(*d_in[0])),
+                         ("compact", lambda: bc.conv12(c_in[0], None))):
+            lat = []
+            for i in range(8):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if i >= 3:
+                    lat.append((time.perf_counter() - t0) * 1e3)
+            rec[f"conv12_{name}_serial_p50_ms"] = statistics.median(lat)
+            rec[f"conv12_{name}_peak_gib"] = peak_of(torch, dev, fn)
+    print(f"[{tag}] conv1 + conv2 device ms a cloud (profiler, {n} clouds, "
+          f"k_valid {rec['k_valid']}): dense {rec['conv12_dense_ms']:.3f}, "
+          f"compact {rec['conv12_compact_ms']:.3f} = tables "
+          f"{rec['tables_ms']:.3f} + gathers {rec['gather_ms']:.3f} "
+          f"(bound {rec['gather_bound_ms']:.3f}) + matmuls "
+          f"{rec['matmul_ms']:.3f} ({rec['gather_convs']} convs, "
+          f"{rec['matmul_flop'] / 1e9:.2f} GFLOP) + densify "
+          f"{rec['densify_ms']:.3f} + the rest "
+          f"{rec['compact_rest_ms']:.3f}; readers: dense (K1) "
+          f"{rec['reader_dense_ms']:.3f}, compact (segment max) "
+          f"{rec['reader_compact_ms']:.3f}; MACs dense "
+          f"{rec['macs_dense'] / 1e9:.2f} G, compact "
+          f"{rec['macs_compact'] / 1e9:.2f} G (active rows "
+          f"{rec['macs_compact_active'] / 1e9:.2f} G); serial p50 dense "
+          f"{rec['conv12_dense_serial_p50_ms']:.3f} ms, compact "
+          f"{rec['conv12_compact_serial_p50_ms']:.3f} ms; peak above the "
+          f"input dense {rec['conv12_dense_peak_gib']:.3f} GiB, compact "
+          f"{rec['conv12_compact_peak_gib']:.3f} GiB")
+    for route in ("dense", "compact"):
+        print(f"[{tag}]   {route} by group: " + ", ".join(
+            f"{g} {v:.3f}" for g, v in sorted(
+                rec[f"conv12_{route}_groups_ms"].items(),
+                key=lambda x: -x[1])) + "; top: " + "; ".join(
+            f"{t['name'][:60]} {t['ms']:.3f}"
+            for t in rec[f"conv12_{route}_top"][:4]))
+    return rec
+
+
+def head_errors(got, want):
+    """{(task, head): max |got - want| / max |want|} of two forwards' head
+    maps."""
+    return {(t, h): ((g[h].float() - w[h].float()).abs().max()
+                     / w[h].float().abs().max().clamp_min(1e-30)).item()
+            for t, (g, w) in enumerate(zip(got, want)) for h in w}
+
+
+def compact_bf16(torch, dev, card):
+    """Phase 20c: `pillarnet34_nusc_bf16` with the compact reader against
+    its dense bf16 twin, COMPACT_FEW requests. Every head map of the
+    compact route within max(COMPACT_BF16_REL, 2 x the dense route's own
+    bf16 error) of the dense route's, relative to its max |value|: the
+    own error is the dense bf16 map against the f32 model of the same
+    weights (`pillarnet34_nusc`), and two bf16 routes that each round that
+    far from f32 may differ by twice it. The kept boxes matched to the
+    dense ones by label and centre (`matched_gap`) and reported: bf16
+    scores tie and reorder, and a candidate near a threshold may fall
+    either way."""
+    from pillarnet_lts_torch.apis import build_model_from_cfg, load_config
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+
+    rec, dense, compact = serve_compact(
+        torch, dev, card, "20c", FLAGSHIP.replace(".py", "_bf16.py"),
+        COMPACT_KMAX, COMPACT_FEW, 1)
+    cfg = load_config(FLAGSHIP)
+    f32 = build_model_from_cfg(cfg, device=dev, seed=1)
+    f32.load_state_dict(dense.state_dict())
+    worst = {"compact_vs_dense": 0.0, "compact_vs_f32": 0.0,
+             "dense_vs_f32": 0.0, "bound": 0.0}
+    with torch.inference_mode():
+        for s in range(COMPACT_FEW):
+            cloud = on_card(torch, dev, synth_points_realistic(
+                1, int(cfg["data"]["max_points"]), cfg["point_cloud_range"],
+                seed=2000 + s))
+            pc, pd, pf = compact(*cloud), dense(*cloud), f32(*cloud)
+            e_cd, e_c, e_d = (head_errors(pc, pd), head_errors(pc, pf),
+                              head_errors(pd, pf))
+            for k, e in e_cd.items():
+                b = max(COMPACT_BF16_REL, 2 * e_d[k])
+                if e > b:
+                    raise AssertionError(
+                        f"20c cloud {s} task {k[0]} {k[1]}: compact vs dense "
+                        f"{e:.3e} of its max, bound {b:.3e} (dense vs f32 "
+                        f"{e_d[k]:.3e}, compact vs f32 {e_c[k]:.3e})")
+            for name, errs in (("compact_vs_dense", e_cd),
+                               ("compact_vs_f32", e_c),
+                               ("dense_vs_f32", e_d)):
+                worst[name] = max(worst[name], max(errs.values()))
+            worst["bound"] = max(worst["bound"], max(
+                max(COMPACT_BF16_REL, 2 * e) for e in e_d.values()))
+    del f32
+    got, want, _ = rec.pop("_dets")
+    gap = matched_gap(got, want)
+    rec["bf16"] = dict(heads_max_rel=worst, detections=gap,
+                       compact_kept=sum(int(g["mask"].sum()) for g in got),
+                       dense_kept=sum(int(w["mask"].sum()) for w in want))
+    print(f"[20c] bf16 head maps, largest |d| / max |value| over the maps: "
+          f"compact vs dense {worst['compact_vs_dense']:.3e} (each map "
+          f"within max({COMPACT_BF16_REL}, 2 x its dense vs f32)), dense "
+          f"vs f32 {worst['dense_vs_f32']:.3e}, compact vs f32 "
+          f"{worst['compact_vs_f32']:.3e}; kept boxes compact "
+          f"{rec['bf16']['compact_kept']}, dense {rec['bf16']['dense_kept']}"
+          f": {gap['matched']} matched by label within {COMPACT_MATCH_M} m "
+          f"(box |d| <= {gap['box_max_abs']:.3e}, score |d| <= "
+          f"{gap['score_max_abs']:.3e}), {gap['unmatched']} without a match")
+    return rec, dense, compact
+
+
+def compact_training(torch, dev, card):
+    """Phase 20e: two training steps of `pillarnet34_nusc` at bs=4 (13c's
+    batch) with the compact reader against the dense route on the same
+    batch, each step from the same state (the compact run's model and
+    optimizer state before it): the metrics (`check_metrics`, losses
+    within max(2 x the dense step's own spread under a 1e-6 weight nudge,
+    DP_LOSS_RTOL_PLAIN)) and the gradients by module group
+    (`check_grad_groups`, within min(max(2 x the spread, DP_GRAD_RTOL),
+    DP_GRAD_CAP)), as phase 19 holds ranks to one process; no kernel
+    launched on the compact route (single-stage training runs no NMS);
+    each route's step ms (host, synced) and peak memory."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          optimizer_from_cfg)
+    from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.runtime.train_step import (batch_to_device,
+                                                        train_step)
+
+    cfg = load_config(FLAGSHIP)
+    bs = cfg["data"]["samples_per_gpu"]
+    ds = SynthDataset(cfg, bs, cfg["data"]["max_points"], seed=200,
+                      num_boxes=(10, 21))
+    batch = batch_to_device(collate_batch(
+        [ds[i] for i in range(bs)], cfg["data"]["max_points"]), dev)
+    dense = build_model_from_cfg(cfg, device=dev, seed=0).train()
+    compact = build_model_from_cfg(compact_config(FLAGSHIP, COMPACT_KMAX),
+                                   device=dev, seed=1).train()
+    compact.load_state_dict(dense.state_dict())
+    budgets = compact_budgets(torch, "20e", compact.eval(), [
+        (batch["points"][i:i + 1], batch["points_mask"][i:i + 1])
+        for i in range(bs)])
+    compact.train()
+    opts = {"dense": optimizer_from_cfg(dense, cfg, 2),
+            "compact": optimizer_from_cfg(compact, cfg, 2)}
+    params = [n for n, _ in dense.named_parameters()]
+    g = torch.Generator().manual_seed(20)
+
+    def step(route, model, weights=None, opt_state=None):
+        opt = opts[route]
+        if weights is not None:
+            model.load_state_dict(weights)
+            opt.load_state_dict(opt_state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in train_step(model, opt, batch,
+                                                cfg["train_cfg"]).items()}
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in _kernels.LAUNCHES.items()
+                    if v != before[k]}
+        return (m, grads_of(torch, model), ms,
+                torch.cuda.max_memory_allocated(dev) / 2**30, launched)
+
+    rec = {"config": "configs/pillarnet/pillarnet34_nusc.py", "batch": bs,
+           "compact_kmax": COMPACT_KMAX, "budgets": budgets, "steps": []}
+    for s in range(2):
+        # on the CPU: every load copies it (a same-device load would share
+        # the optimizer's moments with `start`)
+        start = (state_of(torch, compact),
+                 on_cpu(torch, opts["compact"].state_dict()))
+        md, gd, ms_d, peak_d, ld = step("dense", dense, *start)
+        nudged = []
+        for _ in range(DP_NUDGES):
+            w = {n: v * (1 + 1e-6 * torch.randn(v.shape, generator=g))
+                 if n in params else v for n, v in start[0].items()}
+            mn, gn, _, _, _ = step("dense", dense, w, start[1])
+            nudged.append((mn, gn))
+        mc, gc, ms_c, peak_c, lc = step("compact", compact)
+        if lc:
+            raise AssertionError(f"20e step {s}: the compact step launched "
+                                 f"{lc}")
+        groups = [grad_diffs(torch, gr, gd)[0] for _, gr in nudged]
+        spread = {"metrics": {k: max(rel_diff(m[k], md[k])
+                                     for m, _ in nudged) for k in md},
+                  "grad_groups": {k: max(gr[k] for gr in groups)
+                                  for k in groups[0]}}
+        rel, tol = check_metrics(f"20e compact vs dense", s, mc, md,
+                                 spread["metrics"], DP_LOSS_RTOL_PLAIN)
+        grp, bounds, leaf = check_grad_groups(torch, "20e compact vs dense",
+                                              s, gc, gd,
+                                              spread["grad_groups"])
+        rec["steps"].append({
+            "loss_compact": mc["loss"], "loss_dense": md["loss"],
+            "metrics_rel": rel, "metrics_tol": tol,
+            "grad_rel_by_group": grp, "grad_bounds": bounds,
+            "grad_worst_leaf": {"name": leaf[1], "rel": leaf[2]},
+            "step_ms_compact": ms_c, "step_ms_dense": ms_d,
+            "peak_gib_compact": peak_c, "peak_gib_dense": peak_d,
+            "dense_launches": ld})
+        print(f"[20e] step {s}: loss compact {mc['loss']:.6f}, dense "
+              f"{md['loss']:.6f} (largest metric rel "
+              f"{max(rel.values()):.2e}); gradients by group rel "
+              + ", ".join(f"{k} {v:.2e} (bound {bounds[k]:.2e})"
+                          for k, v in grp.items())
+              + f"; step ms compact {ms_c:.1f}, dense {ms_d:.1f}; peak "
+              f"allocated compact {peak_c:.3f} GiB, dense {peak_d:.3f} GiB")
+    del dense, compact, opts
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_vs_dense(torch, dev, tag, rec, dense):
+    """20a / 20d: the compact detections of `serve_compact` against the
+    dense twin's (`compare_detections`, the dense route's nudge spread
+    measured on the same clouds); printed and returned."""
+    got, want, clouds = rec.pop("_dets")
+    r = compare_detections(tag, got, want, COMPACT_BOX_TOL,
+                           COMPACT_SCORE_TOL,
+                           nudge_spread(torch, dev, dense, clouds, want))
+    names = ("x", "y", "z", "w", "l", "h", "vx", "vy", "rot")
+    print(f"[{tag}] compact vs dense detections: {r['kept']} kept slots "
+          f"identical, each kept box matched to a dense one of its label "
+          f"within {COMPACT_MATCH_M} m; max |d| box {r['box_max_abs']:.3e} m "
+          f"(bound {r['box_bound']:.3e}: {COMPACT_BOX_TOL} or twice the "
+          f"dense route's own {r['nudge_spread']['box_max_abs']:.3e} under "
+          f"a 1e-6 weight nudge), score {r['score_max_abs']:.3e} (bound "
+          f"{r['score_bound']:.3e}); by component " + ", ".join(
+              f"{names[c] if c < len(names) else c} {d:.2e} at {v:.2f}"
+              for c, (d, v) in sorted(r["box_by_component"].items()))
+          + f"; the nudged dense route left "
+          f"{r['nudge_spread']['unmatched']} kept boxes without a match")
+    return r
+
+
+def compact_path(torch, dev, card):
+    """Phase 20. Returns its record and K2's launches and replays on the
+    compact paths."""
+    t0 = time.perf_counter()
+    rec = {}
+    a, dense, compact = serve_compact(
+        torch, dev, card, "20a", FLAGSHIP, COMPACT_KMAX, COMPACT_REQUESTS,
+        COMPACT_WARMUP, COMPACT_BATCHES)
+    a["vs_dense"] = check_vs_dense(torch, dev, "20a", a, dense)
+    from pillarnet_lts_torch.apis import load_config
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+
+    cfg = load_config(FLAGSHIP)
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+    first = synth_points_realistic(1, n, pc_range, seed=2000)
+    a["tables_card_vs_cpu"] = compact_tables_card_vs_cpu(
+        torch, dev, compact, first, "20a")
+    check_no_sync(torch, make_infer_fn(compact), *on_card(torch, dev, first),
+                  "20a")
+    rec["20a"] = a
+    conv_clouds = [on_card(torch, dev, synth_points_realistic(
+        1, n, pc_range, seed=2000 + s))
+        for s in range(CONV12_CLOUDS)]
+    rec["20b"] = {"f32": conv12_times(torch, dev, "20b f32", dense, compact,
+                                      conv_clouds)}
+    del dense, compact
+    torch.cuda.empty_cache()
+    rec["20c"], dense, compact = compact_bf16(torch, dev, card)
+    rec["20b"]["bf16"] = conv12_times(torch, dev, "20b bf16", dense, compact,
+                                      conv_clouds)
+    del dense, compact, conv_clouds
+    torch.cuda.empty_cache()
+    d, dense, compact = serve_compact(torch, dev, card, "20d", RCNN,
+                                      RCNN_COMPACT_KMAX, COMPACT_FEW, 1,
+                                      nsweeps=1)
+    d["vs_dense"] = check_vs_dense(torch, dev, "20d", d, dense)
+    rec["20d"] = d
+    del dense, compact
+    torch.cuda.empty_cache()
+    rec["20e"] = compact_training(torch, dev, card)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[20] phase 20 took {rec['seconds']:.1f} s")
+    launches = {t: rec[t]["launches"]["rotated_overlap"]
+                for t in ("20a", "20c", "20d")}
+    replays = {t: {k: v for k, v in rec[t]["k2_replays"].items()
+                   if k != "first"} for t in ("20a", "20c", "20d")}
+    return rec, launches, replays
+
+
 def load_cfg_points(path):
     from pillarnet_lts_torch.apis import load_config
 
@@ -5096,6 +5856,8 @@ def main():
     precision, prec_launches, prec_replays, conv_f32 = precisions(
         torch, dev, card)
     data_par, dp_launches, dp_replays = data_parallel(torch, dev, card)
+    compact, compact_launches, compact_replays = compact_path(torch, dev,
+                                                              card)
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
@@ -5230,6 +5992,16 @@ def main():
             + [r["max_abs_err"] for r in k["data_parallel"]["19c"].values()]
             + [k["data_parallel"]["19d"]["one_process"]["max_abs_err"]]
             + [r["max_abs_err"] for r in k["data_parallel"]["19d"]["ranks"]])
+    # phase 20: the compact paths (counts reset just before each served
+    # run) launch K2 and never K1; K2's calls there replayed bit-equal
+    record["kernels"][0]["compact_launches"] = {
+        t: compact[t]["launches"]["pillar_scatter_max"]
+        for t in compact_launches}
+    record["kernels"][2]["compact"] = {"launches": compact_launches,
+                                       "replays": compact_replays}
+    record["kernels"][2]["max_abs_err"] = max(
+        [record["kernels"][2]["max_abs_err"]]
+        + [r["max_abs_err"] for r in compact_replays.values()])
     conv16 = eval_replays["k4"]
     record["kernels"][4]["eval_replays"] = {"16e_int8": {
         "calls": sum(r["launches"] for r in conv16["shapes"]),
@@ -5251,6 +6023,7 @@ def main():
     print(json.dumps({"training_as_written": as_written}))
     print(json.dumps({"precisions": precision}))
     print(json.dumps({"data_parallel": data_par}))
+    print(json.dumps({"compact": compact}))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

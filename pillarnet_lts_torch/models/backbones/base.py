@@ -17,6 +17,9 @@ Port of `pillarnet_lts_tpu/models/backbones/base.py` in the plain layout:
 - `remat` runs a unit under `torch.utils.checkpoint` (non-reentrant): its
   activations are recomputed in the backward, the counterpart of the JAX
   package's `nn.remat`; the replay leaves the BN running statistics alone.
+- Compact execution (`.compact(...)` of the blocks and the down stage):
+  the same parameters over an active-site row table
+  (`compact_exec.py`), the path `reader.compact_kmax` selects.
 - int8 deploy (`quant=True`, calibrated): the conv core runs int8 through
   `ops/quant.py::int8_conv_bn_act` (the K4 kernel on CUDA, its bf16 or f32
   variant by the model's compute dtype), with the BN fold riding the
@@ -46,6 +49,8 @@ from ...ops.quant import (activation_scale, int8_conv_bn_act, kernel_int8,
 from ..utils.init import normal_, xavier_uniform_
 from ..utils.norm import MaskedBatchNorm, recomputing
 from ..utils.quant import Calibrated
+from .compact_exec import (basic_block_compact, basic_block_v_compact,
+                           down_stage_compact)
 
 
 def _replay_context():
@@ -221,6 +226,10 @@ class Sparse2DBasicBlock(nn.Module):
         return conv_bn_act(self.conv2, self.bn2, out, mask, self.training,
                            residual=x)
 
+    def compact(self, rows, nbr, valid):
+        """The block over compact active-site rows (`compact_exec.py`)."""
+        return basic_block_compact(self, rows, nbr, valid, self.training)
+
 
 class Sparse2DBasicBlockV(nn.Module):
     """Entry block: an extra SubM conv + BN before the residual pair."""
@@ -242,6 +251,9 @@ class Sparse2DBasicBlockV(nn.Module):
         out = conv_bn_act(self.conv1, self.bn1, x, mask, self.training)
         return conv_bn_act(self.conv2, self.bn2, out, mask, self.training,
                            residual=x)
+
+    def compact(self, rows, nbr, valid):
+        return basic_block_v_compact(self, rows, nbr, valid, self.training)
 
 
 class SparseDownStage(nn.Module):
@@ -272,6 +284,13 @@ class SparseDownStage(nn.Module):
         for i in range(self.num_blocks):
             y = remat(self.remat, getattr(self, f"block{i}"), y, mask)
         return y, new_occ
+
+    def compact(self, rows_fine, nbr_down, nbr_coarse, valid_coarse):
+        """The stage over compact rows: the strided conv gathers from the
+        fine rows, the blocks run at the coarse level (no remat, as in the
+        JAX package's compact path)."""
+        return down_stage_compact(self, rows_fine, nbr_down, nbr_coarse,
+                                  valid_coarse, self.training)
 
 
 class DenseConvBNReLU(nn.Module):

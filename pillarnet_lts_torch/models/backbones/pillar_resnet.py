@@ -1,7 +1,7 @@
-"""PillarResNet BEV backbones (masked-dense).
+"""PillarResNet BEV backbones (masked-dense, or compact in conv1/conv2).
 
-Port of `pillarnet_lts_tpu/models/backbones/pillar_resnet.py` on the dense
-grid branch, plain layout:
+Port of `pillarnet_lts_tpu/models/backbones/pillar_resnet.py` in the
+plain layout:
 
   conv1 @ stride 1 (C),  conv2 @ 2 (2C),  conv3 @ 4 (4C),  conv4 @ 8 (8C)
   [+ dense conv5 @ 16 (8C) for the non-'S' variants]
@@ -25,6 +25,14 @@ recomputes each stage-1 block, each down conv unit and residual block of
 conv2-conv4 and each conv5 layer in the backward (`base.py::remat`), the
 units the JAX package wraps in `nn.remat` (`pillar_resnet.py:180-190`,
 `base.py:934-938`).
+
+Compact execution: when the reader hands a `CompactPillars` table
+(`reader.compact_kmax > 0`), conv1 and conv2 run as gather convs over the
+active sites (`compact_exec.py`), with `compact_kmax2` coarse sites for
+conv2 (0: 5/8 of the reader's budget, rounded up to a multiple of 8);
+the conv1 and conv2 outputs are densified and conv3+ run as above. Not
+with int8 (it raises, as the JAX package does); remat covers conv3+
+only there.
 """
 
 from typing import Tuple
@@ -32,6 +40,10 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ...ops.compact import (Neighbors, compact_to_dense,
+                            down_conv_neighbor_table, down_conv_reverse,
+                            downsample_site_ids, subm_neighbor_table,
+                            subm_reverse)
 from ...ops.int8_stage import CHANNELS as _STAGE_CHANNELS
 from ...ops.int8_stage import int8_stage
 from ..registry import BACKBONES
@@ -44,6 +56,18 @@ from .base import (
     remat,
     site_mask,
 )
+from .compact_exec import CompactPillars, _ext
+
+
+def _nchw(grid):
+    """(B, H, W, C) map -> the NCHW map the convs take: contiguous in f32
+    (cuDNN's f32 conv kernels are NCHW, and a channels_last view makes
+    every conv of every stage transpose its input and output, ~7.5 ms per
+    flagship frame on an H100; one copy here avoids all of them), the
+    channels_last view in bf16 (the int8 kernels and cuDNN's bf16 convs
+    read NHWC)."""
+    x = grid.permute(0, 3, 1, 2)
+    return x.contiguous() if x.dtype == torch.float32 else x
 
 
 class _PillarResNetBase(nn.Module):
@@ -52,11 +76,13 @@ class _PillarResNetBase(nn.Module):
     with_conv5: bool = False
 
     def __init__(self, in_channels=32, quant=False, s2d_pallas=False,
-                 remat=False, device=None):
+                 remat=False, compact_kmax2=0, device=None):
         super().__init__()
         c = self.in_channels = in_channels
+        self._quant = quant  # not `quant`: that marks a calibrated module
         self.s2d_pallas = s2d_pallas
         self.remat = remat
+        self.compact_kmax2 = compact_kmax2
         self._fused = (None, None)  # (state keys, stacked stage params)
         self.conv1_block0 = Sparse2DBasicBlockV(c, quant, device)
         for i in range(1, self.conv1_blocks):
@@ -116,15 +142,27 @@ class _PillarResNetBase(nn.Module):
         return out
 
     def forward(self, grid, occ):
-        x = grid.permute(0, 3, 1, 2)
-        if x.dtype == torch.float32:
-            # contiguous NCHW: cuDNN's f32 conv kernels are NCHW, and a
-            # channels_last view of the NHWC grid makes every conv of every
-            # stage transpose its input and output (~7.5 ms per flagship
-            # frame on an H100); one copy of the grid here avoids all of
-            # them. bf16 keeps the channels_last view: the int8 kernels and
-            # cuDNN's bf16 convs read NHWC.
-            x = x.contiguous()
+        """grid (B, H, W, C) and occ (B, H, W) from the dense reader, or a
+        `CompactPillars` table (and occ None) from the compact one."""
+        out = self.conv12(grid, occ)
+        x2, m2 = out["conv2"]
+        x3, m3 = self.conv3(x2, m2)
+        x4, m4 = self.conv4(x3, m3)
+        out.update(conv3=(x3, m3), conv4=(x4, m4))
+        if self.with_conv5:
+            y = x4
+            for layer in (self.conv5_down, self.conv5_block0,
+                          self.conv5_block1):
+                y = remat(self.remat, layer, y)
+            out["conv5"] = (y, None)
+        return out
+
+    def conv12(self, grid, occ):
+        """The stride-1 stage and conv2 alone: {'conv1': ..., 'conv2': ...}
+        as `forward` returns them, on either reader's output."""
+        if isinstance(grid, CompactPillars):
+            return self._conv12_compact(grid)
+        x = _nchw(grid)
         mask = site_mask(occ, x.dtype)
         fused = self.fused_stage1_params()
         if fused is not None:
@@ -134,18 +172,56 @@ class _PillarResNetBase(nn.Module):
         else:
             for blk in self._stage1_blocks():
                 x = remat(self.remat, blk, x, mask)
-        out = {"conv1": (x, occ)}
-        x2, m2 = self.conv2(x, occ)
-        x3, m3 = self.conv3(x2, m2)
-        x4, m4 = self.conv4(x3, m3)
-        out.update(conv2=(x2, m2), conv3=(x3, m3), conv4=(x4, m4))
-        if self.with_conv5:
-            y = x4
-            for layer in (self.conv5_down, self.conv5_block0,
-                          self.conv5_block1):
-                y = remat(self.remat, layer, y)
-            out["conv5"] = (y, None)
-        return out
+        return {"conv1": (x, occ), "conv2": self.conv2(x, occ)}
+
+    def coarse_budget(self, kmax):
+        """conv2's coarse-site budget on the compact path for a reader
+        budget of `kmax` sites: `compact_kmax2`, or 5/8 of `kmax` rounded
+        up to a multiple of 8 (JAX :299)."""
+        return self.compact_kmax2 or max(8, (kmax * 5 // 8 + 7) // 8 * 8)
+
+    def _conv12_compact(self, cp):
+        """conv1 + conv2 over the compact active-site table (gather convs),
+        densified at the conv1 and conv2 outputs for conv3+ (the JAX
+        package's `_forward_compact`, `pillar_resnet.py:278-350`): the
+        reference's sparse execution (`PillarResNet.py:73-108`)."""
+        if self._quant:
+            raise NotImplementedError(
+                "the int8 deploy path requires the dense reader "
+                "(reader.compact_kmax=0); the compact gather execution "
+                "reads conv kernels directly and would silently run "
+                "full-precision")
+        H, W = cp.height, cp.width
+        kmax = cp.site_ids.shape[1]
+        k2max = self.coarse_budget(kmax)
+        dev = cp.rows.device
+        grad = torch.is_grad_enabled()  # the reverse tables: training
+        valid1 = (torch.arange(kmax, device=dev)[None, :]
+                  < cp.k_valid[:, None])
+        # the gathers index with int64: convert each table once
+        nbr1 = subm_neighbor_table(cp.site_ids, cp.k_valid, H, W,
+                                   kmax).long()
+        nbr1 = Neighbors(nbr1, subm_reverse(nbr1, cp.k_valid) if grad
+                         else None)
+        x = cp.rows
+        for blk in self._stage1_blocks():
+            x = blk.compact(x, nbr1, valid1)
+
+        H2, W2 = H // 2, W // 2
+        ids2, k2 = downsample_site_ids(cp.site_ids, cp.k_valid, H, W, k2max)
+        nbr_down = Neighbors(
+            down_conv_neighbor_table(ids2, k2, cp.site_ids, cp.k_valid, H, W,
+                                     kmax).long(),
+            down_conv_reverse(cp.site_ids, cp.k_valid, ids2, k2, H, W, k2max)
+            if grad else None)
+        nbr2 = subm_neighbor_table(ids2, k2, H2, W2, k2max).long()
+        nbr2 = Neighbors(nbr2, subm_reverse(nbr2, k2) if grad else None)
+        valid2 = torch.arange(k2max, device=dev)[None, :] < k2[:, None]
+        x2c = self.conv2.compact(x, nbr_down, nbr2, valid2)
+        # densified for conv3+, which run dense as in the JAX package
+        x2, m2 = compact_to_dense(_ext(x2c), ids2, k2, H2, W2)
+        x1, m1 = compact_to_dense(_ext(x), cp.site_ids, cp.k_valid, H, W)
+        return {"conv1": (_nchw(x1), m1), "conv2": (_nchw(x2), m2)}
 
 
 @BACKBONES.register_module

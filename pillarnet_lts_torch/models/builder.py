@@ -4,10 +4,10 @@ Config keys that only select TPU layouts or XLA's remat policy
 (space-to-depth, H-packing, W-chunking, `remat_policy`) are dropped: the
 port runs the plain layout, which the JAX package pins equal to them.
 `quant` (int8 deploy), `quant_scatter`, `s2d_pallas` (the fused int8
-stride-1 stage) and the backbone's `remat` (activation recompute in
-training) are live. Keys that select a path the port does not have (the compact
-sparse reader) raise. The compute dtype (`dtype`, float32 or bfloat16) is a
-detector-level key, as in the JAX package.
+stride-1 stage), the backbone's `remat` (activation recompute in
+training) and the compact sparse path (`reader.compact_kmax`,
+`backbone.compact_kmax2`) are live. The compute dtype (`dtype`, float32 or
+bfloat16) is a detector-level key, as in the JAX package.
 """
 
 import torch
@@ -17,9 +17,6 @@ from .registry import (BACKBONES, DETECTORS, HEADS, NECKS, POINT_HEAD,
 
 _DROPPED_KEYS = ("logger", "remat_policy", "s2d_stage1", "chunk_nc",
                  "chunk_min_w", "chunk_train", "hpack", "spatial_axis")
-
-# key -> the only value the port runs
-_UNPORTED = {"compact_kmax": 0, "compact_kmax2": 0}
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "fp32": torch.float32, torch.float32: torch.float32,
@@ -38,9 +35,6 @@ def _clean(cfg, device):
     cfg = dict(cfg)
     for k in _DROPPED_KEYS:
         cfg.pop(k, None)
-    for k, only in _UNPORTED.items():
-        if cfg.pop(k, only) != only:
-            raise NotImplementedError(f"{cfg.get('type')}: {k} is not ported")
     cfg["device"] = device
     return cfg
 

@@ -15,8 +15,13 @@ The MLP computes in `dtype` (f32 or bf16). int8 deploy (`quant=True`,
 calibrated): the MLP quantizes its input per input channel and the scale
 folds into the weight rows (`_PFNDense`), and with `quant_scatter` the
 post-ReLU features go through the scatter as int8 codes with one
-calibrated scale, dequantized in f32 and rounded once to `dtype`. The
-compact reader (`compact_kmax`) is not ported.
+calibrated scale, dequantized in f32 and rounded once to `dtype`.
+
+`compact_kmax > 0` (JAX :163-183): the post-ReLU features go through
+`ops/compact.py::compact_segment_max` instead of the scatter, and the
+reader returns `(CompactPillars, None)`, an active-site row table with a
+budget of `compact_kmax` sites, for the backbone's compact conv1/conv2;
+no dense grid is built and K1 is not launched.
 """
 
 from typing import Sequence
@@ -25,9 +30,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.compact import compact_segment_max
 from ...ops.quant import activation_scale, quantize, weight_scale
 from ...ops.scatter import pillar_scatter_max
 from ...ops.voxelize import PillarSpec, voxelize_points
+from ..backbones.compact_exec import CompactPillars
 from ..registry import READERS
 from ..utils.init import normal_
 from ..utils.norm import MaskedBatchNorm
@@ -79,10 +86,11 @@ class DynamicPFE(Calibrated, nn.Module):
     def __init__(self, in_channels=5, num_filters: Sequence[int] = (32,),
                  pillar_size=0.1, pc_range=(0, -40, -3, 70.4, 40, 1),
                  dtype=torch.float32, quant=False, quant_scatter=True,
-                 device=None):
+                 compact_kmax=0, device=None):
         super().__init__()
         self.spec = PillarSpec(float(pillar_size), tuple(pc_range))
         self.dtype = dtype
+        self.compact_kmax = int(compact_kmax)
         dims = [2 + in_channels] + list(num_filters)
         self.num_layers = len(dims) - 1
         for k in range(self.num_layers):
@@ -96,7 +104,8 @@ class DynamicPFE(Calibrated, nn.Module):
 
     def forward(self, points, points_mask):
         """points (B, N, C); points_mask (B, N) bool
-        -> grid (B, H, W, F) in `dtype`, occ (B, H, W) bool."""
+        -> grid (B, H, W, F) in `dtype`, occ (B, H, W) bool; with
+        `compact_kmax`: (CompactPillars, None)."""
         spec = self.spec
         x, flat_ids, valid = voxelize_points(points, points_mask, spec)
         x = x.to(self.dtype)
@@ -109,6 +118,13 @@ class DynamicPFE(Calibrated, nn.Module):
             else:
                 x = dense.folded(x, *bn.fold_factors(), valid)
             x = F.relu(x)
+        if self.compact_kmax > 0:
+            rows, site_ids, k_valid = compact_segment_max(
+                x, flat_ids, valid, spec.height * spec.width,
+                self.compact_kmax)
+            # the backbone appends its own sentinel rows
+            return CompactPillars(rows[:, :self.compact_kmax], site_ids,
+                                  k_valid, spec.height, spec.width), None
         if self.quant_ready() and not train:
             # post-ReLU features quantize to nonneg codes; per-tensor
             # monotone quantization commutes with the max

@@ -11,7 +11,9 @@ against the CPU; two-stage training: the overlap kernel on the RoI
 sampler's padded zero boxes, the sampler and a demo step against the CPU;
 evaluation: the Waymo evaluator's overlap calls and metrics against the
 CPU, double-flip `dist_test` on the demo against the CPU, the trainer's
-val workflow against `dist_test`).
+val workflow against `dist_test`; the compact sparse path: its tables and
+rows, and the demo detector, against the CPU, and a request without the
+scatter-max kernel).
 
 This file imports no JAX, so it also runs where only PyTorch is installed.
 Every test needs a CUDA card with nvcc and skips without one. On the card,
@@ -1398,3 +1400,72 @@ def test_trainer_val_on_the_card_matches_dist_test(cuda, tmp_path):
 
     assert eval_trainer(torch, cuda, str(tmp_path))["logged"].startswith(
         "Evaluation demo: demo mAP")
+
+
+# ---- the compact sparse path (chip_smoke.py phase 20) -----------------------
+
+def _compact_demo(cfg):
+    """pillarnet18_demo with the compact reader: a budget of the whole
+    64 x 64 grid, so no site is dropped."""
+    cfg["model"]["reader"]["compact_kmax"] = 4096
+
+
+def test_compact_tables_on_the_card_equal_the_cpu(cuda):
+    """The compact integer tables of a demo cloud (site ids, k_valid, the
+    SubM, strided and coarse tables, the coarse sites, the densified
+    occupancy) from the card's pillar ids and the CPU's, and the
+    segment-max rows of the same features, bit-equal
+    (`chip_smoke.compact_tables_card_vs_cpu`, phase 20a)."""
+    from chip_smoke import compact_tables_card_vs_cpu
+    from pillarnet_lts_torch.apis import build_model_from_cfg, load_config
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+
+    cfg = load_config(_DEMO)
+    _compact_demo(cfg)
+    model = build_model_from_cfg(cfg, device=cuda)
+    cloud = synth_points_realistic(1, cfg["data"]["max_points"],
+                                   cfg["point_cloud_range"], seed=30,
+                                   nsweeps=1)
+    r = compact_tables_card_vs_cpu(torch, cuda, model, cloud, "20")
+    assert r["k_valid"][0] > 0 and r["k2_valid"][0] > 0
+
+
+def test_compact_demo_on_the_card_matches_the_cpu(cuda):
+    """The compact demo detector from the same weights and cloud on the
+    card and on the CPU: kept slots and labels equal, boxes within 1e-3
+    m, scores within 1e-4 (`chip_smoke.py::card_vs_cpu`)."""
+    from chip_smoke import card_vs_cpu
+
+    assert card_vs_cpu(torch, cuda, _DEMO, "20", edit=_compact_demo)[
+        "kept"] > 0
+
+
+def test_compact_request_launches_no_k1(cuda):
+    """A compact request launches K2 and never K1 (the segment max takes
+    its place), and syncs the host only for its result."""
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, spread_head_outputs)
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.runtime.serving import to_host
+
+    cfg = load_config(_DEMO)
+    _compact_demo(cfg)
+    model = build_model_from_cfg(cfg, device=cuda)
+    cloud = tuple(torch.from_numpy(a).to(cuda) for a in synth_points_realistic(
+        1, cfg["data"]["max_points"], cfg["point_cloud_range"], seed=31,
+        nsweeps=1))
+    spread_head_outputs(model, *cloud)
+    infer = make_infer_fn(model)
+    infer(*cloud)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        det = infer(*cloud)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    det = to_host(det)
+    assert _kernels.LAUNCHES["pillar_scatter_max"] == 0
+    assert _kernels.LAUNCHES["rotated_overlap"] >= 1
+    assert det["mask"].any() and np.isfinite(det["box3d_lidar"]).all()

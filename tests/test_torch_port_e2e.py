@@ -243,6 +243,13 @@ def test_port_runs_without_importing_jax():
         "msk = torch.from_numpy(d['points_mask'])\n"
         "det = make_infer_fn(model)(pts, msk)\n"
         "assert det['mask'].shape == (1, 128)\n"
+        "from pillarnet_lts_torch.ops import compact\n"
+        "from pillarnet_lts_torch.models.backbones import compact_exec\n"
+        "cmodel = build_detector(dict(mcfg, reader=dict(\n"
+        "    mcfg['reader'], compact_kmax=4096)), test_cfg=tcfg)\n"
+        "cmodel.load_state_dict(model.state_dict())\n"
+        "cdet = make_infer_fn(cmodel)(pts, msk)\n"
+        "assert cdet['mask'].shape == (1, 128)\n"
         "mcfg = enable_backbone_quant(dict(mcfg, dtype='bfloat16'))\n"
         "mcfg['backbone'] = dict(mcfg['backbone'], in_channels=32,\n"
         "                        s2d_pallas=True)\n"
