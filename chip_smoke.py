@@ -78,7 +78,7 @@ Phases, each of which raises on failure:
      every pillar edge +-1 ulp on the card equal to the CPU's (which the
      CPU tests hold equal to jitted JAX); (a) K1's gradient at the
      flagship shape with 300 points
-     duplicated onto others, through the scatter's autograd Function,
+     duplicated onto others, through the scatter op's registered autograd,
      bit-equal to the same backward over the plain version's grid and to
      the CPU, forward and backward timed; (b) one train step of the demo
      config on the card and on the CPU from the same weights and batch,
@@ -279,7 +279,27 @@ Phases, each of which raises on failure:
      the dense route from the same state (losses and gradients by group
      within phase 19's bounds from the dense step's own 1e-6 nudge
      spread), no kernel launched on the compact step, step ms and peak
-     memory of both routes; phase 20's wall seconds.
+     memory of both routes; phase 20's wall seconds;
+ 21. the serving export (`runtime/export.py`): (a) f32 `pillarnet34_nusc`
+     at batch 1 (phase 5's seeded weights), (b) `pillarnet34_nusc_int8` at
+     batch 8 (the JAX package's recommended deploy; calibrated on 4
+     clouds, fused stage off) and (c) f32 `pillarrcnn18_waymo` at batch 1,
+     each served eager (`make_infer_fn`), then traced on the card
+     (`export_serving`, timed; its graph holds the `pillarnet.*` kernel
+     ops and no data pointer), saved, and loaded in a fresh process
+     (`--serve-artifact SPEC`) that imports torch and
+     `pillarnet_lts_torch.ops.library` only (no `models/`, `apis` or JAX in
+     `sys.modules`): 2 warm-up + 10 timed requests on the same clouds as
+     eager, detections bit-equal to eager's, every kernel's launches a
+     request equal to eager's; one more request of the program captured
+     through a `TorchDispatchMode` and its K1 and K2 calls replayed against
+     their plain versions and timed as phases 2-3, its K4 calls (21b)
+     held bit-equal and timed as they run (wrapper, plain, bound; each
+     shape's first call alone), summed per request; p50 latency (21a, 21c) or frames/s (21b)
+     eager vs program, host-synced, the export seconds and the program's
+     MB; `{"export": ...}` is printed before the kernels' line, whose K1,
+     K2 and K4 rows carry phase 21's launches a request and replays under
+     `export`.
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
@@ -308,13 +328,14 @@ K2's and K4's rows `eval_replays`, phase 16's replays by pass; K4's f32
 variant, `int8_conv_f32`, has a row of its own from phase 18a; K1's and
 K2's rows carry phase 19's launches per rank and replays under
 `data_parallel`; K2's row phase 20's launches and replays under
-`compact`, K1's `compact_launches`, 0 on every compact path), the
-card's
+`compact`, K1's `compact_launches`, 0 on every compact path, and
+phase 21's under `export`), the card's
 `nvidia-smi` name and power
 limit, and the last line `{"ok": true, "device": {...}}`. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
 No JAX is imported. `--dp-rank SPEC` and `--cli-rank OUT TOOL ARGS` are
-phase 19's rank processes, which the smoke starts itself.
+phase 19's rank processes, `--serve-artifact SPEC` phase 21's program
+server, which the smoke starts itself.
 """
 
 import contextlib
@@ -983,7 +1004,7 @@ def demo_canary(torch, dev):
         raise AssertionError(f"int8 canary {max(errs)} > {HM_REL_BOUND}")
 
 
-def int8_flagship(torch, dev):
+def int8_flagship(torch, dev, tag="6"):
     """The int8 deploy config with seeded random weights and spread head
     outputs, calibrated on 4 synthetic clouds (its heatmaps' distance from
     the bf16 forward is printed). Returns the model, a cloud maker and the
@@ -1011,7 +1032,7 @@ def int8_flagship(torch, dev):
         torch.cuda.synchronize()
         t_cal = time.perf_counter() - t0
         got = model(*calib[0])
-    print(f"[6] int8 flagship calibrated on 4 clouds in {t_cal:.2f} s; "
+    print(f"[{tag}] int8 flagship calibrated on 4 clouds in {t_cal:.2f} s; "
           f"heatmap |int8 - bf16| / max|bf16| per task on a calibration "
           f"cloud (random weights, reported): "
           f"{[round(e, 4) for e in rel_errors(ref, got, ('hm',))]}")
@@ -2004,9 +2025,9 @@ def check_pillar_ids(torch, dev, pc_range, pillar_size):
 def check_scatter_grad(torch, dev, pc_range, pillar_size):
     """Phase 13a: K1's gradient at the flagship shape (1 x 262,144 x 32 ->
     1440^2, post-ReLU features with TRAIN_DUPLICATES points copied onto
-    others): through `pillar_scatter_max`'s autograd Function on the card,
+    others): through `pillar_scatter_max`'s registered autograd on the card,
     bit-equal to the same backward over the plain version's grid on the
-    card and to the Function on the CPU; the forward (the kernel, saving
+    card and to the op on the CPU; the forward (the kernel, saving
     for backward) and the backward (`scatter_max_backward`, torch ops)
     timed, the backward's bound from the bytes it must move."""
     from pillarnet_lts_torch.datasets import synth_points_realistic
@@ -5778,6 +5799,367 @@ def compact_path(torch, dev, card):
     return rec, launches, replays
 
 
+# phase 21: the serving export (`runtime/export.py`)
+EXPORT_WARMUP, EXPORT_REQUESTS = 2, 10  # a side: untimed, then timed
+EXPORT_BATCHES = 3  # distinct request batches, cycled
+EXPORT_INT8_BATCH = 8  # 21b: the JAX package's `--batch 8 --int8` deploy
+EXPORT_TIMEOUT = 600  # s: the program server is killed past it
+# the modules a program server must not have imported
+SERVER_FORBIDDEN = ("jax", "pillarnet_lts_tpu", "pillarnet_lts_torch.models",
+                    "pillarnet_lts_torch.apis")
+
+
+def served_requests(torch, infer, batches, dev):
+    """EXPORT_WARMUP + EXPORT_REQUESTS requests of `infer` on `batches`
+    (cycled), each host-synced: returns the detections of the first
+    len(batches) requests (numpy), each request's kernel launches and the
+    timed requests' ms."""
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.runtime.serving import to_host
+
+    dets, launches, ms = [], [], []
+    for i in range(EXPORT_WARMUP + EXPORT_REQUESTS):
+        pts, msk = on_card(torch, dev, batches[i % len(batches)])
+        before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            det = to_host(infer(pts, msk))
+        dt = (time.perf_counter() - t0) * 1e3
+        launches.append({k: v - before[k]
+                         for k, v in _kernels.LAUNCHES.items()
+                         if v > before[k]})
+        if i < len(batches):
+            dets.append(det)
+        if i >= EXPORT_WARMUP:
+            ms.append(dt)
+    return dets, launches, ms
+
+
+def kernel_op_mode(torch, on_call):
+    """A `TorchDispatchMode` that calls on_call(name, args, out) after each
+    `pillarnet::*` op run inside it (the kernel ops of `ops/library.py`, as
+    a traced program calls them)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.namespace == "pillarnet":
+                on_call(func._opname, args, out)
+            return out
+
+    return Mode()
+
+
+def time_int8_call(torch, shapes, args, kw, out, tag):
+    """One captured K4 call of a program: held bit-equal to its plain
+    version (`replay_int8_equal`) and timed as `check_int8_conv` times it
+    (wrapper and plain version, CUDA events), with its bound; the first
+    call of each distinct shape also with its kernels alone (`device_ms`).
+    Added to its shape's entry of `shapes`; nothing of the call is kept.
+    Returns its largest |d|."""
+    from pillarnet_lts_torch.ops.quant import (
+        int8_conv_bn_act, int8_conv_bn_act_plain)
+
+    err = replay_int8_equal(torch, [(args, kw, out)], f"{tag} program")[1]
+    (b_ms, b_by), sites = int8_conv_bound(torch, args, kw, out)
+    x, w_q, stride = args[0], args[1], args[5]
+    key = (tuple(x.shape), w_q.shape[3], stride, kw["mask"] is not None,
+           kw["residual"] is not None)
+    s = shapes.get(key)
+    if s is None:
+        s = shapes[key] = {"launches": 0, "ms": [], "plain_ms": [],
+                           "bound_ms": [], "bound_by": b_by, "sites": []}
+        s["alone_ms"] = device_ms(lambda: int8_conv_bn_act(*args, **kw),
+                                  iters=5)[0]
+    s["launches"] += 1
+    s["ms"].append(cuda_ms(lambda: int8_conv_bn_act(*args, **kw)))
+    s["plain_ms"].append(cuda_ms(
+        lambda: int8_conv_bn_act_plain(*args, **plain_kwargs(kw)),
+        iters=PLAIN_ITERS, warmup=1))
+    s["bound_ms"].append(b_ms)
+    s["sites"].append(sites)
+    return err
+
+
+def int8_request_summary(shapes, err, tag):
+    """`time_int8_call`'s shapes as rows (means over each shape's calls)
+    and their per-request sums; printed."""
+    rows, request = [], {k: 0.0 for k in ("ms", "alone_ms", "plain_ms",
+                                          "bound_ms")}
+    for (xs, cout, stride, has_mask, has_res), s in shapes.items():
+        n = s["launches"]
+        r = {"shape": f"{xs[0]}x{xs[1]}x{xs[2]}x{xs[3]} -> {cout}, stride "
+                      f"{stride}" + (", mask" if has_mask else ", dense")
+                      + (", residual" if has_res else ""),
+             "launches": n, "ms": statistics.mean(s["ms"]),
+             "alone_ms": s["alone_ms"],
+             "plain_ms": statistics.mean(s["plain_ms"]),
+             "bound_ms": statistics.mean(s["bound_ms"]),
+             "bound_by": s["bound_by"],
+             "active_sites": statistics.mean(s["sites"])}
+        rows.append(r)
+        for k in request:
+            request[k] += n * r[k]
+        print(f"[{tag}] K4 (program) {r['shape']}: {n} calls, bit-equal; "
+              f"wrapper {r['ms']:.4f} ms, kernels alone {r['alone_ms']:.4f} "
+              f"ms (its first call), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{r['bound_ms'] / r['alone_ms']:.0%} of it alone); "
+              f"{r['active_sites']:.0f} active output sites")
+    calls = sum(r["launches"] for r in rows)
+    print(f"[{tag}] K4 (program) per request ({calls} calls, each bit-equal "
+          f"to its plain version, max |d| {err}): wrapper "
+          f"{request['ms']:.4f} ms, kernels alone {request['alone_ms']:.4f} "
+          f"ms, plain {request['plain_ms']:.4f} ms, bound "
+          f"{request['bound_ms']:.4f} ms ("
+          f"{request['bound_ms'] / request['alone_ms']:.0%} of it alone)")
+    return {"calls": calls, "max_abs_err": err, "request": request,
+            "shapes": rows}
+
+
+def replay_program_calls(torch, module, batch, dev, tag):
+    """One request of a loaded program with its kernel op calls captured:
+    K1's and K2's replayed against their plain versions and timed
+    (`replay_scatter`, `replay_overlap`), K4's (either variant) held
+    bit-equal to the plain version and timed as they run
+    (`time_int8_call`: at batch 8 the inputs of all its calls do not fit
+    beside the model). Returns the summaries."""
+    from pillarnet_lts_torch.ops.quant import unpack_kernel
+
+    k1, k2, k4, shapes = [], [], [], {}
+
+    def on_call(name, args, out):
+        if name == "pillar_scatter_max":
+            k1.append((args[:5], {"nonneg": args[5]}))
+        elif name == "rotated_overlap":
+            k2.append(args)
+        elif name in ("int8_conv", "int8_conv_f32"):
+            x, w_pack, inv_s, dq, shift, stride, mask, residual, act = args
+            kw = {"mask": mask, "residual": residual, "act": act,
+                  "w_pack": w_pack}
+            k4.append(time_int8_call(torch, shapes, (
+                x, unpack_kernel(w_pack).contiguous(), inv_s, dq, shift,
+                stride), kw, out, tag))
+
+    pts, msk = on_card(torch, dev, batch)
+    with torch.inference_mode(), kernel_op_mode(torch, on_call):
+        module(pts, msk)
+    torch.cuda.synchronize()
+    out = {}
+    if k1:
+        out["k1"] = replay_summary(replay_scatter(torch, k1))
+        print_replays(tag, "K1 pillar_scatter_max (program)", out["k1"])
+    if k2:
+        out["k2"] = replay_summary(replay_overlap(torch, k2, "program"))
+        print_replays(tag, "K2 rotated_overlap (program)", out["k2"])
+    if k4:
+        out["k4"] = int8_request_summary(shapes, max(k4), tag)
+    return out
+
+
+def serve_artifact(spec_path):
+    """Phase 21's program server (`python3 chip_smoke.py --serve-artifact
+    SPEC`): load the program with torch and `ops.library` alone, serve the
+    spec's clouds as `served_requests` does, replay one request's kernel
+    calls, and write the detections and a JSON record beside the spec."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.runtime.export import load_serving
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    tag, dev = spec["tag"], torch.device(spec["device"])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _kernels.build_all()  # the parent built them: loads its libraries
+    t0 = time.perf_counter()
+    module = load_serving(spec["program"]).module()
+    load_s = time.perf_counter() - t0
+    present = [m for m in SERVER_FORBIDDEN if m in sys.modules]
+    if present:
+        raise AssertionError(f"the program server imported {present}")
+    data = np.load(spec["clouds"])
+    batches = [(data[f"points{i}"], data[f"mask{i}"])
+               for i in range(len(data.files) // 2)]
+    dets, launches, ms = served_requests(torch, module, batches, dev)
+    replays = replay_program_calls(torch, module, batches[0], dev, tag)
+    np.savez(spec["dets"], **{f"{k}{i}": v for i, d in enumerate(dets)
+                              for k, v in d.items()})
+    with open(spec["record"], "w") as f:
+        json.dump({"load_s": load_s, "launches": launches, "ms": ms,
+                   "replays": replays,
+                   "modules": sorted(m for m in sys.modules
+                                     if m.startswith("pillarnet_lts_torch"))},
+                  f)
+    print(f"[{tag}] program server: loaded in {load_s:.2f} s with "
+          f"{', '.join(SERVER_FORBIDDEN)} not imported; "
+          f"{len(ms)} timed requests")
+    return 0
+
+
+def export_cell(torch, dev, card, tag, model, batches, tmp):
+    """One cell of phase 21: eager serving, the export, the program served
+    by a fresh process, and the checks. Returns its record."""
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.runtime.export import (export_serving,
+                                                    save_serving)
+
+    B, n = batches[0][0].shape[:2]
+    eager, eager_launches, eager_ms = served_requests(
+        torch, make_infer_fn(model), batches, dev)
+    t0 = time.perf_counter()
+    program = export_serving(model, B, n, dev)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    ops = sorted({str(nd.target).split(".")[1] for nd in program.graph.nodes
+                  if nd.op == "call_function"
+                  and str(nd.target).startswith("pillarnet.")})
+    if "data_ptr" in program.graph_module.code:
+        raise AssertionError(f"{tag}: the traced graph reads a data pointer")
+    path = os.path.join(tmp, f"{tag}.pt2")
+    save_serving(program, path)
+    del program
+    spec = {"tag": tag, "program": path, "device": str(dev),
+            "clouds": os.path.join(tmp, f"{tag}_clouds.npz"),
+            "dets": os.path.join(tmp, f"{tag}_dets.npz"),
+            "record": os.path.join(tmp, f"{tag}.json")}
+    np.savez(spec["clouds"], **{f"{k}{i}": a for i, (p, m) in
+                                enumerate(batches)
+                                for k, a in (("points", p), ("mask", m))})
+    with open(os.path.join(tmp, f"{tag}_spec.json"), "w") as f:
+        json.dump(spec, f)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--serve-artifact",
+                          os.path.join(tmp, f"{tag}_spec.json")],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=EXPORT_TIMEOUT)
+    server_s = time.perf_counter() - t0
+    sys.stdout.write(out.stdout)
+    if out.returncode != 0:
+        raise AssertionError(f"{tag}: the program server failed "
+                             f"({out.returncode}):\n{out.stderr[-4000:]}")
+    with open(spec["record"]) as f:
+        served = json.load(f)
+    got = np.load(spec["dets"])
+    for i, det in enumerate(eager):
+        for k, v in det.items():
+            if not np.array_equal(got[f"{k}{i}"], v):
+                raise AssertionError(f"{tag}: request {i} {k} of the program"
+                                     f" differs from eager serving")
+    if served["launches"] != eager_launches:
+        raise AssertionError(f"{tag}: launches a request, program "
+                             f"{served['launches']} vs eager "
+                             f"{eager_launches}")
+    per_request = eager_launches[-1]
+    kept = [int(d["mask"].sum()) for d in eager]
+    rec = {"batch": int(B), "points": int(n), "export_s": export_s,
+           "program_mb": os.path.getsize(path) / 1e6, "ops": ops,
+           "server_s": server_s, "load_s": served["load_s"],
+           "launches_per_request": per_request,
+           "eager_p50_ms": statistics.median(eager_ms),
+           "program_p50_ms": statistics.median(served["ms"]),
+           "eager_ms": eager_ms, "program_ms": served["ms"],
+           "kept": kept, "replays": served["replays"],
+           "server_modules": served["modules"]}
+    rec["eager_frames_per_s"] = B * 1e3 / rec["eager_p50_ms"]
+    rec["program_frames_per_s"] = B * 1e3 / rec["program_p50_ms"]
+    print(f"[{tag}] exported in {export_s:.2f} s to {rec['program_mb']:.1f} "
+          f"MB (ops {', '.join(ops)}); the program served "
+          f"{len(served['ms'])} timed requests of batch {B} x {n} points in "
+          f"a fresh process, detections bit-equal to eager's on all "
+          f"{len(eager)} batches (kept {kept}), launches a request "
+          f"{per_request} as eager; host-synced p50 eager "
+          f"{rec['eager_p50_ms']:.2f} ms vs program "
+          f"{rec['program_p50_ms']:.2f} ms ({rec['eager_frames_per_s']:.2f} "
+          f"vs {rec['program_frames_per_s']:.2f} frames/s); card: {card}")
+    return rec
+
+
+def export_clouds(cfg, batch, seed0, **kw):
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+    return [synth_points_realistic(batch, n, pc_range, seed=seed0 + i, **kw)
+            for i in range(EXPORT_BATCHES)]
+
+
+def dispatch_cost(torch, dev, card, calls=2000):
+    """The custom-op dispatcher's host cost per call: K2 on 8 x 8 pairs
+    (a launch-bound call), through `torch.ops.pillarnet.rotated_overlap`
+    and through its CUDA implementation called directly, host microseconds
+    a call over `calls` calls each, in turns (op, direct, direct, op)."""
+    from pillarnet_lts_torch.ops import library
+
+    quads = torch.rand(1, 8, 4, 2, device=dev)
+    fns = {"op": torch.ops.pillarnet.rotated_overlap,
+           "direct": library._rotated_overlap_cuda}
+    us = {k: [] for k in fns}
+    for name in ("op", "direct", "direct", "op"):
+        fn = fns[name]
+        fn(quads, quads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(quads, quads)
+        us[name].append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    rec = {k: statistics.mean(v) for k, v in us.items()}
+    rec["per_call_us"] = rec["op"] - rec["direct"]
+    print(f"[21] the custom-op dispatcher: K2 on 8 x 8 pairs {rec['op']:.2f} "
+          f"us a call through the op, {rec['direct']:.2f} us through its "
+          f"CUDA implementation called directly (host clock, {calls} calls "
+          f"each, in turns): {rec['per_call_us']:.2f} us a call; card: "
+          f"{card}")
+    return rec
+
+
+def serving_export(torch, dev, card):
+    """Phase 21. Returns its record."""
+    import tempfile
+
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+
+    t0 = time.perf_counter()
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 21a: phase 5's weights
+        cfg = load_config(FLAGSHIP)
+        n = int(cfg["data"]["max_points"])
+        model = build_model_from_cfg(cfg, device=dev, seed=0)
+        spread_head_outputs(model, *on_card(torch, dev, synth_points_realistic(
+            1, n, cfg["point_cloud_range"], seed=99)))
+        rec["21a"] = export_cell(torch, dev, card, "21a", model,
+                                 export_clouds(cfg, 1, 500), tmp)
+        # 21b: phase 6's int8 flagship at batch 8, fused stage off
+        model, _, _ = int8_flagship(torch, dev, tag="21b")
+        rec["21b"] = export_cell(
+            torch, dev, card, "21b", model,
+            export_clouds(load_config(FLAGSHIP_INT8), EXPORT_INT8_BATCH,
+                          600), tmp)
+        del model
+        # 21c: phase 14's weights
+        cfg = load_config(RCNN)
+        n = int(cfg["data"]["max_points"])
+        model = build_model_from_cfg(cfg, device=dev, seed=0)
+        spread_head_outputs(model, *on_card(torch, dev, synth_points_realistic(
+            1, n, cfg["point_cloud_range"], seed=99, nsweeps=1)))
+        rec["21c"] = export_cell(torch, dev, card, "21c", model,
+                                 export_clouds(cfg, 1, 700, nsweeps=1), tmp)
+        del model
+    torch.cuda.empty_cache()
+    rec["dispatch"] = dispatch_cost(torch, dev, card)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[21] phase 21 took {rec['seconds']:.1f} s")
+    return rec
+
+
 def load_cfg_points(path):
     from pillarnet_lts_torch.apis import load_config
 
@@ -5858,6 +6240,7 @@ def main():
     data_par, dp_launches, dp_replays = data_parallel(torch, dev, card)
     compact, compact_launches, compact_replays = compact_path(torch, dev,
                                                               card)
+    exported = serving_export(torch, dev, card)
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
@@ -6009,6 +6392,18 @@ def main():
         "shapes": conv16["shapes"]}}
     record["kernels"][4]["max_abs_err"] = max(
         record["kernels"][4]["max_abs_err"], conv16["max_abs_err"])
+    # phase 21: each program's launches a request (equal to eager's) and
+    # its one request's K1 / K2 replays and K4 calls (bit-equal, timed)
+    for i, key, name in ((0, "k1", "pillar_scatter_max"),
+                         (2, "k2", "rotated_overlap"), (4, "k4", "int8_conv")):
+        k = record["kernels"][i]
+        k["export"] = {tag: {
+            "launches_per_request": r["launches_per_request"].get(name, 0),
+            "replays": r["replays"].get(key)}
+            for tag, r in exported.items() if tag.startswith("21")}
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            r["replays"]["max_abs_err"] for r in k["export"].values()
+            if r["replays"]])
     for k in record["kernels"]:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")
@@ -6024,6 +6419,7 @@ def main():
     print(json.dumps({"precisions": precision}))
     print(json.dumps({"data_parallel": data_par}))
     print(json.dumps({"compact": compact}))
+    print(json.dumps({"export": exported}))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -6037,4 +6433,6 @@ if __name__ == "__main__":
         sys.exit(dp_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--cli-rank"]:
         sys.exit(cli_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--serve-artifact"]:
+        sys.exit(serve_artifact(sys.argv[2]))
     sys.exit(main())

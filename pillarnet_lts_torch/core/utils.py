@@ -23,7 +23,13 @@ def device_constant(values, device, dtype=torch.float32):
     non-blocking copy: a tensor built from a list straight on the card
     (`torch.tensor(..., device=)`) is a pageable copy that PyTorch ends
     with a stream synchronize, which would stall the host inside every
-    request."""
+    request.
+
+    Under tracing (`torch.export`, `torch.compile`) it neither pins nor
+    caches: the tensor it makes there is the tracer's, a constant of the
+    traced graph, and must never reach an eager call."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(list(values), dtype=dtype, device=device)
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())

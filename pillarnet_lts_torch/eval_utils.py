@@ -3,34 +3,48 @@ per-sample host dicts."""
 
 import numpy as np
 import torch
+from torch import nn
+
+
+class ServingModule(nn.Module):
+    """One request of a detector as a module: forward + decode + NMS, the
+    role of the JAX package's `eval_utils.make_infer_fn` (weights live in
+    the module, so the call takes only the inputs). Eager serving
+    (`make_infer_fn`) and the serving export (`runtime/export.py`) both run
+    it.
+
+    A single-stage model runs its forward, then `predict` with `test_cfg`;
+    a two-stage model (no `predict`: `PillarRCNN`, `TwoStageDetector`; f32,
+    bf16 or int8) its forward, with `test_cfg` for its first stage's NMS,
+    then `post_process`.
+
+    forward(points (B, N, C) f32, points_mask (B, N) bool) -> the padded
+    detection dict, on the model's device, without a host sync."""
+
+    def __init__(self, model, test_cfg=None):
+        super().__init__()
+        self.model = model
+        self.test_cfg = (model.processed_test_cfg() if test_cfg is None
+                         else test_cfg)
+
+    def forward(self, points, points_mask):
+        model = self.model
+        if hasattr(model, "predict"):
+            return model.predict({}, model(points, points_mask),
+                                 self.test_cfg)
+        return model.post_process(model(points, points_mask,
+                                        test_cfg=self.test_cfg))
 
 
 def make_infer_fn(model, test_cfg=None):
-    """Forward + decode + NMS for inference, the role of the JAX package's
-    `eval_utils.make_infer_fn` (weights live in the module, so the callable
-    takes only the inputs).
-
-    A two-stage model (no `predict`: `PillarRCNN`, `TwoStageDetector`;
-    f32, bf16 or int8) runs its forward, with `test_cfg` for its first
-    stage's NMS, then `post_process`.
-
-    Returns infer(points (B, N, C) f32, points_mask (B, N) bool) -> the
-    padded detection dict, on the model's device, without a host sync."""
-    if test_cfg is None:
-        test_cfg = model.processed_test_cfg()
-    model.eval()
-
-    if not hasattr(model, "predict"):
-        @torch.inference_mode()
-        def infer(points, points_mask):
-            return model.post_process(model(points, points_mask,
-                                            test_cfg=test_cfg))
-        return infer
+    """`ServingModule(model, test_cfg)` in eval mode as a callable under
+    `torch.inference_mode`: infer(points, points_mask) -> the padded
+    detection dict."""
+    serving = ServingModule(model, test_cfg).eval()
 
     @torch.inference_mode()
     def infer(points, points_mask):
-        preds = model(points, points_mask)
-        return model.predict({}, preds, test_cfg)
+        return serving(points, points_mask)
 
     return infer
 

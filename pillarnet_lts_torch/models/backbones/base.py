@@ -24,7 +24,9 @@ Port of `pillarnet_lts_tpu/models/backbones/base.py` in the plain layout:
   `ops/quant.py::int8_conv_bn_act` (the K4 kernel on CUDA, its bf16 or f32
   variant by the model's compute dtype), with the BN fold riding the
   dequant vector and the re-zero, residual and ReLU fused into its
-  epilogue. Uncalibrated, a quant conv runs the bf16/f32 path.
+  epilogue. Uncalibrated, a quant conv runs the bf16/f32 path. The int8
+  params are cached per state of the weights (`state_key`), or frozen into
+  buffers (`MaskedConv.freeze_int8`, the step before `torch.export`).
 
 The TPU layout recasts (space-to-depth, H-packing, W-chunking) rearrange
 the same math for the MXU and are not ported; the JAX package's own tests
@@ -84,6 +86,11 @@ def site_mask(occ, dtype):
 def nhwc(x):
     """NCHW tensor -> contiguous NHWC (a view of a channels_last map)."""
     return x.permute(0, 2, 3, 1).contiguous()
+
+
+# MaskedConv's frozen int8 params (`freeze_int8`), in `int8_params` order
+INT8_BUFFERS = ("int8_w_q", "int8_inv_s", "int8_dq", "int8_shift",
+                "int8_w_pack")
 
 
 def state_key(*tensors):
@@ -156,7 +163,10 @@ class MaskedConv(Calibrated, nn.Module):
         the BN factor rides dq = s_x * s_w * inv (multiplied left to
         right); w_pack is w_q in the CUDA kernel's layout
         (`ops.quant.pack_kernel`). Computed once per state of the weights,
-        the scale and the BN (`state_key`)."""
+        the scale and the BN (`state_key`); after `freeze_int8`, the
+        frozen buffers."""
+        if self.int8_frozen():
+            return tuple(getattr(self, name) for name in INT8_BUFFERS)
         key = state_key(self.weight, self.bias, self.in_absmax, bn.weight,
                         bn.bias, bn.running_mean, bn.running_var)
         if self._int8[0] != key:
@@ -171,6 +181,26 @@ class MaskedConv(Calibrated, nn.Module):
                           pack_kernel(w_q))
             self._int8 = (key, params)
         return self._int8[1]
+
+    def int8_frozen(self):
+        return INT8_BUFFERS[0] in self._buffers
+
+    def freeze_int8(self, bn):
+        """Compute `int8_params(bn)` once more and register them as
+        non-persistent buffers (outside the state_dict), which the int8
+        forward reads from then on without looking at the weights' state:
+        a traced forward (`torch.export`) cannot read the data pointers
+        and versions of `state_key`, and an exported program carries the
+        buffers as its constants. Weights, scales or BN statistics changed
+        afterwards are not seen until `thaw_int8` (or another freeze)."""
+        self.thaw_int8()
+        for name, t in zip(INT8_BUFFERS, self.int8_params(bn)):
+            self.register_buffer(name, t, persistent=False)
+
+    def thaw_int8(self):
+        """Drop the frozen int8 params: back to the per-state cache."""
+        for name in INT8_BUFFERS:
+            self._buffers.pop(name, None)
 
     def int8(self, x, bn, mask=None, residual=None, act=True):
         """The int8 core with `bn` folded and the fused epilogue; NCHW in
@@ -274,6 +304,10 @@ class SparseDownStage(nn.Module):
             setattr(self, f"block{i}",
                     Sparse2DBasicBlock(channels, quant, device))
 
+    def convs(self):
+        """The strided conv's (conv, bn) pair (the blocks have theirs)."""
+        return [(self.down_conv, self.down_bn)]
+
     def forward(self, x, occ):
         """x (B, C, H, W) with zeros at inactive sites; occ (B, H, W) bool
         -> (y, new occupancy)."""
@@ -301,6 +335,9 @@ class DenseConvBNReLU(nn.Module):
         self.conv = MaskedConv(features, features, 3, stride,
                                use_bias=False, quant=quant, device=device)
         self.bn = MaskedBatchNorm(features, device=device)
+
+    def convs(self):
+        return [(self.conv, self.bn)]
 
     def forward(self, x):
         return conv_bn_act(self.conv, self.bn, x, None, self.training)

@@ -70,6 +70,11 @@ def _nchw(grid):
     return x.contiguous() if x.dtype == torch.float32 else x
 
 
+# the fused stage's frozen params (`freeze_int8`), in `int8_params` order
+_FUSED_BUFFERS = ("fused_w_q", "fused_inv_s", "fused_dq", "fused_shift",
+                  "fused_w_pack")
+
+
 class _PillarResNetBase(nn.Module):
     conv1_blocks: int = 2
     stage_blocks: Tuple[int, int, int] = (2, 2, 2)
@@ -116,6 +121,8 @@ class _PillarResNetBase(nn.Module):
         wide and every one of its convs is calibrated."""
         if not self.s2d_pallas or self.in_channels != _STAGE_CHANNELS:
             return None
+        if _FUSED_BUFFERS[0] in self._buffers:
+            return [getattr(self, name) for name in _FUSED_BUFFERS]
         pairs = [p for blk in self._stage1_blocks() for p in blk.convs()]
         if not all(conv.quant_ready() for conv, _ in pairs):
             return None
@@ -125,6 +132,19 @@ class _PillarResNetBase(nn.Module):
             with torch.inference_mode(False), torch.no_grad():
                 self._fused = (key, [torch.stack(p) for p in zip(*params)])
         return self._fused[1]
+
+    def freeze_int8(self):
+        """Register the fused stage's stacked params as non-persistent
+        buffers (`MaskedConv.freeze_int8`'s step for K5; call it after the
+        stage's convs are frozen), or drop them when the stage does not
+        fuse."""
+        self.thaw_int8()
+        for name, t in zip(_FUSED_BUFFERS, self.fused_stage1_params() or ()):
+            self.register_buffer(name, t, persistent=False)
+
+    def thaw_int8(self):
+        for name in _FUSED_BUFFERS:
+            self._buffers.pop(name, None)
 
     @property
     def backbone_channels(self):

@@ -42,6 +42,9 @@ class _ConvBNReLU(nn.Module):
                                  init="xavier", quant=quant, device=device)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features, device=device)
 
+    def convs(self):
+        return [(self.Conv_0, self.MaskedBatchNorm_0)]
+
     def forward(self, x):
         return conv_bn_act(self.Conv_0, self.MaskedBatchNorm_0, x, None,
                            self.training)

@@ -9,7 +9,7 @@ Port of `pillarnet_lts_tpu/models/readers/dynamic_pillar_encoder.py`:
 In training (`module.train()`) the MLP runs unfolded: Linear, then the
 masked BN with batch statistics over the valid points (`mask=valid`),
 then ReLU (JAX :150-160); the gradient flows back through the scatter-max
-(`ops/scatter.py::_PillarScatterMax`).
+(the `pillarnet::pillar_scatter_max` op's gradient, `ops/library.py`).
 
 The MLP computes in `dtype` (f32 or bf16). int8 deploy (`quant=True`,
 calibrated): the MLP quantizes its input per input channel and the scale

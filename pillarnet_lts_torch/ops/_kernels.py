@@ -8,15 +8,16 @@ the library file name carries a hash of the source and the flags, so an
 edited source never loads a stale library. A failed build raises with
 nvcc's stderr; nothing falls back.
 
-`LAUNCHES` counts kernel launches per kernel. Each wrapper adds one right
-after its launch succeeds and nowhere else, so a caller can zero the counts,
-run the model and see which kernels the run went through. A wrapper that
-calls two entry points of one source (the sorted-run scatter-max makes its
-sort keys first) counts once, as its kernel; the int8 conv's bf16 and f32
-variants (`int8_conv`, `int8_conv_f32`, one source) count apart; an entry
-point that only
-exposes a kernel's staged values for a check
-(`suppression_mask_corners`) counts nothing.
+The kernels launch only from the CUDA implementations of their custom ops
+(`ops/library.py`, `torch.ops.pillarnet.*`), which eager calls and exported
+programs both reach. `LAUNCHES` counts kernel launches per kernel: each op
+adds one right after its launch succeeds and nowhere else, so a caller can
+zero the counts, run the model and see which kernels the run went through.
+An op that calls two entry points of one source (the sorted-run
+scatter-max makes its sort keys first) counts once, as its kernel; the int8
+conv's bf16 and f32 variants (`int8_conv`, `int8_conv_f32`, one source)
+count apart; an entry point that only exposes a kernel's staged values for
+a check (`suppression_mask_corners`) counts nothing.
 """
 
 import ctypes
@@ -185,6 +186,14 @@ def stream_handle(device):
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_device(name, t):
+    """Raise unless `t` lies on the CPU (the plain version) or on a CUDA
+    device (the kernel): the kernel ops' wrappers take no other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: expected CPU or CUDA tensors, got "
+                         f"{t.device}")
 
 
 def check_args(name, align=1, **tensors):

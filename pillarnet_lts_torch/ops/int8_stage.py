@@ -19,8 +19,7 @@ carried over: the int32 sums do not depend on it.
 import torch
 
 from . import _kernels
-from .quant import (check_pack, int8_conv_bn_act_plain, pack_kernel,
-                    unpack_kernel)
+from .quant import check_pack, int8_conv_bn_act_plain, pack_kernel
 
 CHANNELS = 32  # the only stage width the kernel takes (PillarNet's stage 1)
 
@@ -50,42 +49,14 @@ def int8_stage(x, w_q, inv_s, dq, shift, mask, w_pack=None):
            backbone's `fused_stage1_params` caches it); when given, it is
            the kernels that both devices read (the CPU through
            `quant.unpack_kernel`); when absent, the wrapper packs w_q
-           itself on the card.
+           itself.
 
-    Returns (B, H, W, 32) in x.dtype. A CPU tensor takes the plain version;
-    a CUDA tensor launches `csrc/int8_stage.cu` or raises."""
-    name = "int8_stage"
-    if w_pack is not None:
-        check_pack(name, w_pack, w_q)
-    if x.device.type == "cpu":
-        w = w_q if w_pack is None else unpack_kernel(w_pack)
-        return int8_stage_plain(x, w, inv_s, dq, shift, mask)
-
+    Returns (B, H, W, 32) in x.dtype. The op `pillarnet::int8_stage`: a
+    CPU tensor takes the plain version; a CUDA tensor launches
+    `csrc/int8_stage.cu` or raises."""
+    _kernels.check_device("int8_stage", x)
     if w_pack is None:
         w_pack = pack_kernel(w_q)
-    _kernels.check_args(name, x=x, w_pack=w_pack, inv_s=inv_s, dq=dq,
-                        shift=shift, mask=mask)
-    _kernels.check_args(name, align=16, x=x, w_pack=w_pack)
-    B, H, W, C = x.shape
-    n = w_q.shape[0]
-    if x.dtype != torch.bfloat16 or mask.dtype != x.dtype \
-            or w_q.dtype != torch.int8:
-        raise TypeError(f"{name}: bf16 x and mask and an int8 kernel, got "
-                        f"{x.dtype}, {mask.dtype}, {w_q.dtype}")
-    if any(t.dtype != torch.float32 for t in (inv_s, dq, shift)):
-        raise TypeError(f"{name}: inv_s, dq and shift must be f32")
-    if C != CHANNELS or n < 3 or n % 2 == 0 \
-            or w_q.shape != (n, 3, 3, C, C) or inv_s.shape != (n,) \
-            or dq.shape != (n, C) or shift.shape != (n, C) \
-            or mask.shape != (B, H, W):
-        raise ValueError(f"{name}: x {tuple(x.shape)}, w_q "
-                         f"{tuple(w_q.shape)}, mask {tuple(mask.shape)}")
-
-    out = torch.empty_like(x)
-    fn = _kernels.kernel(name)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w_pack.data_ptr(), inv_s.data_ptr(),
-                 dq.data_ptr(), shift.data_ptr(), mask.data_ptr(),
-                 out.data_ptr(), B, H, W, n, _kernels.stream_handle(x.device))
-    _kernels.launched(name, err)
-    return out
+    else:
+        check_pack("int8_stage", w_pack, w_q)
+    return torch.ops.pillarnet.int8_stage(x, w_pack, inv_s, dq, shift, mask)

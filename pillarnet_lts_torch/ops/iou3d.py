@@ -170,6 +170,14 @@ def pair_tiles(t, ka, kb):
     return t * -(-ka // _TILE_ROWS) * -(-kb // _TILE_COLS)
 
 
+def check_pair_tiles(name, t, ka, kb):
+    """Raise unless the pair kernels' grid for t batches of Ka x Kb pairs
+    has fewer than 2^31 tiles (checked before any launch)."""
+    if pair_tiles(t, ka, kb) >= 2**31:
+        raise ValueError(f"{name}: batch={t}, Ka={ka}, Kb={kb} make "
+                         f"{pair_tiles(t, ka, kb)} pair tiles (< 2^31)")
+
+
 def _pairwise_area_plain(a_quad, b_quad):
     """(..., Ka, 4, 2) x (..., Kb, 4, 2) -> (..., Ka, Kb), chunked over Ka."""
     kb = b_quad.shape[-3]
@@ -187,39 +195,16 @@ def convex_intersection_area(a_quad, b_quad):
     """Pairwise intersection areas of convex CCW quads.
 
     a_quad (..., Ka, 4, 2), b_quad (..., Kb, 4, 2) with equal leading dims
-    -> (..., Ka, Kb). A CPU tensor takes the plain version; a CUDA tensor
-    launches `csrc/rotated_overlap.cu` (f32; one block per 32 x 128 pair
-    tile, fewer than 2^31 tiles) or raises.
+    -> (..., Ka, Kb). The op `pillarnet::rotated_overlap`: a CPU tensor
+    takes the plain version; a CUDA tensor launches `csrc/rotated_overlap.cu`
+    (f32; one block per 32 x 128 pair tile, fewer than 2^31 tiles) or
+    raises.
     """
-    if a_quad.device.type == "cpu":
-        return _pairwise_area_plain(a_quad, b_quad)
-
-    name = "rotated_overlap"
-    if a_quad.dtype != torch.float32 or b_quad.dtype != torch.float32:
-        raise TypeError(f"{name}: f32 corners only, got {a_quad.dtype}, "
-                        f"{b_quad.dtype}")
-    batch = a_quad.shape[:-3]
-    if (a_quad.shape[-2:] != (4, 2) or b_quad.shape[-2:] != (4, 2)
-            or b_quad.shape[:-3] != batch):
-        raise ValueError(f"{name}: shapes {tuple(a_quad.shape)}, "
-                         f"{tuple(b_quad.shape)}")
-    ka, kb = a_quad.shape[-3], b_quad.shape[-3]
-    t = math.prod(batch)
-    if pair_tiles(t, ka, kb) >= 2**31:
-        raise ValueError(f"{name}: batch={t}, Ka={ka}, Kb={kb} make "
-                         f"{pair_tiles(t, ka, kb)} pair tiles (< 2^31)")
-    a = a_quad.contiguous()
-    b = b_quad.contiguous()
-    _kernels.check_args(name, a_quad=a, b_quad=b)
-    out = torch.empty(batch + (ka, kb), dtype=torch.float32, device=a.device)
-    if out.numel() == 0:
-        return out  # nothing to launch
-    fn = _kernels.kernel(name)
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), t, ka, kb,
-                 _kernels.stream_handle(a.device))
-    _kernels.launched(name, err)
-    return out
+    if a_quad.device.type != "cpu":
+        check_pair_tiles("rotated_overlap", math.prod(a_quad.shape[:-3]),
+                         a_quad.shape[-3], b_quad.shape[-3])
+        _kernels.check_device("rotated_overlap", a_quad)
+    return torch.ops.pillarnet.rotated_overlap(a_quad, b_quad)
 
 
 def rotated_overlap_bev(boxes_a, boxes_b):

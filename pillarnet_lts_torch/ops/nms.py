@@ -24,7 +24,7 @@ import torch
 
 from ..core.utils import device_constant
 from . import _kernels
-from .iou3d import _ENLARGE, _scale_quad, box_corners_bev, pair_tiles, \
+from .iou3d import _ENLARGE, _scale_quad, box_corners_bev, check_pair_tiles, \
     rotated_iou_bev, to_pcdet_bev
 
 # Number of fixpoint sweeps: exact greedy for every suppression chain of
@@ -171,63 +171,34 @@ def suppression_matrix(boxes, thresh):
     M[r, j, i] = (j < i) * (IoU_bev(j, i) > thresh[r]), with the IoU of the
     TPU kernel `nms_kernel.py::suppression_matrix_pallas`.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches
-    `csrc/suppression_mask.cu`, which reads the boxes and makes their
-    corners itself (a float threshold goes in as a launch argument, so
-    nothing is copied from the host), or raises."""
-    name = "suppression_mask"
+    The op `pillarnet::suppression_mask`: a CPU tensor takes the plain
+    version; a CUDA tensor launches `csrc/suppression_mask.cu`, which reads
+    the boxes and makes their corners itself (a float threshold goes in as
+    a launch argument, so nothing is copied from the host), or raises."""
     if boxes.dim() != 3 or boxes.shape[-1] < 7:
-        raise ValueError(f"{name}: boxes must be (R, K, >=7), got "
+        raise ValueError(f"suppression_mask: boxes must be (R, K, >=7), got "
                          f"{tuple(boxes.shape)}")
-    R, K, D = boxes.shape
-    if boxes.device.type == "cpu":
-        th = (thresh.float().expand(R).contiguous() if torch.is_tensor(thresh)
-              else torch.full((R,), float(thresh)))
-        return _suppression_matrix_plain(*mask_kernel_corners(boxes), th)
-
-    if pair_tiles(R, K, K) >= 2**31:
-        raise ValueError(f"{name}: R={R}, K={K} make {pair_tiles(R, K, K)} "
-                         f"pair tiles (< 2^31)")
-    boxes = boxes.float().contiguous()
-    tensors = {"boxes": boxes}
+    if boxes.device.type != "cpu":
+        check_pair_tiles("suppression_mask", *boxes.shape[:2],
+                         boxes.shape[1])
+        _kernels.check_device("suppression_mask", boxes)
     if torch.is_tensor(thresh):
-        th, value = thresh.float().expand(R).contiguous(), 0.0
-        tensors["thresh"] = th
-    else:
-        th, value = None, float(thresh)
-    _kernels.check_args(name, **tensors)
-    out = torch.empty((R, K, K), dtype=torch.float32, device=boxes.device)
-    if out.numel() == 0:
-        return out  # nothing to launch
-    fn = _kernels.kernel(name)
-    with torch.cuda.device(boxes.device):
-        err = fn(boxes.data_ptr(), None if th is None else th.data_ptr(),
-                 value, out.data_ptr(), R, K, D,
-                 _kernels.stream_handle(boxes.device))
-    _kernels.launched(name, err)
-    return out
+        th = thresh.float().expand(boxes.shape[0]).contiguous()
+        return torch.ops.pillarnet.suppression_mask(boxes, th, 0.0)
+    return torch.ops.pillarnet.suppression_mask(boxes, None, float(thresh))
 
 
 def suppression_mask_corners(boxes):
-    """The corners the suppression-mask kernel makes from CUDA det3d boxes
-    (R, K, 7+), as it stages them: A and B+ (R, K, 4, 2) each. For checking
-    them against `mask_kernel_corners` on the card (the served path never
-    calls it; it counts no launch)."""
-    name = "suppression_mask_corners"
+    """The corners the suppression-mask kernel makes from det3d boxes
+    (R, K, 7+), as it stages them: A and B+ (R, K, 4, 2) each (the op
+    `pillarnet::suppression_mask_corners`; `mask_kernel_corners` on a CPU
+    tensor). For checking them against `mask_kernel_corners` on the card
+    (the served path never calls it; it counts no launch)."""
     if boxes.dim() != 3 or boxes.shape[-1] < 7:
-        raise ValueError(f"{name}: boxes must be (R, K, >=7), got "
-                         f"{tuple(boxes.shape)}")
-    boxes = boxes.float().contiguous()
-    _kernels.check_args(name, boxes=boxes)
-    R, K, D = boxes.shape
-    ca, cb = (torch.empty((R, K, 4, 2), dtype=torch.float32,
-                          device=boxes.device) for _ in range(2))
-    with torch.cuda.device(boxes.device):
-        err = _kernels.kernel(name)(
-            boxes.data_ptr(), ca.data_ptr(), cb.data_ptr(), R * K, D,
-            _kernels.stream_handle(boxes.device))
-    _kernels.raise_on_error(name, err)
-    return ca, cb
+        raise ValueError(f"suppression_mask_corners: boxes must be (R, K, "
+                         f">=7), got {tuple(boxes.shape)}")
+    _kernels.check_device("suppression_mask_corners", boxes)
+    return torch.ops.pillarnet.suppression_mask_corners(boxes)
 
 
 def circle_nms(centers, valid, min_radius, post_max_size):

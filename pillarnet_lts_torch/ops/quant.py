@@ -10,11 +10,12 @@ kernel (the BN fold factor rides the dequant vector), symmetric per-tensor
 activation scales from a calibrated absmax, int32 sums, f32 dequant.
 
 Public functions keep the JAX package's layouts: activations NHWC, kernels
-HWIO. `int8_conv_bn_act` launches `csrc/int8_conv.cu` on a CUDA tensor (its
-bf16 or its f32 variant, by the activations' dtype) and runs its plain
-version on a CPU tensor; nothing falls back, and nothing casts f32 to bf16. The kernel reads
-its weights as `pack_kernel(w_q)`, which a caller may compute once and pass
-as `w_pack`; when it is passed, the plain version runs on
+HWIO. `int8_conv_bn_act` calls the op `pillarnet::int8_conv` or
+`pillarnet::int8_conv_f32` (`ops/library.py`, by the activations' dtype),
+which launches `csrc/int8_conv.cu` on a CUDA tensor and runs its plain
+version on a CPU tensor; nothing falls back, and nothing casts f32 to bf16.
+The op reads the weights as `pack_kernel(w_q)`, which a caller may compute
+once and pass as `w_pack`; the plain version runs on
 `unpack_kernel(w_pack)`, so both devices read the same tensor.
 
 Rounding is the JAX package's: `torch.round` rounds half to even, as
@@ -30,11 +31,8 @@ import torch.nn.functional as F
 
 from . import _kernels
 
-# the kernel's tiling: input channels in chunks of 32, output channels in
-# tiles of 32 or 64
-_CIN_CHUNK = 32
-_COUT_TILE = 32
-# activation dtype -> the int8 conv kernel's variant (and launch counter)
+# activation dtype -> the int8 conv kernel's variant (its op and launch
+# counter)
 _CONV_VARIANTS = {torch.bfloat16: "int8_conv", torch.float32: "int8_conv_f32"}
 
 INV_127 = 1.0 / 127.0  # applied to f32 tensors, it rounds to f32(1 / 127)
@@ -143,67 +141,22 @@ def int8_conv_bn_act(x, w_q, inv_s, dq, shift, stride, mask=None,
     mask:     optional (B, Ho, Wo) {0, 1} re-zero multiplier, x.dtype;
     residual: optional (B, Ho, Wo, Cout) in x.dtype;
     w_pack:   optional `pack_kernel(w_q)` (`MaskedConv.int8_params` caches
-              it); when given, it is the kernel that both devices read
-              (the CPU through `unpack_kernel`); when absent, the wrapper
-              packs w_q itself on the card.
+              it); the kernel that both devices read (the CPU through
+              `unpack_kernel`); when absent, the wrapper packs w_q itself.
 
     Quantizes x on load (round half to even, clip to +-127; an f32 x is
     quantized itself), sums in int32, then (acc * dq + shift) -> x.dtype,
     + residual, ReLU if `act`, times the mask, each in x.dtype. Returns
-    (B, Ho, Wo, Cout) in x.dtype. A CPU tensor takes the plain version; a
-    CUDA tensor launches `csrc/int8_conv.cu`'s variant for x.dtype
-    (`int8_conv` bf16, `int8_conv_f32` f32) or raises."""
+    (B, Ho, Wo, Cout) in x.dtype. The op of x.dtype's variant
+    (`pillarnet::int8_conv` bf16, `pillarnet::int8_conv_f32` f32): a CPU
+    tensor takes the plain version; a CUDA tensor launches
+    `csrc/int8_conv.cu`'s variant or raises (a pointer of x, w_pack or the
+    residual that is not 16-byte aligned raises: nothing is copied)."""
     name = _CONV_VARIANTS.get(x.dtype, "int8_conv")
-    if w_pack is not None:
-        check_pack(name, w_pack, w_q)
-    if x.device.type == "cpu":
-        w = w_q if w_pack is None else unpack_kernel(w_pack)
-        return int8_conv_bn_act_plain(x, w, inv_s, dq, shift, stride, mask,
-                                      residual, act)
-
+    _kernels.check_device(name, x)
     if w_pack is None:
         w_pack = pack_kernel(w_q)
-    B, H, W, cin = x.shape
-    kh, kw, wcin, cout = w_q.shape
-    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    tensors = dict(x=x, w_pack=w_pack, inv_s=inv_s, dq=dq, shift=shift)
-    if mask is not None:
-        tensors["mask"] = mask
-    if residual is not None:
-        tensors["residual"] = residual
-    _kernels.check_args(name, **tensors)
-    _kernels.check_args(name, align=16, x=x, w_pack=w_pack,
-                        **({} if residual is None else {"residual": residual}))
-    if x.dtype not in _CONV_VARIANTS or w_q.dtype != torch.int8:
-        raise TypeError(f"{name}: bf16 or f32 activations and an int8 "
-                        f"kernel, got {x.dtype} and {w_q.dtype}")
-    for arg in ("inv_s", "dq", "shift"):
-        if tensors[arg].dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be f32")
-    if (kh, kw, wcin) != (3, 3, cin) or stride not in (1, 2) \
-            or inv_s.numel() != 1 or dq.shape != (cout,) \
-            or shift.shape != (cout,):
-        raise ValueError(f"{name}: x {tuple(x.shape)}, w_q "
-                         f"{tuple(w_q.shape)}, stride {stride}")
-    if cin % _CIN_CHUNK or cout % _COUT_TILE:
-        raise ValueError(f"{name}: channels must be multiples of "
-                         f"{_CIN_CHUNK} (in) and {_COUT_TILE} (out), got "
-                         f"{cin} -> {cout}")
-    if mask is not None and (mask.shape != (B, Ho, Wo)
-                             or mask.dtype != x.dtype):
-        raise ValueError(f"{name}: mask {tuple(mask.shape)} {mask.dtype}")
-    if residual is not None and (residual.shape != (B, Ho, Wo, cout)
-                                 or residual.dtype != x.dtype):
-        raise ValueError(f"{name}: residual {tuple(residual.shape)}")
-
-    out = torch.empty((B, Ho, Wo, cout), dtype=x.dtype, device=x.device)
-    fn = _kernels.kernel(name)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w_pack.data_ptr(), inv_s.data_ptr(),
-                 dq.data_ptr(), shift.data_ptr(),
-                 mask.data_ptr() if mask is not None else None,
-                 residual.data_ptr() if residual is not None else None,
-                 out.data_ptr(), B, H, W, cin, Ho, Wo, cout, stride,
-                 int(bool(act)), _kernels.stream_handle(x.device))
-    _kernels.launched(name, err)
-    return out
+    else:
+        check_pack(name, w_pack, w_q)
+    return getattr(torch.ops.pillarnet, name)(x, w_pack, inv_s, dq, shift,
+                                              stride, mask, residual, act)

@@ -12,13 +12,15 @@ values, and sets them; the model then serves int8. A two-stage model
 the first stage's modules observe while the second stage runs on its
 detections, as the JAX package's `calibrate` applies the whole model.
 Outside `calibration_mode` nothing is recorded, so serving never pays for
-the reductions.
+the reductions. `freeze_int8` turns the calibrated model's int8 params into
+buffers, the step before `torch.export` (`runtime/export.py`).
 """
 
 import contextlib
 
 import torch
 
+from ..models.backbones.base import MaskedConv
 from ..models.utils.quant import Calibrated
 
 
@@ -73,6 +75,7 @@ def calibrate(model, batches, reduce="max"):
     Existing scales are re-collected. Returns `model`, in eval mode."""
     if reduce not in ("max", "mean"):
         raise ValueError(f"unknown reduce {reduce!r}")
+    thaw_int8(model)
     model.eval()
     per_batch = []
     with calibration_mode(model) as obs:
@@ -93,3 +96,41 @@ def calibrate(model, batches, reduce="max"):
             merged = sum(vals) / len(vals)
         m.set_absmax(merged)
     return model
+
+
+def _int8_convs(model):
+    """The calibrated int8 convs of `model`, each with the BN folded into
+    it: the (conv, bn) pairs of the modules that pair them (`convs()`)."""
+    return [(conv, bn) for m in model.modules() if hasattr(m, "convs")
+            for conv, bn in m.convs() if conv.quant_ready()]
+
+
+def freeze_int8(model):
+    """Freeze the int8 params of every calibrated conv of `model` into
+    buffers (`MaskedConv.freeze_int8`) and the fused stage's stacked ones
+    (`PillarResNet.freeze_int8`): the int8 forward then reads no tensor's
+    data pointer or version, so it traces (`torch.export`), and serves
+    eagerly bit-equal to before. Weights or scales changed afterwards need
+    another freeze (`calibrate` thaws). Returns the number of frozen
+    convs; raises if a calibrated conv is in no module's pairs."""
+    pairs = _int8_convs(model)
+    for conv, bn in pairs:
+        conv.freeze_int8(bn)
+    for m in model.modules():
+        if hasattr(m, "fused_stage1_params"):
+            m.freeze_int8()
+    frozen = {id(conv) for conv, _ in pairs}
+    missed = [name for name, m in model.named_modules()
+              if isinstance(m, MaskedConv) and m.quant_ready()
+              and id(m) not in frozen]
+    if missed:
+        raise ValueError(f"calibrated convs outside any (conv, bn) pair: "
+                         f"{missed}")
+    return len(pairs)
+
+
+def thaw_int8(model):
+    """Undo `freeze_int8`: the int8 params follow the weights again."""
+    for m in model.modules():
+        if isinstance(m, MaskedConv) or hasattr(m, "fused_stage1_params"):
+            m.thaw_int8()

@@ -2,7 +2,8 @@
 variables tree that `runtime/convert.py::load_jax_variables` loads.
 
 The port's copy of `pillarnet_lts_tpu/runtime/torch_convert.py` (numpy
-only; its inverse `export_state_dict` is not ported). The reference
+only), with its inverse `export_state_dict` (flax-layout variables -> a
+reference state_dict; `tools/export_torch.py`). The reference
 releases trained weights as torch ``.pth`` state_dicts (saved by
 ``det3d/torchie/trainer/checkpoint.py:save_checkpoint``). This module maps
 them onto the flax variables layout (``{'params': ..., 'batch_stats':
@@ -57,6 +58,7 @@ import torch
 
 __all__ = [
     "convert_state_dict",
+    "export_state_dict",
     "load_reference_checkpoint",
     "load_torch_state_dict",
     "normalize_state_dict",
@@ -659,6 +661,48 @@ def _leaf_paths(tree, prefix=()):
             yield from _leaf_paths(v, prefix + (k,))
     else:
         yield prefix
+
+
+def export_state_dict(variables, spconv_layout: str = "KRSC"):
+    """Inverse of :func:`convert_state_dict`: flax-layout variables (e.g.
+    `convert.variables_of(model)`) -> a torch state_dict in the reference's
+    naming and weight layouts, numpy leaves.
+
+    Round-trip safe: ``convert_state_dict(export_state_dict(v), v)``
+    reproduces every leaf bitwise.  spconv weights are emitted in the
+    requested layout (KRSC = spconv 2.x, the reference's import; RSCK =
+    1.x, our HWIO as it is).
+    """
+    if spconv_layout not in ("KRSC", "RSCK"):
+        raise ValueError(f"unknown spconv layout {spconv_layout!r}")
+    params = variables.get("params", {})
+    stats = variables.get("batch_stats", {})
+    rules, _ = _build_rules(params, stats)
+    out: Dict[str, np.ndarray] = {}
+    for our_path, src_key, kind in rules:
+        leaf = _tree_get(params, our_path)
+        if leaf is None:
+            leaf = _tree_get(stats, our_path)
+        if leaf is None:
+            continue
+        if isinstance(src_key, tuple):
+            src_key = src_key[0]
+        w = np.asarray(leaf, dtype=np.float32)
+        if kind == _LINEAR:
+            w = np.transpose(w, (1, 0))
+        elif kind == _CONV1D:
+            w = np.transpose(w, (1, 0))[:, :, None]
+        elif kind == _CONV:
+            w = np.transpose(w, (3, 2, 0, 1))
+        elif kind == _CONVT:
+            w = np.transpose(
+                np.ascontiguousarray(w[::-1, ::-1]), (2, 3, 0, 1))
+        elif kind == _SPCONV and spconv_layout == "KRSC":
+            w = np.transpose(w, (3, 0, 1, 2))
+        # a fresh C array: a flipped kernel with a 1-wide axis is "contiguous"
+        # with negative strides, which torch.from_numpy refuses
+        out[src_key] = np.array(w, order="C")
+    return out
 
 
 def _merge_with_template(template, converted):

@@ -52,6 +52,7 @@ from pillarnet_lts_torch.datasets.pipelines import preprocess as tpre
 from pillarnet_lts_torch.datasets.synth import (write_nuscenes_set,
                                                 write_waymo_set)
 from pillarnet_lts_torch.datasets.utils import create_groundtruth_database
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_datasets import assert_same_sample
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))

@@ -48,6 +48,7 @@ from pillarnet_lts_torch.ops import compact as tc
 from pillarnet_lts_torch.runtime.convert import (load_jax_variables,
                                                  variables_of)
 from pillarnet_lts_torch.runtime.quantize import enable_backbone_quant
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_e2e import spread_both_heads
 from test_torch_port_modules import jit_apply, random_variables
 

@@ -1469,3 +1469,148 @@ def test_compact_request_launches_no_k1(cuda):
     assert _kernels.LAUNCHES["pillar_scatter_max"] == 0
     assert _kernels.LAUNCHES["rotated_overlap"] >= 1
     assert det["mask"].any() and np.isfinite(det["box3d_lidar"]).all()
+
+
+# --- the kernel ops (`ops/library.py`) and a serving program on the card ---
+
+def _op_cases(dev):
+    """(op, args, plain version) of each kernel op at small card shapes."""
+    rng = np.random.RandomState(21)
+    feats, ids, valid, H, W = _scatter_inputs(21, False, N=4000)
+    f = torch.from_numpy(feats).to(dev)
+    i, v = torch.from_numpy(ids).to(dev), torch.from_numpy(valid).to(dev)
+    codes = torch.from_numpy(rng.randint(0, 128, feats.shape)
+                             .astype(np.int8)).to(dev)
+    boxes = torch.from_numpy(np.concatenate([
+        rng.uniform(-20, 20, (3, 200, 2)), rng.uniform(-1, 1, (3, 200, 1)),
+        rng.uniform(1, 5, (3, 200, 3)), rng.uniform(-3.2, 3.2, (3, 200, 1))],
+        -1).astype(np.float32)).to(dev)
+    quads = tiou.box_corners_bev(tiou.to_pcdet_bev(boxes)).contiguous()
+    th = torch.tensor([0.1, 0.3, 0.5], device=dev)
+    a = _int8_conv_args(dev, 4, 2, 37, 45, 32, 64, 2)
+    conv = (a["w_q"], a["inv_s"], a["dq"], a["shift"], 2)
+    pack = tquant.pack_kernel(a["w_q"])
+    bf, f32 = torch.bfloat16, torch.float32
+    occ = torch.from_numpy(rng.rand(2, 37, 45) < 0.2).to(dev)
+    x = (torch.randn(2, 37, 45, 32, device=dev) * occ[..., None]).to(bf)
+    w_q = torch.from_numpy(rng.randint(-127, 128, (3, 3, 3, 32, 32))
+                           .astype(np.int8)).to(dev)
+    stage = (w_q, torch.full((3,), 30.0, device=dev),
+             torch.full((3, 32), 2e-4, device=dev),
+             torch.from_numpy(rng.randn(3, 32).astype(np.float32)).to(dev),
+             occ.to(bf))
+    ops = torch.ops.pillarnet
+    return {
+        "pillar_scatter_max": (
+            ops.pillar_scatter_max, (f, i, v, H, W, False),
+            lambda: tvox.scatter_max_to_grid(f, i, v, H, W), True),
+        "pillar_scatter_max-int8": (
+            ops.pillar_scatter_max, (codes, i, v, H, W, True),
+            lambda: tvox.scatter_max_to_grid(codes, i, v, H, W), True),
+        "pillar_scatter_max_tiled": (
+            ops.pillar_scatter_max_tiled, (f.to(bf), i, v, H, W, False),
+            lambda: tscatter.scatter_max_tiled_plain(f.to(bf), i, v, H, W),
+            False),
+        "rotated_overlap": (
+            ops.rotated_overlap, (quads, quads),
+            lambda: tiou._pairwise_area_plain(quads, quads), True),
+        "suppression_mask": (
+            ops.suppression_mask, (boxes, th, 0.0),
+            lambda: tnms._suppression_matrix_plain(
+                *tnms.mask_kernel_corners(boxes), th), True),
+        "suppression_mask_corners": (
+            ops.suppression_mask_corners, (boxes,),
+            lambda: tnms.mask_kernel_corners(boxes), True),
+        "int8_conv": (
+            ops.int8_conv, (a["x"], pack, *conv[1:], a["mask"],
+                            a["residual"], True),
+            lambda: tquant.int8_conv_bn_act_plain(
+                a["x"], *conv, mask=a["mask"], residual=a["residual"]),
+            False),
+        "int8_conv_f32": (
+            ops.int8_conv_f32, (a["x"].to(f32), pack, *conv[1:], None, None,
+                                False),
+            lambda: tquant.int8_conv_bn_act_plain(a["x"].to(f32), *conv,
+                                                  act=False), False),
+        "int8_stage": (
+            ops.int8_stage, (x, tquant.pack_kernel(w_q), *stage[1:]),
+            lambda: tstage.int8_stage_plain(x, *stage), False),
+    }
+
+
+_OP_NAMES = ["pillar_scatter_max", "pillar_scatter_max-int8",
+             "pillar_scatter_max_tiled", "rotated_overlap",
+             "suppression_mask", "suppression_mask_corners", "int8_conv",
+             "int8_conv_f32", "int8_stage"]
+
+
+def _outputs(out):
+    return out if isinstance(out, (tuple, list)) else (out,)
+
+
+@pytest.mark.parametrize("case", _OP_NAMES)
+def test_kernel_op_on_the_card_matches_its_plain_version(cuda, case):
+    op, args, plain, bitwise = _op_cases(cuda)[case]
+    name = case.split("-")[0]
+    before = dict(_kernels.LAUNCHES)
+    got = _outputs(op(*args))
+    torch.cuda.synchronize()
+    want = _outputs(plain())
+    counted = {k for k, n in _kernels.LAUNCHES.items() if n != before[k]}
+    assert counted == (set() if name == "suppression_mask_corners"
+                       else {name})
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w) if bitwise else bool((g == w).all())
+
+
+@pytest.mark.parametrize("case", _OP_NAMES)
+def test_kernel_op_fake_shapes_match_the_card(cuda, case):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    op, args, _, _ = _op_cases(cuda)[case]
+    real = _outputs(op(*args))
+    with FakeTensorMode() as mode:
+        fake = _outputs(op(*[mode.from_tensor(t) if torch.is_tensor(t)
+                             else t for t in args]))
+    assert [(t.shape, t.dtype, t.device) for t in fake] == \
+        [(t.shape, t.dtype, t.device) for t in real]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8-fused"])
+def test_demo_program_on_the_card_equals_eager(cuda, int8, tmp_path):
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.runtime.export import (
+        export_serving, load_serving, save_serving)
+    from pillarnet_lts_torch.runtime.quantize import (calibrate,
+                                                      enable_backbone_quant)
+
+    cfg = load_config(os.path.join(os.path.dirname(__file__), "..",
+                                   "configs", "demo", "pillarnet18_demo.py"))
+    if int8:
+        enable_backbone_quant(cfg["model"])
+        cfg["model"]["dtype"] = "bfloat16"
+        cfg["model"]["reader"]["num_filters"] = (32,)
+        cfg["model"]["backbone"].update(in_channels=32, s2d_pallas=True)
+    pts, msk = _demo_cloud(cfg, cuda, 5)
+    model = build_model_from_cfg(cfg, device=cuda)
+    spread_head_outputs(model, pts, msk)
+    if int8:
+        calibrate(model, [(pts, msk)])
+    _kernels.reset_launches()
+    want = make_infer_fn(model)(pts, msk)
+    eager = dict(_kernels.LAUNCHES)
+    path = str(tmp_path / "demo.pt2")
+    save_serving(export_serving(model, *pts.shape[:2]), path)
+    serve = load_serving(path).module()
+    _kernels.reset_launches()
+    with torch.inference_mode():
+        got = serve(pts, msk)
+    assert dict(_kernels.LAUNCHES) == eager
+    assert eager["pillar_scatter_max"] == 1 and eager["rotated_overlap"] >= 1
+    assert (eager["int8_stage"] == 1) == int8
+    assert int(want["mask"].sum()) > 0
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

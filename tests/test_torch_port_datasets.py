@@ -42,6 +42,7 @@ from pillarnet_lts_torch.datasets.pipelines import DoubleFlip, Reformat
 from pillarnet_lts_torch.datasets.synth import (_ego_motion,
                                                 write_nuscenes_set,
                                                 write_waymo_set)
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 NUSC = load_config(os.path.join(ROOT, "configs/pillarnet/pillarnet34_nusc.py"))

@@ -35,6 +35,7 @@ from pillarnet_lts_torch.runtime.convert import (
     variables_from_keystr,
 )
 from pillarnet_lts_torch.runtime.serving import ServingPipeline
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_modules import jit_apply, random_variables
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -243,6 +244,13 @@ def test_port_runs_without_importing_jax():
         "msk = torch.from_numpy(d['points_mask'])\n"
         "det = make_infer_fn(model)(pts, msk)\n"
         "assert det['mask'].shape == (1, 128)\n"
+        "from pillarnet_lts_torch.ops import library\n"
+        "from pillarnet_lts_torch.runtime.export import export_serving\n"
+        "from pillarnet_lts_torch.tools import (convert_torch, "
+        "export_serving as export_cli, export_torch)\n"
+        "program = export_serving(model, 1, pts.shape[1])\n"
+        "assert any(str(n.target).startswith('pillarnet.')\n"
+        "           for n in program.graph.nodes)\n"
         "from pillarnet_lts_torch.ops import compact\n"
         "from pillarnet_lts_torch.models.backbones import compact_exec\n"
         "cmodel = build_detector(dict(mcfg, reader=dict(\n"

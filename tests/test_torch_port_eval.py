@@ -70,6 +70,7 @@ sys.path.insert(0, ROOT)
 from chip_smoke import DOUBLE_FLIP, spread_checkpoint  # noqa: E402
 from tools.make_eval_fixture import (np_iou3d,  # noqa: E402
                                      synth_nusc_scenes, synth_waymo_scenes)
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 
 DEMO_PATH = os.path.join(ROOT, "configs/demo/pillarnet18_demo.py")
 DEMO = load_config(DEMO_PATH)

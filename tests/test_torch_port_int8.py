@@ -50,6 +50,7 @@ from pillarnet_lts_torch.ops.int8_stage import int8_stage
 from pillarnet_lts_torch.ops.voxelize import scatter_max_to_grid
 from pillarnet_lts_torch.runtime.convert import load_jax_variables
 from pillarnet_lts_torch.runtime.quantize import calibrate
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_modules import random_variables
 
 BF16 = jnp.bfloat16

@@ -33,6 +33,7 @@ from pillarnet_lts_torch.models import build_detector
 from pillarnet_lts_torch.ops.iou3d import rotated_iou_bev, to_pcdet_bev
 from pillarnet_lts_torch.runtime.convert import load_jax_variables
 from pillarnet_lts_torch.runtime.quantize import calibrate, observers
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_e2e import PC_RANGE, TASKS, spread_both_heads
 from test_torch_port_int8 import int8_variables, jit_nofma
 

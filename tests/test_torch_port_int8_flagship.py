@@ -38,6 +38,7 @@ import jax.numpy as jnp
 from pillarnet_lts_tpu.models import build_detector as build_jax_detector
 from pillarnet_lts_torch.models import build_detector
 from pillarnet_lts_torch.runtime.quantize import calibrate
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_e2e import PC_RANGE, spread_both_heads
 from test_torch_port_int8 import int8_variables
 from test_torch_port_int8_e2e import (

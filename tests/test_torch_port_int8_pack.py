@@ -23,6 +23,7 @@ from pillarnet_lts_torch.models.backbones.base import MaskedConv, state_key
 from pillarnet_lts_torch.models.utils.norm import MaskedBatchNorm
 from pillarnet_lts_torch.ops import quant
 from pillarnet_lts_torch.ops.int8_stage import int8_stage, int8_stage_plain
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FLAGSHIP_INT8 = os.path.join(ROOT, "configs", "pillarnet",

@@ -24,6 +24,7 @@ from pillarnet_lts_tpu.ops.pallas.iou_kernel import (
 from pillarnet_lts_torch.ops import _kernels
 from pillarnet_lts_torch.ops import iou3d as tiou
 from pillarnet_lts_torch.ops import nms as tnms
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 
 
 def _bev(n, seed, span=20.0):

@@ -67,6 +67,7 @@ from pillarnet_lts_torch.models.second_stage import (BEVFeature,
 from pillarnet_lts_torch.ops.iou3d import rotated_iou_bev, to_pcdet_bev
 from pillarnet_lts_torch.ops.nms import circle_nms
 from pillarnet_lts_torch.runtime.convert import load_jax_variables
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_int8 import jit_nofma
 from test_torch_port_modules import (TOL, jit_apply, random_variables,
                                      sparse_grid)

@@ -36,6 +36,7 @@ from pillarnet_lts_torch.models.readers.dynamic_pillar_encoder import (
     DynamicPFE,
 )
 from pillarnet_lts_torch.runtime.convert import load_jax_variables
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 PC_RANGE = (-16.0, -16.0, -4.0, 16.0, 16.0, 2.0)

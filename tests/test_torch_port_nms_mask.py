@@ -23,6 +23,7 @@ from pillarnet_lts_tpu.ops import nms as jnms
 from pillarnet_lts_tpu.ops.pallas.nms_kernel import suppression_matrix_pallas
 from pillarnet_lts_torch.ops import _kernels
 from pillarnet_lts_torch.ops import nms as tnms
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 
 MASK_EPS = 1e-4
 

@@ -31,6 +31,7 @@ from pillarnet_lts_torch.models.bbox_heads.center_head import CenterHeadMath
 from pillarnet_lts_torch.ops import iou3d as tiou
 from pillarnet_lts_torch.ops import nms as tnms
 from test_multiclass_nms_grouping import _cfg, _head_and_preds
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_int8 import jit_nofma
 
 THRESHOLDS = (0.2, 0.0, -0.1)

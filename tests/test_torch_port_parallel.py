@@ -78,6 +78,7 @@ from pillarnet_lts_torch.tools import dist_test
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_train import tpu_vjp_scatter  # noqa: E402
 
 POINTS = 4096

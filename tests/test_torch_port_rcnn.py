@@ -78,6 +78,7 @@ from pillarnet_lts_torch.ops.bilinear import bilinear_interpolate
 from pillarnet_lts_torch.ops.iou3d import rotated_iou_bev, to_pcdet_bev
 from pillarnet_lts_torch.runtime.convert import load_jax_variables
 from pillarnet_lts_torch.runtime.serving import ServingPipeline
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_int8 import jit_nofma
 from test_torch_port_modules import (
     TOL,

@@ -64,6 +64,7 @@ from pillarnet_lts_torch.runtime.convert import load_jax_variables
 from pillarnet_lts_torch.runtime.quantize import (calibrate,
                                                   enable_backbone_quant,
                                                   observers)
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_int8 import _conv_case, int8_variables, jit_nofma
 from test_torch_port_modules import random_variables
 from test_torch_port_legacy import _guards, twostage_cfg

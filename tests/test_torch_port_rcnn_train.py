@@ -65,6 +65,7 @@ from pillarnet_lts_torch.runtime.train_step import (batch_to_device,
                                                     step_generator,
                                                     step_losses, train_step)
 from chip_smoke import gt_rows, jitter_rois
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_modules import random_variables, sparse_grid
 from test_torch_port_train_step import _RecordingF
 

@@ -34,6 +34,7 @@ from pillarnet_lts_torch.ops.scatter import (
     pillar_scatter_max,
     pillar_scatter_max_tiled,
 )
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 

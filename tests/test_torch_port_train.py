@@ -55,6 +55,7 @@ from pillarnet_lts_torch.models.utils.norm import MaskedBatchNorm
 from pillarnet_lts_torch.ops import scatter as tscatter
 from pillarnet_lts_torch.ops import voxelize as tvox
 from pillarnet_lts_torch.solver import build_optimizer, one_cycle_schedules
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FLAGSHIP = os.path.join(ROOT, "configs", "pillarnet", "pillarnet34_nusc.py")

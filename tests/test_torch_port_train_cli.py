@@ -64,6 +64,7 @@ from pillarnet_lts_torch.solver import build_optimizer
 from pillarnet_lts_torch.solver.optim import (exponential_decay_schedule,
                                               manual_stepping_schedule)
 from pillarnet_lts_torch.tools import train as train_cli
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_modules import random_variables
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))

@@ -69,6 +69,7 @@ from pillarnet_lts_torch.runtime.train_step import (batch_to_device,
                                                     bn_shifted_biases,
                                                     step_losses, train_step)
 from chip_smoke import params_within_first_adam_step
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_train import DEMO, tpu_vjp_scatter
 
 STEPS = 3

@@ -35,6 +35,7 @@ from pillarnet_lts_torch.models.bbox_heads.center_head import CenterHeadMath
 from pillarnet_lts_torch.ops.iou3d import rotated_iou_bev, to_pcdet_bev
 from pillarnet_lts_torch.runtime.convert import load_jax_variables
 from test_multiclass_nms_grouping import _cfg, _head_and_preds
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_e2e import spread_both_heads
 from test_torch_port_modules import jit_apply, random_variables
 

@@ -21,6 +21,7 @@ from pillarnet_lts_torch.apis import build_model_from_cfg, load_config
 from pillarnet_lts_torch.models.registry import DETECTORS
 from pillarnet_lts_torch.runtime.convert import (load_jax_variables,
                                                  variables_of)
+import test_torch_port_threads  # noqa: F401  (one torch thread)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..", "configs")
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "*", "*.py")))
