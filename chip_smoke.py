@@ -244,10 +244,12 @@ Phases, each of which raises on failure:
      gather convs over the active sites, `ops/compact.py`,
      `models/backbones/compact_exec.py`), each compact model with the
      weights of its dense twin; every cloud's active sites (k_valid) and
-     the coarse sites conv2 needs are printed, and where a cloud needs
-     more coarse sites than the default budget, `compact_kmax2` is set
-     explicitly (a truncated table makes compact and dense differ, as in
-     the JAX package): (a) `pillarnet34_nusc` with `compact_kmax` =
+     the sites the reader's and the default coarse budget drop, as the
+     modules count them (`dropped_sites`, `dropped_coarse_sites`), are
+     printed, and where the coarse budget drops sites, `compact_kmax2` is
+     set explicitly (a truncated table makes compact and dense differ, as
+     in the JAX package), and the served run's last request must drop
+     none: (a) `pillarnet34_nusc` with `compact_kmax` =
      262,144 (its `max_points`) serving 3 warm-up + 10 timed requests at
      bs=1 and 2 at bs=2 through `ServingPipeline(make_infer_fn(model))`,
      the launch counts set to 0 just before and read just after: every
@@ -300,6 +302,26 @@ Phases, each of which raises on failure:
      MB; `{"export": ...}` is printed before the kernels' line, whose K1,
      K2 and K4 rows carry phase 21's launches a request and replays under
      `export`.
+ 22. dataset preparation -> training -> evaluation on the card machine
+     without JAX or a devkit (`data_prep_chain`): the host C++ library
+     (`pillarnet_lts_torch/native`, built in step 1; a failed build fails
+     the run with the compiler's stderr); (a) 8 train and 4 val raw Waymo
+     frames of 196,608 points in the converter's layout
+     (`datasets/synth.py::write_waymo_raw`), then `python -m
+     pillarnet_lts_torch.tools.create_data waymo_data_prep` over both
+     splits on the native route and on the numpy route (`--data-prep-numpy
+     ARGS`, the library's box functions returning None), each timed;
+     (b) the training CLI's main (`tools/train.py`) on `pillarrcnn18_waymo`
+     at full width over the prepared infos, 2 steps at bs 2, its GT-AUG
+     reading the database (22a) at `dbinfos_train_1sweeps.pkl`, the name
+     `create_data` writes; K1 and K2 counted (set to 0 just before, read
+     just after) and every call replayed against its plain version;
+     (c) `dist_test`'s main on that checkpoint over the 4 val frames, the
+     native Waymo evaluator; `{"data_prep": ...}` is printed before the
+     kernels' line, whose K1 and K2 rows carry (b)'s launches and replays
+     and (c)'s launches under `data_prep_chain`. The training loader's ms
+     a sample on each route is phase 17a's (its passes on 8 threads, the
+     routes in turns, each beside the host's load average).
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
@@ -318,7 +340,8 @@ session that lost device events and keeps the one that lost the fewest; a
 carries phase 13's, 14's, 15's, 16's, 17's, 18's and 19's JSON records
 (`{"training": ...}`, `{"two_stage": ...}`, `{"two_stage_training": ...}`,
 `{"eval": ...}`, `{"training_as_written": ...}`, `{"precisions": ...}`,
-`{"data_parallel": ...}`) and phase 20's (`{"compact": ...}`);
+`{"data_parallel": ...}`) and phase 20's (`{"compact": ...}`), 21's
+(`{"export": ...}`) and 22's (`{"data_prep": ...}`);
 then the kernels' JSON record (K1's and K2's rows also carry
 `two_stage_launches`, under `two_stage_train` phase 15's launches and
 replays, `eval_launches`, phase 16a's pipelined pass, under
@@ -328,20 +351,26 @@ K2's and K4's rows `eval_replays`, phase 16's replays by pass; K4's f32
 variant, `int8_conv_f32`, has a row of its own from phase 18a; K1's and
 K2's rows carry phase 19's launches per rank and replays under
 `data_parallel`; K2's row phase 20's launches and replays under
-`compact`, K1's `compact_launches`, 0 on every compact path, and
-phase 21's under `export`), the card's
+`compact`, K1's `compact_launches`, 0 on every compact path,
+phase 21's under `export` and phase 22's under `data_prep_chain`), the
+card's
 `nvidia-smi` name and power
 limit, and the last line `{"ok": true, "device": {...}}`. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
 No JAX is imported. `--dp-rank SPEC` and `--cli-rank OUT TOOL ARGS` are
 phase 19's rank processes, `--serve-artifact SPEC` phase 21's program
-server, which the smoke starts itself.
+server, `--data-prep-numpy ARGS` phase 22's numpy-route `create_data`,
+which the smoke starts itself. `--loader-compare PARENT` times phase
+17a's loader passes with this checkout and with the one at PARENT, in
+turns, on the host alone (`--loader-passes TREE TMP ROUTE...`, one
+process's passes).
 """
 
 import contextlib
 import json
 import math
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -3693,6 +3722,94 @@ def loader_groups(sample_ms, boxes, dropped):
     return out
 
 
+LOADER_ROUTES = ("native", "numpy", "numpy", "native")  # 17a's passes
+
+
+def loader_routes(native, loader, routes):
+    """One pass of `loader` on each route of `routes` ("native": the host
+    library, "numpy": `numpy_route`; `native` None: a tree without the
+    library, whose only route is numpy). Returns {"ms_per_sample",
+    "cpu_ms_per_sample" (the process's CPU time), "load_avg_1min" (the
+    host's, as the pass starts): {route: [one a pass]}}."""
+    if native is None and "native" in routes:
+        raise AssertionError("no host library: no native route")
+    rec = {"ms_per_sample": {}, "cpu_ms_per_sample": {}, "load_avg_1min": {}}
+    for route in routes:
+        with (numpy_route(native) if route == "numpy" and native
+              else contextlib.nullcontext()):
+            load = os.getloadavg()[0]
+            t0, c0 = time.perf_counter(), time.process_time()
+            n = sum(len(b["metadata"]) for b in loader)
+            wall, cpu = time.perf_counter() - t0, time.process_time() - c0
+        for key, v in (("ms_per_sample", wall / n * 1e3),
+                       ("cpu_ms_per_sample", cpu / n * 1e3),
+                       ("load_avg_1min", load)):
+            rec[key].setdefault(route, []).append(v)
+    return rec
+
+
+def loader_passes(tree, tmp, *routes):
+    """`python3 chip_smoke.py --loader-passes TREE TMP ROUTE...`: one pass
+    of phase 17a's loader on each ROUTE with the package of the checkout
+    at TREE, over the set `augmented_set` wrote under TMP; prints one JSON
+    line of `loader_routes`' record."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import pillarnet_lts_torch
+    from pillarnet_lts_torch.datasets import DataLoader, build_dataset
+
+    if not pillarnet_lts_torch.__file__.startswith(os.path.abspath(tree)):
+        raise AssertionError(f"imported {pillarnet_lts_torch.__file__}")
+    try:
+        from pillarnet_lts_torch import native
+    except ImportError:  # a tree from before the host library
+        native = None
+    data = rooted(rcnn_train_cfg(RCNN)["data"], tmp)
+    loader = DataLoader(build_dataset(data["train"]), data["samples_per_gpu"],
+                        shuffle=True, num_workers=data["workers_per_gpu"],
+                        max_points=data["max_points"], seed=1)
+    rec = loader_routes(native, loader, routes)
+    print(json.dumps(dict(rec, threads=data["workers_per_gpu"])))
+    return 0
+
+
+# --loader-compare: a kind of process -> (tree, its passes' routes)
+LOADER_KINDS = {"parent": (None, ("numpy",) * 4),
+                "this_numpy": (ROOT, ("numpy",) * 4),
+                "this": (ROOT, LOADER_ROUTES)}
+LOADER_TURNS = ("parent", "this_numpy", "this", "this", "this_numpy",
+                "parent") * 2
+
+
+def loader_compare(parent):
+    """`python3 chip_smoke.py --loader-compare PARENT`: phase 17a's loader
+    passes on 17a's set (written once, so every read is warm), each kind
+    of LOADER_KINDS in processes of its own (`--loader-passes`; the
+    parent: the checkout at PARENT), in LOADER_TURNS; prints one JSON line
+    {"loader_compare": {kind: [a record a process]}, "card": ...}. Runs
+    on the host alone."""
+    import tempfile
+
+    sys.path.insert(0, ROOT)
+    out = {kind: [] for kind in LOADER_KINDS}
+    with tempfile.TemporaryDirectory() as tmp:
+        augmented_set(tmp, rcnn_train_cfg(RCNN))
+        for kind in LOADER_TURNS:
+            tree, routes = LOADER_KINDS[kind]
+            tree = tree or os.path.abspath(parent)
+            proc = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--loader-passes", tree, tmp, *routes],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"--loader-passes {tree} exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-3000:]}")
+            out[kind].append(json.loads(proc.stdout.splitlines()[-1]))
+            print(f"[loader] {kind}: {out[kind][-1]}", flush=True)
+    print(json.dumps({"loader_compare": out, "card": card_line()}))
+    return 0
+
+
 def train_augmented(torch, dev, card, tmp):
     """Phase 17a: `pillarrcnn18_waymo` at full width and depth (bs=4,
     remat, dropout 0.3) with its train pipeline as written (GT-AUG of
@@ -3703,6 +3820,7 @@ def train_augmented(torch, dev, card, tmp):
     K1 and K2 (predict and sampler) on every step; the last step's K1 and
     K2 calls replayed bit-equal. Returns (record, launches, K1 and K2
     replay summaries)."""
+    from pillarnet_lts_torch import native
     from pillarnet_lts_torch.apis import build_model_from_cfg, train_detector
     from pillarnet_lts_torch.datasets import DataLoader, build_dataset
     from pillarnet_lts_torch.models.readers import dynamic_pillar_encoder
@@ -3732,9 +3850,12 @@ def train_augmented(torch, dev, card, tmp):
     loader = DataLoader(dataset, bs, shuffle=True,
                         num_workers=data["workers_per_gpu"],
                         max_points=max_points, seed=1)
-    t0 = time.perf_counter()
-    n = sum(len(b["metadata"]) for b in loader)
-    threaded_ms = (time.perf_counter() - t0) / n * 1e3
+    # a pass on each route of the box tests, in turns: the host C++ and
+    # the numpy route (the loader's only route before the library), each
+    # beside the host's 1-minute load average as it starts
+    routes = loader_routes(native, loader, LOADER_ROUTES)
+    by_route = routes["ms_per_sample"]
+    threaded_ms = by_route["numpy"][0]
     boxes = [c[0] for c in counts]
     pasted = [c[1] for c in counts]
     dropped = [max(0, k - max_points) for k in sizes]
@@ -3809,6 +3930,10 @@ def train_augmented(torch, dev, card, tmp):
            "loader_ms_per_sample_one_thread": serial_ms,
            "loader_stage_ms_per_sample_one_thread": stage_ms,
            "loader_ms_per_sample_threads": threaded_ms,
+           "loader_ms_per_sample_threads_by_route": by_route,
+           "loader_cpu_ms_per_sample_threads_by_route":
+               routes["cpu_ms_per_sample"],
+           "loader_load_avg_1min_by_route": routes["load_avg_1min"],
            "loader_threads": data["workers_per_gpu"],
            "loader_ms_one_thread_by_gt_aug": groups,
            "sampled_boxes_per_sample_by_class": boxes,
@@ -3829,7 +3954,11 @@ def train_augmented(torch, dev, card, tmp):
           f"{hist['loss'][0]:.3f} -> {hist['loss'][-1]:.3f}; the loader "
           f"alone {serial_ms:.1f} ms a sample on one thread ("
           + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
-          + f"), {threaded_ms:.1f} on {data['workers_per_gpu']}; by what "
+          + f"), on {data['workers_per_gpu']} threads native "
+          f"{[round(v, 2) for v in by_route['native']]}, numpy "
+          f"{[round(v, 2) for v in by_route['numpy']]} (process CPU ms a "
+          f"sample {routes['cpu_ms_per_sample']}, host load "
+          f"{routes['load_avg_1min']}); by what "
           f"GT-AUG pasted {groups}; GT-AUG boxes a sample by class "
           f"{boxes}, points pasted {pasted}, points past max_points "
           f"{dropped}; K1 / K2 a step {per_step}; card: {card}")
@@ -4222,12 +4351,15 @@ def dp_spec(config, device, out, **kw):
     steps (one epoch), weights from `model_seed` (the first stage's heads
     spread on the first scene with `spread`), the run's `seed`, a val set
     of `val_frames` demo frames (0: none); with `at_gt` the two-stage
-    sampler's proposals are boxes about the GT (`proposals_at_gt`)."""
+    sampler's proposals are boxes about the GT (`proposals_at_gt`); with
+    `draws` (a path) the sampler's draws are the ones saved there
+    (`given_draws`); `compact_kmax` > 0 serves the reader's compact path
+    with that budget."""
     spec = dict(config=config, device=device, backend="gloo", out=out,
                 batch=4, points=N_POINTS, steps=DP_STEPS, seed=3,
                 model_seed=5, data_seed=200, num_boxes=[10, 21],
                 dp_ratio=None, spread=False, at_gt=False, val_frames=0,
-                workers=2, threads=None)
+                workers=2, threads=None, draws=None, compact_kmax=0)
     spec.update(kw)
     return spec
 
@@ -4239,6 +4371,9 @@ def dp_setup(torch, spec, dev):
     from pillarnet_lts_torch.datasets import SynthDataset
 
     cfg = rcnn_train_cfg(spec["config"], spec["dp_ratio"])
+    if spec["compact_kmax"]:
+        cfg["model"]["reader"] = dict(cfg["model"]["reader"],
+                                      compact_kmax=spec["compact_kmax"])
     cfg["data"] = dict(cfg["data"], samples_per_gpu=spec["batch"],
                        max_points=spec["points"], workers_per_gpu=spec[
                            "workers"])
@@ -4260,15 +4395,15 @@ def dp_setup(torch, spec, dev):
 
 def dp_rows(ds, spec, world=DP_WORLD):
     """Each step's global batch as frame indices, the ranks' rows in rank
-    order: the shards of the loader that `apis.train_detector` gives each
-    rank."""
+    order: the loader's batches that `apis.train_detector` gives each rank
+    of one node (`parallel.mesh.train_shards`: contiguous blocks of the
+    node's batch), which are the JAX loader's batches."""
     from pillarnet_lts_torch.datasets import DataLoader
 
     per = spec["batch"] // world
-    shards = [DataLoader(ds, per, shuffle=True, seed=spec["seed"],
-                         num_shards=world, shard_index=r)._indices()
-              for r in range(world)]
-    return [[int(i) for idx in shards for i in idx[s * per:(s + 1) * per]]
+    ranks = [DataLoader(ds, per, shuffle=True, seed=spec["seed"],
+                        block=(r, world)).batches() for r in range(world)]
+    return [[int(i) for rows in ranks for i in rows[s]]
             for s in range(spec["steps"])]
 
 
@@ -4295,6 +4430,28 @@ def recording_draws(rec):
             patched(pillar_rcnn, "sampler_draws", keep("sampler")), \
             patched(roi_heads, "rank_rows", keep("dropout")):
         yield rec
+
+
+@contextlib.contextmanager
+def given_draws(torch, path):
+    """`PillarRCNN`'s sampler draws taken from `path` (a saved list of (u,
+    r) pairs made for the global batch, one a call, e.g. the JAX package's
+    `jax.random` draws) in place of the generator's, each rank keeping its
+    rows (`parallel.mesh.rank_rows`)."""
+    from pillarnet_lts_torch.models.detectors import pillar_rcnn
+    from pillarnet_lts_torch.models.roi_heads.proposal_target_layer import (
+        SamplerDraws)
+    from pillarnet_lts_torch.parallel.mesh import rank_rows
+
+    given = iter(torch.load(path))
+
+    def draws(generator, batch, num_rois, roi_per_image, device):
+        u, r = next(given)
+        return SamplerDraws(rank_rows(lambda size: u, batch).to(device),
+                            rank_rows(lambda size: r, batch).to(device))
+
+    with patched(pillar_rcnn, "sampler_draws", lambda real: draws):
+        yield
 
 
 def on_cpu(torch, tree):
@@ -4514,9 +4671,11 @@ def dp_rank(spec_path):
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     _kernels.reset_launches()
-    with recording_draws(rec), patched(Trainer, "val", keep_val), (
-            proposals_at_gt(torch, spec["seed"]) if spec["at_gt"]
-            else contextlib.nullcontext()):
+    with (given_draws(torch, spec["draws"]) if spec["draws"]
+          else contextlib.nullcontext()), \
+            recording_draws(rec), patched(Trainer, "val", keep_val), (
+                proposals_at_gt(torch, spec["seed"]) if spec["at_gt"]
+                else contextlib.nullcontext()):
         trainer = train_detector(model, ds, cfg, seed=spec["seed"],
                                  work_dir=os.path.join(spec["out"], "work"),
                                  hooks=[Record()], val_dataset=val_ds)
@@ -5111,37 +5270,53 @@ def first_stage(model):
 
 
 def compact_budgets(torch, tag, model, clouds):
-    """Each cloud's active sites (k_valid) and the coarse sites conv2
-    needs (untruncated); where one exceeds the default coarse budget,
+    """Each cloud's active sites (k_valid) and the sites each budget drops
+    at the default coarse budget, as the reader and the backbone count
+    them (`dropped_sites`, `dropped_coarse_sites`); a cloud that fills the
+    reader's budget fails. Where the coarse budget drops sites,
     `compact_kmax2` is set explicitly to cover every cloud (a truncated
     coarse table makes compact and dense differ, the JAX package's
     semantics too) and said so. Returns the record."""
-    from pillarnet_lts_torch.ops.compact import downsample_site_ids
-
     det = first_stage(model)
-    kv, k2 = [], []
+    backbone = det.backbone_net
+    kmax = det.reader_net.compact_kmax
+    default = backbone.coarse_budget(kmax)
+    kmax2, backbone.compact_kmax2 = backbone.compact_kmax2, 0
+    kv, fine, coarse = [], [], []
     with torch.inference_mode():
         for cloud in clouds:
             cp, _ = det.reader_net(*cloud)
-            full = (cp.height // 2) * (cp.width // 2)
-            _, need = downsample_site_ids(cp.site_ids, cp.k_valid,
-                                          cp.height, cp.width, full)
+            backbone.conv12(cp, None)
             kv += cp.k_valid.tolist()
-            k2 += need.tolist()
-    kmax = cp.site_ids.shape[1]
-    default = det.backbone_net.coarse_budget(kmax)
-    rec = {"kmax": kmax, "k_valid": kv, "k2_needed": k2,
-           "kmax2_default": default, "fine_truncated": max(kv) >= kmax}
-    if rec["fine_truncated"]:
-        raise AssertionError(f"{tag}: a cloud fills the reader budget "
-                             f"{kmax}: {kv}")
-    if max(k2) > default:
-        det.backbone_net.compact_kmax2 = (max(k2) + 7) // 8 * 8
-    rec["kmax2"] = det.backbone_net.coarse_budget(kmax)
-    print(f"[{tag}] budgets: {kmax} fine sites, k_valid per cloud {kv}; "
-          f"coarse sites needed {k2} of a default budget {default}"
+            fine.append(int(det.reader_net.dropped_sites))
+            coarse.append(int(backbone.dropped_coarse_sites))
+    backbone.compact_kmax2 = kmax2
+    rec = {"kmax": kmax, "k_valid": kv, "fine_dropped": fine,
+           "coarse_dropped": coarse, "kmax2_default": default}
+    if max(fine) > 0:
+        raise AssertionError(f"{tag}: the reader budget {kmax} drops "
+                             f"{fine} sites (k_valid {kv})")
+    if max(coarse) > 0:
+        backbone.compact_kmax2 = (default + max(coarse) + 7) // 8 * 8
+    rec["kmax2"] = backbone.coarse_budget(kmax)
+    print(f"[{tag}] budgets: {kmax} fine sites, k_valid per cloud {kv}, "
+          f"dropped {fine}; the default coarse budget {default} drops "
+          f"{coarse} coarse sites"
           + (f": compact_kmax2 set to {rec['kmax2']} explicitly"
              if rec["kmax2"] != default else ", no truncation"))
+    return rec
+
+
+def served_drops(tag, model):
+    """The sites the budgets dropped in the model's last forward, as its
+    reader and backbone count them; fails where either dropped any."""
+    det = first_stage(model)
+    rec = {"fine": int(det.reader_net.dropped_sites),
+           "coarse": int(det.backbone_net.dropped_coarse_sites)}
+    print(f"[{tag}] the last request's budgets dropped {rec['fine']} fine "
+          f"and {rec['coarse']} coarse sites")
+    if rec["fine"] or rec["coarse"]:
+        raise AssertionError(f"{tag}: a served request lost sites: {rec}")
     return rec
 
 
@@ -5331,6 +5506,7 @@ def serve_compact(torch, dev, card, tag, path, kmax, requests, warmup,
                on_card(torch, dev, c) for c in clouds])}
     d = served_run(torch, dev, dense, clouds, warmup, capture=False)
     c = served_run(torch, dev, compact, clouds, warmup, capture=True)
+    rec["dropped_last_request"] = served_drops(tag, compact)
     rec["k2_per_request"] = check_compact_launches(tag, c, d)
     rec["launches"] = c["launches"]
     for name, run in (("compact", c), ("dense", d)):
@@ -5373,9 +5549,9 @@ def compact_tables_card_vs_cpu(torch, dev, model, cloud, tag):
     def tables(device, feats):
         pts, msk = on_card(torch, device, cloud)
         _, ids, valid = voxelize_points(pts, msk, spec)
-        rows, sites, k = oc.compact_segment_max(
+        rows, sites, k, _ = oc.compact_segment_max(
             feats.to(device), ids, valid, H * W, kmax)
-        ids2, k2 = oc.downsample_site_ids(sites, k, H, W, k2max)
+        ids2, k2, _ = oc.downsample_site_ids(sites, k, H, W, k2max)
         return {"rows": rows, "site_ids": sites, "k_valid": k,
                 "nbr1": oc.subm_neighbor_table(sites, k, H, W, kmax),
                 "site_ids2": ids2, "k2_valid": k2,
@@ -5416,7 +5592,8 @@ def compact_tables(torch, backbone, cp):
     kmax = cp.site_ids.shape[1]
     k2max = backbone.coarse_budget(kmax)
     nbr1 = oc.subm_neighbor_table(cp.site_ids, cp.k_valid, H, W, kmax)
-    ids2, k2 = oc.downsample_site_ids(cp.site_ids, cp.k_valid, H, W, k2max)
+    ids2, k2, _ = oc.downsample_site_ids(cp.site_ids, cp.k_valid, H, W,
+                                         k2max)
     return (nbr1.long(), ids2, k2,
             oc.down_conv_neighbor_table(ids2, k2, cp.site_ids, cp.k_valid,
                                         H, W, kmax).long(),
@@ -6160,6 +6337,202 @@ def serving_export(torch, dev, card):
     return rec
 
 
+# phase 22: dataset preparation -> training -> evaluation, no JAX, no devkit
+PREP_SEQUENCES = 2  # 22a: raw Waymo sequences a split
+PREP_FRAMES = {"train": 4, "val": 2}  # frames a sequence: 8 train, 4 val
+
+
+def numpy_route(*natives):
+    """Each host library module in `natives` made to say it is not there
+    (`available` False, the two box functions None): the numpy route of
+    `core/bbox/box_np_ops.py` (all patched while open)."""
+    stack = contextlib.ExitStack()
+    for native in natives:
+        stack.enter_context(patched(native, "available",
+                                    lambda real: lambda: False))
+        for name in ("points_in_rbbox", "box_collision_test"):
+            stack.enter_context(patched(native, name,
+                                        lambda real: lambda *a, **k: None))
+    return stack
+
+
+def data_prep_numpy(argv):
+    """`python3 chip_smoke.py --data-prep-numpy ARGS`: `tools/create_data.
+    py`'s main (ARGS its arguments) on the numpy route (`numpy_route`)."""
+    sys.path.insert(0, ROOT)
+    from pillarnet_lts_torch import native
+    from pillarnet_lts_torch.tools import create_data
+
+    with numpy_route(native):
+        create_data.main(argv)
+    return 0
+
+
+def create_data_run(root, split, route):
+    """`python -m pillarnet_lts_torch.tools.create_data waymo_data_prep` on
+    `root` (`route` "native"; "numpy": through `data_prep_numpy`) in a
+    subprocess; returns the seconds the command reports and its wall
+    seconds. Fails unless the command reports the host library on the
+    native route and none on the numpy route."""
+    args = ["waymo_data_prep", "--root_path", root, "--split", split]
+    argv = ([sys.executable, "-m", "pillarnet_lts_torch.tools.create_data"]
+            if route == "native" else
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--data-prep-numpy"])
+    t0 = time.perf_counter()
+    out = subprocess.run(argv + args, cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"22a: create_data {split} ({route}) exited "
+                             f"{out.returncode}: {out.stderr[-3000:]}")
+    said = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("waymo_data_prep: ")]
+    if len(said) != 1:
+        raise AssertionError(f"22a: create_data printed {out.stdout[-2000:]}")
+    library = said[0].split("host library: ")[-1]
+    if (library == "None") != (route == "numpy"):
+        raise AssertionError(f"22a: create_data {split} ({route}) ran on "
+                             f"host library {library}")
+    return float(said[0].split()[1]), wall
+
+
+def prep_config(tmp, root):
+    """pillarrcnn18_waymo at full width on the prepared set under `root`:
+    the infos under the names `create_data` writes (the config's own), the
+    GT-AUG database at `dbinfos_train_1sweeps.pkl` (the name
+    `create_data` writes; the config reads `..._withvelo.pkl`, the JAX
+    package's name fault), 2 frames a step, one epoch of every other
+    frame, a log line a step."""
+    return config_file(
+        tmp, "prep_rcnn", RCNN,
+        f"db_sampler['db_info_path'] = {root!r} + "
+        "'dbinfos_train_1sweeps.pkl'\n",
+        "data['samples_per_gpu'] = 2\n",
+        f"data['train'] = dict(data['train'], root_path={root!r}, "
+        f"info_path={root!r} + 'infos_train_01sweeps_filter_zero_gt.pkl', "
+        "load_interval=2)\n",
+        f"data['val'] = dict(data['val'], root_path={root!r}, "
+        f"info_path={root!r} + 'infos_val_01sweeps_filter_zero_gt.pkl')\n",
+        "log_config = dict(interval=1)\n", "total_epochs = 1\n")
+
+
+def data_prep_chain(torch, dev, card):
+    """Phase 22: the host library built; raw Waymo frames (the converter's
+    layout, `write_waymo_raw`) at the Waymo configs' cloud size; the
+    `create_data` CLI over both splits on each route (22a); the training
+    CLI's main on `pillarrcnn18_waymo` at full width over the prepared
+    infos and database, K1 / K2 counted (set to 0 just before, read just
+    after) and their calls replayed against the plain versions (22b);
+    `dist_test`'s main on its checkpoint over the val frames, the native
+    Waymo evaluator (22c). The loader's ms a sample on each route is
+    phase 17a's, on the set of the earlier loader numbers. Returns
+    (record, 22b's launches, 22b's replays)."""
+    import tempfile
+
+    from pillarnet_lts_torch import native
+    from pillarnet_lts_torch.apis import load_config
+    from pillarnet_lts_torch.datasets.synth import write_waymo_raw
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.tools import train as train_cli
+
+    t_phase = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"22a: the host library did not build:\n"
+                             f"{native.build_error()}")
+    cfg = load_config(RCNN)
+    n = int(cfg["data"]["max_points"])
+    rec = {"card": card, "points": n, "library": native.library_path(),
+           "frames": {s: PREP_SEQUENCES * f for s, f in PREP_FRAMES.items()}}
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = {r: os.path.join(tmp, r) + "/" for r in ("native", "numpy")}
+        t0 = time.perf_counter()
+        for split, frames in PREP_FRAMES.items():
+            write_waymo_raw(roots["native"], split, PREP_SEQUENCES, frames, n,
+                            cfg["point_cloud_range"], seed=220)
+        os.makedirs(roots["numpy"])
+        for split in PREP_FRAMES:
+            os.symlink(os.path.join(roots["native"], split),
+                       os.path.join(roots["numpy"], split))
+        rec["write_s"] = time.perf_counter() - t0
+        rec["create_data"] = {}
+        for route in ("numpy", "native"):
+            for split in PREP_FRAMES:
+                said, wall = create_data_run(roots[route], split, route)
+                rec["create_data"][f"{route}_{split}"] = {
+                    "seconds": said, "wall_s": wall,
+                    "s_per_frame": said / rec["frames"][split]}
+        with open(os.path.join(roots["native"], "dbinfos_train_1sweeps.pkl"),
+                  "rb") as f:
+            dbinfos = pickle.load(f)
+        rec["database"] = {str(k): len(v) for k, v in dbinfos.items()}
+        with open(os.path.join(roots["numpy"], "dbinfos_train_1sweeps.pkl"),
+                  "rb") as f:
+            rec["database_numpy"] = {str(k): len(v)
+                                     for k, v in pickle.load(f).items()}
+        c = rec["create_data"]
+        print(f"[22a] create_data waymo_data_prep on {rec['frames']} raw "
+              f"frames of {n} points: train {c['native_train']['seconds']:.3f}"
+              f" s native ({c['native_train']['s_per_frame']:.4f} s a frame)"
+              f" / {c['numpy_train']['seconds']:.3f} s numpy "
+              f"({c['numpy_train']['s_per_frame']:.4f}); val "
+              f"{c['native_val']['seconds']:.3f} / "
+              f"{c['numpy_val']['seconds']:.3f} s; database "
+              f"{rec['database']} (numpy route {rec['database_numpy']}); "
+              f"{card}")
+
+        # 22b: the training CLI on the prepared data
+        path = prep_config(tmp, roots["native"])
+        work = os.path.join(tmp, "work")
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        (_, k2), k1 = capture_scatter(lambda: capture_overlap(
+            lambda: train_cli.main([path, "--work_dir", work, "--seed",
+                                    "22"])))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        with open(os.path.join(work, "log.json")) as f:
+            logged = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in logged]
+        steps = len(losses)
+        if not losses or not all(math.isfinite(v) for v in losses) \
+                or not os.path.exists(os.path.join(work, "epoch_1.pth")):
+            raise AssertionError(f"22b: losses {losses}, {os.listdir(work)}")
+        if launches["pillar_scatter_max"] < 1 or launches[
+                "rotated_overlap"] < 1 or (len(k1), len(k2)) != (
+                launches["pillar_scatter_max"], launches["rotated_overlap"]):
+            raise AssertionError(f"22b: launches {launches}, captured "
+                                 f"{len(k1)} K1 and {len(k2)} K2 calls")
+        rec["train"] = {"seconds": train_s, "steps": steps, "loss": losses,
+                        "launches": launches,
+                        "step_ms": [r["time"] * 1e3 for r in logged]}
+        print(f"[22b] python -m pillarnet_lts_torch.tools.train "
+              f"pillarrcnn18_waymo (bs 2, GT-AUG from the prepared database) "
+              f"on the card: {steps} logged steps in {train_s:.1f} s, loss "
+              f"{losses}, K1 {launches['pillar_scatter_max']} / K2 "
+              f"{launches['rotated_overlap']} launches")
+        summary, _ = replay_pass(torch, "22b", k1, k2,
+                                 "predict and RoI sampler")
+        del k1, k2
+
+        # 22c: dist_test of that checkpoint, the native Waymo evaluator
+        out, ev = dist_test_run(torch, [
+            path, "--checkpoint", os.path.join(work, "epoch_1.pth"),
+            "--work_dir", os.path.join(tmp, "eval")])
+        if "Waymo (native eval)" not in out["result"]["results"]["waymo"] \
+                or len(out["detections"]) != rec["frames"]["val"]:
+            raise AssertionError(f"22c: {out['result']}")
+        rec["dist_test"] = {"launches": ev, "frames": len(out["detections"]),
+                            "result": out["result"]["results"]["waymo"]}
+        print(f"[22c] dist_test on the checkpoint over "
+              f"{len(out['detections'])} val frames: the native Waymo "
+              f"evaluator, launches {ev}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"[22] phase 22 took {rec['seconds']:.1f} s")
+    return rec, launches, summary
+
+
 def load_cfg_points(path):
     from pillarnet_lts_torch.apis import load_config
 
@@ -6185,6 +6558,15 @@ def main():
     t0 = time.perf_counter()
     _kernels.build_all()
     print(f"[1] built {sorted(_kernels.KERNELS)} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    from pillarnet_lts_torch import native
+
+    t0 = time.perf_counter()
+    if not native.available():  # the data pipeline's host C++ (phase 22)
+        raise AssertionError(f"[1] the host library did not build:\n"
+                             f"{native.build_error()}")
+    print(f"[1] built the host library "
+          f"{os.path.basename(native.library_path())} in "
           f"{time.perf_counter() - t0:.2f} s")
 
     torch.backends.cudnn.allow_tf32 = False
@@ -6241,6 +6623,7 @@ def main():
     compact, compact_launches, compact_replays = compact_path(torch, dev,
                                                               card)
     exported = serving_export(torch, dev, card)
+    prep, prep_launches, prep_replays = data_prep_chain(torch, dev, card)
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
@@ -6404,6 +6787,17 @@ def main():
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             r["replays"]["max_abs_err"] for r in k["export"].values()
             if r["replays"]])
+    # phase 22: the create_data -> train chain's launches (counts set to 0
+    # just before 22b, read just after) and its calls replayed; 22c's
+    for i, key, name in ((0, "k1", "pillar_scatter_max"),
+                         (2, "k2", "rotated_overlap")):
+        k = record["kernels"][i]
+        k["data_prep_chain"] = {
+            "train_launches": prep_launches[name],
+            "dist_test_launches": prep["dist_test"]["launches"][name],
+            "replays": prep_replays[key]}
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               prep_replays[key]["max_abs_err"])
     for k in record["kernels"]:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")
@@ -6420,6 +6814,7 @@ def main():
     print(json.dumps({"data_parallel": data_par}))
     print(json.dumps({"compact": compact}))
     print(json.dumps({"export": exported}))
+    print(json.dumps({"data_prep": prep}))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -6435,4 +6830,10 @@ if __name__ == "__main__":
         sys.exit(cli_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-artifact"]:
         sys.exit(serve_artifact(sys.argv[2]))
+    if sys.argv[1:2] == ["--data-prep-numpy"]:
+        sys.exit(data_prep_numpy(sys.argv[2:]))
+    if sys.argv[1:2] == ["--loader-passes"]:
+        sys.exit(loader_passes(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--loader-compare"]:
+        sys.exit(loader_compare(sys.argv[2]))
     sys.exit(main())

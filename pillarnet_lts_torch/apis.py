@@ -12,7 +12,7 @@ import torch
 from .models import build_detector
 from .models.utils import init_weights
 from .parallel.dist import barrier, process_count, rank
-from .parallel.mesh import rank_batch_size, replicate
+from .parallel.mesh import rank_batch_size, replicate, train_shards
 from .runtime.checkpoint import is_port_checkpoint, load_pretrained
 from .runtime.hooks import (CheckpointHook, Hook, IterTimerHook,
                             TextLoggerHook)
@@ -170,8 +170,10 @@ def train_detector(model, dataset, cfg, logger=None, resume_from=None,
     In a data-parallel group (`parallel.dist.init_from_env`) a step takes
     `samples_per_gpu` frames per node, as the JAX package's mesh does:
     each rank loads its `samples_per_gpu / LOCAL_WORLD_SIZE` rows of the
-    global batch through the loader's shards (`num_shards` = the ranks,
-    `shard_index` = its rank) and validates its shard of the val set; the
+    global batch, in the JAX package's order (`parallel.mesh.
+    train_shards`: the node's stripe of the epoch, the rank's contiguous
+    block of the node's batch), and validates its shard of the val set
+    (`num_shards` = the ranks, `shard_index` = its rank); the
     model starts from rank 0's state (`parallel.mesh.replicate`, after the
     pretrained weights and the resume). The hooks that write files
     (`Hook.writes`: the logs, the checkpoints, `hooks` of that kind) run
@@ -181,14 +183,15 @@ def train_detector(model, dataset, cfg, logger=None, resume_from=None,
     data = cfg["data"]
     workers = data.get("workers_per_gpu", 2)
     batch = rank_batch_size(data["samples_per_gpu"])
-    shards = dict(num_shards=process_count(), shard_index=rank())
     loader = DataLoader(dataset, batch, shuffle=True, num_workers=workers,
-                        max_points=data["max_points"], seed=seed, **shards)
+                        max_points=data["max_points"], seed=seed,
+                        **train_shards())
     val_loader, workflow = None, None
     if val_dataset is not None:
         val_loader = DataLoader(val_dataset, batch, num_workers=workers,
                                 max_points=data["max_points"],
-                                drop_last=False, **shards)
+                                drop_last=False, num_shards=process_count(),
+                                shard_index=rank())
         workflow = [("train", 1), ("val", 1)]
     total_epochs = cfg["total_epochs"]
     optimizer = optimizer_from_cfg(model, cfg, total_epochs * len(loader))

@@ -1,20 +1,24 @@
 """Numpy box geometry of the host data pipeline.
 
-The port's own copy of the numpy route of
-`pillarnet_lts_tpu/core/bbox/box_np_ops.py`: boxes are (x, y, z, w, l, h,
-[vx, vy,] yaw); yaw turns the corners by the `rotation_2d` matrix;
-lidar boxes have origin (0.5, 0.5, 0.5) and turn about z. The JAX package
-sends `points_in_rbbox` and `box_collision_test` to its native C++ when
-that library is built (f32 and a `fabs` test, so at box faces it need not
-equal numpy); the port has no such route, and its answers are the numpy
-route's, bit for bit.
+The port's own copy of `pillarnet_lts_tpu/core/bbox/box_np_ops.py`: boxes
+are (x, y, z, w, l, h, [vx, vy,] yaw); yaw turns the corners by the
+`rotation_2d` matrix; lidar boxes have origin (0.5, 0.5, 0.5) and turn
+about z. `points_in_rbbox` (centred boxes) and `box_collision_test`
+dispatch as the JAX package's do: to the host C++ library
+(`pillarnet_lts_torch/native`) when it is built, else to the numpy route
+here. The C++ computes in f32 with a `fabs` test, so at box faces it
+need not equal numpy; the JAX package's library and the port's, built
+from one source on one machine, give the same answers.
 
-`points_in_rbbox` works through the cloud in chunks of `_CHUNK` points, so
-a full Waymo frame against a few dozen boxes keeps its temporaries to a
-few MB; every element is computed as in the unchunked route.
+`points_in_rbbox`'s numpy route works through the cloud in chunks of
+`_CHUNK` points, so a full Waymo frame against a few dozen boxes keeps its
+temporaries to a few MB; every element is computed as in the unchunked
+route.
 """
 
 import numpy as np
+
+from ... import native
 
 _CHUNK = 16384
 
@@ -119,6 +123,10 @@ def points_in_rbbox(points, rbbox, z_axis=2, origin=(0.5, 0.5, 0.5)):
         return np.zeros((points.shape[0], 0), dtype=bool)
     if z_axis != 2:
         raise ValueError("only lidar (z-up) boxes are supported")
+    if tuple(origin) == (0.5, 0.5, 0.5):
+        out = native.points_in_rbbox(points, rbbox)
+        if out is not None:
+            return out
     centers = rbbox[:, :3]
     dims = rbbox[:, 3:6]
     angles = rbbox[:, -1]
@@ -182,6 +190,9 @@ def box_collision_test(boxes, qboxes, clockwise=True):
     n, k = boxes.shape[0], qboxes.shape[0]
     if n == 0 or k == 0:
         return np.zeros((n, k), dtype=bool)
+    out = native.box_collision_test(boxes, qboxes)
+    if out is not None:
+        return out
     b_su = corner_to_standup_nd(boxes)
     q_su = corner_to_standup_nd(qboxes)
     iw = (np.minimum(b_su[:, None, 2], q_su[None, :, 2])

@@ -9,8 +9,12 @@ they finish), and before each pass the loader gives a dataset with
 `set_seed` its seed plus the epoch, from which each sample's own draws
 are made (`PointCloudDataset.sample_rng`). The order of a pass: indices
 shuffled by `np.random.RandomState(seed + epoch)` when `shuffle`, split
-`num_shards` ways (one process by default), then cut into batches, the
-last short one dropped when `drop_last`.
+`num_shards` ways (one process by default; striped, as the JAX loader
+stripes its hosts), then cut into batches, the last short one dropped
+when `drop_last`. With `block=(i, n)` the indices are cut into batches of
+`n * batch_size` and the loader yields block i of each, `batch_size`
+rows: one of n ranks that share a batch (a node's ranks, which split its
+batch contiguously as the JAX mesh splits a host's).
 """
 
 from collections import deque
@@ -24,7 +28,7 @@ from ..collate import collate_batch
 class DataLoader:
     def __init__(self, dataset, batch_size, shuffle=False, num_workers=2,
                  max_points=None, seed=0, drop_last=True, num_shards=1,
-                 shard_index=0, prefetch=4):
+                 shard_index=0, block=(0, 1), prefetch=4):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -34,6 +38,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.num_shards = num_shards
         self.shard_index = shard_index
+        self.block = block
         self.prefetch = max(1, prefetch)
         self.epoch = 0
 
@@ -52,9 +57,17 @@ class DataLoader:
         return idx
 
     def __len__(self):
-        n = len(self._indices())
-        return n // self.batch_size if self.drop_last \
-            else -(-n // self.batch_size)
+        n, size = len(self._indices()), self.batch_size * self.block[1]
+        return n // size if self.drop_last else -(-n // size)
+
+    def batches(self):
+        """The pass's batches as dataset indices."""
+        idx = self._indices()
+        i, n = self.block
+        size = self.batch_size * n
+        return [idx[b * size:(b + 1) * size][
+            i * self.batch_size:(i + 1) * self.batch_size]
+            for b in range(len(self))]
 
     def _batch(self, sel):
         return collate_batch([self.dataset[int(i)] for i in sel],
@@ -64,9 +77,7 @@ class DataLoader:
         set_seed = getattr(self.dataset, "set_seed", None)
         if set_seed is not None:
             set_seed(self.seed + self.epoch)
-        idx = self._indices()
-        batches = [idx[b * self.batch_size:(b + 1) * self.batch_size]
-                   for b in range(len(self))]
+        batches = self.batches()
         pool = ThreadPoolExecutor(self.num_workers)
         pending = deque()
         try:

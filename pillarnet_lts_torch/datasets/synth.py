@@ -269,3 +269,83 @@ def write_waymo_set(root, num_frames, num_points, class_names, pc_range,
     with open(path, "wb") as f:
         pickle.dump(infos, f)
     return path
+
+
+# Waymo's label ids (`datasets/waymo/waymo_infos.py::TYPE_LIST`) of the
+# classes a raw frame cycles through: VEHICLE, PEDESTRIAN, CYCLIST, SIGN
+_RAW_LABELS = (1, 2, 4, 3)
+_RAW_NAMES = ("VEHICLE", "PEDESTRIAN", "CYCLIST", "SIGN")
+
+
+def _raw_pose(sequence, frame):
+    """A vehicle-to-global pose that moves and turns from frame to frame:
+    16 f64 values, row-major 4x4."""
+    yaw = 0.3 * sequence + 0.02 * frame
+    pose = np.eye(4)
+    pose[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+    pose[:3, 3] = [100.0 * sequence + 1.5 * frame,
+                   -20.0 * sequence + 0.25 * frame, 0.5]
+    return pose.reshape(16)
+
+
+def write_waymo_raw(root, split, num_sequences, frames_per_sequence,
+                    num_points, pc_range, seed=0):
+    """Raw Waymo frames in the layout of `datasets/waymo/waymo_converter.py`
+    under `{root}/{split}`, from the demo scenes (`synth_scene`): per
+    frame `lidar/seq_S_frame_F.pkl` (`lidars.points_xyz` (n, 3) and
+    `points_feature` (n, 2) f32, intensity and elongation) and
+    `annos/seq_S_frame_F.pkl` (`frame_name` ending in the frame's
+    timestamp in us, 10 Hz; `veh_to_global`, 16 f64 values of a pose that
+    moves and turns; `objects`, each with a 9-value f32 Waymo box (centre,
+    length, width, height, velocity, heading), its `label` index into
+    `TYPE_LIST` (vehicles, pedestrians, cyclists and signs in turn),
+    `num_points` and `detection_difficulty_level`). Frame 1 of sequence 0
+    has no objects, and every fifth object has no points. A test fixture;
+    returns the split's directory."""
+    import os
+    import pickle
+
+    split_dir = os.path.join(root, split)
+    for sub in ("lidar", "annos"):
+        os.makedirs(os.path.join(split_dir, sub), exist_ok=True)
+    for s in range(num_sequences):
+        scene = f"synth_{seed}_{s}"
+        for f in range(frames_per_sequence):
+            scene_seed = seed + 100 * s + f
+            points, boxes, names = synth_scene(scene_seed, num_points,
+                                               pc_range, _RAW_NAMES)
+            rng = np.random.RandomState(scene_seed)
+            stamp = 1_557_000_000_000_000 + s * 10**9 + f * 100_000
+            frame_name = f"{scene}_location_sf_Day_{stamp}"
+            per_box = (num_points - num_points * 3 // 4) // len(boxes)
+            objects = []
+            if (s, f) != (0, 1):
+                for i, b in enumerate(boxes):
+                    objects.append({
+                        "id": i,
+                        "name": f"{scene}_{f}_{i}",
+                        "label": _RAW_LABELS[_RAW_NAMES.index(names[i])],
+                        "box": np.array([b[0], b[1], b[2], b[4], b[3], b[5],
+                                         b[6], b[7], -np.pi / 2 - b[8]],
+                                        dtype=np.float32),
+                        "num_points": 0 if i % 5 == 4 else per_box,
+                        "detection_difficulty_level": int(rng.randint(1, 3)),
+                        "combined_difficulty_level": 0,
+                    })
+            name = f"seq_{s}_frame_{f}.pkl"
+            with open(os.path.join(split_dir, "lidar", name), "wb") as fh:
+                pickle.dump({
+                    "scene_name": scene, "frame_name": frame_name,
+                    "frame_id": f,
+                    "lidars": {
+                        "points_xyz": np.ascontiguousarray(points[:, :3]),
+                        "points_feature": np.stack(
+                            [points[:, 3] / 255.0,
+                             rng.uniform(0, 1, len(points))],
+                            axis=1).astype(np.float32)}}, fh)
+            with open(os.path.join(split_dir, "annos", name), "wb") as fh:
+                pickle.dump({"scene_name": scene, "frame_name": frame_name,
+                             "frame_id": f,
+                             "veh_to_global": _raw_pose(s, f),
+                             "objects": objects}, fh)
+    return split_dir

@@ -2,11 +2,10 @@
 `datasets/waymo/waymo.py`).
 
 Per-frame info pkls, optional class-balanced resampling (`sample`), the
-pipeline-driven `get_sensor_data`, and evaluation: the JAX package exports
+pipeline-driven `get_sensor_data`, and evaluation as the JAX package's:
 `detection_pred.bin` for the official metrics tool when
-`waymo_open_dataset` imports, else pickles the detections and scores them
-with the native AP/APH evaluator (`waymo_eval.py`). The port has the same
-dispatch; its export (`waymo_common.py`) is not ported and raises. The
+`waymo_open_dataset` imports (`waymo_common.py`), else the detections
+pickled and scored by the native AP/APH evaluator (`waymo_eval.py`). The
 resampling draws from `np.random.RandomState(seed)`.
 """
 
@@ -19,6 +18,7 @@ import numpy as np
 from ..custom import PointCloudDataset
 from ..nuscenes.nuscenes import cbgs_resample
 from ..registry import DATASETS
+from . import waymo_common
 from .waymo_eval import evaluate_waymo, gt_from_infos, preds_from_detections
 
 
@@ -71,18 +71,21 @@ class WaymoDataset(PointCloudDataset):
 
     def evaluation(self, detections, output_dir=None, testset=False,
                    device="cuda"):
-        """Without the waymo-open-dataset devkit: the detections pickled to
+        """With the waymo-open-dataset devkit: `detection_pred.bin` written
+        to `output_dir` for its `compute_detection_metrics_main` (returns
+        (None, None)). Without it: the detections pickled to
         `{output_dir}/detections.pkl`, then scored by the native
-        evaluator. With it, the JAX package exports `detection_pred.bin`,
-        which the port does not (it raises)."""
+        evaluator."""
         try:
-            import waymo_open_dataset  # noqa: F401
+            waymo_common._devkit()
         except ImportError:
             pass
         else:
-            raise NotImplementedError(
-                "the detection_pred.bin export for the waymo-open-dataset "
-                "metrics tool is not ported; use evaluation_native")
+            infos = {info["token"]: info for info in self._waymo_infos}
+            waymo_common._create_pd_detection(detections, infos, output_dir)
+            print(f"Wrote detection_pred.bin to {output_dir}; use the Waymo "
+                  "devkit compute_detection_metrics_main against gt.bin")
+            return None, None
         if output_dir:
             out = os.path.join(output_dir, "detections.pkl")
             with open(out, "wb") as f:

@@ -30,7 +30,10 @@ Compact execution: when the reader hands a `CompactPillars` table
 (`reader.compact_kmax > 0`), conv1 and conv2 run as gather convs over the
 active sites (`compact_exec.py`), with `compact_kmax2` coarse sites for
 conv2 (0: 5/8 of the reader's budget, rounded up to a multiple of 8);
-the conv1 and conv2 outputs are densified and conv3+ run as above. Not
+the conv1 and conv2 outputs are densified and conv3+ run as above. The
+coarse sites past that budget drop out (the JAX package's semantics);
+each eager forward keeps their count over the batch in
+`dropped_coarse_sites`, a 0-d int64 tensor on the device. Not
 with int8 (it raises, as the JAX package does); remat covers conv3+
 only there.
 """
@@ -88,6 +91,7 @@ class _PillarResNetBase(nn.Module):
         self.s2d_pallas = s2d_pallas
         self.remat = remat
         self.compact_kmax2 = compact_kmax2
+        self.dropped_coarse_sites = None
         self._fused = (None, None)  # (state keys, stacked stage params)
         self.conv1_block0 = Sparse2DBasicBlockV(c, quant, device)
         for i in range(1, self.conv1_blocks):
@@ -228,7 +232,10 @@ class _PillarResNetBase(nn.Module):
             x = blk.compact(x, nbr1, valid1)
 
         H2, W2 = H // 2, W // 2
-        ids2, k2 = downsample_site_ids(cp.site_ids, cp.k_valid, H, W, k2max)
+        ids2, k2, dropped = downsample_site_ids(cp.site_ids, cp.k_valid, H, W,
+                                                k2max)
+        if not torch.compiler.is_compiling():
+            self.dropped_coarse_sites = dropped
         nbr_down = Neighbors(
             down_conv_neighbor_table(ids2, k2, cp.site_ids, cp.k_valid, H, W,
                                      kmax).long(),

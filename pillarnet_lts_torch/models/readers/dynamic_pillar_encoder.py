@@ -21,7 +21,10 @@ calibrated scale, dequantized in f32 and rounded once to `dtype`.
 `ops/compact.py::compact_segment_max` instead of the scatter, and the
 reader returns `(CompactPillars, None)`, an active-site row table with a
 budget of `compact_kmax` sites, for the backbone's compact conv1/conv2;
-no dense grid is built and K1 is not launched.
+no dense grid is built and K1 is not launched. A cloud with more active
+sites than the budget loses the rest (the JAX package's semantics); each
+eager forward keeps their count over the batch in `dropped_sites`, a 0-d
+int64 tensor on the points' device (None before the first).
 """
 
 from typing import Sequence
@@ -91,6 +94,7 @@ class DynamicPFE(Calibrated, nn.Module):
         self.spec = PillarSpec(float(pillar_size), tuple(pc_range))
         self.dtype = dtype
         self.compact_kmax = int(compact_kmax)
+        self.dropped_sites = None
         dims = [2 + in_channels] + list(num_filters)
         self.num_layers = len(dims) - 1
         for k in range(self.num_layers):
@@ -119,9 +123,11 @@ class DynamicPFE(Calibrated, nn.Module):
                 x = dense.folded(x, *bn.fold_factors(), valid)
             x = F.relu(x)
         if self.compact_kmax > 0:
-            rows, site_ids, k_valid = compact_segment_max(
+            rows, site_ids, k_valid, dropped = compact_segment_max(
                 x, flat_ids, valid, spec.height * spec.width,
                 self.compact_kmax)
+            if not torch.compiler.is_compiling():
+                self.dropped_sites = dropped
             # the backbone appends its own sentinel rows
             return CompactPillars(rows[:, :self.compact_kmax], site_ids,
                                   k_valid, spec.height, spec.width), None

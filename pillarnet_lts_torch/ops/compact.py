@@ -17,7 +17,9 @@ shapes:
 
 Every function here is batched over a leading B (the JAX functions are
 per sample and `jax.vmap`ped by their callers); integers are int32 and
-bit-equal to the JAX package's, truncation by the budget included.
+bit-equal to the JAX package's, truncation by the budget included; the
+sites a budget leaves out are counted (`dropped_sites`), which the JAX
+package does not do.
 Offsets are row-major (dy, dx) in {-1, 0, 1}^2, the order of a
 `(3, 3, Cin, Cout) -> (9 * Cin, Cout)` reshape of the dense kernels, so
 compact and masked-dense execution share parameters.
@@ -116,6 +118,13 @@ def compact_ranks(flags):
     return torch.cumsum(flags.to(_I32), dim=-1, dtype=_I32)
 
 
+def dropped_sites(needed, budget):
+    """The sites a table of `budget` rows leaves out, summed over the batch
+    (needed (B,) counts), as a 0-d int64 tensor on their device: no host
+    sync."""
+    return (needed.long() - budget).clamp(min=0).sum()
+
+
 def compact_segment_max(point_feats, flat_ids, valid, hw, kmax):
     """Sorted segment-max emitting COMPACT pillar rows (no dense grid).
 
@@ -135,6 +144,8 @@ def compact_segment_max(point_feats, flat_ids, valid, hw, kmax):
       rows: (B, kmax + 1, C); padding and sentinel rows are 0.
       site_ids: (B, kmax) int32 sorted flat ids; padding = hw.
       k_valid: (B,) int32 active-site counts (clamped to kmax).
+      dropped: the active sites past the budget (`dropped_sites`), which
+        the table leaves out.
     """
     bsz, n, c = point_feats.shape
     dev = point_feats.device
@@ -169,7 +180,7 @@ def compact_segment_max(point_feats, flat_ids, valid, hw, kmax):
     rev = torch.where(head & (ranks <= kmax), ranks - 1, kmax)[..., None]
     vals = torch.where(ok[..., None], gather_rows(feats_s, src_c, rev), 0.0)
     rows = torch.cat([vals, vals.new_zeros((bsz, 1, c))], dim=1)
-    return rows, site_ids, k_valid
+    return rows, site_ids, k_valid, dropped_sites(ranks[:, -1], kmax)
 
 
 def _offset_queries(ys, xs, height, width):
@@ -235,7 +246,9 @@ def downsample_site_ids(site_ids, k_valid, height, width, k2max):
     sorted ids.
 
     Returns (site_ids2 (B, k2max) int32 sorted row-major on the
-    (height // 2, width // 2) grid, padded with h2 * w2; k2_valid (B,))."""
+    (height // 2, width // 2) grid, padded with h2 * w2; k2_valid (B,);
+    the coarse sites past `k2max` (`dropped_sites`), which the table
+    leaves out)."""
     bsz = site_ids.shape[0]
     dev = site_ids.device
     h2, w2 = height // 2, width // 2
@@ -261,7 +274,7 @@ def downsample_site_ids(site_ids, k_valid, height, width, k2max):
     src = searchsorted_left(ranks, slot + 1)
     ok = slot < k2_valid[:, None]
     ids2 = torch.where(ok, src.clamp(max=hw2 - 1), hw2).to(_I32)
-    return ids2, k2_valid
+    return ids2, k2_valid, dropped_sites(ranks[:, -1], k2max)
 
 
 def down_conv_neighbor_table(site_ids2, k2_valid, fine_site_ids, fine_k,

@@ -5,15 +5,19 @@ The counterpart of `pillarnet_lts_tpu/parallel/mesh.py` (`make_mesh`,
 `shard_batch`, `replicate`). The JAX package shards the global batch on
 a 1-D 'dp' mesh of all devices and replicates the state; here every rank
 holds the whole model (`replicate`), loads its own rows of the global
-batch (`rank_batch_size` with the loader's `num_shards` / `shard_index`)
-and draws the random numbers of the global batch, keeping its rows
-(`rank_rows`), so that its draws are the one-process run's rows.
+batch (`rank_batch_size`, `train_shards`) and draws the random numbers
+of the global batch, keeping its rows (`rank_rows`), so that its draws
+are the one-process run's rows.
 
 The batch follows the JAX package: a step consumes `samples_per_gpu`
 frames per node (the JAX loader's batch per host, split over that host's
 devices), so each of the node's ranks loads `samples_per_gpu /
 LOCAL_WORLD_SIZE` frames, and the global batch is `samples_per_gpu`
-times the number of nodes.
+times the number of nodes. Its rows in rank order are the JAX package's:
+the nodes stripe the epoch as the JAX loader stripes its hosts, and a
+node's ranks take contiguous blocks of the node's batch, as the JAX mesh
+splits a host's batch over its devices (rank r of a node of n ranks, in
+torchrun's layout, where node k holds ranks [k n, (k + 1) n)).
 """
 
 import itertools
@@ -44,6 +48,16 @@ def rank_batch_size(samples_per_gpu):
         raise ValueError(f"samples_per_gpu={samples_per_gpu} does not "
                          f"split over the node's {ranks} ranks")
     return samples_per_gpu // ranks
+
+
+def train_shards():
+    """The training loader's sharding of this rank (`DataLoader`'s
+    `num_shards`, `shard_index`, `block`): the node's stripe of the epoch,
+    and the rank's block of each of the node's batches."""
+    n = dist.local_process_count()
+    r = dist.rank()
+    return dict(num_shards=dist.process_count() // n, shard_index=r // n,
+                block=(r % n, n))
 
 
 def rank_slice(n_global):

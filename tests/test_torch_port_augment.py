@@ -3,12 +3,14 @@ per-object augmentations, the GT-AUG sampler and its database, and the
 train `Preprocess`, against the JAX package's numpy route on the same
 inputs.
 
-Tolerance: none; every array equals the JAX package's bit for bit. The
-JAX package sends `points_in_rbbox` and `box_collision_test` to its
-native C++ when `csrc/libpillar_pipeline.so` is built (f32, and it may
-differ from numpy at box faces); each test here pins the numpy route by
-making `pillarnet_lts_tpu.native`'s two functions return None, so the
-tests hold whether or not the library is built.
+Tolerance: none; every array equals the JAX package's bit for bit. Both
+packages send `points_in_rbbox` and `box_collision_test` to their host
+C++ when it is built (`csrc/libpillar_pipeline.so`,
+`pillarnet_lts_torch/native`; f32, and it may differ from numpy at box
+faces); each comparison runs one route on both sides: the numpy route,
+pinned by making both packages' `native` functions return None, so the
+tests hold whether or not a library is built, or, where both libraries
+are built, the two native routes against each other.
 
 The two random streams: the JAX package draws the augmentations, the
 point shuffle and the GT-AUG reshuffles from numpy's global state; the
@@ -31,6 +33,7 @@ import numpy as np
 import pytest
 
 import pillarnet_lts_tpu.native as jnative
+import pillarnet_lts_torch.native as tnative
 from pillarnet_lts_tpu.core.bbox import box_np_ops as jops
 from pillarnet_lts_tpu.core.sampler import augment as jaug
 from pillarnet_lts_tpu.core.sampler import db_sampler as jdb
@@ -56,6 +59,9 @@ import test_torch_port_threads  # noqa: F401  (one torch thread)
 from test_torch_port_datasets import assert_same_sample
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, ROOT)
+import chip_smoke as cs  # noqa: E402
+
 RCNN = load_config(os.path.join(ROOT,
                                 "configs/pillarrcnn/pillarrcnn18_waymo.py"))
 NUSC = load_config(os.path.join(ROOT, "configs/pillarnet/pillarnet34_nusc.py"))
@@ -65,10 +71,18 @@ SEED = 11
 
 
 @pytest.fixture
-def numpy_route(monkeypatch):
-    """The JAX package's numpy route of the two box tests."""
-    monkeypatch.setattr(jnative, "points_in_rbbox", lambda *a, **k: None)
-    monkeypatch.setattr(jnative, "box_collision_test", lambda *a, **k: None)
+def numpy_route():
+    """Both packages' numpy route of the two box tests."""
+    with cs.numpy_route(jnative, tnative):
+        yield
+
+
+@pytest.fixture
+def native_routes():
+    """Both packages' native routes (skips where a library is not built)."""
+    if not (jnative.available() and tnative.available()):
+        pytest.skip("a native library is not built: "
+                    f"{tnative.build_error()}")
 
 
 def random_boxes(rng, n, width=9, spread=20.0):
@@ -160,6 +174,33 @@ def test_box_collision_test_equals_the_numpy_route(numpy_route, clockwise):
         got, jops.box_collision_test(corners, corners[:25], clockwise))
     assert got.any() and not got.all()
     assert tops.box_collision_test(corners[:0], corners).shape == (0, 40)
+
+
+def test_box_tests_native_route_equals_jax_native(native_routes):
+    """Where both libraries are built: the port's `points_in_rbbox` (the
+    rotated boxes and the face points of the numpy-route test) and
+    `box_collision_test` (crowded boxes) go to its C++ and equal the JAX
+    package's C++ route bit for bit."""
+    rng = np.random.RandomState(1)
+    boxes = random_boxes(rng, 35)
+    pts = np.zeros((20000, 5), np.float32)
+    pts[:, :3] = rng.uniform([-22, -22, -3], [22, 22, 2], (len(pts), 3))
+    aligned = random_boxes(rng, 6)
+    aligned[:, :6] = np.round(aligned[:, :6] * 4) / 4
+    aligned[:, -1] = 0.0
+    for p, b in ((pts, boxes), (face_points(aligned), aligned)):
+        got = tops.points_in_rbbox(p, b)
+        np.testing.assert_array_equal(got, tnative.points_in_rbbox(p, b))
+        np.testing.assert_array_equal(got, jops.points_in_rbbox(p, b))
+    crowded = random_boxes(np.random.RandomState(2), 40, spread=6.0)
+    corners = tops.center_to_corner_box2d(crowded[:, :2], crowded[:, 3:5],
+                                          crowded[:, -1])
+    got = tops.box_collision_test(corners, corners[:25])
+    np.testing.assert_array_equal(
+        got, tnative.box_collision_test(corners, corners[:25]))
+    np.testing.assert_array_equal(
+        got, jops.box_collision_test(corners, corners[:25]))
+    assert got.any() and not got.all()
 
 
 @pytest.mark.parametrize("axis", [0, 1, 2])
@@ -323,9 +364,10 @@ def waymo_db(tmp_path_factory):
                            RCNN["point_cloud_range"], seed=9, split="train",
                            class_counts=COUNTS)
     dbinfo = os.path.join(root, "dbinfos_train_1sweeps_withvelo.pkl")
-    infos = create_groundtruth_database("WaymoDataset", root, info,
-                                        used_classes=WAYMO_CLASSES,
-                                        dbinfo_path=dbinfo)
+    with cs.numpy_route(jnative, tnative):
+        infos = create_groundtruth_database("WaymoDataset", root, info,
+                                            used_classes=WAYMO_CLASSES,
+                                            dbinfo_path=dbinfo)
     return root, info, dbinfo, infos
 
 

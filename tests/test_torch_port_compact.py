@@ -145,7 +145,7 @@ def port_tables(site_ids, k, H, W, kmax, k2max):
     """Every integer table of the compact path (nbr1, ids2, k2, nbr_down,
     nbr2), as `PillarResNet._forward_compact` builds them."""
     nbr1 = tc.subm_neighbor_table(site_ids, k, H, W, kmax)
-    ids2, k2 = tc.downsample_site_ids(site_ids, k, H, W, k2max)
+    ids2, k2, _ = tc.downsample_site_ids(site_ids, k, H, W, k2max)
     nbr_down = tc.down_conv_neighbor_table(ids2, k2, site_ids, k, H, W, kmax)
     nbr2 = tc.subm_neighbor_table(ids2, k2, H // 2, W // 2, k2max)
     return nbr1, ids2, k2, nbr_down, nbr2
@@ -172,7 +172,7 @@ def test_compact_tables_bit_equal_jax(name, kw):
         valid[1] = False
         ids[1] = H * W
     jrows, jsites, jk = jax_segment_max(feats, ids, valid, H * W, kmax)
-    rows, sites, k = port_segment_max(feats, ids, valid, H * W, kmax)
+    rows, sites, k, _ = port_segment_max(feats, ids, valid, H * W, kmax)
     assert_int_equal(sites, jsites, "site_ids")
     assert_int_equal(k, jk, "k_valid")
     np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
@@ -215,7 +215,7 @@ def test_reverse_tables_list_every_reader(name, kw):
     none (padding rows read nothing that carries a gradient)."""
     H, W = TH, TW
     feats, ids, valid = scene(H=H, W=W, **kw)
-    _, sites, k = port_segment_max(feats, ids, valid, H * W, KMAX)
+    _, sites, k, _ = port_segment_max(feats, ids, valid, H * W, KMAX)
     nbr1, ids2, k2, nbr_down, nbr2 = port_tables(sites, k, H, W, KMAX, K2MAX)
     revs = ((nbr1, tc.subm_reverse(nbr1, k), k, k, KMAX),
             (nbr_down, tc.down_conv_reverse(sites, k, ids2, k2, H, W, K2MAX),
@@ -275,7 +275,7 @@ def test_gather_conv_matches_jax():
     kernel = rng.randn(3, 3, Cin, Cout).astype(np.float32) * 0.2
     bias = rng.randn(Cout).astype(np.float32)
     feats, ids, valid = scene(5, C=Cin)
-    rows, sites, k = port_segment_max(feats, ids, valid, H * W, kmax)
+    rows, sites, k, _ = port_segment_max(feats, ids, valid, H * W, kmax)
     nbr = tc.subm_neighbor_table(sites, k, H, W, kmax)
     w2 = kernel.reshape(9 * Cin, Cout)
     want = jax.vmap(lambda r, n: jc.gather_conv(r, n, w2, bias))(
@@ -309,8 +309,9 @@ def test_segment_max_gradient_at_ties_matches_jax():
 
     want = jax.jit(jax.grad(jloss))(feats)
     f = torch.from_numpy(feats).requires_grad_()
-    rows, _, _ = tc.compact_segment_max(f, torch.from_numpy(ids),
-                                        torch.from_numpy(valid), H * W, kmax)
+    rows, _, _, _ = tc.compact_segment_max(f, torch.from_numpy(ids),
+                                           torch.from_numpy(valid), H * W,
+                                           kmax)
     (rows * torch.from_numpy(ct)).sum().backward()
     got = f.grad.numpy()
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-6)
@@ -462,8 +463,8 @@ def test_demo_detector_compact_matches_jax_and_the_dense_path():
     with torch.inference_mode():
         cp, _ = port.reader_net(torch.from_numpy(pts),
                                 torch.from_numpy(msk))
-    ids2, k2 = tc.downsample_site_ids(cp.site_ids, cp.k_valid, cp.height,
-                                      cp.width, 4096)
+    ids2, k2, _ = tc.downsample_site_ids(cp.site_ids, cp.k_valid,
+                                         cp.height, cp.width, 4096)
     assert (k2 > 640).all()  # the default budget truncates
     _assert_same_detections(_detections(port, pts, msk), jdet, 1e-3, 1e-4)
 
@@ -474,6 +475,56 @@ def test_demo_detector_compact_matches_jax_and_the_dense_path():
     got = _detections(load_jax_variables(
         build_detector(compact, test_cfg=tcfg), variables), pts, msk)
     _assert_same_detections(got, want, 5e-3, 1e-3)
+
+
+def test_budgets_count_the_sites_they_drop():
+    """pillarnet18_demo with compact_kmax=512 on two clouds that need more
+    active sites (and more coarse sites than the default conv2 budget,
+    320): the reader's `dropped_sites` is the sites needed minus 512 over
+    the batch, the backbone's `dropped_coarse_sites` the coarse sites the
+    kept table needs minus 320; the detections are the JAX package's
+    compact path's, which truncates both tables alike and counts
+    nothing."""
+    from pillarnet_lts_torch.ops.voxelize import voxelize_points
+
+    cfg = load_config(DEMO)
+    mcfg, tcfg = cfg["model"], cfg["test_cfg"]
+    mcfg["reader"]["compact_kmax"] = 512
+    pts, msk = _demo_cloud()
+    jmodel = build_jax_detector(copy.deepcopy(mcfg), test_cfg=tcfg)
+    dense = copy.deepcopy(mcfg)
+    del dense["reader"]["compact_kmax"]
+    variables = random_variables(
+        build_jax_detector(dense, test_cfg=tcfg), 22, jnp.asarray(pts),
+        jnp.asarray(msk), train=False)
+    variables = jax.tree_util.tree_map(np.array, variables)
+    port = build_detector(copy.deepcopy(mcfg), test_cfg=tcfg)
+    assert port.reader_net.dropped_sites is None
+    spread_both_heads(port, variables, torch.from_numpy(pts),
+                      torch.from_numpy(msk))
+    got = _detections(port, pts, msk)
+    jpreds = jit_apply(jmodel, variables, jnp.asarray(pts), jnp.asarray(msk))
+    jdet = jax.jit(lambda p: jmodel.predict(
+        {}, p, jmodel.processed_test_cfg()))(jpreds)
+    _assert_same_detections(got, jdet, 1e-3, 1e-4)
+
+    reader = port.reader_net
+    _, ids, valid = voxelize_points(torch.from_numpy(pts),
+                                    torch.from_numpy(msk), reader.spec)
+    needed = [len(torch.unique(i[v])) for i, v in zip(ids, valid)]
+    assert min(needed) > 512
+    assert reader.dropped_sites.shape == ()
+    assert int(reader.dropped_sites) == sum(n - 512 for n in needed)
+    with torch.inference_mode():
+        cp, _ = reader(torch.from_numpy(pts), torch.from_numpy(msk))
+    _, k2, none_dropped = tc.downsample_site_ids(
+        cp.site_ids, cp.k_valid, cp.height, cp.width,
+        cp.height * cp.width // 4)
+    assert int(none_dropped) == 0
+    budget = port.backbone_net.coarse_budget(512)
+    assert budget == 320 and (k2 > budget).all()
+    assert int(port.backbone_net.dropped_coarse_sites) == int(
+        (k2 - budget).sum())
 
 
 def test_int8_with_compact_raises_as_in_jax():

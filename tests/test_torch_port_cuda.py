@@ -1614,3 +1614,73 @@ def test_demo_program_on_the_card_equals_eager(cuda, int8, tmp_path):
     assert int(want["mask"].sum()) > 0
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def test_compact_demo_program_on_the_card_equals_eager(cuda, tmp_path):
+    """pillarnet18_demo with the compact reader, exported on the card: the
+    program launches what eager launches (K2, no K1: the compact reader
+    takes its place) and returns eager's detections bit for bit."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.runtime.export import (
+        export_serving, load_serving, save_serving)
+
+    cfg = load_config(os.path.join(os.path.dirname(__file__), "..",
+                                   "configs", "demo", "pillarnet18_demo.py"))
+    pts, msk = _demo_cloud(cfg, cuda, 6)
+    cfg["model"]["reader"] = dict(cfg["model"]["reader"],
+                                  compact_kmax=pts.shape[1])
+    model = build_model_from_cfg(cfg, device=cuda, seed=6)
+    spread_head_outputs(model, pts, msk)
+    _kernels.reset_launches()
+    want = make_infer_fn(model)(pts, msk)
+    eager = dict(_kernels.LAUNCHES)
+    assert int(model.reader_net.dropped_sites) == 0
+    path = str(tmp_path / "compact.pt2")
+    save_serving(export_serving(model, *pts.shape[:2]), path)
+    serve = load_serving(path).module()
+    _kernels.reset_launches()
+    with torch.inference_mode():
+        got = serve(pts, msk)
+    assert dict(_kernels.LAUNCHES) == eager
+    assert eager["pillar_scatter_max"] == 0 and eager["rotated_overlap"] >= 1
+    assert int(want["mask"].sum()) > 0
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_cpu_exported_program_served_on_the_card(cuda, tmp_path):
+    """A demo program traced on the CPU, loaded onto the card
+    (`load_serving(path, device)`, `move_to_device_pass`): it launches the
+    kernel ops (K1 once, K2) and returns the detections that eager serving
+    of the same weights on the card returns, bit for bit."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.runtime.export import (
+        export_serving, load_serving, save_serving)
+
+    cfg = load_config(os.path.join(os.path.dirname(__file__), "..",
+                                   "configs", "demo", "pillarnet18_demo.py"))
+    cpu = torch.device("cpu")
+    pts, msk = _demo_cloud(cfg, cpu, 7)
+    model = build_model_from_cfg(cfg, device=cpu, seed=7)
+    spread_head_outputs(model, pts, msk)
+    path = str(tmp_path / "cpu.pt2")
+    save_serving(export_serving(model, *pts.shape[:2]), path)
+    model.to(cuda)
+    pts, msk = pts.to(cuda), msk.to(cuda)
+    _kernels.reset_launches()
+    want = make_infer_fn(model)(pts, msk)
+    eager = dict(_kernels.LAUNCHES)
+    serve = load_serving(path, cuda).module()
+    _kernels.reset_launches()
+    with torch.inference_mode():
+        got = serve(pts, msk)
+    assert dict(_kernels.LAUNCHES) == eager
+    assert eager["pillar_scatter_max"] == 1 and eager["rotated_overlap"] >= 1
+    assert int(want["mask"].sum()) > 0
+    for k in want:
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k], want[k]), k

@@ -225,7 +225,7 @@ def test_load_config_matches_jax_config(path):
 
 def test_port_runs_without_importing_jax():
     code = (
-        "import sys, numpy as np, torch\n"
+        "import os, sys, numpy as np, torch\n"
         "import pillarnet_lts_torch\n"
         "from chip_smoke import FLAGSHIP, golden_model_cfg\n"
         "from pillarnet_lts_torch.apis import build_model_from_cfg, load_config\n"
@@ -278,6 +278,19 @@ def test_port_runs_without_importing_jax():
         "tiled = make_infer_fn(model)(pts, msk)\n"
         "set_backend('auto')\n"
         "assert tiled['mask'].shape == (1, 128)\n"
+        "import tempfile\n"
+        "from pillarnet_lts_torch import native\n"
+        "from pillarnet_lts_torch.datasets.synth import write_waymo_raw\n"
+        "from pillarnet_lts_torch.datasets.waymo import (waymo_common,\n"
+        "    waymo_converter, waymo_infos)\n"
+        "from pillarnet_lts_torch.tools import create_data\n"
+        "assert native.available() or native.build_error()\n"
+        "with tempfile.TemporaryDirectory() as root:\n"
+        "    write_waymo_raw(root, 'train', 1, 2, 512,\n"
+        "                    [-75.2, -75.2, -2, 75.2, 75.2, 4])\n"
+        "    create_data.main(['waymo_data_prep', '--root_path', root])\n"
+        "    assert os.path.exists(os.path.join(\n"
+        "        root, 'dbinfos_train_1sweeps.pkl'))\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'pillarnet_lts_tpu' not in sys.modules, 'JAX package imported'\n"
         "print('no-jax ok')\n"

@@ -319,6 +319,28 @@ def test_two_stage_export_round_trips(tmp_path):
     assert_same(round_trip(program, tmp_path, "cpu")(pts, msk), want)
 
 
+def test_compact_export_round_trips(tmp_path):
+    """pillarnet18_demo with the compact reader (`reader.compact_kmax`):
+    its tables have static shapes (a fixed budget), so it exports; the
+    program calls the overlap op only (no scatter-max: the compact reader
+    takes its place), counts no dropped site in the trace, and the saved
+    and loaded program returns eager's detections bit for bit."""
+    cfg = load_config(DEMO)
+    cfg["model"]["reader"] = dict(cfg["model"]["reader"],
+                                  compact_kmax=N_POINTS)
+    pts, msk = demo_cloud(cfg, seed=4)
+    model = build_model_from_cfg(cfg, device="cpu", seed=6)
+    spread_head_outputs(model, pts, msk)
+    program = export_serving(model, 1, N_POINTS)
+    assert kernel_ops(program) == {"rotated_overlap"}
+    want = make_infer_fn(model)(pts, msk)
+    assert int(want["mask"].sum()) > 0
+    assert int(model.reader_net.dropped_sites) == 0
+    assert int(model.backbone_net.dropped_coarse_sites) == 0
+    assert_same(round_trip(program, tmp_path, "cpu")(pts, msk), want)
+    assert_same(program.module()(pts, msk), want)
+
+
 SERVE_ALONE = """
 import sys, numpy as np, torch
 from pillarnet_lts_torch.runtime.export import load_serving

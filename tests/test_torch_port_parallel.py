@@ -25,11 +25,21 @@ intra-op thread each.
   ranks, in another order than one process sums them).
 - The demo ranks' first step against one step of the JAX package's
   `make_train_step` jitted over a 2-device `make_mesh` with
-  `shard_batch`, from the port's seeded weights (`variables_of`), with
-  the tolerances `tests/test_torch_port_train_step.py` holds the port's
-  one-process step to JAX.
-- The loader's shards against the JAX `DataLoader`'s; a plain process
-  starts no group; the node's ranks split `samples_per_gpu`.
+  `shard_batch`, fed the JAX loader's first batch in its own order (the
+  ranks' rows in rank order are that batch: a node's ranks take
+  contiguous blocks of its batch), from the port's seeded weights
+  (`variables_of`), with the tolerances `tests/test_torch_port_train_step.
+  py` holds the port's one-process step to JAX; likewise the two-stage
+  demo's ranks (dropout off, the sampler given the JAX package's draws
+  from one key and boxes about the GT as proposals in both packages):
+  their losses within the same tolerances and their sampled RoI targets
+  equal to the JAX sampler's.
+- Two ranks of the demo with the compact reader (`reader.compact_kmax`)
+  against one process's step, as the dense demo.
+- The loader's shards against the JAX `DataLoader`'s, and the ranks'
+  blocks in rank order against the JAX loader's batches over 2 nodes of
+  2 ranks; a plain process starts no group; the node's ranks split
+  `samples_per_gpu`.
 - `Trainer.val` over sharded val frames (3 frames: one rank's shard is
   wrap-padded) and `tools/dist_test` over 2 ranks: the merged detections
   equal the one-process run's, token for token; the training CLI over 2
@@ -42,6 +52,7 @@ intra-op thread each.
 
 import contextlib
 import copy
+import importlib
 import json
 import os
 import pickle
@@ -58,6 +69,7 @@ from pillarnet_lts_tpu.datasets.loader.build_loader import (
     DataLoader as JaxLoader)
 from pillarnet_lts_tpu.datasets.waymo import waymo_eval as jwaymo
 from pillarnet_lts_tpu.models import build_detector as build_jax_detector
+from pillarnet_lts_tpu.models.detectors import pillar_rcnn as jrcnn
 from pillarnet_lts_tpu.models.readers import dynamic_pillar_encoder as jdpe
 from pillarnet_lts_tpu.parallel.collate import collate_batch as jax_collate
 from pillarnet_lts_tpu.parallel.mesh import make_mesh, replicate, shard_batch
@@ -79,6 +91,7 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 import test_torch_port_threads  # noqa: F401  (one torch thread)
+from test_torch_port_rcnn_train import jax_draws  # noqa: E402
 from test_torch_port_train import tpu_vjp_scatter  # noqa: E402
 
 POINTS = 4096
@@ -124,6 +137,12 @@ def rcnn_run(tmp_path_factory):
                    at_gt=True)
 
 
+@pytest.fixture(scope="module")
+def compact_run(tmp_path_factory):
+    return _dp_run(tmp_path_factory, "compact", cs.DEMO, spread=True,
+                   compact_kmax=POINTS)
+
+
 # ---- the loader's shards, the node's split, a plain process ---------------
 
 
@@ -146,6 +165,36 @@ def test_loader_shards_equal_the_jax_loaders(n, shuffle):
     union = np.concatenate(shards)
     assert set(union.tolist()) == set(one.tolist()) == set(range(n))
     assert len(union) == n + n % 2
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_rank_blocks_in_rank_order_are_the_jax_batches(monkeypatch,
+                                                        shuffle):
+    """2 nodes of 2 ranks, `samples_per_gpu` 4, 19 frames: each rank's
+    training loader (`mesh.train_shards`) loads 2 frames a step, and the
+    4 ranks' rows in rank order are, step by step, the JAX loaders' batches
+    of the 2 hosts (`num_shards=2`, batch 4) in host order: a node's
+    ranks split its batch contiguously, as the JAX mesh splits a
+    host's."""
+    data = list(range(19))
+    monkeypatch.setattr(dist, "process_count", lambda: 4)
+    monkeypatch.setattr(dist, "local_process_count", lambda: 2)
+    per = mesh.rank_batch_size(4)
+    ranks = []
+    for r in range(4):
+        monkeypatch.setattr(dist, "rank", lambda r=r: r)
+        ranks.append(DataLoader(data, per, shuffle=shuffle, seed=5,
+                                **mesh.train_shards()).batches())
+    hosts = []
+    for h in range(2):
+        idx = JaxLoader(data, 4, shuffle=shuffle, seed=5, num_shards=2,
+                        shard_index=h)._indices()
+        hosts.append([idx[b * 4:(b + 1) * 4] for b in range(len(idx) // 4)])
+    assert len(ranks[0]) == len(hosts[0]) == 2
+    for step in range(2):
+        got = np.concatenate([rows[step] for rows in ranks])
+        np.testing.assert_array_equal(
+            got, np.concatenate([h[step] for h in hosts]))
 
 
 def test_samples_per_gpu_splits_over_the_nodes_ranks(monkeypatch):
@@ -200,6 +249,22 @@ def test_demo_ranks_step_as_one_process(demo_run, step):
             "num_positive_task0"} <= set(ranks[0]["metrics"][step])
     assert [rk["rank"] for rk in ranks] == [0, 1]
     assert all(rk["world"] == 2 for rk in ranks)
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_compact_ranks_step_as_one_process(compact_run, step):
+    """The demo with the compact reader (`reader.compact_kmax` = the
+    cloud's 4096 points: conv1 and conv2 as gather convs over each rank's
+    active sites, the masked BN's sums over the ranks' compact rows)
+    against one process on the same batch, as the dense demo."""
+    spec, ranks, ref, out = compact_run
+    cfg, _, model = cs.dp_setup(torch, spec, "cpu")
+    assert model.reader_net.compact_kmax == POINTS
+    rec = out["steps"][step]
+    assert rec["metrics_rel_plain"]["loss"] <= 1e-5
+    assert max(v for k, v in rec["metrics_rel"].items()
+               if "loss" in k) <= 1e-6
+    assert max(rec["grad_bound_by_group"].values()) <= 0.1
 
 
 def test_demo_ranks_train_their_shards(demo_run):
@@ -351,19 +416,22 @@ def test_the_checks_reject_a_planted_data_parallel_fault(rcnn_run, tmp_path,
 # ---- two ranks against the JAX package's mesh step --------------------------
 
 
-def test_two_ranks_match_the_jax_mesh_step(demo_run):
-    """The demo ranks' first step against one step of the JAX package's
-    train step jitted over a 2-device mesh with the global batch sharded
-    on it (`make_mesh`, `shard_batch`, `replicate`), from the port's seeded
-    weights: every metric within rtol 1e-4 (`grad_norm` 1e-3), the
-    running statistics within rtol = atol = 1e-4, the parameters as
-    `params_within_first_adam_step`, as the port's one-process step is
-    held to JAX (`tests/test_torch_port_train_step.py`)."""
-    spec, ranks, ref, _ = demo_run
-    cfg, ds, model = cs.dp_setup(torch, spec, "cpu")
-    variables = variables_of(model)
-    jb = jax_collate([ds[i] for i in cs.dp_rows(ds, spec)[0]],
-                     max_points=spec["points"])
+def jax_loader_rows(ds, spec):
+    """The JAX loader's first batch on one host (the global batch of a
+    step) as frame indices; the port's ranks' rows in rank order equal
+    it."""
+    rows = [int(i) for i in JaxLoader(ds, spec["batch"], shuffle=True,
+                                      seed=spec["seed"])._indices()[
+        :spec["batch"]]]
+    assert cs.dp_rows(ds, spec)[0] == rows
+    return rows
+
+
+def jax_mesh_step(cfg, ds, model, spec, rows, patch=None):
+    """One step of the JAX package's `make_train_step` jitted over a
+    2-device mesh (`make_mesh`, `shard_batch`, `replicate`) on `rows`, from
+    the port model's seeded weights; returns the metrics and the state."""
+    jb = jax_collate([ds[i] for i in rows], max_points=spec["points"])
     jb.pop("metadata")
     jmodel = build_jax_detector(copy.deepcopy(cfg["model"]),
                                 train_cfg=cfg["train_cfg"],
@@ -373,16 +441,40 @@ def test_two_ranks_match_the_jax_mesh_step(demo_run):
     jmesh = make_mesh(2)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jdpe, "pillar_scatter_max", tpu_vjp_scatter)
+        if patch is not None:
+            patch(mp, jb)
         state, metrics = jax.jit(make_train_step(
             jmodel, tx, cfg["train_cfg"]))(
-                replicate(TrainState.create(variables, tx), jmesh),
+                replicate(TrainState.create(variables_of(model), tx), jmesh),
                 shard_batch(jb, jmesh))
-    got = ranks[0]["metrics"][0]
-    want = {k: float(v) for k, v in metrics.items()}
-    assert set(got) == set(want)
-    for k in want:
+    return {k: float(v) for k, v in metrics.items()}, state
+
+
+def assert_metrics_match(got, want, keys=None):
+    """Every metric within rtol 1e-4 (`grad_norm` 1e-3), as the port's
+    one-process step is held to JAX."""
+    keys = set(want) if keys is None else keys
+    for k in keys:
         np.testing.assert_allclose(got[k], want[k], atol=0, err_msg=k,
                                    rtol=1e-3 if k == "grad_norm" else 1e-4)
+
+
+def test_two_ranks_match_the_jax_mesh_step(demo_run):
+    """The demo ranks' first step against one step of the JAX package's
+    train step jitted over a 2-device mesh with the global batch sharded
+    on it (`make_mesh`, `shard_batch`, `replicate`), fed the JAX loader's
+    first batch in its own order, from the port's seeded weights: every
+    metric within rtol 1e-4 (`grad_norm` 1e-3), the running statistics
+    within rtol = atol = 1e-4, the parameters as
+    `params_within_first_adam_step`, as the port's one-process step is
+    held to JAX (`tests/test_torch_port_train_step.py`)."""
+    spec, ranks, ref, _ = demo_run
+    cfg, ds, model = cs.dp_setup(torch, spec, "cpu")
+    want, state = jax_mesh_step(cfg, ds, model, spec,
+                                jax_loader_rows(ds, spec))
+    got = ranks[0]["metrics"][0]
+    assert set(got) == set(want)
+    assert_metrics_match(got, want)
     load_jax_variables(model, {
         "params": jax.tree_util.tree_map(np.asarray, state.params),
         "batch_stats": jax.tree_util.tree_map(np.asarray,
@@ -395,6 +487,87 @@ def test_two_ranks_match_the_jax_mesh_step(demo_run):
     for k in set(jstate) - set(params):
         torch.testing.assert_close(ranks[0]["states"][0][k], jstate[k],
                                    rtol=1e-4, atol=1e-4)
+
+
+JAX_SAMPLER_KEY = 48
+# the module (the package exports its function under the module's name)
+jptl = importlib.import_module(
+    "pillarnet_lts_tpu.models.roi_heads.proposal_target_layer")
+
+
+@pytest.fixture(scope="module")
+def rcnn_jax_run(tmp_path_factory, rcnn_run):
+    """Two ranks x 2 frames of `pillarrcnn18_demo`, one step, dropout off,
+    the sampler given boxes about the GT (`proposals_at_gt`) and the JAX
+    package's draws from one key for the global batch (`jax_draws`,
+    `chip_smoke.given_draws`)."""
+    out = tmp_path_factory.mktemp("rcnn_jax")
+    num_rois = rcnn_run[1][0]["sampler"][0].uniforms.shape[-1]
+    spec = _spec(cs.RCNN_DEMO, out, spread=True, at_gt=True, dp_ratio=0.0,
+                 steps=1, draws=str(out / "draws.pt"))
+    cfg, _, _ = cs.dp_setup(torch, spec, "cpu")
+    per_image = cfg["model"]["roi_head"]["model_cfg"]["TARGET_CONFIG"][
+        "ROI_PER_IMAGE"]
+    draws = jax_draws(jax.random.PRNGKey(JAX_SAMPLER_KEY), spec["batch"],
+                      num_rois, per_image)
+    torch.save([(draws.uniforms, draws.ints)], spec["draws"])
+    ranks, _ = cs.run_dp_training(torch, spec, "rcnn_jax",
+                                  timeout=JOIN_TIMEOUT)
+    return spec, ranks, num_rois
+
+
+def test_two_stage_ranks_match_the_jax_mesh_step(rcnn_jax_run):
+    """The two-stage demo ranks' step against the JAX package's mesh step
+    on the JAX loader's first batch, both samplers given the same boxes
+    about the GT and the same `jax.random` draws (the JAX sampler its
+    key), dropout off: every loss within rtol 1e-4, as the single-stage
+    demo's; the sampled RoI labels and regression masks equal to the JAX
+    sampler's, the sampled RoIs, their GT and scores within 1e-4."""
+    spec, ranks, num_rois = rcnn_jax_run
+    cfg, ds, model = cs.dp_setup(torch, spec, "cpu")
+    rows = jax_loader_rows(ds, spec)
+    key = jax.random.PRNGKey(JAX_SAMPLER_KEY)
+    target_cfg = dict(cfg["model"]["roi_head"]["model_cfg"][
+        "TARGET_CONFIG"])
+    gt = jax_collate([ds[i] for i in rows],
+                     max_points=spec["points"])["gt_boxes_and_cls"]
+    if gt.shape[-1] == 10:
+        gt = gt[..., [0, 1, 2, 3, 4, 5, 6, 9]]
+    # the boxes `proposals_at_gt` hands each rank's first call, global rows
+    gen = torch.Generator().manual_seed(spec["seed"] * 1000)
+    box, cls, score, _ = cs.near_gt(torch.from_numpy(np.asarray(gt)),
+                                    torch.rand(len(rows), num_rois, 8,
+                                               generator=gen))
+    box, cls, score = (t.numpy() for t in (box, cls, score))
+
+    def at_gt(rng, rois, scores, labels, gt_, cfg_):
+        return jptl.proposal_target_layer(key, box, score,
+                                          cls.astype(labels.dtype), gt_,
+                                          cfg_)
+
+    want, _ = jax_mesh_step(
+        cfg, ds, model, spec, rows,
+        patch=lambda mp, jb: mp.setattr(jrcnn, "proposal_target_layer",
+                                        at_gt))
+    got = ranks[0]["metrics"][0]
+    assert got == ranks[1]["metrics"][0]
+    losses = {k for k in want if "loss" in k}
+    assert {"roi_cls_loss_task0", "roi_reg_loss_task0",
+            "point_loss_task0"} <= losses <= set(got)
+    assert_metrics_match(got, want, losses)
+
+    jt = jax.jit(lambda g: jptl.proposal_target_layer(
+        key, box, score, cls.astype(np.int32), g, target_cfg))(gt)
+    for k in ("roi_labels", "reg_valid_mask", "rois", "gt_of_rois",
+              "roi_scores"):
+        port = torch.cat([getattr(rk["targets"][0][1], k)
+                          for rk in ranks]).numpy()
+        if k in ("roi_labels", "reg_valid_mask"):
+            np.testing.assert_array_equal(port, getattr(jt, k), k)
+        else:
+            np.testing.assert_allclose(port, getattr(jt, k), atol=1e-4,
+                                       rtol=0, err_msg=k)
+    assert int((np.asarray(jt.roi_labels) > 0).sum()) > 0
 
 
 # ---- the CLIs over two ranks ----------------------------------------------
