@@ -84,7 +84,7 @@ Phases, each of which raises on failure:
      config on the card and on the CPU from the same weights and batch,
      within stated tolerances; (c) `pillarnet34_nusc` at full width
      (remat) trained by `apis.train_detector` at bs=4 on 4 synthetic
-     scenes with every class, 2 + 8 timed steps: finite metrics, K1
+     scenes with every class, 2 + 4 timed steps: finite metrics, K1
      launched on every step, step time, samples/s, peak memory; (d) with
      deterministic cuDNN, the next step from the trained state and from
      its checkpoint resumed into a fresh model equal, its loss below the
@@ -124,7 +124,7 @@ Phases, each of which raises on failure:
      tolerances), the gradients' differences by module group reported;
      (d) `pillarrcnn18_waymo` at full width (remat, dropout 0.3) trained
      by `apis.train_detector` at bs=4 on 4 synthetic 196,608-point scenes
-     with every class, 2 + 8 timed steps (counts reset just before):
+     with every class, 2 + 4 timed steps (counts reset just before):
      finite metrics with the RCNN and point losses, K1 and K2 (in predict
      and in the sampler) launched on every step, the sampled fg RoIs per
      step, step time, samples/s, peak memory; (e) under deterministic
@@ -323,6 +323,34 @@ Phases, each of which raises on failure:
      a sample on each route is phase 17a's (its passes on 8 threads, the
      routes in turns, each beside the host's load average).
 
+ 23. the two-stage remainder (`two_stage_remainder`): (a) bf16 training:
+     `pillarnet34_nusc_bf16` and `pillarrcnn18_waymo_bf16` as written at
+     full width, bs=4, 3 steps each (the first untimed; the two-stage
+     config with 100 RoI slots a sample near the GT): every loss finite,
+     the parameters f32, step ms, samples/s and peak memory beside the f32
+     twins of 13c and 15d, the launch counts set to 0 just before and read
+     just after, every K1 and K2 call replayed against its plain version;
+     one step of the bf16 `pillarrcnn18_demo` on the card and on the CPU,
+     the card held to twice the CPU's own spread under a one-ulp bf16
+     nudge of the weights;
+     (b) `pillarrcnn18_waymo` in f32 with each second-stage variant
+     (`rcnn_variant`: `RoIMIXHead` with `MLPMixer` or `ResMLP`,
+     `RoIFFNHead` with its IoU branch at the JAX defaults, the point
+     head's `ATT_MODEL`): 6 requests at bs=1 (p50, the second stage's
+     device ms), K1 and K2 counted per request; 2 training steps at bs=4
+     with the IoU (or point) loss positive and finite, the last step's K1
+     and K2 calls replayed; the demo with the variant, one step on the
+     card against the CPU as 15c; (c) K5 on f32 activations: 18a's build
+     with `backbone.s2d_pallas`, 6 requests on the per-conv route and on
+     the fused one, detections bit-equal, p50 of each; every K5 f32 call
+     of the fused route (counts set to 0 just before) replayed bit-equal,
+     the first timed with its bound; K5 f32 and bf16 timed on one
+     synthetic 1 x 1440^2 x 32 stage (n = 7, ~7.7% of the sites active in
+     8 x 8 clusters); `{"two_stage_remainder": ...}` is printed before
+     the kernels' line, which gains the `int8_stage_f32` row and K1's and
+     K2's rows phase 23's launches and replays under
+     `two_stage_remainder`.
+
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
 must move (each input read once, each output written once; of the int8
@@ -341,7 +369,8 @@ carries phase 13's, 14's, 15's, 16's, 17's, 18's and 19's JSON records
 (`{"training": ...}`, `{"two_stage": ...}`, `{"two_stage_training": ...}`,
 `{"eval": ...}`, `{"training_as_written": ...}`, `{"precisions": ...}`,
 `{"data_parallel": ...}`) and phase 20's (`{"compact": ...}`), 21's
-(`{"export": ...}`) and 22's (`{"data_prep": ...}`);
+(`{"export": ...}`), 22's (`{"data_prep": ...}`) and 23's
+(`{"two_stage_remainder": ...}`);
 then the kernels' JSON record (K1's and K2's rows also carry
 `two_stage_launches`, under `two_stage_train` phase 15's launches and
 replays, `eval_launches`, phase 16a's pipelined pass, under
@@ -1987,7 +2016,9 @@ def serve_rcnn(torch, dev, card):
     return rec, k1, k2_calls
 
 
-TRAIN_STEPS, TRAIN_WARMUP = 10, 2  # phase 13: flagship steps, untimed first
+# phases 13 and 15: training steps, the first untimed (6 since phase 23
+# joined the run, to keep it inside its time limit; 10 before)
+TRAIN_STEPS, TRAIN_WARMUP = 6, 2
 TRAIN_DUPLICATES = 300  # phase 13a: points copied onto others (exact ties)
 
 
@@ -2613,9 +2644,12 @@ def grad_diffs(torch, got, want):
             worst)
 
 
-def rcnn_train_card_vs_cpu(torch, dev):
-    """Phase 15c: one train step of `pillarrcnn18_demo` (dropout off) on the
-    card and on the CPU from the same weights (first-stage head spread),
+def rcnn_train_card_vs_cpu(torch, dev, variant=None, tag="15c",
+                           nudges=RCNN_TRAIN_NUDGES):
+    """Phase 15c (23b with a second-stage `variant`, `rcnn_variant`, and
+    `nudges` nudged runs): one train step of `pillarrcnn18_demo` (dropout
+    off) on the card and on the CPU from the same weights (first-stage
+    head spread),
     batch and draws (one CPU generator seed; the card's draws are copied
     from it), with a fifth of the RoI slots near the GT
     (`proposals_near_gt`) so that the sampler's fg path and the regression
@@ -2633,13 +2667,15 @@ def rcnn_train_card_vs_cpu(torch, dev):
     differences by module group and the leaf that moves most are
     reported for the card and for the nudged runs."""
     from pillarnet_lts_torch.apis import (build_model_from_cfg,
-                                          optimizer_from_cfg,
+                                          optimizer_from_cfg, rcnn_variant,
                                           spread_head_outputs)
     from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
     from pillarnet_lts_torch.runtime.train_step import (
         batch_to_device, bn_shifted_biases, train_step)
 
     cfg = rcnn_train_cfg(RCNN_DEMO, dp_ratio=0.0)
+    if variant:
+        cfg["model"] = rcnn_variant(cfg["model"], variant)
     near = sum(cfg["test_cfg"]["nms"]["nms_post_max_size"]) // 5
     ds = SynthDataset(cfg, 2, 4096, seed=31)
     batch = collate_batch([ds[0], ds[1]], cfg["data"]["max_points"])
@@ -2651,7 +2687,7 @@ def rcnn_train_card_vs_cpu(torch, dev):
     g = torch.Generator().manual_seed(16)
     nudged = [{k: v * (1 + 1e-6 * torch.randn(v.shape, generator=g))
                if k in params else v for k, v in state.items()}
-              for _ in range(RCNN_TRAIN_NUDGES)]
+              for _ in range(nudges)]
     runs = []
     for d, weights in [(dev, state), (torch.device("cpu"), state)] + [
             (torch.device("cpu"), w) for w in nudged]:
@@ -2732,11 +2768,13 @@ def rcnn_train_card_vs_cpu(torch, dev):
          "grad_worst_leaf_cpu_spread": {"name": nudge_leaf[1],
                                         "rel": nudge_leaf[2]},
          "loss": [mg["loss"], mc["loss"]]}
-    print(f"[15c] pillarrcnn18_demo (dropout off, {near} RoI slots per "
-          f"sample near the GT), one step on the card and on the CPU (same "
-          f"weights, batch 2, same draws): sampled RoI labels and masks "
-          f"equal ({r['rois_real']} real RoIs, {r['sampled_fg']} fg), RoIs "
-          f"within {roi_err:.2e} m (the {RCNN_TRAIN_NUDGES} nudged CPU runs: "
+    with_variant = f" with {variant}" if variant else ""
+    print(f"[{tag}] pillarrcnn18_demo{with_variant} (dropout off, {near} RoI "
+          f"slots per sample near the GT), one step on the card and on the "
+          f"CPU (same weights, batch 2, same draws): sampled RoI labels and "
+          f"masks equal ({r['rois_real']} real RoIs, {r['sampled_fg']} fg), "
+          f"RoIs "
+          f"within {roi_err:.2e} m (the {nudges} nudged CPU runs: "
           f"the same labels and masks, RoIs within {nudge_roi_err:.2e} m); "
           f"loss {mg['loss']:.6f} / {mc['loss']:.6f}, roi_reg "
           f"{mg['roi_reg_loss_task0']:.6f} / {mc['roi_reg_loss_task0']:.6f}; "
@@ -2747,11 +2785,11 @@ def rcnn_train_card_vs_cpu(torch, dev):
           f"running statistics within 1e-4; parameters: {share:.2e} beyond "
           f"1e-4 (CPU spread {own:.2e}), max |d| {worst:.2e}")
     groups = sorted(group_norm, key=lambda k: -group_norm[k])
-    print("[15c] gradients by module group, BN-shifted biases left out "
+    print(f"[{tag}] gradients by module group, BN-shifted biases left out "
           "(CPU norm; card rel diff; nudged CPU rel diff, largest): "
           + "; ".join(f"{k} {group_norm[k]:.4g}, {card_groups[k]:.2e}, "
                       f"{nudge_groups[k]:.2e}" for k in groups))
-    print(f"[15c] the leaf that moves most: card {card_leaf[1]} (rel "
+    print(f"[{tag}] the leaf that moves most: card {card_leaf[1]} (rel "
           f"{card_leaf[2]:.2e}); nudged {nudge_leaf[1]} (rel "
           f"{nudge_leaf[2]:.2e})")
     return r
@@ -4354,23 +4392,29 @@ def dp_spec(config, device, out, **kw):
     sampler's proposals are boxes about the GT (`proposals_at_gt`); with
     `draws` (a path) the sampler's draws are the ones saved there
     (`given_draws`); `compact_kmax` > 0 serves the reader's compact path
-    with that budget."""
+    with that budget; `dtype` sets the model's compute dtype and
+    `variant` a second-stage variant (`rcnn_variant`)."""
     spec = dict(config=config, device=device, backend="gloo", out=out,
                 batch=4, points=N_POINTS, steps=DP_STEPS, seed=3,
                 model_seed=5, data_seed=200, num_boxes=[10, 21],
                 dp_ratio=None, spread=False, at_gt=False, val_frames=0,
-                workers=2, threads=None, draws=None, compact_kmax=0)
+                workers=2, threads=None, draws=None, compact_kmax=0,
+                dtype=None, variant=None)
     spec.update(kw)
     return spec
 
 
 def dp_setup(torch, spec, dev):
     """(config, training set, model) of a phase-19 run on `dev`."""
-    from pillarnet_lts_torch.apis import (build_model_from_cfg,
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, rcnn_variant,
                                           spread_head_outputs)
     from pillarnet_lts_torch.datasets import SynthDataset
 
     cfg = rcnn_train_cfg(spec["config"], spec["dp_ratio"])
+    if spec.get("variant"):
+        cfg["model"] = rcnn_variant(cfg["model"], spec["variant"])
+    if spec.get("dtype"):
+        cfg["model"]["dtype"] = spec["dtype"]
     if spec["compact_kmax"]:
         cfg["model"]["reader"] = dict(cfg["model"]["reader"],
                                       compact_kmax=spec["compact_kmax"])
@@ -4547,6 +4591,7 @@ def dp_reference(torch, spec, dev, ranks, nudges=DP_NUDGES):
     shifted = set(bn_shifted_biases(model))
     rec = {"metrics": [], "states": [], "grads": [], "targets": [],
            "sampler": [], "dropout": [], "spread": [], "params": params,
+           "dtype": str(model.dtype).replace("torch.", ""),
            "metrics_plain": [], "metrics_convs_matmuls": [],
            "shifted": sorted(shifted),
            "lr": [opt.lr_fn(s) for s in range(spec["steps"])]}
@@ -4786,7 +4831,12 @@ def check_dp_training(torch, tag, ref, ranks):
     sampler's discrete targets and dropout's draws bit-equal to the one-process
     rows. Returns the record of the differences, with the metrics' relative
     differences also to the step whose convs and matmuls alone ran on the
-    ranks' rows apart (a reading: what their batch size moves)."""
+    ranks' rows apart (a reading: what their batch size moves). A bf16
+    model's plain step is a reading too, not a check: its convs over the
+    whole batch round to bf16 otherwise than a rank's over its half, and
+    on random weights a one-ulp flip grows through the step (0.6% in a
+    loss of the two-stage demo, beyond DP_LOSS_RTOL_PLAIN), where the
+    steps in the ranks' order stay within DP_LOSS_RTOL."""
     out = {"steps": []}
     for s, want in enumerate(ref["metrics"]):
         for rk in ranks[1:]:
@@ -4800,9 +4850,14 @@ def check_dp_training(torch, tag, ref, ranks):
         got, spread = ranks[0]["metrics"][s], ref["spread"][s]
         rel, tol = check_metrics(tag, s, got, want, spread["metrics"],
                                  DP_LOSS_RTOL)
-        rel_plain, _ = check_metrics(
-            f"{tag} (the plain one-process step)", s, got,
-            ref["metrics_plain"][s], spread["metrics"], DP_LOSS_RTOL_PLAIN)
+        if ref.get("dtype", "float32") == "float32":
+            rel_plain, _ = check_metrics(
+                f"{tag} (the plain one-process step)", s, got,
+                ref["metrics_plain"][s], spread["metrics"],
+                DP_LOSS_RTOL_PLAIN)
+        else:
+            rel_plain = {k: rel_diff(got[k], v)
+                         for k, v in ref["metrics_plain"][s].items()}
         rel_split = {k: rel_diff(got[k], v) for k, v in
                      ref["metrics_convs_matmuls"][s].items()}
         gs, ws = ranks[0]["states"][s], ref["states"][s]
@@ -6533,6 +6588,744 @@ def data_prep_chain(torch, dev, card):
     return rec, launches, summary
 
 
+# phase 23: the two-stage remainder (bf16 training, the head variants, K5
+# on f32 activations)
+BF16_TRAIN_BS, BF16_TRAIN_STEPS = 4, 3  # 23a: per config, the first untimed
+BF16_NUDGES = 2  # 23a: the bf16 demo's nudged CPU runs (card vs CPU)
+# 23a: the bf16 demo's second stage card vs CPU, at the tolerances of
+# tests/test_torch_port_rcnn_heads.py's bf16 second stage against JAX
+BF16_LOSS_RTOL, BF16_GRAD_RTOL = 2e-2, 5e-2
+VARIANT_REQUESTS, VARIANT_WARMUP = 6, 1  # 23b: bs=1, untimed first
+VARIANT_TRAIN_STEPS, VARIANT_NEAR = 2, 100  # 23b: bs=4; RoI slots near GT
+VARIANT_NUDGES = 2  # 23b: the demo's nudged CPU runs (card vs CPU)
+FUSED_F32_REQUESTS = 21  # 23c: per route, bs=1, the first untimed
+STAGE_ROUNDS = 10  # 23c: the stride-1 stage timed on each route in turns
+STAGE_SHAPE = (1, 1440, 1440)  # 23c: K5 f32 and bf16 at the bf16 row's shape
+STAGE_OCCUPANCY = 0.077  # ... at the flagship's share of active pillars
+
+
+def time_first_calls(torch, replays, k1, k2, tag):
+    """Into `replay_equal`'s record: the first K1 call and the first
+    non-empty K2 call timed as phases 2-3."""
+    k2 = [c for c in k2 if c[0].numel() and c[1].numel()]
+    if k1:
+        replays["k1"]["first_call"] = replay_summary(
+            replay_scatter(torch, k1[:1]))
+    if k2:
+        replays["k2"]["first_call"] = replay_summary(
+            replay_overlap(torch, k2[:1], tag))
+    print(f"[{tag}] replays: K1 {len(k1)} calls, K2 "
+          f"{replays['k2']['calls']} calls, each bit-equal to its plain "
+          f"version (the first of each timed)")
+    return replays
+
+
+def bf16_train_run(torch, dev, card, path, twin):
+    """Phase 23a: `path` (a bf16 config as written) at full width trained
+    at bs=BF16_TRAIN_BS for BF16_TRAIN_STEPS steps by `train_step` on
+    seeded synthetic scenes (the two-stage config with VARIANT_NEAR RoI
+    slots near the GT, so the regression runs): every metric finite, the
+    parameters f32; step ms (synced by the metrics' read-back), samples/s
+    and peak memory beside the f32 twin's (`twin`: phase 13c's or 15d's
+    record); the launch counts set to 0 just before, read just after, and
+    every K1 and K2 call replayed."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg,
+                                          optimizer_from_cfg)
+    from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.runtime.train_step import (
+        batch_to_device, step_generator, train_step)
+
+    cfg = rcnn_train_cfg(path)
+    two_stage = "roi_head" in cfg["model"]
+    bs, n = BF16_TRAIN_BS, int(cfg["data"]["max_points"])
+    ds = SynthDataset(cfg, bs, n, seed=700, num_boxes=(10, 21))
+    batch = batch_to_device(collate_batch([ds[i] for i in range(bs)], n),
+                            dev)
+    model = build_model_from_cfg(cfg, device=dev, seed=0)
+    if model.dtype != torch.bfloat16:
+        raise AssertionError(f"{path}: dtype {model.dtype}")
+    opt = optimizer_from_cfg(model, cfg, BF16_TRAIN_STEPS)
+    metrics, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launches()
+    def steps():
+        for s in range(BF16_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = train_step(model, opt, batch, cfg["train_cfg"],
+                           step_generator(0, s, dev))
+            metrics.append({k: float(v) for k, v in m.items()})
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    with contextlib.ExitStack() as stack:
+        if two_stage:
+            stack.enter_context(proposals_near_gt(torch, VARIANT_NEAR, 19))
+        (_, k2), k1 = capture_scatter(lambda: capture_overlap(steps))
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for s, m in enumerate(metrics):
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"[23a] {path} step {s}: non-finite {bad}")
+    if not all(p.dtype == torch.float32 for p in model.parameters()):
+        raise AssertionError("[23a] a parameter left f32")
+    k2_per_step = 3 if two_stage else 1  # predict per task (+ the sampler)
+    if launches["pillar_scatter_max"] != BF16_TRAIN_STEPS or (
+            two_stage and launches["rotated_overlap"] < k2_per_step
+            * BF16_TRAIN_STEPS):
+        raise AssertionError(f"[23a] {path}: launches {launches}")
+    timed = step_ms[1:]
+    med = statistics.median(timed)
+    rec = {"config": os.path.relpath(path, ROOT), "batch": bs,
+           "steps": BF16_TRAIN_STEPS, "step_ms": step_ms,
+           "median_step_ms": med, "samples_per_s": bs / med * 1e3,
+           "peak_allocated_gib": peak / 2**30, "launches": launches,
+           "loss": [m["loss"] for m in metrics],
+           "grad_norm": [m["grad_norm"] for m in metrics],
+           "f32_twin": {k: twin.get(k) for k in (
+               "config", "median_step_ms", "samples_per_s",
+               "peak_allocated_gib")}}
+    if two_stage:
+        rec["roi_reg_loss"] = [m["roi_reg_loss_task0"] for m in metrics]
+        rec["point_loss"] = [m["point_loss_task0"] for m in metrics]
+    print(f"[23a] {rec['config']} (bf16, as written) training, bs={bs}, "
+          f"{BF16_TRAIN_STEPS} steps (the first untimed): median step "
+          f"{med:.1f} ms, {rec['samples_per_s']:.3f} samples/s, peak "
+          f"allocated {rec['peak_allocated_gib']:.3f} GiB; the f32 twin "
+          f"({twin.get('config')}): {twin.get('median_step_ms', 0):.1f} ms, "
+          f"{twin.get('samples_per_s', 0):.3f} samples/s, "
+          f"{twin.get('peak_allocated_gib', 0):.3f} GiB; loss "
+          f"{rec['loss'][0]:.3f} -> {rec['loss'][-1]:.3f}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; card: {card}")
+    rec["replays"] = time_first_calls(
+        torch, replay_equal(torch, k1, k2, "23a"), k1, k2, "23a")
+    del k1, k2, model, opt, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def bf16_step_card_vs_cpu(torch, dev):
+    """Phase 23a: one train step of the bf16 `pillarrcnn18_demo` (dropout
+    off, a fifth of the RoI slots near the GT) on the card and on the CPU
+    from the same weights, batch and draws. A bf16 step on random weights
+    is chaotic: a one-ulp flip grows about twofold a stage, and cuDNN and
+    the CPU's kernels round their bf16 sums at other places. So, as the
+    CPU test holds the port's bf16 step to the JAX package's own spread
+    over its builds (`tests/test_torch_port_bf16_train.py`), and as phase
+    15c holds the f32 card to the CPU's spread under a nudge at f32's
+    rounding scale, the card is held to the CPU's own spread under a
+    nudge at bf16's: the CPU step again from the parameters times
+    1 + 2^-8 N(0, 1) (BF16_NUDGES draws; one bf16 ulp, relative). The
+    card's largest relative difference of any metric from the CPU's at
+    most twice the nudged runs' largest; every metric finite."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg,
+                                          optimizer_from_cfg,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
+    from pillarnet_lts_torch.runtime.train_step import (batch_to_device,
+                                                        train_step)
+
+    cfg = rcnn_train_cfg(RCNN_DEMO, dp_ratio=0.0)
+    cfg["model"]["dtype"] = "bfloat16"
+    near = sum(cfg["test_cfg"]["nms"]["nms_post_max_size"]) // 5
+    ds = SynthDataset(cfg, 2, 4096, seed=31)
+    batch = collate_batch([ds[0], ds[1]], cfg["data"]["max_points"])
+    cpu = build_model_from_cfg(cfg, device="cpu", seed=3)
+    b_cpu = batch_to_device(batch, "cpu")
+    spread_head_outputs(cpu, b_cpu["points"], b_cpu["points_mask"])
+    state = {k: v.clone() for k, v in cpu.state_dict().items()}
+    params = {n for n, _ in cpu.named_parameters()}
+    g = torch.Generator().manual_seed(16)
+    nudged = [{k: v * (1 + 2.0 ** -8 * torch.randn(v.shape, generator=g))
+               if k in params else v for k, v in state.items()}
+              for _ in range(BF16_NUDGES)]
+    runs = []
+    for d, weights in [(dev, state), (torch.device("cpu"), state)] + [
+            (torch.device("cpu"), w) for w in nudged]:
+        model = build_model_from_cfg(cfg, device=d, seed=4)
+        model.load_state_dict(weights)
+        opt = optimizer_from_cfg(model, cfg, 10)
+        with proposals_near_gt(torch, near, 17):
+            m = train_step(model, opt, batch_to_device(batch, d),
+                           cfg["train_cfg"], torch.Generator().manual_seed(5))
+        runs.append({k: float(v) for k, v in m.items()})
+    card, plain = runs[:2]
+    for m in runs:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"[23a] bf16 demo step: non-finite {m}")
+    keys = [k for k in plain if plain[k] != 0]
+
+    def rel(m):
+        return {k: abs(m[k] - plain[k]) / abs(plain[k]) for k in keys}
+
+    card_rel = rel(card)
+    own = max(max(rel(m).values()) for m in runs[2:])
+    worst = max(card_rel, key=card_rel.get)
+    if card_rel[worst] > 2 * own:
+        raise AssertionError(
+            f"[23a] bf16 demo card vs CPU {worst}: rel {card_rel[worst]:.2e} "
+            f"beyond twice the CPU's own spread {own:.2e}")
+    print(f"[23a] bf16 pillarrcnn18_demo, one step on the card and on the "
+          f"CPU (same weights, batch 2, draws; {near} RoI slots near the "
+          f"GT): loss {card['loss']:.6f} / {plain['loss']:.6f}; the largest "
+          f"metric rel diff {card_rel[worst]:.2e} ({worst}); the CPU's own "
+          f"spread under a one-ulp bf16 nudge ({BF16_NUDGES} draws) "
+          f"{own:.2e}")
+    return {"metrics_rel": card_rel, "cpu_nudge_spread": own,
+            "loss": [card["loss"], plain["loss"]],
+            "second_stage": bf16_second_stage_card_vs_cpu(
+                torch, dev, cfg, state, b_cpu["gt_boxes_and_cls"])}
+
+
+_SECOND_STAGE = ("second_stage_0", "point_head_net", "roi_head_net")
+
+
+@contextlib.contextmanager
+def relu_decisions(decisions, record, flips=None):
+    """`F.relu` of the second stage's modules (the BEV convs, the Dense
+    layers, the RoI heads) recording its decisions (x > 0, on the host)
+    into `decisions`, or, with `record` False, taking them in turn
+    (x times the decision; the count of values on the other side of 0
+    added to flips[0]): the ReLU's derivative jumps at 0, and a value
+    rounded across 0 on one device flips a gradient path."""
+    import types
+
+    import torch.nn.functional as F
+    from pillarnet_lts_torch.models.backbones import base
+    from pillarnet_lts_torch.models.roi_heads import roi_heads
+    from pillarnet_lts_torch.models.second_stage import bev_feature
+    from pillarnet_lts_torch.models.utils import dense
+
+    taken = []
+
+    class Relu(types.ModuleType):
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        def relu(self, x):
+            if record:
+                decisions.append((x > 0).cpu())
+                return F.relu(x)
+            d = decisions[len(taken)]
+            taken.append(d)
+            if d.shape != x.shape:
+                raise AssertionError(f"relu {len(taken)}: {d.shape} vs "
+                                     f"{x.shape}")
+            if flips is not None:
+                flips[0] += int(((x > 0).cpu() != d).sum())
+            return x * d.to(x.device, x.dtype)
+
+    with contextlib.ExitStack() as stack:
+        for mod in (base, bev_feature, dense, roi_heads):
+            stack.enter_context(patched(mod, "F", lambda real: Relu("F")))
+        yield
+    if not record and len(taken) != len(decisions):
+        raise AssertionError(f"{len(taken)} of {len(decisions)} ReLU "
+                             f"decisions taken")
+
+
+def bf16_second_stage_card_vs_cpu(torch, dev, cfg, state, gt):
+    """Phase 23a: the bf16 demo's training second stage (`cfg`, weights
+    `state`) on the card and on the CPU from the same fixed first-stage
+    outputs, which is not chaotic as the whole step is: bf16 neck and
+    conv3 maps drawn from a seed at the demo's size, every RoI slot a box
+    jittered about a GT row of `gt` (`near_gt`), the same sampler draws,
+    the card's ReLUs taking the CPU's decisions (`relu_decisions`, as the
+    CPU test's JAX package takes the port's).
+    The sampled RoI labels and masks equal, the soft labels within 1e-5
+    (each from an f32 IoU); each loss (RCNN classification, regression,
+    point) within BF16_LOSS_RTOL; the gradient of the classification and
+    point losses within
+    BF16_GRAD_RTOL in norm for every weight leaf (kernels, BN scales) and
+    for each module's whole gradient, biases included, as
+    `tests/test_torch_port_rcnn_heads.py` holds the bf16 second stage
+    against the JAX package. The regression L1 flips its gradient with
+    the sign of each refinement that starts within rounding of its
+    target (the CPU test makes the JAX package take the port's signs; the
+    card cannot), so the whole loss's gradient is a reading."""
+    from pillarnet_lts_torch.apis import build_model_from_cfg
+    from pillarnet_lts_torch.models.roi_heads.proposal_target_layer import (
+        sampler_draws)
+
+    B = gt.shape[0]
+    R = sum(cfg["test_cfg"]["nms"]["nms_post_max_size"])
+    M = cfg["model"]["roi_head"]["model_cfg"]["TARGET_CONFIG"][
+        "ROI_PER_IMAGE"]
+    g = torch.Generator().manual_seed(18)
+    box, cls, score, has = near_gt(gt, torch.rand(B, R, 8, generator=g))
+    first = {"box3d_lidar": box, "mask": has.expand(B, R),
+             "label_preds": (cls - 1).clamp_min(0).to(torch.int32),
+             "scores": score}
+    occ = torch.rand(B, 16, 16, generator=g) < 0.5
+    maps = (torch.randn(B, 128, 16, 16, generator=g).bfloat16(),
+            (torch.randn(B, 64, 16, 16, generator=g) * occ[:, None])
+            .bfloat16())
+    runs, decisions, flips = [], [], [0]
+    for d in (torch.device("cpu"), dev):
+        model = build_model_from_cfg(cfg, device=d, seed=4)
+        model.load_state_dict(state)
+        model.train()
+        params = [(n, p) for n, p in model.named_parameters()
+                  if n.split(".")[0] in _SECOND_STAGE]
+        with relu_decisions(decisions, d.type == "cpu", flips):
+            out = model.second_stage_train(
+                {k: v.to(d) for k, v in first.items()}, (maps[0].to(d),),
+                {"conv3": (maps[1].to(d), occ.to(d))}, gt.to(d),
+                sampler_draws(torch.Generator().manual_seed(19), B, R, M,
+                              d))
+        losses = dict(zip(("roi_cls", "roi_reg", "point"),
+                          model.second_stage_losses(out)))
+        grads = {}
+        for part, loss in (("smooth", losses["roi_cls"] + losses["point"]),
+                           ("whole", sum(losses.values()))):
+            got = torch.autograd.grad(loss, [p for _, p in params],
+                                      retain_graph=True, allow_unused=True)
+            grads[part] = {n: (torch.zeros_like(p) if t is None else t)
+                           .detach().cpu().double()
+                           for (n, p), t in zip(params, got)}
+        runs.append({"losses": {k: float(v.detach())
+                                for k, v in losses.items()},
+                     "targets": {k: out["targets"][k].cpu() for k in (
+                         "roi_labels", "reg_valid_mask", "rcnn_cls_labels")},
+                     "grads": grads})
+        del model, out, losses
+    cpu, card = runs
+    for k, v in cpu["targets"].items():
+        # the soft labels come from each RoI's f32 IoU with its GT
+        d = (card["targets"][k].float() - v.float()).abs().max().item()
+        if d > (1e-5 if k == "rcnn_cls_labels" else 0):
+            raise AssertionError(f"[23a] bf16 second stage: {k} differs "
+                                 f"between the card and the CPU by {d}")
+    if not (cpu["targets"]["reg_valid_mask"] > 0).any():
+        raise AssertionError("[23a] bf16 second stage: no foreground RoI")
+    loss_rel = {k: abs(card["losses"][k] - v) / abs(v)
+                for k, v in cpu["losses"].items()}
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm()) if b.norm() > 0 else 0.0
+
+    def readings(part):
+        c, w = card["grads"][part], cpu["grads"][part]
+        leaves = {n: rel(c[n], w[n]) for n in w
+                  if n.endswith(".weight") and w[n].norm() > 0}
+        modules = {m: rel(torch.cat([c[n].ravel() for n in w
+                                     if n.split(".")[0] == m]),
+                          torch.cat([w[n].ravel() for n in w
+                                     if n.split(".")[0] == m]))
+                   for m in _SECOND_STAGE}
+        return leaves, modules
+
+    leaves, modules = readings("smooth")
+    whole_leaves, whole_modules = readings("whole")
+    worst = max(leaves, key=leaves.get)
+    bad = ([f"loss {k} {v:.2e}" for k, v in loss_rel.items()
+            if not v <= BF16_LOSS_RTOL]
+           + [f"grad {k} {v:.2e}" for k, v in {**leaves, **modules}.items()
+              if not v <= BF16_GRAD_RTOL])
+    if bad:
+        raise AssertionError(f"[23a] bf16 second stage card vs CPU beyond "
+                             f"its tolerances: {', '.join(bad)}")
+    rec = {"loss_rel": loss_rel, "smooth_grad_worst_leaf": [worst,
+                                                            leaves[worst]],
+           "smooth_grad_modules": modules,
+           "whole_grad_worst_leaf": max(whole_leaves.items(),
+                                        key=lambda kv: kv[1]),
+           "whole_grad_modules": whole_modules,
+           "fg_rois": int((cpu["targets"]["reg_valid_mask"] > 0).sum()),
+           "relu_flips": [flips[0], sum(int(t.numel()) for t in decisions)]}
+    print(f"[23a] bf16 pillarrcnn18_demo second stage on fixed first-stage "
+          f"outputs, card vs CPU (same weights, maps, RoIs, draws; "
+          f"{rec['fg_rois']} fg RoIs; the card's ReLUs take the CPU's "
+          f"decisions, {flips[0]} of {rec['relu_flips'][1]} on the other "
+          f"side of 0 there): the sampled targets equal; loss rel "
+          f"{ {k: f'{v:.2e}' for k, v in loss_rel.items()} } (limit "
+          f"{BF16_LOSS_RTOL}); cls + point gradient: worst weight leaf "
+          f"{worst} {leaves[worst]:.2e}, modules "
+          f"{ {k: f'{v:.2e}' for k, v in modules.items()} } (limit "
+          f"{BF16_GRAD_RTOL}); with the regression L1 (a reading): worst "
+          f"leaf {rec['whole_grad_worst_leaf'][0]} "
+          f"{rec['whole_grad_worst_leaf'][1]:.2e}, modules "
+          f"{ {k: f'{v:.2e}' for k, v in whole_modules.items()} }")
+    return rec
+
+
+def variant_detections(det, posts, tag):
+    """A variant's served detections (random second-stage weights):
+    padded (1, R, 7) finite boxes, scores in [0, 1], some kept, each kept
+    box with positive dimensions. Returns the kept count."""
+    R = sum(posts)
+    for key, shape in (("box3d_lidar", (1, R, 7)), ("scores", (1, R)),
+                       ("label_preds", (1, R)), ("mask", (1, R))):
+        if det[key].shape != shape:
+            raise AssertionError(f"{tag}: {key} shape {det[key].shape}")
+    m = det["mask"].astype(bool)
+    if not (np.isfinite(det["box3d_lidar"]).all()
+            and np.isfinite(det["scores"]).all() and m.any()
+            and ((det["scores"] >= 0) & (det["scores"] <= 1)).all()
+            and (det["box3d_lidar"][m][:, 3:6] > 0).all()):
+        raise AssertionError(f"{tag}: detections out of their contract "
+                             f"({int(m.sum())} kept)")
+    return int(m.sum())
+
+
+def serve_variant(torch, dev, card, variant):
+    """Phase 23b: `pillarrcnn18_waymo` (f32, full width) with `variant`
+    (`rcnn_variant`), seeded weights and a spread first-stage head:
+    VARIANT_REQUESTS requests at bs=1 (the first untimed) with the launch
+    counts set to 0 just before and read just after, K1 once and K2 once
+    per task on each; finite detections of the served shape; the second
+    stage's device ms (CUDA events); then VARIANT_TRAIN_STEPS training
+    steps at bs=4 (VARIANT_NEAR RoI slots near the GT): every metric
+    finite, the IoU loss (RoIFFNHead) or the point loss positive; every
+    K1 and K2 call of the last step replayed; and one step of the demo
+    config with the variant on the card against the CPU
+    (`rcnn_train_card_vs_cpu`)."""
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, optimizer_from_cfg, rcnn_variant,
+        spread_head_outputs)
+    from pillarnet_lts_torch.datasets import (SynthDataset, collate_batch,
+                                              synth_points_realistic)
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.runtime.train_step import (
+        batch_to_device, step_generator, train_step)
+
+    tag = f"23b {variant}"
+    cfg = load_config(RCNN)
+    cfg["model"] = rcnn_variant(cfg["model"], variant)
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+    posts = cfg["test_cfg"]["nms"]["nms_post_max_size"]
+    model = build_model_from_cfg(cfg, device=dev, seed=0)
+    spread_head_outputs(model, *on_card(torch, dev, synth_points_realistic(
+        1, n, pc_range, seed=99, nsweeps=1)))
+    path = precision_path(model, False)
+    infer = make_infer_fn(model)
+    clouds = [on_card(torch, dev, synth_points_realistic(
+        1, n, pc_range, seed=800 + s, nsweeps=1))
+        for s in range(VARIANT_REQUESTS)]
+    lat, kept = [], []
+    _kernels.reset_launches()
+    for i, cloud in enumerate(clouds):
+        before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        det = {k: v.cpu().numpy() for k, v in infer(*cloud).items()}
+        dt = (time.perf_counter() - t0) * 1e3
+        got = {k: v - before[k] for k, v in _kernels.LAUNCHES.items()
+               if v != before[k]}
+        if got != path:
+            raise AssertionError(f"[{tag}] request {i}: launches {got}, "
+                                 f"the path is {path}")
+        kept.append(variant_detections(det, posts, f"[{tag}] request {i}"))
+        if i >= VARIANT_WARMUP:
+            lat.append(dt)
+    launches = dict(_kernels.LAUNCHES)
+    split = rcnn_stage_split(torch, model, clouds[-1], iters=5)
+    rec = {"variant": variant, "requests": len(clouds), "launches": launches,
+           "p50_ms": statistics.median(lat),
+           "second_stage_ms": split["second_stage_ms"],
+           "second_stage_alone_ms": split["second_stage_alone_ms"],
+           "first_stage_ms": split["first_stage_ms"],
+           "mean_kept": statistics.mean(kept)}
+    del infer, clouds
+    model.train()
+    bs = BF16_TRAIN_BS
+    ds = SynthDataset(cfg, bs, n, seed=900, num_boxes=(10, 21))
+    batch = batch_to_device(collate_batch([ds[i] for i in range(bs)], n),
+                            dev)
+    opt = optimizer_from_cfg(model, cfg, VARIANT_TRAIN_STEPS)
+    metrics, k1, k2 = [], [], []
+    with proposals_near_gt(torch, VARIANT_NEAR, 21):
+        for s in range(VARIANT_TRAIN_STEPS):
+            k1.clear()
+            k2.clear()
+            (_, calls2), calls1 = capture_scatter(lambda: capture_overlap(
+                lambda: metrics.append({k: float(v) for k, v in train_step(
+                    model, opt, batch, cfg["train_cfg"],
+                    step_generator(0, s, dev)).items()})))
+            k1.extend(calls1)
+            k2.extend(calls2)
+    key = "roi_iou_loss_task0" if variant == "RoIFFNHead" \
+        else "point_loss_task0"
+    for s, m in enumerate(metrics):
+        if not all(math.isfinite(v) for v in m.values()) or not m[key] > 0:
+            finite = all(map(math.isfinite, m.values()))
+            raise AssertionError(f"[{tag}] step {s}: {key} {m.get(key)}, "
+                                 f"finite {finite}")
+    rec.update(train_loss=[m["loss"] for m in metrics],
+               train_key=key, train_key_values=[m[key] for m in metrics],
+               train_roi_reg_loss=[m["roi_reg_loss_task0"] for m in metrics])
+    print(f"[{tag}] pillarrcnn18_waymo with {variant} (f32): bs=1 p50 "
+          f"{rec['p50_ms']:.2f} ms over {len(lat)} requests (after "
+          f"{VARIANT_WARMUP} warm-up), the second stage "
+          f"{split['second_stage_ms']:.3f} ms (its kernels alone "
+          f"{split['second_stage_alone_ms']:.3f} ms), "
+          f"the first {split['first_stage_ms']:.2f} ms; mean kept "
+          f"{rec['mean_kept']:.1f} of {sum(posts)}; launches {path} a "
+          f"request; {VARIANT_TRAIN_STEPS} training steps at bs={bs}: {key} "
+          f"{', '.join(f'{v:.4f}' for v in rec['train_key_values'])}, loss "
+          f"{', '.join(f'{v:.3f}' for v in rec['train_loss'])}; card: {card}")
+    rec["replays"] = time_first_calls(
+        torch, replay_equal(torch, k1, k2, tag), k1, k2, tag)
+    del k1, k2, model, opt, batch
+    torch.cuda.empty_cache()
+    rec["demo_card_vs_cpu"] = rcnn_train_card_vs_cpu(
+        torch, dev, variant=variant, tag=tag, nudges=VARIANT_NUDGES)
+    return rec
+
+
+def stage_inputs(torch, dev, shape, n, seed, occupancy=STAGE_OCCUPANCY):
+    """Synthetic K5 arguments at `shape` (B, H, W), 32 channels: an
+    occupancy of clusters (runs of 8 x 8 sites around seeded centres, a
+    lidar cloud's pillars cluster) at about `occupancy` of the sites, f32
+    features there, seeded int8 kernels and scales of the tests'
+    magnitudes."""
+    g = torch.Generator().manual_seed(seed)
+    B, H, W = shape
+    coarse = torch.rand(B, H // 8 + 1, W // 8 + 1, generator=g) < occupancy
+    occ = coarse.repeat_interleave(8, 1).repeat_interleave(8, 2)[:, :H, :W]
+    occ &= torch.rand(B, H, W, generator=g) < 0.9
+    x = torch.randn(B, H, W, 32, generator=g) * occ[..., None]
+    w_q = torch.randint(-127, 128, (n, 3, 3, 32, 32), generator=g,
+                        dtype=torch.int8)
+    inv_s = 30.0 + 5 * torch.arange(n, dtype=torch.float32)
+    dq = torch.rand(n, 32, generator=g) * 2e-5 + 1e-5
+    shift = torch.randn(n, 32, generator=g) * 0.05
+    return [t.to(dev) for t in (x, w_q, inv_s, dq, shift,
+                                occ.to(torch.float32))]
+
+
+def time_stage(torch, args, pack, tag):
+    """K5 on `args` (x, w_q, inv_s, dq, shift, mask) in x's dtype's
+    variant, against its plain version (bit-equal) and timed: wrapper,
+    kernels alone, plain, bound (as phase 7)."""
+    from pillarnet_lts_torch.ops.int8_stage import (int8_stage,
+                                                    int8_stage_plain)
+
+    got = int8_stage(*args, w_pack=pack)
+    want = int8_stage_plain(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(f"[{tag}] K5 differs from its plain version: "
+                             f"max |d| {err}, {int((got != want).sum())} "
+                             f"elements")
+    x, mask, n = args[0], args[5], args[1].shape[0]
+    sites = int((mask != 0).sum())
+    sites_in = input_sites(torch, mask, x.shape[1], x.shape[2], 1)
+    r = {"shape": list(x.shape), "dtype": str(x.dtype).replace("torch.", ""),
+         "n": n, "active_sites": sites, "max_abs_err": err,
+         "ms": cuda_ms(lambda: int8_stage(*args, w_pack=pack)),
+         "alone_ms": device_ms(lambda: int8_stage(*args, w_pack=pack),
+                               iters=5)[0],
+         "plain_ms": cuda_ms(lambda: int8_stage_plain(*args),
+                             iters=PLAIN_ITERS, warmup=1),
+         "bound": bound(nbytes(*args[2:], pack, got)
+                        + sites_in * 32 * x.element_size(),
+                        n * 2 * 9 * 32 * 32 * sites, INT8_OPS)}
+    print(f"[{tag}] K5 {r['dtype']}, n = {n}, {tuple(x.shape)}, {sites} "
+          f"active sites: bit-equal to plain; wrapper {r['ms']:.4f} ms, "
+          f"kernels alone {r['alone_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+          f"ms, bound {r['bound'][0]:.4f} ms ({r['bound'][1]})")
+    return r
+
+
+def stage_routes(torch, bb, args, kw):
+    """The stride-1 stage of 18a's build on one captured K5 f32 input, on
+    each route as `PillarResNet.conv12` runs it: one K5 f32 call
+    (`int8_stage`, its NHWC copy of the input included) against the
+    per-conv route (the stage's blocks: one K4 f32 call per conv), outputs
+    bit-equal, the launches of one pass counted, each timed by CUDA events
+    (`cuda_ms`) STAGE_ROUNDS times in turns. Returns the record."""
+    from pillarnet_lts_torch.models.backbones.base import nhwc
+    from pillarnet_lts_torch.models.backbones.pillar_resnet import _nchw
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.ops.int8_stage import int8_stage
+
+    # the stage's input as `conv12` holds it, and its two routes there
+    x, mask = _nchw(args[0]), args[5][:, None]
+
+    def per_conv():
+        y = x
+        for blk in bb._stage1_blocks():
+            y = blk(y, mask)
+        return y
+
+    def fused():
+        return int8_stage(nhwc(x), *args[1:], **kw)
+
+    passes = {}
+    with torch.inference_mode():
+        for name, fn in (("fused", fused), ("per_conv", per_conv)):
+            _kernels.reset_launches()
+            out = fn()
+            passes[name] = ({k: v for k, v in _kernels.LAUNCHES.items() if v},
+                            out)
+        n = args[1].shape[0]
+        if x.is_cuda and (passes["fused"][0] != {"int8_stage_f32": 1}
+                          or passes["per_conv"][0] != {"int8_conv_f32": n}):
+            raise AssertionError(f"[23c] the stage's launches "
+                                 f"{ {k: v[0] for k, v in passes.items()} }")
+        if not torch.equal(passes["fused"][1],
+                           passes["per_conv"][1].permute(0, 2, 3, 1)):
+            raise AssertionError("[23c] the stride-1 stage differs between "
+                                 "the routes")
+        ms = {"fused": [], "per_conv": []}
+        for _ in range(STAGE_ROUNDS):
+            ms["fused"].append(cuda_ms(fused))
+            ms["per_conv"].append(cuda_ms(per_conv))
+    rec = {"shape": list(args[0].shape), "n": n,
+           "launches": {k: v[0] for k, v in passes.items()},
+           "ms": ms, **{f"median_ms_{k}": statistics.median(v)
+                        for k, v in ms.items()}}
+    print(f"[23c] the stride-1 stage {tuple(args[0].shape)}, n = "
+          f"{rec['n']}, outputs bit-equal: fused "
+          f"{rec['median_ms_fused']:.4f} ms ({rec['launches']['fused']}) vs "
+          f"per-conv {rec['median_ms_per_conv']:.4f} ms "
+          f"({rec['launches']['per_conv']}); medians of {STAGE_ROUNDS} "
+          f"rounds in turns, CUDA events")
+    return rec
+
+
+def fused_f32_stage(torch, dev, card):
+    """Phase 23c: `pillarrcnn18_waymo` + `enable_backbone_quant` (f32
+    activations, 18a's build) calibrated on CALIB_CLOUDS clouds, served at
+    bs=1 on the per-conv route and with `backbone.s2d_pallas` (K5's f32
+    variant over the stride-1 stage), FUSED_F32_REQUESTS requests each
+    (the first untimed) on the same clouds, the two routes in turns; the
+    launch counts set to 0 just before each fused request and read just
+    after; the two routes' detections bit-equal (the same int32 sums and
+    f32 epilogue); every K5 f32 call of the fused route replayed bit-equal
+    against its plain version; the stride-1 stage alone on both routes
+    (`stage_routes`); K5 f32 timed at 18a's stage (the captured call) and,
+    with the bf16 variant on the same input cast, at STAGE_SHAPE (n = 7,
+    the bf16 row's shape). Returns (record, launches, K5 f32 record)."""
+    from pillarnet_lts_torch.apis import (
+        build_model_from_cfg, load_config, spread_head_outputs)
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.models.backbones import pillar_resnet
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.ops.int8_stage import (int8_stage,
+                                                    int8_stage_plain)
+    from pillarnet_lts_torch.ops.quant import pack_kernel
+    from pillarnet_lts_torch.runtime.quantize import (
+        calibrate, enable_backbone_quant)
+
+    cfg = load_config(RCNN)
+    enable_backbone_quant(cfg["model"])
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+    model = build_model_from_cfg(cfg, device=dev, seed=0)
+    if model.dtype != torch.float32:
+        raise AssertionError(f"[23c] dtype {model.dtype}")
+    spread_head_outputs(model, *on_card(torch, dev, synth_points_realistic(
+        1, n, pc_range, seed=99, nsweeps=1)))
+    calibrate(model, [on_card(torch, dev, synth_points_realistic(
+        1, n, pc_range, seed=400 + s, nsweeps=1))
+        for s in range(CALIB_CLOUDS)])
+    bb = model.single_det.backbone_net
+    infer = make_infer_fn(model)
+    clouds = [on_card(torch, dev, synth_points_realistic(
+        1, n, pc_range, seed=1000 + s, nsweeps=1))
+        for s in range(FUSED_F32_REQUESTS)]
+
+    def request(cloud, fused):
+        bb.s2d_pallas = fused
+        if (bb.fused_stage1_params() is not None) != fused:
+            raise AssertionError(f"[23c] the fused stage is "
+                                 f"{'off' if fused else 'on'}")
+        t0 = time.perf_counter()
+        det = {k: v.cpu() for k, v in infer(*cloud).items()}
+        return det, (time.perf_counter() - t0) * 1e3
+
+    # the routes in turns, each request on both, the order alternating; the
+    # fused route's launches counted from 0 just before each of its
+    # requests and read just after
+    calls, lat = [], {False: [], True: []}
+    launches = dict.fromkeys(_kernels.LAUNCHES, 0)
+    with recording(pillar_resnet, "int8_stage", calls):
+        for i, cloud in enumerate(clouds):
+            dets = {}
+            for fused in ((False, True) if i % 2 else (True, False)):
+                if fused:
+                    _kernels.reset_launches()
+                dets[fused], ms = request(cloud, fused)
+                if fused:
+                    for k, v in _kernels.LAUNCHES.items():
+                        launches[k] += v
+                if i:
+                    lat[fused].append(ms)
+            for k in dets[False]:
+                if not torch.equal(dets[False][k], dets[True][k]):
+                    raise AssertionError(f"[23c] request {i}: {k} differs "
+                                         f"between the fused and per-conv "
+                                         f"routes")
+    if launches["int8_stage_f32"] != len(clouds) or launches["int8_stage"]:
+        raise AssertionError(f"[23c] launches {launches}")
+    p50_fused = statistics.median(lat[True])
+    p50_per_conv = statistics.median(lat[False])
+    # every call bit-equal to its plain version; the first one timed
+    stage18a = time_stage(torch, calls[0][0], calls[0][1]["w_pack"], "23c")
+    for k, (args, kw) in enumerate(calls[1:], 1):
+        got, want = int8_stage(*args, **kw), int8_stage_plain(*args)
+        if not torch.equal(got, want):
+            raise AssertionError(f"[23c] K5 f32 call {k} differs from its "
+                                 f"plain version")
+    routes = stage_routes(torch, bb, *calls[0])
+    stage18a["calls"] = len(calls)
+    bb.s2d_pallas = False
+    del calls, infer, model, bb
+    torch.cuda.empty_cache()
+    args = stage_inputs(torch, dev, STAGE_SHAPE, 7, 23)
+    pack = pack_kernel(args[1])
+    at_shape = {"f32": time_stage(torch, args, pack, "23c"),
+                "bf16": time_stage(torch, [args[0].bfloat16(), *args[1:5],
+                                           args[5].bfloat16()], pack, "23c")}
+    del args, pack
+    torch.cuda.empty_cache()
+    rec = {"config": os.path.relpath(RCNN, ROOT) + " + enable_backbone_quant",
+           "requests": len(clouds), "p50_ms_fused": p50_fused,
+           "p50_ms_per_conv": p50_per_conv,
+           "ms_fused": lat[True], "ms_per_conv": lat[False],
+           "launches": launches, "detections_bit_equal": True,
+           "stage_routes": routes, "k5_f32_18a_stage": stage18a,
+           "k5_at_stage_shape": at_shape}
+    print(f"[23c] {rec['config']} (f32) with s2d_pallas: the fused route's "
+          f"detections bit-equal to the per-conv route's on {len(clouds)} "
+          f"requests, the routes in turns; p50 fused {p50_fused:.2f} ms "
+          f"vs per-conv {p50_per_conv:.2f} ms (bs=1, {len(lat[True])} "
+          f"timed each, the first untimed; host clock); K5 f32 "
+          f"{stage18a['calls']} calls, each bit-equal to its plain version; "
+          f"launches {launches}; card: {card}")
+    return rec, launches, stage18a
+
+
+def two_stage_remainder(torch, dev, card, twins):
+    """Phase 23. `twins`: phase 13c's and 15d's records (the f32 twins of
+    23a's runs). Returns (record, {sub-phase: launches}, K5 f32 record)."""
+    from pillarnet_lts_torch.apis import RCNN_VARIANTS
+
+    t0 = time.perf_counter()
+    rec = {"23a": {
+        "pillarnet34_nusc_bf16": bf16_train_run(
+            torch, dev, card, FLAGSHIP.replace(".py", "_bf16.py"),
+            twins["flagship"]),
+        "pillarrcnn18_waymo_bf16": bf16_train_run(
+            torch, dev, card, RCNN_BF16, twins["rcnn"]),
+        "demo_card_vs_cpu": bf16_step_card_vs_cpu(torch, dev)}}
+    rec["23b"] = {v: serve_variant(torch, dev, card, v)
+                  for v in RCNN_VARIANTS}
+    rec["23c"], fused_launches, k5 = fused_f32_stage(torch, dev, card)
+    rec["seconds"] = time.perf_counter() - t0
+    launches = {"23a_" + k: v["launches"] for k, v in rec["23a"].items()
+                if "launches" in v}
+    launches.update({"23b_" + k: v["launches"]
+                     for k, v in rec["23b"].items()})
+    launches["23c"] = fused_launches
+    print(f"[23] phase 23 took {rec['seconds']:.1f} s")
+    return rec, launches, k5
+
+
 def load_cfg_points(path):
     from pillarnet_lts_torch.apis import load_config
 
@@ -6624,6 +7417,9 @@ def main():
                                                               card)
     exported = serving_export(torch, dev, card)
     prep, prep_launches, prep_replays = data_prep_chain(torch, dev, card)
+    remainder, rem_launches, k5_f32 = two_stage_remainder(
+        torch, dev, card, {"flagship": training["flagship"],
+                           "rcnn": two_stage_training["waymo"]})
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
@@ -6681,6 +7477,14 @@ def main():
                  conv_f32["ms"], conv_f32["plain_ms"], conv_f32["bound"]),
              alone_ms=conv_f32["alone_ms"], main_shape=conv_f32["main_shape"],
              shapes=conv_f32["shapes"], frame=conv_f32["frame"]),
+        # K5's f32 variant: launches of phase 23c's fused route (counts
+        # reset just before), its calls replayed and the first timed there
+        dict(row("int8_stage_f32", "int8_stage.cu", "s2d_conv_kernel.py:385",
+                 rem_launches["23c"]["int8_stage_f32"], k5_f32,
+                 k5_f32["ms"], k5_f32["plain_ms"], k5_f32["bound"]),
+             alone_ms=k5_f32["alone_ms"], shape=k5_f32["shape"],
+             calls=k5_f32["calls"],
+             at_stage_shape=remainder["23c"]["k5_at_stage_shape"]),
     ]}
     # the two-stage path's launches (phase 14, counts reset just before)
     record["kernels"][0]["two_stage_launches"] = \
@@ -6798,6 +7602,20 @@ def main():
             "replays": prep_replays[key]}
         k["max_abs_err"] = max(k["max_abs_err"],
                                prep_replays[key]["max_abs_err"])
+    # phase 23: each path's launches (counts set to 0 just before each,
+    # read just after) and its K1 / K2 calls replayed (23a, 23b)
+    for i, key, name in ((0, "k1", "pillar_scatter_max"),
+                         (2, "k2", "rotated_overlap")):
+        k = record["kernels"][i]
+        k["two_stage_remainder"] = {
+            "launches": {t: v[name] for t, v in rem_launches.items()},
+            "replays": {t: v["replays"][key] for t, v in
+                        list(remainder["23a"].items())
+                        + list(remainder["23b"].items())
+                        if key in v.get("replays", {})}}
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            r["max_abs_err"] for r in
+            k["two_stage_remainder"]["replays"].values()])
     for k in record["kernels"]:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")
@@ -6815,6 +7633,7 @@ def main():
     print(json.dumps({"compact": compact}))
     print(json.dumps({"export": exported}))
     print(json.dumps({"data_prep": prep}))
+    print(json.dumps({"two_stage_remainder": remainder}))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

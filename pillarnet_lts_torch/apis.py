@@ -1,5 +1,6 @@
 """High-level entry points of the port."""
 
+import copy
 import logging
 import os
 import pickle
@@ -31,6 +32,33 @@ def load_config(filename):
     return {k: v for k, v in ns.items()
             if not k.startswith("__") and not callable(v)
             and not isinstance(v, types.ModuleType)}
+
+
+# the second-stage variants of the JAX package that no config in
+# `configs/` sets, selected as config overrides (`rcnn_variant`)
+RCNN_VARIANTS = ("MLPMixer", "ResMLP", "RoIFFNHead", "ATT_MODEL")
+
+
+def rcnn_variant(model_cfg, variant):
+    """A copy of a two-stage model config with one second-stage variant:
+    `RoIMIXHead`'s token mixer ("MLPMixer", "ResMLP"), `RoIFFNHead` with
+    its IoU branch at the JAX package's defaults (content_dim 256,
+    feedforward_channels 2048, num_ffn_fcs 2, num_iou_fcs 1), or the point
+    head's `ATT_MODEL`. The same keys may be set in a config file."""
+    m = copy.deepcopy(model_cfg)
+    head = m["roi_head"]
+    if variant in ("MLPMixer", "ResMLP"):
+        head["mixer_type"] = variant
+    elif variant == "RoIFFNHead":
+        m["roi_head"] = dict(
+            type="RoIFFNHead", model_cfg=head["model_cfg"], num_iou_fcs=1,
+            content_dim=256, feedforward_channels=2048, num_ffn_fcs=2,
+            code_size=head.get("code_size", 7))
+    elif variant == "ATT_MODEL":
+        m["point_head"]["model_cfg"]["ATT_MODEL"] = True
+    else:
+        raise ValueError(f"unknown two-stage variant {variant!r}")
+    return m
 
 
 def build_model_from_cfg(cfg, device="cuda", seed=0):

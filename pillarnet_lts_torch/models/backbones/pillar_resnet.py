@@ -16,8 +16,9 @@ int8 deploy (`quant=True`): every conv runs int8 once calibrated. With
 32-channel stride-1 stage runs as one fused kernel
 (`ops/int8_stage.py::int8_stage`, K5), the counterpart of
 `pallas_s2d_gate` + `_fused_conv_params` + `s2d_fused_stage`
-(`pillarnet_lts_tpu/models/backbones/base.py:554-619`); otherwise each of
-its convs runs on the per-conv int8 kernel.
+(`pillarnet_lts_tpu/models/backbones/base.py:554-619`), in the compute
+dtype's variant (bf16 or f32 activations, as the JAX kernel computes in
+`x.dtype`); otherwise each of its convs runs on the per-conv int8 kernel.
 
 Training (`module.train()`) runs every conv unfolded with masked batch
 statistics (`base.py::conv_bn_act`). `remat=True` (the flagship config)

@@ -22,25 +22,28 @@ In training (`model.train()`) the first stage runs in training mode
 sample against `gt_boxes_and_cls` with draws from the caller's
 `generator` (`sampler_draws`), which then also drives the RoI head's
 dropout. The second stage pools the sampled RoIs; `loss` adds the RCNN
-classification and regression losses and the point head's focal loss to
+classification and regression losses, the IoU branch's loss (a head with
+three outputs, `RoIFFNHead` with `num_iou_fcs > 0`, against the detached
+decoded boxes `batch_box_preds_det`) and the point head's focal loss to
 the first task's CenterNet loss and lists each per task, as the JAX
 package does. With `freeze` the first stage runs in eval mode under
 `torch.no_grad()`: no gradient and no running-statistics update, the JAX
-package's `train=False` plus `stop_gradient`.
+package's `train=False` plus `stop_gradient`. With the point head's
+`ATT_MODEL` the grid points' features are scaled by sigmoid(point
+logits) before the RoI head pools them.
 
 `dtype` (f32 or bf16) is the compute dtype of both stages, as in the JAX
 package: the first stage computes in it, its detections (hence the RoIs)
 are decoded in f32, the grid pooling's convs run on its maps in dtype
 and samples them with f32 weights (f32 features), and the point and RoI
-heads cast those to dtype. A bf16 model serves; training is
-ported for f32 models only (`runtime/train_step.py` raises). An int8
+heads cast those to dtype. Both dtypes serve and train
+(`runtime/train_step.py`: f32 parameters, bf16 compute). An int8
 model (`runtime.quantize.enable_backbone_quant` on the config, then
 `calibrate`) quantizes the first stage's reader, backbone and neck in
 either dtype; the second stage stays in dtype.
-
-Not ported yet: `RoIFFNHead`'s IoU branch with its loss.
 """
 
+import inspect
 from typing import Optional, Sequence
 
 import torch
@@ -48,10 +51,11 @@ from torch import nn
 
 from .. import builder
 from ..point_heads.point_head import assign_point_targets_2d, point_cls_loss
-from ..registry import DETECTORS
+from ..registry import DETECTORS, ROI_HEAD
 from ..roi_heads.proposal_target_layer import (proposal_target_layer,
                                                sampler_draws)
 from ..roi_heads.roi_head_template import (box_cls_layer_loss,
+                                           box_iou_layer_loss,
                                            box_reg_layer_loss,
                                            canonicalize_roi_targets,
                                            generate_predicted_boxes)
@@ -83,6 +87,8 @@ class PillarRCNN(nn.Module):
         self.point_loss_weight = (
             point_head["model_cfg"]["LOSS_CONFIG"]["LOSS_WEIGHTS"]
             ["point_cls_weight"] if point_head is not None else None)
+        self.att_model = bool((point_head or {}).get("model_cfg", {})
+                              .get("ATT_MODEL", False))
         self.single_det = PillarNet(**fs, train_cfg=train_cfg,
                                     test_cfg=test_cfg, dtype=dtype,
                                     device=device)
@@ -96,12 +102,17 @@ class PillarRCNN(nn.Module):
                     f"{bev_channels}")
             setattr(self, f"second_stage_{k}",
                     self._second_stage_module(m, device))
+        head_cls = ROI_HEAD.get(roi_head["type"])
+        if ("in_features" in inspect.signature(head_cls).parameters
+                and self.num_second_stage):
+            # flax infers such a head's input width; torch is told it
+            last = getattr(self, f"second_stage_{self.num_second_stage - 1}")
+            roi_head = {"in_features": last.roi_feature_width(bev_channels),
+                        **roi_head}
         self.roi_head_net = builder.build_roi_head(roi_head, device, dtype)
         self.point_head_net = (
             builder.build_point_head(point_head, device, dtype)
             if point_head is not None else None)
-        if (point_head or {}).get("model_cfg", {}).get("ATT_MODEL", False):
-            raise NotImplementedError("PointHead ATT_MODEL is not ported yet")
 
     def _second_stage_module(self, cfg, device):
         """A RoI-grid module, given the backbone's geometry."""
@@ -159,13 +170,19 @@ class PillarRCNN(nn.Module):
         return roi_feats, point_feats, point_coords
 
     def _refine(self, bev, feats, rois, roi_scores, out, generator=None):
-        """Pooling, point head and RoI head over `rois`, into out."""
+        """Pooling, point head and RoI head over `rois`, into out (with
+        `rcnn_iou` from a head with an IoU branch)."""
         roi_feats, point_feats, point_coords = self._pool(bev, feats, rois)
         out["point_coords"] = point_coords
         if self.point_head_net is not None:
             out["point_logits"] = self.point_head_net(point_feats)
-        out["rcnn_cls"], out["rcnn_reg"] = self.roi_head_net(
-            roi_feats, rois, roi_scores, generator)
+            if self.att_model:
+                point_feats = point_feats * torch.sigmoid(out["point_logits"])
+                roi_feats = point_feats.reshape(roi_feats.shape)
+        head_out = self.roi_head_net(roi_feats, rois, roi_scores, generator)
+        out["rcnn_cls"], out["rcnn_reg"] = head_out[:2]
+        if len(head_out) == 3:
+            out["rcnn_iou"] = head_out[2]
         return out
 
     def second_stage(self, first, bev, feats):
@@ -190,9 +207,14 @@ class PillarRCNN(nn.Module):
             gt = torch.cat([gt[..., :7], gt[..., 9:]], dim=-1)
         targets = canonicalize_roi_targets(proposal_target_layer(
             rois, scores, labels, gt, self.target_config, draws))
-        return self._refine(bev, feats, targets["rois"],
-                            targets["roi_scores"], {"targets": targets},
-                            generator)
+        out = self._refine(bev, feats, targets["rois"],
+                           targets["roi_scores"], {"targets": targets},
+                           generator)
+        if "rcnn_iou" in out:  # the IoU loss's detached decoded boxes
+            with torch.no_grad():
+                out["batch_box_preds_det"] = generate_predicted_boxes(
+                    targets["rois"], out["rcnn_cls"], out["rcnn_reg"])[1]
+        return out
 
     def forward(self, points, points_mask, gt_boxes_and_cls=None,
                 generator=None, test_cfg=None):
@@ -200,11 +222,13 @@ class PillarRCNN(nn.Module):
 
         Eval: the output dict of the JAX package (`one_stage_preds`,
         `roi_labels`, `roi_scores`, `point_coords`, `point_logits`,
-        `rcnn_cls`, `rcnn_reg`, `batch_cls_preds`, `batch_box_preds`);
+        `rcnn_cls`, `rcnn_reg`, `batch_cls_preds`, `batch_box_preds`, and
+        `rcnn_iou` from a head with an IoU branch);
         `test_cfg`: the first stage's, by default its processed config.
         Training: gt_boxes_and_cls (B, G, 8 or 10) and a `generator`
         (the sampler's draws, then dropout's) are required; the output
-        carries `targets` in place of the decoded boxes."""
+        carries `targets` in place of the decoded boxes (and, with an IoU
+        branch, `batch_box_preds_det`, the detached decoded boxes)."""
         if self.training and (gt_boxes_and_cls is None or generator is None):
             raise ValueError("PillarRCNN training needs gt_boxes_and_cls "
                              "and a torch.Generator")
@@ -224,12 +248,22 @@ class PillarRCNN(nn.Module):
 
     def second_stage_losses(self, out):
         """(RCNN classification loss, RCNN regression loss, point loss or
-        None) of a training output."""
+        None) of a training output.
+
+        The heads' outputs enter the losses in f32, as the CenterNet
+        losses take their maps. The JAX package hands its RCNN and point
+        losses a bf16 model's bf16 outputs: its sigmoid then rounds to
+        bf16, the clip's 1 - 1e-7 is 1, and a logit above ~6 with a soft
+        label below 1 gives log(0), an infinite loss (its fault, which
+        stays there; a bf16 `pillarrcnn18_waymo` step on the card met
+        it)."""
         targets = out["targets"]
         weights = self.loss_config["LOSS_WEIGHTS"]
-        cls = box_cls_layer_loss(out["rcnn_cls"], targets["rcnn_cls_labels"],
+        cls = box_cls_layer_loss(out["rcnn_cls"].float(),
+                                 targets["rcnn_cls_labels"],
                                  weight=weights["rcnn_cls_weight"])
-        reg = box_reg_layer_loss(out["rcnn_reg"], targets["reg_valid_mask"],
+        reg = box_reg_layer_loss(out["rcnn_reg"].float(),
+                                 targets["reg_valid_mask"],
                                  targets["gt_of_rois"],
                                  weights["code_weights"],
                                  weight=weights["rcnn_reg_weight"])
@@ -237,21 +271,40 @@ class PillarRCNN(nn.Module):
         if "point_logits" in out:
             labels = assign_point_targets_2d(out["point_coords"],
                                              targets["gt_of_rois_src"])
-            point = point_cls_loss(out["point_logits"], labels,
+            point = point_cls_loss(out["point_logits"].float(), labels,
                                    weight=self.point_loss_weight)
         return cls, reg, point
 
+    def iou_loss(self, out):
+        """The IoU branch's loss of a training output (None without one),
+        weighted by LOSS_WEIGHTS' `rcnn_iou_weight` (1 by default); the
+        branch's output in f32, as `second_stage_losses` takes the
+        others."""
+        if "rcnn_iou" not in out:
+            return None
+        targets = out["targets"]
+        return box_iou_layer_loss(
+            out["rcnn_iou"].float(), targets["reg_valid_mask"],
+            targets["gt_of_rois_src"], out["batch_box_preds_det"],
+            weight=self.loss_config["LOSS_WEIGHTS"].get("rcnn_iou_weight",
+                                                        1.0))
+
     def loss(self, example, out, train_cfg=None):
-        """The first stage's per-task CenterNet losses, with the RCNN and
-        point losses added to task 0's `loss` and listed per task
-        (`roi_cls_loss`, `roi_reg_loss`, `point_loss`)."""
+        """The first stage's per-task CenterNet losses, with the RCNN, IoU
+        and point losses added to task 0's `loss` and listed per task
+        (`roi_cls_loss`, `roi_reg_loss`, `roi_iou_loss`, `point_loss`)."""
         losses = self.single_det.loss(example, out["one_stage_preds"],
                                       train_cfg)
         cls, reg, point = self.second_stage_losses(out)
+        iou = self.iou_loss(out)
         n = len(losses["loss"])
         losses["roi_reg_loss"] = [reg] * n
         losses["roi_cls_loss"] = [cls] * n
-        total = losses["loss"][0] + (cls + reg)
+        roi = cls + reg
+        if iou is not None:
+            losses["roi_iou_loss"] = [iou] * n
+            roi = roi + iou
+        total = losses["loss"][0] + roi
         if point is not None:
             losses["point_loss"] = [point] * n
             total = total + point

@@ -8,7 +8,9 @@ eval mode; `loss` takes the collated targets, `predict` decodes and runs
 NMS.
 `dtype` (f32 or bf16) is the compute dtype: the reader casts its features
 to it and every later module computes in the dtype of its input, with f32
-parameters, as the JAX package does.
+parameters, as the JAX package does. An int8 model (`backbone.quant`)
+runs its convs on K4 and, with `backbone.s2d_pallas`, its stride-1 stage
+on K5, each in the compute dtype's variant (bf16 or f32).
 """
 
 from typing import Optional
@@ -32,12 +34,6 @@ class PillarNet(nn.Module):
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
         self.dtype = dtype
-        if (dtype == torch.float32 and backbone.get("quant")
-                and backbone.get("s2d_pallas")):
-            raise NotImplementedError(
-                "s2d_pallas: the fused int8 stage kernel (ops/int8_stage.py) "
-                "takes bf16 activations only; an f32 int8 model runs its "
-                "stride-1 stage per conv (leave s2d_pallas off)")
         self.reader_net = builder.build_reader(reader, device, dtype)
         self.backbone_net = builder.build_backbone(backbone, device)
         self.neck_net = builder.build_neck(

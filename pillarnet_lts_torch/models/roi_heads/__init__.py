@@ -1,5 +1,5 @@
-from . import proposal_target_layer, roi_head_template
-from .roi_heads import RoIHead, RoIMIXHead
+from . import mlp_layers, proposal_target_layer, roi_head_template
+from .roi_heads import RoIFFNHead, RoIHead, RoIMIXHead
 
-__all__ = ["RoIHead", "RoIMIXHead", "proposal_target_layer",
-           "roi_head_template"]
+__all__ = ["RoIFFNHead", "RoIHead", "RoIMIXHead", "mlp_layers",
+           "proposal_target_layer", "roi_head_template"]

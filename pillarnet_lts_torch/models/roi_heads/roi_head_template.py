@@ -3,9 +3,9 @@ decoding the refinement into world boxes.
 
 Port of `pillarnet_lts_tpu/models/roi_heads/roi_head_template.py`
 (`limit_period`, `rotate_points_along_z`, `canonicalize_roi_targets`,
-`box_cls_layer_loss`, `box_reg_layer_loss`, `generate_predicted_boxes`).
-`box_iou_layer_loss` waits with `RoIFFNHead`, the only head that has an
-IoU branch.
+`box_cls_layer_loss`, `box_reg_layer_loss`, `box_iou_layer_loss`,
+`generate_predicted_boxes`). Each loss divides by its count summed over
+the ranks of a data-parallel group, the JAX mesh's global batch.
 """
 
 import math
@@ -13,6 +13,7 @@ import math
 import torch
 
 from ...core.utils import device_constant
+from ...ops.iou3d import boxes_aligned_iou3d
 from ...parallel.dist import sum_over_ranks
 
 
@@ -91,6 +92,21 @@ def box_reg_layer_loss(rcnn_reg, reg_valid_mask, gt_of_rois, code_weights,
     cw = device_constant(list(code_weights), preds.device, preds.dtype)
     per = (preds - targets).abs() * cw
     return ((per.sum(-1) * fg).sum()
+            / sum_over_ranks(fg.sum()).clamp_min(1.0) * weight)
+
+
+def box_iou_layer_loss(rcnn_iou, reg_valid_mask, gt_of_rois_src,
+                       batch_box_preds, weight=1.0):
+    """L1 between the IoU branch and 2 * IoU3d(decoded box, its GT) - 1,
+    averaged over the foreground RoIs (over the ranks of a data-parallel
+    group); the decoded boxes are detached, and the background and padded
+    rows (their zero boxes) are masked out by reg_valid_mask."""
+    preds = batch_box_preds[..., :7].reshape(-1, 7).detach()
+    gt = gt_of_rois_src[..., :7].reshape(-1, 7)
+    fg = (reg_valid_mask.reshape(-1) > 0).to(torch.float32)
+    iou_targets = 2.0 * boxes_aligned_iou3d(preds, gt) - 1.0
+    per = (rcnn_iou.reshape(-1) - iou_targets).abs()
+    return ((per * fg).sum()
             / sum_over_ranks(fg.sum()).clamp_min(1.0) * weight)
 
 

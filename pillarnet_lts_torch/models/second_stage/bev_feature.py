@@ -113,6 +113,7 @@ class _BEVFusion(nn.Module):
         strides = backbone_strides or {self.anchor: 2 ** (
             _SOURCES.index(self.anchor))}
         self.grid_size = grid_size
+        self.share_channels = share_channels
         self.pc_range = list(pc_range)
         self.inv_cell = f32_reciprocal(out_stride * pillar_size)
 
@@ -171,6 +172,12 @@ class _BEVFusion(nn.Module):
                                       mask))
         return conv_bn_act(self.fusion_conv, self.fusion_bn,
                            torch.cat(feats, dim=1), None, self.training)
+
+    def roi_feature_width(self, bev_channels):
+        """The width of a RoI's feature row: G^2 grid points of the fused
+        map's channels."""
+        del bev_channels
+        return self.grid_size ** 2 * self.share_channels
 
     def forward(self, bev_feature, backbone_features, rois):
         """bev_feature: (B, C, H, W) NCHW neck map at the anchor's scale;
@@ -244,6 +251,11 @@ class BEVFeatureExtractor(nn.Module):
         self.pc_start = list(pc_start)
         self.inv_cell = f32_reciprocal(voxel_size[0] * out_stride)
         self.num_point = num_point
+
+    def roi_feature_width(self, bev_channels):
+        """The width of a RoI's feature row: num_point samples of the
+        map's channels."""
+        return self.num_point * bev_channels
 
     def forward(self, bev_feature, batch_centers):
         """bev_feature (B, C, H, W) NCHW; batch_centers (B, N, 2) ->

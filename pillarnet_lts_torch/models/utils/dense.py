@@ -11,18 +11,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .init import normal_
+from .init import normal_, xavier_uniform_
 
 
 class Dense(nn.Module):
     """y = x @ W^T (+ b) over the last axis of x. `init_std`: the normal
-    draw's std, by default sqrt(1 / in) (flax's lecun-normal scale); the
-    bias starts at 0."""
+    draw's std, by default sqrt(1 / in) (flax's lecun-normal scale);
+    `kernel_init` "xavier_uniform" or "zeros" replaces the normal draw;
+    the bias starts at `bias_init`."""
 
     def __init__(self, in_features, features, use_bias=True, init_std=None,
-                 device=None):
+                 kernel_init="normal", bias_init=0.0, device=None):
         super().__init__()
         self.init_std = init_std
+        self.kernel_init = kernel_init
+        self.bias_init = bias_init
         self.weight = nn.Parameter(
             torch.empty(features, in_features, device=device))
         self.bias = (nn.Parameter(torch.empty(features, device=device))
@@ -31,10 +34,16 @@ class Dense(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator):
         o, i = self.weight.shape
-        std = self.init_std if self.init_std is not None else (1.0 / i) ** 0.5
-        normal_(self.weight, std, generator)
+        if self.kernel_init == "xavier_uniform":
+            xavier_uniform_(self.weight, i, o, generator)
+        elif self.kernel_init == "zeros":
+            self.weight.zero_()
+        else:
+            std = (self.init_std if self.init_std is not None
+                   else (1.0 / i) ** 0.5)
+            normal_(self.weight, std, generator)
         if self.bias is not None:
-            self.bias.zero_()
+            self.bias.fill_(self.bias_init)
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)

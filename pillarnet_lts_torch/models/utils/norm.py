@@ -187,3 +187,35 @@ class MaskedBatchNorm(nn.Module):
         if mask is not None:
             y = y * mask.to(y.dtype)
         return y.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax's `nn.LayerNorm` over the last axis: its statistics in f32
+    whatever the input's dtype (mean = sum(x) / C, var = max(sum(x^2) / C
+    - mean^2, 0), the division a multiply by the f32 reciprocal of C as
+    XLA compiles it), eps 1e-6, y = (x - mean) * (rsqrt(var + eps) *
+    scale) + bias in f32, returned in `dtype` (the module's compute dtype,
+    as flax's `LayerNorm(dtype=...)`; None: x.dtype). `weight` / `bias`
+    are flax's `scale` / `bias` (`runtime/convert.py`)."""
+
+    def __init__(self, features, eps=1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(features, device=device))
+        self.bias = nn.Parameter(torch.empty(features, device=device))
+        self.init_weights(None)
+
+    @torch.no_grad()
+    def init_weights(self, generator):
+        del generator  # flax's: ones and zeros
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x, dtype=None):
+        xf = x.float()
+        rcp = f32_reciprocal(x.shape[-1])
+        mean = xf.sum(-1, keepdim=True) * rcp
+        var = _clamp0((xf * xf).sum(-1, keepdim=True) * rcp - mean * mean)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+            + self.bias
+        return y.to(dtype or x.dtype)

@@ -10,10 +10,12 @@ the fused epilogue of `ops/quant.py::int8_conv_bn_act`:
   mid  (odd i):    B = relu(conv(A)) * mask
   tail (even i):   A = relu(conv(B) + A) * mask
 
-The plain version chains the plain int8 convs through that structure; the
-kernel (`csrc/int8_stage.cu`) keeps the intermediates in shared memory and
-is held bit-equal to it. The s2d phase layout of the TPU kernel is not
-carried over: the int32 sums do not depend on it.
+The plain version chains the plain int8 convs through that structure in
+the activations' dtype (bf16 or f32, as `quant.int8_conv_bn_act_plain`);
+the kernel (`csrc/int8_stage.cu`, one variant per dtype) keeps the
+intermediates in shared memory and is held bit-equal to it. The s2d
+phase layout of the TPU kernel is not carried over: the int32 sums do not
+depend on it.
 """
 
 import torch
@@ -22,6 +24,11 @@ from . import _kernels
 from .quant import check_pack, int8_conv_bn_act_plain, pack_kernel
 
 CHANNELS = 32  # the only stage width the kernel takes (PillarNet's stage 1)
+
+# activation dtype -> the fused stage kernel's variant (its op and launch
+# counter)
+_STAGE_VARIANTS = {torch.bfloat16: "int8_stage",
+                   torch.float32: "int8_stage_f32"}
 
 
 def int8_stage_plain(x, w_q, inv_s, dq, shift, mask):
@@ -40,7 +47,8 @@ def int8_stage_plain(x, w_q, inv_s, dq, shift, mask):
 def int8_stage(x, w_q, inv_s, dq, shift, mask, w_pack=None):
     """Fused int8 stride-1 stage.
 
-    x:     (B, H, W, 32) bf16 stage input, zero at inactive sites;
+    x:     (B, H, W, 32) bf16 or f32 stage input (the model's compute
+           dtype), zero at inactive sites;
     w_q:   (n, 3, 3, 32, 32) int8 kernels in execution order, n odd >= 3;
     inv_s: (n,) f32, 1 / activation scale of each conv;
     dq:    (n, 32) f32 dequant vectors; shift: (n, 32) f32;
@@ -51,12 +59,16 @@ def int8_stage(x, w_q, inv_s, dq, shift, mask, w_pack=None):
            `quant.unpack_kernel`); when absent, the wrapper packs w_q
            itself.
 
-    Returns (B, H, W, 32) in x.dtype. The op `pillarnet::int8_stage`: a
+    Returns (B, H, W, 32) in x.dtype. The op of x.dtype's variant
+    (`pillarnet::int8_stage` bf16, `pillarnet::int8_stage_f32` f32): a
     CPU tensor takes the plain version; a CUDA tensor launches
-    `csrc/int8_stage.cu` or raises."""
-    _kernels.check_device("int8_stage", x)
+    `csrc/int8_stage.cu`'s variant or raises (an f32 x is quantized
+    itself, never cast to bf16)."""
+    name = _STAGE_VARIANTS.get(x.dtype, "int8_stage")
+    _kernels.check_device(name, x)
     if w_pack is None:
         w_pack = pack_kernel(w_q)
     else:
-        check_pack("int8_stage", w_pack, w_q)
-    return torch.ops.pillarnet.int8_stage(x, w_pack, inv_s, dq, shift, mask)
+        check_pack(name, w_pack, w_q)
+    return getattr(torch.ops.pillarnet, name)(x, w_pack, inv_s, dq, shift,
+                                              mask)

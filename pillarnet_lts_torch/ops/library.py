@@ -14,7 +14,7 @@ functions (`ops/scatter.py`, `ops/iou3d.py`, `ops/nms.py`, `ops/quant.py`,
   suppression_mask                      K3, suppression_mask.cu
   suppression_mask_corners              K3's staged corners (a check)
   int8_conv, int8_conv_f32              K4, int8_conv.cu (bf16 / f32)
-  int8_stage                            K5, int8_stage.cu
+  int8_stage, int8_stage_f32            K5, int8_stage.cu (bf16 / f32)
 
 Each op has three implementations: on CUDA tensors the ctypes launch of the
 kernel on torch's current stream (it counts in `_kernels.LAUNCHES`), on CPU
@@ -419,27 +419,22 @@ int8_conv_f32.register_fake(_int8_conv_fake)
 
 # --- K5: the fused int8 stride-1 stage -------------------------------------
 
-@_op("int8_stage")
-def int8_stage(x: torch.Tensor, w_pack: torch.Tensor, inv_s: torch.Tensor,
-               dq: torch.Tensor, shift: torch.Tensor, mask: torch.Tensor
-               ) -> torch.Tensor:
-    """K5: (B, H, W, 32) bf16 x, the (n, 9, 32, 32) packed kernels of the
-    stage's n convs -> (B, H, W, 32) (`int8_stage.int8_stage`)."""
+def _int8_stage_plain(x, w_pack, inv_s, dq, shift, mask):
     return int8_stage_plain(x, unpack_kernel(w_pack), inv_s, dq, shift, mask)
 
 
-@int8_stage.register_kernel("cuda")
-def _int8_stage_cuda(x, w_pack, inv_s, dq, shift, mask):
-    name = "int8_stage"
+def _int8_stage_cuda(name, dtype, x, w_pack, inv_s, dq, shift, mask):
+    """Launch K5's variant `name` (activations of `dtype`)."""
     _kernels.check_args(name, x=x, w_pack=w_pack, inv_s=inv_s, dq=dq,
                         shift=shift, mask=mask)
     _kernels.check_args(name, align=16, x=x, w_pack=w_pack)
     B, H, W, C = x.shape
     n = w_pack.shape[0]
-    if x.dtype != torch.bfloat16 or mask.dtype != x.dtype \
+    if x.dtype != dtype or mask.dtype != x.dtype \
             or w_pack.dtype != torch.int8:
-        raise TypeError(f"{name}: bf16 x and mask and an int8 kernel, got "
-                        f"{x.dtype}, {mask.dtype}, {w_pack.dtype}")
+        raise TypeError(f"{name}: {_NAMES[dtype]} x and mask (the bf16 or "
+                        f"f32 variant by their dtype) and an int8 kernel, "
+                        f"got {x.dtype}, {mask.dtype}, {w_pack.dtype}")
     if any(t.dtype != torch.float32 for t in (inv_s, dq, shift)):
         raise TypeError(f"{name}: inv_s, dq and shift must be f32")
     if C != CHANNELS or n < 3 or n % 2 == 0 \
@@ -459,9 +454,40 @@ def _int8_stage_cuda(x, w_pack, inv_s, dq, shift, mask):
     return out
 
 
-@int8_stage.register_fake
 def _int8_stage_fake(x, w_pack, inv_s, dq, shift, mask):
     return torch.empty_like(x)
+
+
+@_op("int8_stage")
+def int8_stage(x: torch.Tensor, w_pack: torch.Tensor, inv_s: torch.Tensor,
+               dq: torch.Tensor, shift: torch.Tensor, mask: torch.Tensor
+               ) -> torch.Tensor:
+    """K5 on bf16 activations: (B, H, W, 32) x, the (n, 9, 32, 32) packed
+    kernels of the stage's n convs -> (B, H, W, 32)
+    (`int8_stage.int8_stage`)."""
+    return _int8_stage_plain(x, w_pack, inv_s, dq, shift, mask)
+
+
+@_op("int8_stage_f32")
+def int8_stage_f32(x: torch.Tensor, w_pack: torch.Tensor,
+                   inv_s: torch.Tensor, dq: torch.Tensor,
+                   shift: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """K5 on f32 activations (`int8_stage`'s contract)."""
+    return _int8_stage_plain(x, w_pack, inv_s, dq, shift, mask)
+
+
+@int8_stage.register_kernel("cuda")
+def _int8_stage_bf16_cuda(*args):
+    return _int8_stage_cuda("int8_stage", torch.bfloat16, *args)
+
+
+@int8_stage_f32.register_kernel("cuda")
+def _int8_stage_f32_cuda(*args):
+    return _int8_stage_cuda("int8_stage_f32", torch.float32, *args)
+
+
+int8_stage.register_fake(_int8_stage_fake)
+int8_stage_f32.register_fake(_int8_stage_fake)
 
 
 # kernel entry of `_kernels.KERNELS` -> the op that launches it
@@ -472,4 +498,4 @@ OPS = {"pillar_scatter_max": pillar_scatter_max,
        "suppression_mask": suppression_mask,
        "suppression_mask_corners": suppression_mask_corners,
        "int8_conv": int8_conv, "int8_conv_f32": int8_conv_f32,
-       "int8_stage": int8_stage}
+       "int8_stage": int8_stage, "int8_stage_f32": int8_stage_f32}

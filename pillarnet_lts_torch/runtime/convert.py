@@ -14,6 +14,9 @@ a per-leaf transform:
                                              (I, O, kh, kw), spatially flipped
   BN `scale` / `bias`                        weight / bias
   BN batch_stats `mean` / `var`              running_mean / running_var
+  LayerNorm `scale` / `bias`                 LayerNorm.weight / bias
+  Affine `alpha` / `beta` (1, 1, C)          Affine.alpha / beta
+  ResMLP `token_scale` / `channel_scale`     ResMLPLayer.token_scale / ...
   quant `in_absmax` (conv: (), PFN: (Cin,))  in_absmax (then calibrated)
   quant `scatter_absmax` (reader)            DynamicPFE.scatter_absmax
 
@@ -41,8 +44,9 @@ import torch
 from ..models.backbones.base import MaskedConv
 from ..models.necks.rpn import ConvTranspose
 from ..models.readers.dynamic_pillar_encoder import DynamicPFE, _PFNDense
+from ..models.roi_heads.mlp_layers import Affine, ResMLPLayer
 from ..models.utils.dense import Dense
-from ..models.utils.norm import MaskedBatchNorm
+from ..models.utils.norm import LayerNorm, MaskedBatchNorm
 
 
 def _conv_kernel(w):
@@ -72,6 +76,12 @@ _LEAVES = {
                       "bias": ("params", "bias", None),
                       "running_mean": ("batch_stats", "mean", None),
                       "running_var": ("batch_stats", "var", None)},
+    LayerNorm: {"weight": ("params", "scale", None),
+                "bias": ("params", "bias", None)},
+    Affine: {"alpha": ("params", "alpha", None),
+             "beta": ("params", "beta", None)},
+    ResMLPLayer: {"token_scale": ("params", "token_scale", None),
+                  "channel_scale": ("params", "channel_scale", None)},
 }
 
 

@@ -15,6 +15,12 @@ two-stage detector draws its RoI samples and dropout from. The trainer
 makes one per step from (run seed, step) (`step_generator`), as the JAX
 package folds the step into its base key, so a step resumed from a
 checkpoint draws what the uninterrupted run drew.
+
+A bf16 model (`dtype="bfloat16"`) trains as the JAX package trains one:
+its parameters and the optimizer's state stay in f32, the layers compute
+in bf16 with the parameters cast, the masked BN takes its batch
+statistics in f32, and the losses take the heads' outputs as the JAX
+package's do (the CenterNet losses cast them to f32).
 """
 
 import numpy as np
@@ -50,8 +56,6 @@ def step_losses(model, batch, train_cfg=None, generator=None):
     """The training forward of a device batch: (the summed loss, the
     per-task loss dict). generator: the step's (`step_generator`), which a
     two-stage model needs."""
-    if model.dtype != torch.float32:
-        raise NotImplementedError("training is ported for f32 models only")
     model.train()
     preds = model(batch["points"], batch["points_mask"],
                   gt_boxes_and_cls=batch.get("gt_boxes_and_cls"),

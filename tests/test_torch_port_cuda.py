@@ -371,7 +371,7 @@ def test_int8_conv_f32_kernel_on_edge_cases(cuda, cls, case):
 @pytest.mark.parametrize("n_convs", [3, 5, 7, 9])
 def test_int8_stage_kernel_on_sparse_and_dense_masks(cuda, n_convs, density):
     """K5 on a size that is no multiple of its tile, at 1% and 100%
-    occupancy; n = 9 takes the 8-row tile (16 rows do not fit in shared
+    occupancy; n = 9 takes a 14-row tile (20 rows do not fit in shared
     memory there)."""
     rng = np.random.RandomState(10 * n_convs + len(density))
     B, H, W, c = 2, 37, 83, 32
@@ -397,6 +397,55 @@ def test_int8_stage_kernel_on_sparse_and_dense_masks(cuda, n_convs, density):
     assert torch.equal(got, want), (got.float() - want.float()).abs().max()
     assert torch.equal(got.view(torch.int16), got2.view(torch.int16))
     assert got.float().abs().max() > 0
+
+
+@pytest.mark.parametrize("density", ["sparse", "dense"])
+@pytest.mark.parametrize("n_convs", [3, 5, 7])
+def test_int8_stage_f32_kernel_matches_plain(cuda, n_convs, density):
+    """K5's f32 variant (`int8_stage_f32`) against its plain version,
+    bit-equal (by value), on a size that is no multiple of its tiles
+    (9, 15 and 20 rows at n = 7, 5, 3; 32 columns), with the image edges
+    in every conv's halo; sparse: tiles with no active site (sample 1's
+    first 20 rows); a quarter of the active inputs on rounding halves of
+    conv 0's scale (inv_s a power of two: x = (k + 1/2) / inv_s exactly),
+    which round half to even. Two calls are byte-identical, each counts
+    once, and an f32 x never takes the bf16 variant."""
+    rng = np.random.RandomState(20 + n_convs + len(density))
+    B, H, W, c = 2, 45, 83, 32
+    occ = rng.rand(B, H, W) < (0.05 if density == "sparse" else 1.0)
+    if density == "sparse":
+        occ[1, :20] = False
+    inv0 = 32.0
+    x = rng.randn(B, H, W, c).astype(np.float32) * 2
+    halves = rng.rand(B, H, W, c) < 0.25
+    x[halves] = (np.round(x[halves] * inv0) + 0.5) / inv0
+    x = torch.from_numpy(x * occ[..., None]).to(cuda)
+    w_q = torch.from_numpy(rng.randint(-127, 128, (n_convs, 3, 3, c, c))
+                           .astype(np.int8)).to(cuda)
+    inv_s = torch.from_numpy(np.concatenate(
+        [[inv0], 30.0 + 5 * np.arange(1, n_convs)]).astype(np.float32)
+        ).to(cuda)
+    dq = torch.from_numpy((rng.rand(n_convs, c) * 2e-5 + 1e-5)
+                          .astype(np.float32)).to(cuda)
+    shift = torch.from_numpy((rng.randn(n_convs, c) * 0.05)
+                             .astype(np.float32)).to(cuda)
+    args = (x, w_q, inv_s, dq, shift,
+            torch.from_numpy(occ).to(cuda, torch.float32))
+    want = tstage.int8_stage_plain(*args)
+    before = dict(_kernels.LAUNCHES)
+    got = tstage.int8_stage(*args, w_pack=tquant.pack_kernel(w_q))
+    got2 = tstage.int8_stage(*args)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["int8_stage_f32"] == \
+        before["int8_stage_f32"] + 2
+    assert _kernels.LAUNCHES["int8_stage"] == before["int8_stage"]
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want), (got - want).abs().max()
+    assert torch.equal(got.view(torch.int32), got2.view(torch.int32))
+    assert got.abs().max() > 0
+    assert not bool(got[~torch.from_numpy(occ).to(cuda)].any())
+    with pytest.raises(TypeError, match="f32 x and mask"):
+        tstage.int8_stage(x, w_q, inv_s, dq, shift, args[-1].bfloat16())
 
 
 def test_int8_model_path_runs_all_kernels(cuda):
@@ -1535,13 +1584,18 @@ def _op_cases(dev):
         "int8_stage": (
             ops.int8_stage, (x, tquant.pack_kernel(w_q), *stage[1:]),
             lambda: tstage.int8_stage_plain(x, *stage), False),
+        "int8_stage_f32": (
+            ops.int8_stage_f32, (x.to(f32), tquant.pack_kernel(w_q),
+                                 *stage[1:-1], stage[-1].to(f32)),
+            lambda: tstage.int8_stage_plain(x.to(f32), *stage[:-1],
+                                            stage[-1].to(f32)), False),
     }
 
 
 _OP_NAMES = ["pillar_scatter_max", "pillar_scatter_max-int8",
              "pillar_scatter_max_tiled", "rotated_overlap",
              "suppression_mask", "suppression_mask_corners", "int8_conv",
-             "int8_conv_f32", "int8_stage"]
+             "int8_conv_f32", "int8_stage", "int8_stage_f32"]
 
 
 def _outputs(out):
@@ -1577,8 +1631,12 @@ def test_kernel_op_fake_shapes_match_the_card(cuda, case):
         [(t.shape, t.dtype, t.device) for t in real]
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8-fused"])
-def test_demo_program_on_the_card_equals_eager(cuda, int8, tmp_path):
+@pytest.mark.parametrize("variant", ["f32", "int8-fused", "f32-fused"])
+def test_demo_program_on_the_card_equals_eager(cuda, variant, tmp_path):
+    """pillarnet18_demo exported on the card: f32, int8 in bf16 with the
+    fused stage (K4, K5) and int8 in f32 with the fused stage (the f32
+    variants of K4 and K5). The program launches what eager launches and
+    returns eager's detections bit for bit."""
     from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
                                           spread_head_outputs)
     from pillarnet_lts_torch.eval_utils import make_infer_fn
@@ -1589,9 +1647,11 @@ def test_demo_program_on_the_card_equals_eager(cuda, int8, tmp_path):
 
     cfg = load_config(os.path.join(os.path.dirname(__file__), "..",
                                    "configs", "demo", "pillarnet18_demo.py"))
+    int8 = variant.endswith("-fused")
     if int8:
         enable_backbone_quant(cfg["model"])
-        cfg["model"]["dtype"] = "bfloat16"
+        if variant == "int8-fused":
+            cfg["model"]["dtype"] = "bfloat16"
         cfg["model"]["reader"]["num_filters"] = (32,)
         cfg["model"]["backbone"].update(in_channels=32, s2d_pallas=True)
     pts, msk = _demo_cloud(cfg, cuda, 5)
@@ -1610,7 +1670,9 @@ def test_demo_program_on_the_card_equals_eager(cuda, int8, tmp_path):
         got = serve(pts, msk)
     assert dict(_kernels.LAUNCHES) == eager
     assert eager["pillar_scatter_max"] == 1 and eager["rotated_overlap"] >= 1
-    assert (eager["int8_stage"] == 1) == int8
+    assert (eager["int8_stage"] == 1) == (variant == "int8-fused")
+    assert (eager["int8_stage_f32"] == 1) == (variant == "f32-fused")
+    assert (eager["int8_conv_f32"] > 0) == (variant == "f32-fused")
     assert int(want["mask"].sum()) > 0
     for k in want:
         assert torch.equal(got[k], want[k]), k

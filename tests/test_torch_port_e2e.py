@@ -291,6 +291,26 @@ def test_port_runs_without_importing_jax():
         "    create_data.main(['waymo_data_prep', '--root_path', root])\n"
         "    assert os.path.exists(os.path.join(\n"
         "        root, 'dbinfos_train_1sweeps.pkl'))\n"
+        "from chip_smoke import RCNN_DEMO\n"
+        "from pillarnet_lts_torch.apis import RCNN_VARIANTS, rcnn_variant\n"
+        "from pillarnet_lts_torch.models.roi_heads import mlp_layers\n"
+        "from pillarnet_lts_torch.datasets import SynthDataset, "
+        "collate_batch\n"
+        "from pillarnet_lts_torch.runtime.train_step import (\n"
+        "    batch_to_device, step_losses)\n"
+        "for v in RCNN_VARIANTS + ('bf16',):\n"
+        "    rcfg = load_config(RCNN_DEMO)\n"
+        "    if v == 'bf16':\n"
+        "        rcfg['model']['dtype'] = 'bfloat16'\n"
+        "    else:\n"
+        "        rcfg['model'] = rcnn_variant(rcfg['model'], v)\n"
+        "    rm = build_model_from_cfg(rcfg, device='cpu', seed=0)\n"
+        "    ds = SynthDataset(rcfg, 1, 2048, seed=1)\n"
+        "    b = batch_to_device(collate_batch([ds[0]], 8192), 'cpu')\n"
+        "    total, _ = step_losses(rm, b, rcfg['train_cfg'],\n"
+        "                           torch.Generator().manual_seed(0))\n"
+        "    total.backward()\n"
+        "    assert bool(torch.isfinite(total)), v\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'pillarnet_lts_tpu' not in sys.modules, 'JAX package imported'\n"
         "print('no-jax ok')\n"

@@ -164,6 +164,9 @@ def op_cases():
         "int8_stage": (OPS.int8_stage, (
             (xs * stage_mask[..., None].float()).to(torch.bfloat16), ws, ss,
             dqs, shs, stage_mask)),
+        "int8_stage_f32": (OPS.int8_stage_f32, (
+            xs * stage_mask[..., None].float(), ws, ss, dqs, shs,
+            stage_mask.float())),
     }
 
 
@@ -261,12 +264,14 @@ def test_f32_export_matches_the_jax_export(demo):
 def int8_demo(variant):
     """The int8 demo: `enable_backbone_quant` on pillarnet18_demo (f32
     activations, K4's f32 variant), or at the int8 kernels' widths in bf16
-    with the fused stage on (K4 and K5); seeded weights, spread heads,
-    calibrated on the cloud it serves."""
+    with the fused stage on (K4 and K5), or the same widths in f32 with
+    the fused stage on (the f32 variants of K4 and K5); seeded weights,
+    spread heads, calibrated on the cloud it serves."""
     cfg = load_config(DEMO)
     enable_backbone_quant(cfg["model"])
-    if variant == "bf16-fused":
-        cfg["model"]["dtype"] = "bfloat16"
+    if variant.endswith("-fused"):
+        if variant == "bf16-fused":
+            cfg["model"]["dtype"] = "bfloat16"
         cfg["model"]["reader"]["num_filters"] = (32,)
         cfg["model"]["backbone"].update(in_channels=32, s2d_pallas=True)
     pts, msk = demo_cloud(cfg, seed=2)
@@ -279,7 +284,9 @@ def int8_demo(variant):
 @pytest.mark.parametrize("variant,ops", [
     ("f32", {"pillar_scatter_max", "rotated_overlap", "int8_conv_f32"}),
     ("bf16-fused", {"pillar_scatter_max", "rotated_overlap", "int8_conv",
-                    "int8_stage"})])
+                    "int8_stage"}),
+    ("f32-fused", {"pillar_scatter_max", "rotated_overlap", "int8_conv_f32",
+                   "int8_stage_f32"})])
 def test_int8_export_round_trips(variant, ops, tmp_path):
     model, pts, msk = int8_demo(variant)
     before = make_infer_fn(model)(pts, msk)
@@ -315,6 +322,27 @@ def test_two_stage_export_round_trips(tmp_path):
     program = export_serving(model, 1, N_POINTS)
     assert kernel_ops(program) == {"pillar_scatter_max", "rotated_overlap"}
     want = make_infer_fn(model)(pts, msk)
+    assert int(want["mask"].sum()) > 0
+    assert_same(round_trip(program, tmp_path, "cpu")(pts, msk), want)
+
+
+@pytest.mark.parametrize("variant", ["RoIFFNHead", "MLPMixer", "ATT_MODEL"])
+def test_two_stage_variant_export_round_trips(variant, tmp_path):
+    """The two-stage demo with `RoIFFNHead` (its IoU branch: three
+    outputs), the `MLPMixer` token mixer or `ATT_MODEL`, exported: the
+    served output is still the two-output decode's detections, and the
+    program returns eager's bit for bit."""
+    from pillarnet_lts_torch.apis import rcnn_variant
+
+    cfg = load_config(RCNN_DEMO)
+    cfg["model"] = rcnn_variant(cfg["model"], variant)
+    pts, msk = demo_cloud(cfg, seed=3)
+    model = build_model_from_cfg(cfg, device="cpu", seed=5)
+    spread_head_outputs(model, pts, msk)
+    program = export_serving(model, 1, N_POINTS)
+    assert kernel_ops(program) == {"pillar_scatter_max", "rotated_overlap"}
+    want = make_infer_fn(model)(pts, msk)
+    assert set(want) == {"box3d_lidar", "scores", "label_preds", "mask"}
     assert int(want["mask"].sum()) > 0
     assert_same(round_trip(program, tmp_path, "cpu")(pts, msk), want)
 

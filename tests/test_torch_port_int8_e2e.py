@@ -7,7 +7,10 @@ collection carried over by `load_jax_variables`); and the bf16 config.
 Tolerances:
 - int8 backbone and neck outputs: bit-equal (values), with `s2d_pallas`
   off (per-conv path) and on (the JAX side runs the fused Pallas stage in
-  interpret mode, the port its fused-stage op). The JAX side compiles
+  interpret mode, the port its fused-stage op), and with the fused stage
+  on an f32 model (case "f32": the JAX fused stage in interpret mode at
+  f32, the port's K5 f32 plain version, every int8 conv on K4 f32's plain
+  version; the same calibrated scales). The JAX side compiles
   without XLA's fusion pass and draws BN variances with an exact rsqrt
   (see `tests/test_torch_port_int8.py`). The neck's bf16 transposed conv
   sums in f32 and meets its BN unrounded on both sides (`rpn.py`), so the
@@ -142,9 +145,18 @@ def calibrated():
     return mcfg, tcfg, vq, (pts, msk), jpredict
 
 
-@pytest.mark.parametrize("s2d_pallas", [False, True])
+@pytest.mark.parametrize("s2d_pallas", [False, True, "f32"])
 def test_int8_slice_matches_jax(calibrated, s2d_pallas):
+    """s2d_pallas: the fused stage off or on (bf16), or "f32": on, in an
+    f32 model."""
     mcfg, tcfg, vq, (pts, msk), jpredict = calibrated
+    mcfg = copy.deepcopy(mcfg)
+    dtype = torch.bfloat16
+    if s2d_pallas == "f32":
+        mcfg["dtype"], dtype, s2d_pallas = "float32", torch.float32, True
+        jm = build_jax_detector(copy.deepcopy(mcfg), test_cfg=tcfg)
+        jpredict = jax.jit(lambda p: jm.predict({}, p,
+                                                jm.processed_test_cfg()))
     jcfg = copy.deepcopy(mcfg)
     jcfg["backbone"].update(s2d_pallas=s2d_pallas, s2d_stage1=s2d_pallas)
     jmodel = build_jax_detector(jcfg, test_cfg=tcfg)
@@ -159,7 +171,7 @@ def test_int8_slice_matches_jax(calibrated, s2d_pallas):
 
     for k in [f"conv{i}" for i in range(1, 6)]:
         x, m = feats[k]
-        assert x.dtype == torch.bfloat16
+        assert x.dtype == dtype
         if m is not None:
             np.testing.assert_array_equal(m.numpy(), np.asarray(jfeats[k][1]))
         np.testing.assert_array_equal(

@@ -138,6 +138,12 @@ def rcnn_run(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def ffn_bf16_run(tmp_path_factory):
+    return _dp_run(tmp_path_factory, "ffn_bf16", cs.RCNN_DEMO, spread=True,
+                   at_gt=True, variant="RoIFFNHead", dtype="bfloat16")
+
+
+@pytest.fixture(scope="module")
 def compact_run(tmp_path_factory):
     return _dp_run(tmp_path_factory, "compact", cs.DEMO, spread=True,
                    compact_kmax=POINTS)
@@ -330,6 +336,26 @@ def test_two_stage_ranks_step_as_one_process(rcnn_run, step):
     assert max(v for k, v in out["steps"][step]["metrics_rel"].items()
                if "loss" in k) <= 1e-6
     assert max(out["steps"][step]["grad_bound_by_group"].values()) <= 0.1
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_ffn_bf16_ranks_step_as_one_process(ffn_bf16_run, step):
+    """The two-stage demo in bf16 with `RoIFFNHead` and its IoU branch:
+    two ranks against one process on the same global batch, as the f32
+    two-stage demo. The IoU loss divides by the foreground count summed
+    over the ranks, and the bf16 model's masked BN sums its f32
+    statistics over the ranks."""
+    spec, ranks, ref, out = ffn_bf16_run
+    cfg, _, model = cs.dp_setup(torch, spec, "cpu")
+    assert model.dtype == torch.bfloat16
+    assert type(model.roi_head_net).__name__ == "RoIFFNHead"
+    rec = out["steps"][step]
+    assert {"roi_iou_loss_task0", "roi_reg_loss_task0"} <= set(
+        rec["metrics_rel"])
+    assert ranks[0]["metrics"][step]["roi_iou_loss_task0"] > 0
+    assert max(v for k, v in rec["metrics_rel"].items()
+               if "loss" in k) <= 1e-6
+    assert max(rec["grad_bound_by_group"].values()) <= 0.1
 
 
 def test_two_stage_ranks_draw_the_one_process_rows(rcnn_run):

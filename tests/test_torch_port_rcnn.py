@@ -317,8 +317,25 @@ def test_roi_head_matches_flax(head, add_box):
 
 
 def test_roi_mix_head_mixer_raises():
-    with pytest.raises(NotImplementedError, match="MLPMixer"):
-        RoIMIXHead(8, HEAD_CFG, mixer_type="MLPMixer")
+    """Only an unknown mixer raises; "MLPMixer" and "ResMLP" build their
+    mixer, which `tests/test_torch_port_rcnn_heads.py` holds against
+    flax, and the head over its tokens matches flax here too."""
+    with pytest.raises(ValueError, match="mixer_type"):
+        RoIMIXHead(8, HEAD_CFG, mixer_type="gMLP")
+    B, R, C = 2, 10, 8
+    rng = np.random.RandomState(36)
+    feats = np.abs(rng.randn(B, R, 49 * C)).astype(np.float32)
+    kw = dict(in_channels=C, model_cfg=HEAD_CFG, mixer_type="MLPMixer",
+              num_patches=49, code_size=7)
+    jm = JRoIMIXHead(**kw)
+    variables = random_variables(jm, 37, jnp.asarray(feats), train=False)
+    want = jit_apply(jm, variables, jnp.asarray(feats))
+    tm = load_jax_variables(RoIMIXHead(**kw).eval(), variables)
+    assert type(tm.mixer).__name__ == "MLPMixer"
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(feats))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
 def test_point_head_matches_flax():
@@ -570,8 +587,10 @@ def test_two_stage_serves_through_the_pipeline():
 
 def test_two_stage_training_raises():
     """Training mode needs the GT and a generator (the RoI sampler's and
-    dropout's draws); training the bf16 two-stage is not ported. Two-stage
-    training itself: `tests/test_torch_port_rcnn_train.py`."""
+    dropout's draws). The bf16 twin trains (its step against the JAX
+    package's: `tests/test_torch_port_bf16_train.py`): one step's losses
+    are finite and its parameters stay f32. Two-stage training itself:
+    `tests/test_torch_port_rcnn_train.py`."""
     port = build_model_from_cfg(load_config(DEMO), device="cpu")
     pts = torch.zeros((1, 64, 5))
     msk = torch.ones((1, 64), dtype=torch.bool)
@@ -580,17 +599,24 @@ def test_two_stage_training_raises():
         port(pts, msk)
     with pytest.raises(ValueError, match="Generator"):
         port(pts, msk, gt_boxes_and_cls=torch.zeros((1, 100, 10)))
-    # the bf16 twin serves (`test_torch_port_rcnn_precisions.py`); its
-    # training is not ported and raises
-    from pillarnet_lts_torch.runtime.train_step import step_losses
+    from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
+    from pillarnet_lts_torch.runtime.train_step import (batch_to_device,
+                                                        step_losses)
 
-    cfg = load_config(os.path.join(ROOT, "configs", "pillarrcnn",
-                                   "pillarrcnn18_waymo_bf16.py"))
-    model = build_model_from_cfg(cfg, device="cpu")
+    cfg = load_config(DEMO)
+    cfg["model"]["dtype"] = "bfloat16"
+    model = build_model_from_cfg(cfg, device="cpu", seed=3)
     assert model.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="f32"):
-        step_losses(model, {"points": pts, "points_mask": msk},
-                    generator=torch.Generator())
+    ds = SynthDataset(cfg, 1, 4096, seed=5)
+    batch = batch_to_device(collate_batch([ds[0]], 16384), "cpu")
+    total, losses = step_losses(model, batch, cfg["train_cfg"],
+                                torch.Generator().manual_seed(0))
+    total.backward()
+    assert total.dtype == torch.float32 and torch.isfinite(total)
+    assert {"roi_cls_loss", "roi_reg_loss", "point_loss"} <= set(losses)
+    assert all(p.dtype == torch.float32 and p.grad is not None
+               and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
 
 
 def test_two_stage_runs_without_importing_jax():
