@@ -201,7 +201,9 @@ Phases, each of which raises on failure:
      `pillarnet18_demo` with circular NMS on the card against the CPU
      (phase 14e's tolerances); phase 18's wall seconds.
  19. data-parallel training and sharded evaluation
-     (`pillarnet_lts_torch/parallel/`). NCCL refuses two ranks on one
+     (`pillarnet_lts_torch/parallel/`; cut in depth to keep the whole run
+     inside its time: 19a/b one step from one state and one nudged
+     one-process step, 19c 8 written frames, 2 steps). NCCL refuses two ranks on one
      card, so the two-rank runs are two gloo ranks that share card 0
      (CUDA tensors on both, the backend passed explicitly, `LOCAL_RANK`
      0 on both), spawned with torchrun's environment (`spawn_ranks`, a
@@ -350,6 +352,43 @@ Phases, each of which raises on failure:
      the kernels' line, which gains the `int8_stage_f32` row and K1's and
      K2's rows phase 23's launches and replays under
      `two_stage_remainder`.
+ 24. the model remainder (`model_remainder`); each served run of 6
+     requests at bs=1 (the first 2 untimed) with the launch counts set
+     to 0 just before and read just after: (a) `pillarnet34_nusc_int8`
+     with `bbox_head.quant=True` (`enable_backbone_quant(head=True)`,
+     bf16, fused stage off), calibrated on 4 clouds: every request
+     launches K1, K2, K4 per tensor once per quantized conv (52: the
+     backbone, the neck and the shared conv) and K4's per-channel variant
+     (`int8_conv_pc`) once per task (6: each SepHead's wide conv, 1 x
+     180^2 x 64 -> 384); one request's 58 K4 calls held bit-equal to
+     their plain versions, the shared conv's and the wide convs' timed as
+     phase 6 times K4 (wrapper, alone, plain, bound, cuDNN yardstick);
+     the heatmaps' error against the f32 model of the same weights beside
+     the backbone-only int8 build's (a reading: the JAX package measured
+     the int8 head as an mAP collapse); then at batch 8 as a `.pt2`
+     program against eager (`export_cell`, as 21b); (b) 18a's build
+     (`pillarrcnn18_waymo`, f32) with the head quantized: K4's f32
+     variant per tensor and its per-channel f32 variant
+     (`int8_conv_pc_f32`) once per task, every call held bit-equal, the
+     wide convs timed; (c) `pillarnet34_waymo` and `pillarnet34_nusc`,
+     f32, with `test_cfg.nms.approx_topk` on, with and without
+     `use_mask_kernel`: detections on 2 clouds bit-equal to approx_topk
+     off; each NMS's `greedy_suppress_with_convergence` flags printed;
+     (d) `pillarnet34_nusc` with every common head at 1 and at 3 convs:
+     served (K1, K2), one bs=2 training step (finite, a gradient on every
+     new conv kernel), the demo config at the same depth one step card vs
+     CPU as 13b; (e) the legacy `RPN` on `pillarnet34_nusc`'s backbone
+     with CenterPoint's PointPillars neck widths: `neck=dict(type="RPN",
+     layer_nums=[3, 5, 5], ds_layer_strides=[1, 2, 1], ds_num_filters=
+     [64, 128, 256], us_layer_strides=[2, 4, 4], us_num_filters=[128, 128,
+     128], in_channels=256)` and `bbox_head.in_channels=[384]` (conv5 at
+     stride 16 up to the head's stride 8), served in f32 and in int8 (the
+     same weights, `enable_backbone_quant`: its 13 units on K4's f32
+     variant), every K4 call of one request held bit-equal;
+     `{"model_remainder": ...}` is printed before the kernels' line, which
+     gains the `int8_conv_pc` (24a, with its program's calls under
+     `export_bs8`) and `int8_conv_pc_f32` (24b) rows, and every row phase
+     24's launches under `model_remainder_launches`.
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
@@ -370,7 +409,7 @@ carries phase 13's, 14's, 15's, 16's, 17's, 18's and 19's JSON records
 `{"eval": ...}`, `{"training_as_written": ...}`, `{"precisions": ...}`,
 `{"data_parallel": ...}`) and phase 20's (`{"compact": ...}`), 21's
 (`{"export": ...}`), 22's (`{"data_prep": ...}`) and 23's
-(`{"two_stage_remainder": ...}`);
+(`{"two_stage_remainder": ...}`) and 24's (`{"model_remainder": ...}`);
 then the kernels' JSON record (K1's and K2's rows also carry
 `two_stage_launches`, under `two_stage_train` phase 15's launches and
 replays, `eval_launches`, phase 16a's pipelined pass, under
@@ -392,7 +431,9 @@ server, `--data-prep-numpy ARGS` phase 22's numpy-route `create_data`,
 which the smoke starts itself. `--loader-compare PARENT` times phase
 17a's loader passes with this checkout and with the one at PARENT, in
 turns, on the host alone (`--loader-passes TREE TMP ROUTE...`, one
-process's passes).
+process's passes). `--k4-compare PARENT` holds K4 per tensor built from
+the checkout at PARENT against this one's on the int8 flagship's calls at
+bs 1 and 8 (outputs byte-identical, times in turns).
 """
 
 import contextlib
@@ -1121,8 +1162,10 @@ def capture_int8_convs(torch, model, request):
 def recording_int8_convs(calls):
     """Record (args, kwargs, output) of every K4 call inside the block in
     `calls`: `MaskedConv.int8` reaches the wrapper through
-    `models/backbones/base.py::int8_conv_bn_act`."""
+    `models/backbones/base.py::int8_conv_bn_act`, an int8 SepHead's wide
+    conv through `models/bbox_heads/center_head.py::int8_conv_bn_act`."""
     from pillarnet_lts_torch.models.backbones import base
+    from pillarnet_lts_torch.models.bbox_heads import center_head
 
     def make(real):
         def record(*args, **kw):
@@ -1131,7 +1174,8 @@ def recording_int8_convs(calls):
             return out
         return record
 
-    with patched(base, "int8_conv_bn_act", make):
+    with patched(base, "int8_conv_bn_act", make), \
+            patched(center_head, "int8_conv_bn_act", make):
         yield
 
 
@@ -2162,11 +2206,12 @@ def check_scatter_grad(torch, dev, pc_range, pillar_size):
     return r
 
 
-def train_card_vs_cpu(torch, dev):
-    """Phase 13b: one train step of the demo config on the card and on the
-    CPU from the same seeded weights and batch: metrics within rtol 1e-4
-    (`grad_norm` 1e-3), running statistics within rtol = atol = 1e-4, the
-    parameters as `params_within_first_adam_step`."""
+def train_card_vs_cpu(torch, dev, edit=None, tag="13b"):
+    """Phase 13b: one train step of the demo config (`edit(cfg)` applied,
+    24d) on the card and on the CPU from the same seeded weights and
+    batch: metrics within rtol 1e-4 (`grad_norm` 1e-3), running statistics
+    within rtol = atol = 1e-4, the parameters as
+    `params_within_first_adam_step`."""
     from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
                                           optimizer_from_cfg)
     from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
@@ -2174,6 +2219,8 @@ def train_card_vs_cpu(torch, dev):
         batch_to_device, bn_shifted_biases, train_step)
 
     cfg = load_config(DEMO)
+    if edit is not None:
+        edit(cfg)
     ds = SynthDataset(cfg, 2, 4096, seed=31)
     batch = collate_batch([ds[0], ds[1]], cfg["data"]["max_points"])
     runs = []
@@ -2189,16 +2236,17 @@ def train_card_vs_cpu(torch, dev):
     rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in mc}
     for k, r in rel.items():
         if r > (1e-3 if k == "grad_norm" else 1e-4):
-            raise AssertionError(f"card vs CPU {k}: {mg[k]} vs {mc[k]}")
+            raise AssertionError(f"{tag} card vs CPU {k}: {mg[k]} vs "
+                                 f"{mc[k]}")
     params = [n for n, _ in model.named_parameters()]
     for k in sc:
         if k not in params and not torch.allclose(sg[k], sc[k], rtol=1e-4,
                                                   atol=1e-4):
-            raise AssertionError(f"card vs CPU {k}")
+            raise AssertionError(f"{tag} card vs CPU {k}")
     share, worst = params_within_first_adam_step(
         torch, sg, sc, params, set(bn_shifted_biases(model)),
         opt.lr_fn(0))
-    print(f"[13b] demo config, one step on the card and on the CPU (same "
+    print(f"[{tag}] demo config, one step on the card and on the CPU (same "
           f"weights, batch 2): loss {mg['loss']:.6f} / {mc['loss']:.6f}, "
           f"largest metric rel diff {max(rel.values()):.2e} "
           f"({max(rel, key=rel.get)}); running statistics within 1e-4; "
@@ -3658,12 +3706,13 @@ def rooted(obj, tmp):
     return obj
 
 
-def augmented_set(tmp, cfg):
-    """AUG_FRAMES Waymo-layout frames of the config's `max_points` points
-    with AUG_GT_COUNTS' boxes a class, under `tmp` laid out as the config's
-    `data_root`, the infos under the config's train name, and the GT
-    database the port builds over them at the config's `db_info_path`.
-    Returns (seconds to write, seconds to build, database infos)."""
+def augmented_set(tmp, cfg, frames=AUG_FRAMES):
+    """`frames` (AUG_FRAMES) Waymo-layout frames of the config's
+    `max_points` points with AUG_GT_COUNTS' boxes a class (the first
+    `frames` rows), under `tmp` laid out as the config's `data_root`, the
+    infos under the config's train name, and the GT database the port
+    builds over them at the config's `db_info_path`. Returns (seconds to
+    write, seconds to build, database infos)."""
     from pillarnet_lts_torch.datasets.synth import write_waymo_set
     from pillarnet_lts_torch.datasets.utils import (
         create_groundtruth_database)
@@ -3671,10 +3720,10 @@ def augmented_set(tmp, cfg):
     root = os.path.join(tmp, DATA_ROOT)
     train = cfg["data"]["train"]
     t0 = time.perf_counter()
-    info = write_waymo_set(root, AUG_FRAMES, cfg["data"]["max_points"],
+    info = write_waymo_set(root, frames, cfg["data"]["max_points"],
                            cfg["class_names"], cfg["point_cloud_range"],
                            seed=170, split="train",
-                           class_counts=AUG_GT_COUNTS)
+                           class_counts=AUG_GT_COUNTS[:frames])
     os.replace(info, os.path.join(tmp, train["info_path"]))
     t_write = time.perf_counter() - t0
     pre = next(st["cfg"] for st in cfg["train_pipeline"]
@@ -4321,6 +4370,10 @@ DP_STAT_TOL = 1e-4  # BN running statistics, rtol = atol, as phase 13b
 # gradient back lies beyond it (tests/test_torch_port_parallel.py)
 DP_GRAD_CAP = 0.1
 DP_NUDGES = 2  # 19a/b: one-process steps from nudged weights (the spread)
+# the smoke's 19a/b: one step from one state, one nudged step (the CPU
+# tests, `tests/test_torch_port_parallel.py`, keep DP_STEPS and DP_NUDGES);
+# 19c: a smaller written set, one epoch of 2 steps
+DP_SMOKE_STEPS, DP_SMOKE_NUDGES, DP_CLI_FRAMES = 1, 1, 8
 
 
 def spawn_ranks(argv, world, timeout, env=None):
@@ -5063,14 +5116,14 @@ def dp_train_phase(torch, dev, card, tag, config, name, **kw):
     import shutil
 
     spec = dp_spec(config, "cuda", os.path.join(
-        ROOT, "build", f"chip_smoke_dp_{tag}"), **kw)
+        ROOT, "build", f"chip_smoke_dp_{tag}"), steps=DP_SMOKE_STEPS, **kw)
     shutil.rmtree(spec["out"], ignore_errors=True)
     torch.cuda.empty_cache()  # the ranks share the card with this process
     ranks, seconds = run_dp_training(torch, spec, tag)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    ref = dp_reference(torch, spec, dev, ranks)
+    ref = dp_reference(torch, spec, dev, ranks, nudges=DP_SMOKE_NUDGES)
     ref_s = time.perf_counter() - t0
     ref_peak = torch.cuda.max_memory_allocated(dev) / 2**30
     out = check_dp_training(torch, tag, ref, ranks)
@@ -5125,14 +5178,15 @@ def dp_train_phase(torch, dev, card, tag, config, name, **kw):
 
 def dp_train_cli(torch, card, tmp):
     """Phase 19c: `torchrun --nproc_per_node 1` (NCCL, a real group of one)
-    runs `tools.train` with `--validate` on phase 17a's on-disk set
-    (`augmented_set`: `pillarrcnn18_waymo` as written, one epoch of 4
-    steps, one loader thread, so that GT-AUG's shared stream draws in
-    sample order; the val split on the same frames), and the same CLI
-    runs without torchrun: both under deterministic algorithms
-    (`cli_rank`), the checkpoints bit-equal."""
+    runs `tools.train` with `--validate` on the first DP_CLI_FRAMES frames
+    of phase 17a's on-disk set (`augmented_set`: `pillarrcnn18_waymo` as
+    written, one epoch of 2 steps, one loader thread, so that GT-AUG's
+    shared stream draws in sample order; the val split on the same
+    frames), and the same CLI runs without torchrun: both under
+    deterministic algorithms (`cli_rank`), the checkpoints bit-equal."""
     cfg = rcnn_train_cfg(RCNN)
-    augmented_set(tmp, cfg)
+    augmented_set(tmp, cfg, DP_CLI_FRAMES)
+    steps = DP_CLI_FRAMES // cfg["data"]["samples_per_gpu"]
     path = config_file(
         tmp, "rcnn19c", RCNN, "data['workers_per_gpu'] = 1\n",
         "data['val'] = dict(data['val'], info_path=data['train']"
@@ -5167,12 +5221,12 @@ def dp_train_cli(torch, card, tmp):
         raise AssertionError(f"19c: groups {dist_rec}, {plain_rec}")
     check_same_checkpoint(torch, "19c", a, b)
     for rec in (dist_rec, plain_rec):
-        if rec["launches"]["pillar_scatter_max"] < 4 \
-                or rec["launches"]["rotated_overlap"] < 12:
+        if rec["launches"]["pillar_scatter_max"] < steps \
+                or rec["launches"]["rotated_overlap"] < 3 * steps:
             raise AssertionError(f"19c: launches {rec['launches']}")
     print(f"[19c] torchrun --nproc_per_node 1 (nccl, a group of 1) "
-          f"tools.train --validate pillarrcnn18_waymo on 17a's "
-          f"{AUG_FRAMES} written frames (one epoch, 4 steps, then val): "
+          f"tools.train --validate pillarrcnn18_waymo on {DP_CLI_FRAMES} of "
+          f"17a's written frames (one epoch, {steps} steps, then val): "
           f"checkpoint bit-equal to the run without torchrun (model and "
           f"optimizer state, meta); {dist_rec['wall_seconds']:.1f} s / "
           f"{plain_rec['wall_seconds']:.1f} s; launches "
@@ -6166,7 +6220,8 @@ def replay_program_calls(torch, module, batch, dev, tag):
             k1.append((args[:5], {"nonneg": args[5]}))
         elif name == "rotated_overlap":
             k2.append(args)
-        elif name in ("int8_conv", "int8_conv_f32"):
+        elif name in ("int8_conv", "int8_conv_f32", "int8_conv_pc",
+                      "int8_conv_pc_f32"):
             x, w_pack, inv_s, dq, shift, stride, mask, residual, act = args
             kw = {"mask": mask, "residual": residual, "act": act,
                   "w_pack": w_pack}
@@ -7326,6 +7381,612 @@ def two_stage_remainder(torch, dev, card, twins):
     return rec, launches, k5
 
 
+# phase 24: the model remainder (the int8 CenterHead on K4's per-channel
+# variant, approx_topk, SepHead of any depth, the legacy RPN)
+REMAINDER_REQUESTS, REMAINDER_WARMUP = 6, 2  # 24a-e: bs=1, untimed first
+HEAD_CALIB_CLOUDS = 4  # 24a, 24b: calibration clouds
+# 24e: CenterPoint's PointPillars neck widths (`layer_nums`,
+# `ds_num_filters`, `us_num_filters`) on pillarnet34_nusc's conv5 (stride
+# 16, 256 channels): integer strides 1 / 2 / 1 down and 2 / 4 / 4 up meet
+# the head's stride 8 (180^2), 384 channels out
+RPN_OVERRIDE = dict(type="RPN", layer_nums=[3, 5, 5],
+                    ds_layer_strides=[1, 2, 1], ds_num_filters=[64, 128, 256],
+                    us_layer_strides=[2, 4, 4],
+                    us_num_filters=[128, 128, 128], in_channels=256)
+
+
+def served_path(torch, dev, infer, clouds, path, tag):
+    """Serve `clouds` (host (points, mask) pairs) one request at a time,
+    host-synced, each request's launches exactly `path` ({kernel: count};
+    None: not checked). Returns the host detections, the timed requests'
+    ms (after REMAINDER_WARMUP) and the launches of the whole run."""
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.runtime.serving import to_host
+
+    dets, ms = [], []
+    _kernels.reset_launches()  # the counts of this run alone
+    for i, cloud in enumerate(clouds):
+        pts, msk = on_card(torch, dev, cloud)
+        before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        det = to_host(infer(pts, msk))
+        dt = (time.perf_counter() - t0) * 1e3
+        got = {k: v - before[k] for k, v in _kernels.LAUNCHES.items()
+               if v != before[k]}
+        if path is not None and got != path:
+            raise AssertionError(f"{tag} request {i}: launches {got}, the "
+                                 f"path is {path}")
+        if not (np.isfinite(det["box3d_lidar"]).all()
+                and np.isfinite(det["scores"]).all()):
+            raise AssertionError(f"{tag} request {i}: non-finite detections")
+        dets.append(det)
+        if i >= REMAINDER_WARMUP:
+            ms.append(dt)
+    return dets, ms, {k: v for k, v in _kernels.LAUNCHES.items() if v}
+
+
+def quant_convs(model):
+    """{K4 variant: calibrated convs of `model`} by its compute dtype: the
+    per-tensor MaskedConvs and the per-channel SepHead wide convs."""
+    from pillarnet_lts_torch.models.backbones.base import MaskedConv
+    from pillarnet_lts_torch.models.bbox_heads.center_head import SepHead
+
+    sfx = "_f32" if str(model.dtype) == "torch.float32" else ""
+    mods = list(model.modules())
+    out = {"int8_conv" + sfx: sum(isinstance(m, MaskedConv)
+                                  and m.quant_ready() for m in mods),
+           "int8_conv_pc" + sfx: sum(isinstance(m, SepHead)
+                                     and m.quant_ready() for m in mods)}
+    return {k: v for k, v in out.items() if v}
+
+
+def head_calls(torch, calls, tag):
+    """A served request's captured K4 calls: every call held bit-equal to
+    its plain version (`replay_int8_equal`); returns the head's calls, the
+    shared conv's (per tensor: the call just before the first wide conv)
+    and the wide convs' (per channel), and the largest |d|."""
+    n, err = replay_int8_equal(torch, calls, tag)
+    first = next(i for i, c in enumerate(calls) if c[0][2].dim() == 1)
+    share = calls[first - 1:first]
+    wide = [c for c in calls if c[0][2].dim() == 1]
+    print(f"[{tag}] {n} K4 calls of one request, each equal to its plain "
+          f"version (max |d| {err}): {n - len(wide)} per tensor, "
+          f"{len(wide)} per input channel")
+    return share, wide, err
+
+
+def int8_head_nusc(torch, dev, card, tmp):
+    """Phase 24a: `pillarnet34_nusc_int8` with `bbox_head.quant=True`
+    (`enable_backbone_quant(head=True)`), seeded weights and spread heads,
+    calibrated on HEAD_CALIB_CLOUDS clouds, fused stage off: the launch
+    counts set to 0 just before REMAINDER_REQUESTS requests at bs 1 and
+    read just after, every request launching K1, K2, K4 per tensor (the
+    backbone, neck and shared conv) and K4's per-channel variant once per
+    task; one request's K4 calls replayed bit-equal, the shared conv and
+    the 6 wide convs timed (`check_int8_conv`); the head maps' error
+    against the f32 model of the same weights beside the backbone-only
+    int8 build's (a reading); at bs 8 as a `.pt2` program against eager
+    (`export_cell`: a fresh process with torch and `ops.library` only,
+    detections bit for bit, launches as eager, its K4 calls held
+    bit-equal and timed)."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.models.utils.quant import Calibrated
+    from pillarnet_lts_torch.runtime.convert import (load_jax_variables,
+                                                     variables_of)
+    from pillarnet_lts_torch.runtime.quantize import (calibrate,
+                                                      enable_backbone_quant)
+
+    cfg = load_config(FLAGSHIP_INT8)
+    enable_backbone_quant(cfg["model"], head=True)
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+
+    def cloud(seed):
+        return synth_points_realistic(1, n, pc_range, seed=seed)
+
+    model = build_model_from_cfg(cfg, device=dev, seed=0)
+    spread_head_outputs(model, *on_card(torch, dev, cloud(99)))
+    t0 = time.perf_counter()
+    calibrate(model, [on_card(torch, dev, cloud(90 + i))
+                      for i in range(HEAD_CALIB_CLOUDS)])
+    torch.cuda.synchronize()
+    rec = {"calibration_s": time.perf_counter() - t0}
+    tasks = len(model.head_net.tasks)
+    path = dict(quant_convs(model), pillar_scatter_max=1, rotated_overlap=1)
+    if path.get("int8_conv_pc") != tasks:
+        raise AssertionError(f"24a: the int8 path {path}")
+    infer = make_infer_fn(model)
+    clouds = [cloud(800 + i) for i in range(REMAINDER_REQUESTS)]
+    dets, ms, launches = served_path(torch, dev, infer, clouds, path, "24a")
+    kept = [int(d["mask"].sum()) for d in dets]
+    calls = []
+    with recording_int8_convs(calls):
+        infer(*on_card(torch, dev, clouds[0]))
+    torch.cuda.synchronize()
+    share, wide, err = head_calls(torch, calls, "24a")
+    del calls
+    rec["share_conv"] = check_int8_conv(torch, share, phase="24a")
+    rec["wide_conv"] = check_int8_conv(torch, wide, phase="24a")
+    # the head maps against the f32 model of the same weights, and the
+    # backbone-only int8 build's (the head's convs uncalibrated)
+    f32_cfg = load_config(FLAGSHIP)
+    f32 = load_jax_variables(build_model_from_cfg(f32_cfg, device=dev,
+                                                  seed=1),
+                             variables_of(model))
+    pts = on_card(torch, dev, clouds[1])
+    head = [m for m in model.head_net.modules()
+            if isinstance(m, Calibrated) and m.quant]
+    with torch.inference_mode():
+        ref = f32(*pts)
+        full = model(*pts)
+        for m in head:
+            m.calibrated = False
+        backbone_only = model(*pts)
+        for m in head:
+            m.calibrated = True
+    rec["hm_rel_err_vs_f32"] = {
+        "int8_head": rel_errors(ref, full, ("hm",)),
+        "backbone_only_int8": rel_errors(ref, backbone_only, ("hm",))}
+    del f32, ref, full, backbone_only
+    q = statistics.quantiles(ms, n=10)
+    rec.update({"requests": len(clouds), "path_per_request": path,
+                "launches": launches, "p50_ms": statistics.median(ms),
+                "p90_ms": q[8], "kept": kept, "k4_max_abs_err": err})
+    print(f"[24a] pillarnet34_nusc_int8 + bbox_head.quant (bf16) bs=1, "
+          f"{len(ms)} timed requests: p50 {rec['p50_ms']:.2f} ms, p90 "
+          f"{rec['p90_ms']:.2f} ms; per request {path}; kept {kept}; "
+          f"heatmap |x - f32| / max|f32| per task (random weights, a "
+          f"reading): int8 head "
+          f"{[round(e, 4) for e in rec['hm_rel_err_vs_f32']['int8_head']]}"
+          f", backbone-only int8 "
+          f"{[round(e, 4) for e in rec['hm_rel_err_vs_f32']['backbone_only_int8']]}"
+          f"; calibration {rec['calibration_s']:.2f} s; card: {card}")
+    rec["export_bs8"] = export_cell(
+        torch, dev, card, "24a", model,
+        export_clouds(cfg, EXPORT_INT8_BATCH, 810), tmp)
+    if rec["export_bs8"]["launches_per_request"].get("int8_conv_pc") \
+            != tasks:
+        raise AssertionError(f"24a program: launches "
+                             f"{rec['export_bs8']['launches_per_request']}")
+    del model, infer
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def int8_head_rcnn(torch, dev, card):
+    """Phase 24b: 18a's build (`pillarrcnn18_waymo` after
+    `enable_backbone_quant`, f32 compute) with the head quantized too:
+    calibrated on HEAD_CALIB_CLOUDS clouds, REMAINDER_REQUESTS requests
+    at bs 1 with the launch counts set to 0 just before and read just
+    after (K1, K2 once per task, K4's f32 variant once per quantized conv,
+    its per-channel f32 variant once per task), one request's K4 calls
+    replayed bit-equal and the head's timed."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.runtime.quantize import (calibrate,
+                                                      enable_backbone_quant)
+
+    cfg = load_config(RCNN)
+    enable_backbone_quant(cfg["model"], head=True)
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+
+    def cloud(seed):
+        return synth_points_realistic(1, n, pc_range, seed=seed, nsweeps=1)
+
+    model = build_model_from_cfg(cfg, device=dev, seed=0)
+    spread_head_outputs(model, *on_card(torch, dev, cloud(99)))
+    calibrate(model, [on_card(torch, dev, cloud(400 + i))
+                      for i in range(HEAD_CALIB_CLOUDS)])
+    tasks = len(model.single_det.head_net.tasks)
+    path = dict(quant_convs(model), pillar_scatter_max=1,
+                rotated_overlap=tasks)
+    if path.get("int8_conv_pc_f32") != tasks:
+        raise AssertionError(f"24b: the int8 path {path}")
+    infer = make_infer_fn(model)
+    clouds = [cloud(820 + i) for i in range(REMAINDER_REQUESTS)]
+    dets, ms, launches = served_path(torch, dev, infer, clouds, path, "24b")
+    posts = cfg["test_cfg"]["nms"]["nms_post_max_size"]
+    kept = [check_rcnn_detections(d, posts, f"24b request {i}")
+            for i, d in enumerate(dets)]
+    calls = []
+    with recording_int8_convs(calls):
+        infer(*on_card(torch, dev, clouds[0]))
+    torch.cuda.synchronize()
+    _, wide, err = head_calls(torch, calls, "24b")
+    del calls
+    rec = {"requests": len(clouds), "path_per_request": path,
+           "launches": launches, "p50_ms": statistics.median(ms),
+           "kept": kept, "k4_max_abs_err": err,
+           "wide_conv": check_int8_conv(torch, wide, phase="24b")}
+    print(f"[24b] pillarrcnn18_waymo + enable_backbone_quant(head=True) "
+          f"(f32) bs=1, {len(ms)} timed requests: p50 {rec['p50_ms']:.2f} "
+          f"ms; per request {path}; mean kept {statistics.mean(kept):.1f}; "
+          f"card: {card}")
+    del model, infer
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+@contextlib.contextmanager
+def recording_nms(calls):
+    """Record (boxes, valid, thresh, sweeps) of every rotated NMS that
+    predict runs inside the block (`center_head.py`'s `rotated_nms` and
+    `rotated_nms_dynamic`)."""
+    from pillarnet_lts_torch.models.bbox_heads import center_head
+
+    def make(real):
+        def record(boxes, scores, valid, thresh, post, sweeps=16, **kw):
+            calls.append((boxes, valid, thresh, sweeps))
+            return real(boxes, scores, valid, thresh, post, sweeps=sweeps,
+                        **kw)
+        return record
+
+    with patched(center_head, "rotated_nms", make), \
+            patched(center_head, "rotated_nms_dynamic", make):
+        yield
+
+
+def convergence_flags(torch, calls):
+    """Each recorded NMS's `greedy_suppress_with_convergence` flags (one a
+    row: one more sweep from its keep set changes nothing), on the default
+    route's IoU (K2)."""
+    from pillarnet_lts_torch.ops.iou3d import rotated_iou_bev, to_pcdet_bev
+    from pillarnet_lts_torch.ops.nms import greedy_suppress_with_convergence
+
+    flags = []
+    for boxes, valid, thresh, sweeps in calls:
+        bev = to_pcdet_bev(boxes)
+        th = thresh[:, None, None] if torch.is_tensor(thresh) else thresh
+        _, conv = greedy_suppress_with_convergence(
+            rotated_iou_bev(bev, bev), valid, th, sweeps)
+        flags.append([bool(c) for c in conv.reshape(-1).tolist()])
+    return flags
+
+
+def approx_topk_cells(torch, dev, card):
+    """Phase 24c: `pillarnet34_waymo` (per-class grouped NMS) and
+    `pillarnet34_nusc` (grouped rotated NMS), f32, seeded weights and
+    spread heads, each serving 2 clouds with `test_cfg.nms.approx_topk`
+    on and off, with and without `use_mask_kernel`: the detections with
+    it on bit-equal to those with it off (the port's approx_topk is the
+    exact top-k); each NMS's `greedy_suppress_with_convergence` flags
+    printed. The launch counts are set to 0 just before each served run
+    with approx_topk on and read just after."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+
+    rec, launches = {}, {}
+    for name, path in (("pillarnet34_waymo", WAYMO),
+                       ("pillarnet34_nusc", FLAGSHIP)):
+        cfg = load_config(path)
+        n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+        nsweeps = cfg.get("nsweeps", 1)
+        clouds = [synth_points_realistic(1, n, pc_range, seed=830 + i,
+                                         nsweeps=nsweeps) for i in range(2)]
+        model = build_model_from_cfg(cfg, device=dev, seed=0)
+        spread_head_outputs(model, *on_card(torch, dev, clouds[0]))
+        for mask_kernel in (False, True):
+            tag = f"{name}{'_mask_kernel' if mask_kernel else ''}"
+            test_cfg = model.processed_test_cfg()
+            test_cfg["nms"] = dict(test_cfg["nms"],
+                                   use_mask_kernel=mask_kernel)
+            exact = [to_host_det(torch, make_infer_fn(model, test_cfg), dev,
+                                 c) for c in clouds]
+            test_cfg["nms"] = dict(test_cfg["nms"], approx_topk=True)
+            nms = []
+            with recording_nms(nms):
+                got, _, launches[tag] = served_path(
+                    torch, dev, make_infer_fn(model, test_cfg), clouds, None,
+                    f"24c {tag}")
+            for i, (a, b) in enumerate(zip(got, exact)):
+                for k in b:
+                    if not np.array_equal(a[k], b[k]):
+                        raise AssertionError(f"24c {tag} cloud {i}: {k} "
+                                             f"with approx_topk differs")
+            kernel = "suppression_mask" if mask_kernel else "rotated_overlap"
+            if launches[tag].get(kernel, 0) < len(clouds):
+                raise AssertionError(f"24c {tag}: launches {launches[tag]}")
+            flags = convergence_flags(torch, nms)
+            kept = [int(d["mask"].sum()) for d in got]
+            rec[tag] = {"launches": launches[tag], "kept": kept,
+                        "converged": flags, "nms_calls": len(nms)}
+            print(f"[24c] {tag} with approx_topk: detections on {len(clouds)}"
+                  f" clouds bit-equal to approx_topk off (kept {kept}); "
+                  f"launches {launches[tag]}; greedy_suppress_with_"
+                  f"convergence per NMS (rows): {flags}; card: {card}")
+            if not all(all(f) for f in flags):
+                print(f"[24c] {tag}: an NMS needs more than its sweeps "
+                      f"(test_cfg.nms.nms_sweeps)")
+        del model
+        torch.cuda.empty_cache()
+    return rec, launches
+
+
+def to_host_det(torch, infer, dev, cloud):
+    from pillarnet_lts_torch.runtime.serving import to_host
+
+    return to_host(infer(*on_card(torch, dev, cloud)))
+
+
+def with_depth(depth):
+    """A config edit: every common head of the CenterHead at `depth`
+    convs (the heatmap branch keeps two, as the JAX package builds it)."""
+    def edit(cfg):
+        head = cfg["model"]["bbox_head"]
+        head["common_heads"] = {k: (c, depth) for k, (c, _) in
+                                head["common_heads"].items()}
+    return edit
+
+
+def sephead_depths(torch, dev, card):
+    """Phase 24d: `pillarnet34_nusc` (f32, full width) with every common
+    head at 1 and at 3 convs: seeded weights and spread heads serving
+    REMAINDER_REQUESTS requests (the launch counts set to 0 just before,
+    read just after: K1 and K2 once each), then one bs-2 training step
+    (finite losses, a gradient on every new conv, K1 launched); the demo
+    config at the same depth one step on the card against the CPU as
+    phase 13b holds it."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          optimizer_from_cfg,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.datasets import (SynthDataset, collate_batch,
+                                              synth_points_realistic)
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.runtime.train_step import (batch_to_device,
+                                                        train_step)
+
+    rec, launches = {}, {}
+    for depth in (1, 3):
+        tag = f"depth{depth}"
+        cfg = load_config(FLAGSHIP)
+        with_depth(depth)(cfg)
+        n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+        model = build_model_from_cfg(cfg, device=dev, seed=0)
+        clouds = [synth_points_realistic(1, n, pc_range, seed=840 + i)
+                  for i in range(REMAINDER_REQUESTS)]
+        spread_head_outputs(model, *on_card(torch, dev, clouds[0]))
+        dets, ms, launches[tag] = served_path(
+            torch, dev, make_infer_fn(model), clouds,
+            {"pillar_scatter_max": 1, "rotated_overlap": 1}, f"24d {tag}")
+        kept = [int(d["mask"].sum()) for d in dets]
+        ds = SynthDataset(cfg, 2, n, seed=200, num_boxes=(10, 21))
+        batch = batch_to_device(collate_batch([ds[0], ds[1]], n), dev)
+        opt = optimizer_from_cfg(model, cfg, 10)
+        before = _kernels.LAUNCHES["pillar_scatter_max"]
+        t0 = time.perf_counter()
+        m = train_step(model, opt, batch, cfg["train_cfg"])
+        metrics = {k: float(v) for k, v in m.items()}
+        step_s = time.perf_counter() - t0
+        if not all(math.isfinite(v) for v in metrics.values()) \
+                or _kernels.LAUNCHES["pillar_scatter_max"] == before:
+            raise AssertionError(f"24d {tag}: step {metrics}")
+        # the new convs' kernels (an L1 loss's bias gradient is a sum of
+        # signs that can cancel exactly)
+        new = {name: p for name, p in model.named_parameters()
+               if name.startswith("head_net.task") and name.endswith(".weight")
+               and (f"_conv{depth - 2}." in name if depth > 2
+                    else ("_out." in name and "hm_out" not in name))}
+        none = [name for name, p in new.items()
+                if p.grad is None or not bool(p.grad.any())]
+        if not new or none:
+            raise AssertionError(f"24d {tag}: no gradient on {none}")
+        model.eval()
+        vs_cpu = train_card_vs_cpu(torch, dev, edit=with_depth(depth),
+                                   tag=f"24d {tag}")
+        rec[tag] = {"launches": launches[tag], "kept": kept,
+                    "p50_ms": statistics.median(ms), "step": metrics,
+                    "step_s": step_s, "new_leaves": len(new),
+                    "demo_card_vs_cpu": vs_cpu}
+        print(f"[24d] pillarnet34_nusc, common heads at {depth} conv"
+              f"{'s' if depth > 1 else ''}: p50 {rec[tag]['p50_ms']:.2f} ms "
+              f"over {len(ms)} timed requests, kept {kept}, launches "
+              f"{launches[tag]}; one bs-2 step in {step_s:.2f} s, loss "
+              f"{metrics['loss']:.4f}, grad_norm {metrics['grad_norm']:.4f},"
+              f" a gradient on each of the {len(new)} new kernels; card: "
+              f"{card}")
+        del model, opt, batch
+        torch.cuda.empty_cache()
+    return rec, launches
+
+
+def legacy_rpn(torch, dev, card):
+    """Phase 24e: the legacy `RPN` (RPN_OVERRIDE) on `pillarnet34_nusc`'s
+    backbone, f32, seeded weights and spread heads, REMAINDER_REQUESTS
+    requests (K1, K2 once each); then the int8 build of the same weights
+    (`enable_backbone_quant`: reader, backbone and the RPN's units on K4's
+    f32 variant), calibrated on 2 clouds, REMAINDER_REQUESTS requests
+    with the launch counts set to 0 just before and read just after, one
+    request's K4 calls replayed bit-equal, its head maps' error against
+    the f32 build (a reading)."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.models.necks.rpn import RPN, _ConvBNReLU
+    from pillarnet_lts_torch.runtime.convert import (load_jax_variables,
+                                                     variables_of)
+    from pillarnet_lts_torch.runtime.quantize import (calibrate,
+                                                      enable_backbone_quant)
+
+    def config():
+        cfg = load_config(FLAGSHIP)
+        cfg["model"]["neck"] = dict(RPN_OVERRIDE)
+        cfg["model"]["bbox_head"]["in_channels"] = [
+            sum(RPN_OVERRIDE["us_num_filters"])]
+        return cfg
+
+    cfg = config()
+    n, pc_range = int(cfg["data"]["max_points"]), cfg["point_cloud_range"]
+    clouds = [synth_points_realistic(1, n, pc_range, seed=850 + i)
+              for i in range(REMAINDER_REQUESTS)]
+    f32 = build_model_from_cfg(cfg, device=dev, seed=0)
+    if not isinstance(f32.neck_net, RPN):
+        raise AssertionError("24e: the neck is not the legacy RPN")
+    spread_head_outputs(f32, *on_card(torch, dev, clouds[0]))
+    rec, launches = {}, {}
+    dets, ms, launches["f32"] = served_path(
+        torch, dev, make_infer_fn(f32), clouds,
+        {"pillar_scatter_max": 1, "rotated_overlap": 1}, "24e f32")
+    rec["f32"] = {"p50_ms": statistics.median(ms),
+                  "kept": [int(d["mask"].sum()) for d in dets],
+                  "launches": launches["f32"]}
+    icfg = config()
+    enable_backbone_quant(icfg["model"])
+    int8 = load_jax_variables(build_model_from_cfg(icfg, device=dev, seed=1),
+                              variables_of(f32))
+    calibrate(int8, [on_card(torch, dev, synth_points_realistic(
+        1, n, pc_range, seed=860 + i)) for i in range(2)])
+    path = dict(quant_convs(int8), pillar_scatter_max=1, rotated_overlap=1)
+    dets, ms, launches["int8"] = served_path(
+        torch, dev, make_infer_fn(int8), clouds, path, "24e int8")
+    calls = []
+    with recording_int8_convs(calls):
+        make_infer_fn(int8)(*on_card(torch, dev, clouds[1]))
+    torch.cuda.synchronize()
+    units = sum(m.Conv_0.quant_ready() for m in int8.neck_net.modules()
+                if isinstance(m, _ConvBNReLU))
+    if units != sum(RPN_OVERRIDE["layer_nums"]):
+        raise AssertionError(f"24e: {units} of the RPN's units are int8")
+    k4, err = replay_int8_equal(torch, calls, "24e")
+    del calls
+    pts = on_card(torch, dev, clouds[2])
+    with torch.inference_mode():
+        errs = rel_errors(f32(*pts), int8(*pts), ("hm",))
+    rec["int8"] = {"p50_ms": statistics.median(ms),
+                   "kept": [int(d["mask"].sum()) for d in dets],
+                   "launches": launches["int8"], "path_per_request": path,
+                   "k4_calls": k4, "k4_max_abs_err": err,
+                   "hm_rel_err_vs_f32": errs}
+    print(f"[24e] pillarnet34_nusc with the legacy RPN {RPN_OVERRIDE}: f32 "
+          f"p50 {rec['f32']['p50_ms']:.2f} ms (kept {rec['f32']['kept']}); "
+          f"int8 (f32 activations) p50 {rec['int8']['p50_ms']:.2f} ms, per "
+          f"request {path}, {k4} K4 calls of one request ({units} the RPN's "
+          f"units) each equal to its plain version; heatmap |int8 - "
+          f"f32| / max|f32| per task (a reading) "
+          f"{[round(e, 4) for e in errs]}; card: {card}")
+    del f32, int8
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def model_remainder(torch, dev, card):
+    """Phase 24. Returns its record, each path's launches, and the K4
+    per-channel records of 24a (bf16) and 24b (f32)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    rec, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="pillarnet_24a_") as tmp:
+        rec["24a"], launches["24a"] = int8_head_nusc(torch, dev, card, tmp)
+    rec["24b"], launches["24b"] = int8_head_rcnn(torch, dev, card)
+    rec["24c"], launches["24c"] = approx_topk_cells(torch, dev, card)
+    rec["24d"], launches["24d"] = sephead_depths(torch, dev, card)
+    rec["24e"], launches["24e"] = legacy_rpn(torch, dev, card)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"[24] phase 24 took {rec['seconds']:.1f} s")
+    return rec, launches
+
+
+K4_COMPARE_ROUNDS = 5  # --k4-compare: rounds of (parent, this, this, parent)
+
+
+def k4_launcher(torch, fn, args, kw):
+    """A callable that launches the C entry `fn` of `int8_conv.cu` (either
+    checkout's build) on one captured K4 call's arguments into one output
+    tensor, and returns it."""
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.ops.quant import pack_kernel
+
+    x, w_q, inv_s, dq, shift, stride = args
+    mask, res = kw.get("mask"), kw.get("residual")
+    w_pack = kw.get("w_pack")
+    if w_pack is None:
+        w_pack = pack_kernel(w_q)
+    B, H, W, cin = x.shape
+    cout = w_pack.shape[1]
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    y = torch.empty((B, Ho, Wo, cout), dtype=x.dtype, device=x.device)
+    ptrs = (x.data_ptr(), w_pack.data_ptr(), inv_s.data_ptr(),
+            dq.data_ptr(), shift.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            None if res is None else res.data_ptr(), y.data_ptr())
+    dims = (B, H, W, cin, Ho, Wo, cout, stride, int(kw.get("act", True)),
+            _kernels.stream_handle(x.device))
+
+    def run():
+        _kernels.raise_on_error("int8_conv", fn(*ptrs, *dims))
+        return y
+    return run
+
+
+def k4_compare(parent):
+    """`python3 chip_smoke.py --k4-compare PARENT`: K4 per tensor (bf16)
+    built from the checkout at PARENT (its `pillarnet_lts_torch/csrc/
+    int8_conv.cu`, the same flags) and from this one, on the captured K4
+    calls of one int8 flagship request (phase 6's model, fused stage off)
+    at bs 1 and at bs 8: every output of the two byte-identical, and each
+    side's calls of a request timed by CUDA events, in turns parent,
+    this, this, parent over K4_COMPARE_ROUNDS rounds. Prints one JSON
+    line."""
+    import ctypes
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from pillarnet_lts_torch.apis import load_config
+    from pillarnet_lts_torch.ops import _kernels
+
+    _kernels.build_all()
+    torch.backends.cudnn.allow_tf32 = False
+    dev, card = torch.device("cuda", 0), card_line()
+    lib = os.path.join(_kernels.BUILD_DIR, "int8_conv_parent.so")
+    subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, *_kernels._NO_FMA,
+                    "-o", lib, os.path.join(os.path.abspath(parent),
+                                            "pillarnet_lts_torch", "csrc",
+                                            "int8_conv.cu")], check=True)
+    sides = {"parent": ctypes.CDLL(lib).int8_conv_bf16,
+             "this": _kernels.kernel("int8_conv")}
+    sides["parent"].argtypes = _kernels.KERNELS["int8_conv"][3]
+    sides["parent"].restype = ctypes.c_int
+    model, cloud, _ = int8_flagship(torch, dev, tag="k4")
+    rec = {"card": card}
+    for bs in (1, 8):
+        batch = cloud(50) if bs == 1 else export_clouds(
+            load_config(FLAGSHIP_INT8), bs, 600)[0]
+        calls = capture_int8_convs(torch, model, on_card(torch, dev, batch))
+        runs = {k: [k4_launcher(torch, fn, a, kw) for a, kw, _ in calls]
+                for k, fn in sides.items()}
+        for i, (a, b) in enumerate(zip(runs["parent"], runs["this"])):
+            ya, yb = a().clone(), b()
+            torch.cuda.synchronize()
+            if not (torch.equal(ya.view(torch.int16), yb.view(torch.int16))
+                    and torch.equal(yb, calls[i][2])):
+                raise AssertionError(f"k4 bs {bs}: call {i} differs")
+        times = {k: [] for k in sides}
+        for _ in range(K4_COMPARE_ROUNDS):
+            for k in ("parent", "this", "this", "parent"):
+                times[k].append(cuda_ms(lambda: [r() for r in runs[k]],
+                                        iters=10, warmup=1))
+        rec[f"bs{bs}"] = {"calls": len(calls), "ms_a_request": times}
+        print(f"[k4] bs {bs}: {len(calls)} calls byte-identical; ms a "
+              f"request (CUDA events; parent, this, this, parent x "
+              f"{K4_COMPARE_ROUNDS}): " + ", ".join(
+                  f"{k} median {statistics.median(v):.4f} (range "
+                  f"{min(v):.4f}-{max(v):.4f})" for k, v in times.items())
+              + f"; card: {card}", flush=True)
+        del calls, runs
+        torch.cuda.empty_cache()
+    print(json.dumps({"k4_compare": rec}))
+    return 0
+
+
 def load_cfg_points(path):
     from pillarnet_lts_torch.apis import load_config
 
@@ -7420,6 +8081,7 @@ def main():
     remainder, rem_launches, k5_f32 = two_stage_remainder(
         torch, dev, card, {"flagship": training["flagship"],
                            "rcnn": two_stage_training["waymo"]})
+    model_rem, model_launches = model_remainder(torch, dev, card)
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
@@ -7486,6 +8148,39 @@ def main():
              calls=k5_f32["calls"],
              at_stage_shape=remainder["23c"]["k5_at_stage_shape"]),
     ]}
+    # K4's per-channel variants: launches of phase 24a's (bf16) and 24b's
+    # (f32) int8-head paths (counts reset just before each, read just
+    # after), the wide convs of one request replayed and timed there
+    for name, tag in (("int8_conv_pc", "24a"), ("int8_conv_pc_f32", "24b")):
+        pc = model_rem[tag]["wide_conv"]
+        record["kernels"].append(dict(
+            row(name, "int8_conv.cu", "s2d_conv_kernel.py:137",
+                model_launches[tag].get(name, 0), pc, pc["ms"],
+                pc["plain_ms"],
+                pc["bound"]), alone_ms=pc["alone_ms"],
+            main_shape=pc["main_shape"], shapes=pc["shapes"],
+            frame=pc["frame"]))
+    # phase 24's paths: each one's launches (counts set to 0 just before
+    # each served run, read just after); K4's row the 24a shared conv's
+    # replay (per tensor, bf16)
+    flat = {}
+    for tag, v in model_launches.items():
+        if tag in ("24a", "24b"):
+            flat[tag] = v
+        else:
+            flat.update({f"{tag}_{sub}": n for sub, n in v.items()})
+    for k in record["kernels"]:
+        k["model_remainder_launches"] = {t: n.get(k["name"], 0)
+                                         for t, n in flat.items()}
+    share = model_rem["24a"]["share_conv"]
+    record["kernels"][4]["model_remainder_share_conv"] = {
+        f: share[f] for f in ("max_abs_err", "ms", "alone_ms", "plain_ms",
+                              "bound", "main_shape")}
+    pc_program = model_rem["24a"]["export_bs8"]
+    record["kernels"][-2]["export_bs8"] = {
+        "launches_per_request":
+            pc_program["launches_per_request"]["int8_conv_pc"],
+        "replays": pc_program["replays"].get("k4")}
     # the two-stage path's launches (phase 14, counts reset just before)
     record["kernels"][0]["two_stage_launches"] = \
         two_stage["launches"]["pillar_scatter_max"]
@@ -7634,6 +8329,7 @@ def main():
     print(json.dumps({"export": exported}))
     print(json.dumps({"data_prep": prep}))
     print(json.dumps({"two_stage_remainder": remainder}))
+    print(json.dumps({"model_remainder": model_rem}))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -7655,4 +8351,6 @@ if __name__ == "__main__":
         sys.exit(loader_passes(*sys.argv[2:]))
     if sys.argv[1:2] == ["--loader-compare"]:
         sys.exit(loader_compare(sys.argv[2]))
+    if sys.argv[1:2] == ["--k4-compare"]:
+        sys.exit(k4_compare(sys.argv[2]))
     sys.exit(main())

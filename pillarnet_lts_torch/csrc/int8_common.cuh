@@ -44,6 +44,26 @@ __device__ __forceinline__ uint2 quant_8(uint4 raw, float inv_s) {
                     quant_word(make_uint2(raw.z, raw.w), inv_s));
 }
 
+// quant_word with a scale per channel: 4 bf16 and their 4 inverse scales
+__device__ __forceinline__ int32_t quant_word_v(uint2 raw, float4 s) {
+  const int q0 = quant_code(__uint_as_float(raw.x << 16), s.x);
+  const int q1 = quant_code(__uint_as_float(raw.x & 0xffff0000u), s.y);
+  const int q2 = quant_code(__uint_as_float(raw.y << 16), s.z);
+  const int q3 = quant_code(__uint_as_float(raw.y & 0xffff0000u), s.w);
+  return (int32_t)((q0 & 0xff) | ((q1 & 0xff) << 8) | ((q2 & 0xff) << 16) |
+                   ((uint32_t)(q3 & 0xff) << 24));
+}
+
+// quant_8 with a scale per channel: s points at the 8 channels' inverse
+// scales (16-byte aligned)
+__device__ __forceinline__ uint2 quant_8v(uint4 raw, const float* s) {
+  return make_uint2(
+      quant_word_v(make_uint2(raw.x, raw.y),
+                   *reinterpret_cast<const float4*>(s)),
+      quant_word_v(make_uint2(raw.z, raw.w),
+                   *reinterpret_cast<const float4*>(s + 4)));
+}
+
 // Two neighbouring output channels of one site, in the plain version's
 // order: bf16(acc * dq + shift) with two f32 roundings each, + the residual
 // pair `r` (if `has_res`), ReLU (if `act`), times the site mask `m`. The
@@ -70,6 +90,16 @@ __device__ __forceinline__ uint32_t quant_f4(float4 v, float inv_s) {
                     ((quant_code(v.y, inv_s) & 0xff) << 8) |
                     ((quant_code(v.z, inv_s) & 0xff) << 16) |
                     ((uint32_t)(quant_code(v.w, inv_s) & 0xff) << 24));
+}
+
+// quant_f4 with a scale per channel: s points at the 4 channels' inverse
+// scales (16-byte aligned)
+__device__ __forceinline__ uint32_t quant_f4v(float4 v, const float* s) {
+  const float4 i = *reinterpret_cast<const float4*>(s);
+  return (uint32_t)((quant_code(v.x, i.x) & 0xff) |
+                    ((quant_code(v.y, i.y) & 0xff) << 8) |
+                    ((quant_code(v.z, i.z) & 0xff) << 16) |
+                    ((uint32_t)(quant_code(v.w, i.w) & 0xff) << 24));
 }
 
 // epilogue2 for f32 activations: acc * dq + shift, + the residual pair `r`

@@ -10,6 +10,16 @@
 //   residual, ReLU, times the {0, 1} site mask, each in T (for f32 no
 //   rounding to bf16 anywhere).
 //
+// The per-input-channel variant (PC, int8_conv_pc_bf16 / int8_conv_pc_f32)
+// takes a (Cin,) vector of inverse scales and quantizes channel c with its
+// own: q_c = clip(rint(x_c * inv_s[c]), -127, 127) (the plain version's
+// `quantize` broadcasting a vector). It serves the int8 CenterHead's wide
+// SepHead conv, whose activation scale the JAX package takes per input
+// channel (center_head.py:145-172). The vector is copied into shared memory
+// after the epilogue tile when a block starts; each 16-byte load then reads
+// its channels' scales from there. Everything else is the per-tensor kernel,
+// which the template flag leaves as it was.
+//
 // Replaces the TPU kernel
 // pillarnet_lts_tpu/ops/pallas/s2d_conv_kernel.py::s2d_subm_conv_int8 (body
 // _kernel :50). That kernel exists for the 32-channel stride-1 stage in the
@@ -91,6 +101,14 @@ struct Act<__nv_bfloat16> {
   static __device__ __forceinline__ Codes codes(Pre raw, float inv_s) {
     return quant_8(raw, inv_s);
   }
+  // per input channel: `s` the 8 channels' inverse scales (shared memory)
+  static __device__ __forceinline__ Pre load_pc(const __nv_bfloat16* p,
+                                                const float*) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ Codes codes_pc(Pre raw, const float* s) {
+    return quant_8v(raw, s);
+  }
   static __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
     return __bfloat162float(v);
   }
@@ -106,6 +124,13 @@ struct Act<float> {
     return quant_f4(__ldg(reinterpret_cast<const float4*>(p)), inv_s);
   }
   static __device__ __forceinline__ Codes codes(Pre q, float) { return q; }
+  static __device__ __forceinline__ Pre load_pc(const float* p,
+                                                const float* s) {
+    return quant_f4v(__ldg(reinterpret_cast<const float4*>(p)), s);
+  }
+  static __device__ __forceinline__ Codes codes_pc(Pre q, const float*) {
+    return q;
+  }
   static __device__ __forceinline__ float to_float(float v) { return v; }
 };
 
@@ -140,7 +165,7 @@ __device__ __forceinline__ int patch_col(int c) {
   return STRIDE == 1 ? c : (c & 1) ? EVEN + (c >> 1) : c >> 1;
 }
 
-template <typename T, int COT, int STRIDE>
+template <typename T, int COT, int STRIDE, bool PC>
 __global__ void __launch_bounds__(kThreads, Tile<T, COT, STRIDE>::kMinBlocks)
 int8_conv_kernel(
     const T* __restrict__ x, const int8_t* __restrict__ wp,
@@ -154,6 +179,8 @@ int8_conv_kernel(
   unsigned char* xs = smem + 2 * Tl::kWBytes;  // after the two weight buffers
   float* ms = reinterpret_cast<float*>(smem + Tl::kMask);
   unsigned char* eo = smem + Tl::kEo;  // the residual, then the output tile
+  // PC: the (cin,) inverse scales, after the output tile
+  float* sv = reinterpret_cast<float*>(smem + Tl::kSmem);
 
   const int n_co_tiles = cout / COT;
   const int b = blockIdx.z / n_co_tiles;
@@ -166,6 +193,9 @@ int8_conv_kernel(
     return oy < Ho && ox < Wo ? ((int64_t)b * Ho + oy) * Wo + ox : -1;
   };
 
+  if constexpr (PC) {  // visible after the barrier below
+    for (int i = tid; i < cin; i += kThreads) sv[i] = inv_s_ptr[i];
+  }
   // the tile's output mask (0 outside the image, 1 without a mask)
   bool live = false;
   if (tid < kTH * kTW) {
@@ -198,7 +228,7 @@ int8_conv_kernel(
     cp_async_commit();
   }
 
-  const float inv_s = *inv_s_ptr;
+  const float inv_s = PC ? 0.f : *inv_s_ptr;
   const int iy0 = oy0 * STRIDE - 1, ix0 = ox0 * STRIDE - 1;
   typename A::Pre pre[Tl::kLoads];
   auto load_x = [&](int c0) {  // 16-byte loads of one chunk into registers
@@ -209,22 +239,30 @@ int8_conv_kernel(
       const int iy = iy0 + s / Tl::kPW, ix = ix0 + s % Tl::kPW;
       pre[k] = A::zero();  // zero padding outside the image
       if (i < Tl::kPH * Tl::kPW * Tl::kParts && iy >= 0 && iy < H &&
-          ix >= 0 && ix < W)
-        pre[k] = A::load(x + (((int64_t)b * H + iy) * W + ix) * cin + c0 +
-                             part * A::kVec,
-                         inv_s);
+          ix >= 0 && ix < W) {
+        const T* p = x + (((int64_t)b * H + iy) * W + ix) * cin + c0 +
+                     part * A::kVec;
+        if constexpr (PC)
+          pre[k] = A::load_pc(p, sv + c0 + part * A::kVec);
+        else
+          pre[k] = A::load(p, inv_s);
+      }
     }
   };
-  auto store_x = [&]() {  // ... quantized into the patch
+  auto store_x = [&](int c0) {  // ... quantized into the patch
 #pragma unroll
     for (int k = 0; k < Tl::kLoads; ++k) {
       const int i = tid + k * kThreads, s = i / Tl::kParts;
       const int part = i % Tl::kParts;
       if (i < Tl::kPH * Tl::kPW * Tl::kParts) {
         const int py = s / Tl::kPW, px = s % Tl::kPW;
-        *reinterpret_cast<typename A::Codes*>(
+        auto* q = reinterpret_cast<typename A::Codes*>(
             xs + (py * Tl::kPW + patch_col<STRIDE, Tl::kEven>(px)) * kXStride +
-            part * A::kVec) = A::codes(pre[k], inv_s);
+            part * A::kVec);
+        if constexpr (PC)
+          *q = A::codes_pc(pre[k], sv + c0 + part * A::kVec);
+        else
+          *q = A::codes(pre[k], inv_s);
       }
     }
   };
@@ -245,7 +283,7 @@ int8_conv_kernel(
   stage_weights<kThreads>(smem, wtile, COT, cin, cout);
   for (int c = 0; c < n_chunks; ++c) {
     __syncthreads();  // every warp is done with the previous chunk
-    store_x();
+    store_x(c * kChunk);
     if (c + 1 < n_chunks) {
       stage_weights<kThreads>(smem + ((c + 1) & 1) * Tl::kWBytes,
                               wtile + (c + 1) * kChunk, COT, cin, cout);
@@ -320,24 +358,30 @@ int8_conv_kernel(
   }
 }
 
-template <typename T, int COT, int STRIDE>
+// the largest Cin of the per-channel variant (its scales in shared memory)
+constexpr int kMaxCinPC = 4096;
+
+template <typename T, int COT, int STRIDE, bool PC>
 cudaError_t launch(const T* x, const int8_t* wp, const float* inv_s,
                    const float* dq, const float* shift, const T* mask,
                    const T* res, T* out, int b, int h, int w_, int cin,
                    int ho, int wo, int cout, int act, cudaStream_t s) {
   using Tl = Tile<T, COT, STRIDE>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      int8_conv_kernel<T, COT, STRIDE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::kSmem);
+      int8_conv_kernel<T, COT, STRIDE, PC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tl::kSmem + (PC ? kMaxCinPC * 4 : 0));
   if (attr != cudaSuccess) return attr;
+  if (PC && cin > kMaxCinPC) return cudaErrorInvalidValue;
   const dim3 grid((wo + kTW - 1) / kTW, (ho + kTH - 1) / kTH,
                   b * (cout / COT));
-  int8_conv_kernel<T, COT, STRIDE><<<grid, kThreads, Tl::kSmem, s>>>(
+  const int smem = Tl::kSmem + (PC ? cin * 4 : 0);
+  int8_conv_kernel<T, COT, STRIDE, PC><<<grid, kThreads, smem, s>>>(
       x, wp, inv_s, dq, shift, mask, res, out, h, w_, cin, ho, wo, cout, act);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool PC>
 int run(const void* x, const void* wp, const float* inv_s, const float* dq,
         const float* shift, const void* mask, const void* res, void* out,
         int b, int h, int w_, int cin, int ho, int wo, int cout, int stride,
@@ -352,15 +396,15 @@ int run(const void* x, const void* wp, const float* inv_s, const float* dq,
   const bool wide = cout % 64 == 0;
   cudaError_t err;
   if (stride == 1) {
-    err = wide ? launch<T, 64, 1>(xt, wi, inv_s, dq, shift, mt, rt, ot, b, h,
-                                  w_, cin, ho, wo, cout, act, s)
-               : launch<T, 32, 1>(xt, wi, inv_s, dq, shift, mt, rt, ot, b, h,
-                                  w_, cin, ho, wo, cout, act, s);
+    err = wide ? launch<T, 64, 1, PC>(xt, wi, inv_s, dq, shift, mt, rt, ot,
+                                      b, h, w_, cin, ho, wo, cout, act, s)
+               : launch<T, 32, 1, PC>(xt, wi, inv_s, dq, shift, mt, rt, ot,
+                                      b, h, w_, cin, ho, wo, cout, act, s);
   } else if (stride == 2) {
-    err = wide ? launch<T, 64, 2>(xt, wi, inv_s, dq, shift, mt, rt, ot, b, h,
-                                  w_, cin, ho, wo, cout, act, s)
-               : launch<T, 32, 2>(xt, wi, inv_s, dq, shift, mt, rt, ot, b, h,
-                                  w_, cin, ho, wo, cout, act, s);
+    err = wide ? launch<T, 64, 2, PC>(xt, wi, inv_s, dq, shift, mt, rt, ot,
+                                      b, h, w_, cin, ho, wo, cout, act, s)
+               : launch<T, 32, 2, PC>(xt, wi, inv_s, dq, shift, mt, rt, ot,
+                                      b, h, w_, cin, ho, wo, cout, act, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -382,8 +426,9 @@ extern "C" int int8_conv_bf16(const void* x, const void* wp,
                               const void* res, void* out, int b, int h, int w_,
                               int cin, int ho, int wo, int cout, int stride,
                               int act, void* stream) {
-  return run<__nv_bfloat16>(x, wp, inv_s, dq, shift, mask, res, out, b, h,
-                            w_, cin, ho, wo, cout, stride, act, stream);
+  return run<__nv_bfloat16, false>(x, wp, inv_s, dq, shift, mask, res, out,
+                                   b, h, w_, cin, ho, wo, cout, stride, act,
+                                   stream);
 }
 
 extern "C" int int8_conv_f32(const void* x, const void* wp,
@@ -392,6 +437,31 @@ extern "C" int int8_conv_f32(const void* x, const void* wp,
                              const void* res, void* out, int b, int h, int w_,
                              int cin, int ho, int wo, int cout, int stride,
                              int act, void* stream) {
-  return run<float>(x, wp, inv_s, dq, shift, mask, res, out, b, h, w_, cin,
-                    ho, wo, cout, stride, act, stream);
+  return run<float, false>(x, wp, inv_s, dq, shift, mask, res, out, b, h, w_,
+                           cin, ho, wo, cout, stride, act, stream);
+}
+
+// The per-input-channel variant (int8_conv_pc_bf16, int8_conv_pc_f32): the
+// same arguments, but inv_s is a (Cin,) f32 vector on the device, 16-byte
+// aligned, Cin <= 4096; channel c is quantized as
+// clip(rint(x_c * inv_s[c]), -127, 127).
+extern "C" int int8_conv_pc_bf16(const void* x, const void* wp,
+                                 const float* inv_s, const float* dq,
+                                 const float* shift, const void* mask,
+                                 const void* res, void* out, int b, int h,
+                                 int w_, int cin, int ho, int wo, int cout,
+                                 int stride, int act, void* stream) {
+  return run<__nv_bfloat16, true>(x, wp, inv_s, dq, shift, mask, res, out,
+                                  b, h, w_, cin, ho, wo, cout, stride, act,
+                                  stream);
+}
+
+extern "C" int int8_conv_pc_f32(const void* x, const void* wp,
+                                const float* inv_s, const float* dq,
+                                const float* shift, const void* mask,
+                                const void* res, void* out, int b, int h,
+                                int w_, int cin, int ho, int wo, int cout,
+                                int stride, int act, void* stream) {
+  return run<float, true>(x, wp, inv_s, dq, shift, mask, res, out, b, h, w_,
+                          cin, ho, wo, cout, stride, act, stream);
 }

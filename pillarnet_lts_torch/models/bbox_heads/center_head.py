@@ -42,9 +42,25 @@ centre distance is <= the task's `min_radius` (`ops/nms.py::circle_nms`),
 with the per-task `nms_pre_max_size` / `nms_post_max_size` / `min_radius`
 and tasks of equal settings batched, as the JAX package routes it.
 
-Not ported yet: the head's int8 mode (it raises). `approx_topk` (the
-TPU's approximate top-k, `lax.approx_max_k`, set by no config) raises
-too.
+SepHead branches of any depth (`common_heads` {head: (classes,
+num_conv)}): `num_conv == 1` projects straight off the shared input,
+`num_conv > 2` adds unfused per-branch hidden convs after the fused first
+conv (JAX :79-104, :185-222).
+
+int8 deploy (`quant=True`, `bbox_head.quant` or
+`runtime.quantize.enable_backbone_quant(head=True)`; JAX :727-782,
+:71-183): each calibrated `share_conv{k}` runs K4 per tensor, as the
+backbone's convs do; SepHead's fused wide first conv takes one activation
+scale per input channel (`in_absmax` (Cin,)), folded into the
+concatenated kernel's input rows, and runs K4's per-channel variant. The
+per-branch hidden convs and the projections stay in the compute dtype.
+
+`test_cfg.nms.approx_topk` (the JAX package's `lax.approx_max_k` with
+recall target 0.99) selects the candidates with the exact top-k: on the
+CPU and on a GPU XLA lowers `approx_max_k` to the exact top-k, values and
+lowest-index-first ties, so this is its result on those devices, at
+recall 1.0; only the TPU's own lowering may swap a few of the lowest
+candidates.
 """
 
 from typing import Dict, Sequence, Tuple
@@ -56,59 +72,140 @@ from torch import nn
 from ...core.utils import device_constant
 from ...ops.nms import (_NMS_SWEEPS, circle_nms, rotated_nms,
                         rotated_nms_dynamic)
-from ..backbones.base import MaskedConv
+from ...ops.quant import (activation_scale, int8_conv_bn_act, kernel_int8,
+                          pack_kernel, weight_scale)
+from ..backbones.base import (INT8_BUFFERS, MaskedConv, conv_bn_act, nhwc,
+                              state_key)
 from ..losses.centernet_loss import (fast_focal_loss, iou_loss, iou_reg_loss,
                                      reg_loss)
 from ..registry import HEADS
 from ..utils.norm import MaskedBatchNorm
+from ..utils.quant import Calibrated
 
 
-class SepHead(nn.Module):
-    """Per-target conv branches (`{head}_conv0`, `{head}_bn0`, `{head}_out`),
-    each a hidden 3x3 conv + BN + ReLU and a 3x3 projection (every config
-    in `configs/` has two convs per branch; other depths raise).
+class SepHead(Calibrated, nn.Module):
+    """Per-target conv branches: for a branch of `num_conv` convs,
+    `num_conv - 1` hidden 3x3 convs + BN + ReLU (`{head}_conv{i}`,
+    `{head}_bn{i}`) and a 3x3 projection (`{head}_out`); a branch of one
+    conv is its projection alone, off the shared input.
 
-    The branches share their first conv's input, so their kernels (BN
-    folded) concatenate into one wide conv."""
+    The branches of two or more convs share their first conv's input, so
+    their first kernels (BN folded) concatenate into one wide conv; deeper
+    hidden convs run per branch. `quant=True` adds the int8 deploy mode of
+    that wide conv: a calibrated absmax per input channel (`in_absmax`,
+    (Cin,)), the scales folded into the kernel's input rows and K4's
+    per-channel variant (`int8_params`)."""
 
     def __init__(self, heads: Dict[str, Tuple[int, int]], in_channels=64,
-                 head_conv=64, init_bias=-2.19, device=None):
+                 head_conv=64, init_bias=-2.19, quant=False, device=None):
         super().__init__()
         self.heads = dict(heads)
         self.head_conv = head_conv
         for head, (classes, num_conv) in self.heads.items():
-            if num_conv != 2:
-                raise NotImplementedError(
-                    f"SepHead branch {head!r} with {num_conv} convs")
-            setattr(self, f"{head}_conv0",
-                    MaskedConv(in_channels, head_conv, device=device))
-            setattr(self, f"{head}_bn0",
-                    MaskedBatchNorm(head_conv, device=device))
+            for i in range(num_conv - 1):
+                setattr(self, f"{head}_conv{i}", MaskedConv(
+                    in_channels if i == 0 else head_conv, head_conv,
+                    device=device))
+                setattr(self, f"{head}_bn{i}",
+                        MaskedBatchNorm(head_conv, device=device))
             setattr(self, f"{head}_out", MaskedConv(
-                head_conv, classes,
+                in_channels if num_conv == 1 else head_conv, classes,
                 bias_init=init_bias if "hm" in head else 0.0, device=device))
+        # the branches whose first conv joins the wide conv
+        self.fused = [h for h, (_, n) in self.heads.items() if n >= 2]
+        self._init_quant(quant and bool(self.fused), "in_absmax",
+                         (in_channels,), device)
+        self._int8 = (None, None)  # (state_key, int8_params)
 
-    def forward(self, x):
-        """x (B, C, H, W) -> {head: (B, H, W, classes) NHWC view}."""
+    def _first(self):
+        return ([getattr(self, f"{h}_conv0") for h in self.fused],
+                [getattr(self, f"{h}_bn0") for h in self.fused])
+
+    def int8_params(self):
+        """(w_q HWIO int8, 1 / s_x (Cin,), dq, shift, w_pack) of the wide
+        conv, BN folded (JAX :136-172): s_x = max(in_absmax, 1e-6) / 127
+        per input channel is folded into the concatenated kernel's input
+        rows (y = sum_c (x_c / s_x[c]) * (s_x[c] w_c)), whose per output
+        channel scale s_w is then taken; dq = s_w * inv. Cached per state
+        of the weights, the scales and the BNs; after `freeze_int8`, the
+        frozen buffers."""
+        if self.int8_frozen():
+            return tuple(getattr(self, name) for name in INT8_BUFFERS)
+        convs, bns = self._first()
+        key = state_key(self.in_absmax, *(
+            t for c, bn in zip(convs, bns)
+            for t in (c.weight, c.bias, bn.weight, bn.bias, bn.running_mean,
+                      bn.running_var)))
+        if self._int8[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                folds = [bn.fold_factors() for bn in bns]
+                inv = torch.cat([i for i, _ in folds])
+                shift = torch.cat([c.bias * i + s
+                                   for c, (i, s) in zip(convs, folds)])
+                s_x = activation_scale(self.in_absmax)
+                w = torch.cat([c.weight for c in convs]) \
+                    * s_x[None, :, None, None]
+                s_w = weight_scale(w)
+                w_q = kernel_int8(w, s_w)
+                params = (w_q, 1.0 / s_x, s_w * inv, shift, pack_kernel(w_q))
+            self._int8 = (key, params)
+        return self._int8[1]
+
+    def int8_frozen(self):
+        return INT8_BUFFERS[0] in self._buffers
+
+    def freeze_int8(self):
+        """`MaskedConv.freeze_int8` for the wide conv: its int8 params as
+        non-persistent buffers (calibrated heads only). Returns whether it
+        froze them."""
+        self.thaw_int8()
+        if not self.quant_ready():
+            return False
+        for name, t in zip(INT8_BUFFERS, self.int8_params()):
+            self.register_buffer(name, t, persistent=False)
+        return True
+
+    def thaw_int8(self):
+        for name in INT8_BUFFERS:
+            self._buffers.pop(name, None)
+
+    def _wide(self, x):
+        """The fused first conv + BN + ReLU of the branches in
+        `self.fused`, (B, len(fused) * head_conv, H, W)."""
         hc = self.head_conv
-        convs = [getattr(self, f"{h}_conv0") for h in self.heads]
-        bns = [getattr(self, f"{h}_bn0") for h in self.heads]
+        convs, bns = self._first()
         if self.training:
             y = F.conv2d(x, torch.cat([c.weight for c in convs]).to(x.dtype),
                          torch.cat([c.bias for c in convs]).to(x.dtype),
                          padding=1)
-            y = torch.cat([F.relu(bn(y[:, j * hc:(j + 1) * hc]))
-                           for j, bn in enumerate(bns)], dim=1)
-        else:
-            ws, bs = zip(*(c.folded_params(*bn.fold_factors())
-                           for c, bn in zip(convs, bns)))
-            y = F.relu(F.conv2d(x, torch.cat(ws).to(x.dtype),
-                                torch.cat(bs).to(x.dtype), padding=1))
-        return {
-            h: getattr(self, f"{h}_out")(y[:, j * hc:(j + 1) * hc])
-            .permute(0, 2, 3, 1)
-            for j, h in enumerate(self.heads)
-        }
+            return torch.cat([F.relu(bn(y[:, j * hc:(j + 1) * hc]))
+                              for j, bn in enumerate(bns)], dim=1)
+        if self.quant_ready():
+            w_q, inv_s, dq, shift, w_pack = self.int8_params()
+            return int8_conv_bn_act(nhwc(x), w_q, inv_s, dq, shift, 1,
+                                    w_pack=w_pack).permute(0, 3, 1, 2)
+        if self.observing:
+            self.observe(x.abs().amax((0, 2, 3)).float())
+        ws, bs = zip(*(c.folded_params(*bn.fold_factors())
+                       for c, bn in zip(convs, bns)))
+        return F.relu(F.conv2d(x, torch.cat(ws).to(x.dtype),
+                               torch.cat(bs).to(x.dtype), padding=1))
+
+    def forward(self, x):
+        """x (B, C, H, W) -> {head: (B, H, W, classes) NHWC view}."""
+        hc = self.head_conv
+        feats = {}
+        if self.fused:
+            y = self._wide(x)
+            for j, h in enumerate(self.fused):
+                z = y[:, j * hc:(j + 1) * hc]
+                for i in range(1, self.heads[h][1] - 1):
+                    z = conv_bn_act(getattr(self, f"{h}_conv{i}"),
+                                    getattr(self, f"{h}_bn{i}"), z, None,
+                                    self.training)
+                feats[h] = z
+        return {h: getattr(self, f"{h}_out")(feats.get(h, x))
+                .permute(0, 2, 3, 1) for h in self.heads}
 
 
 class CenterHeadMath:
@@ -261,9 +358,6 @@ class CenterHeadMath:
         the rectified scores; otherwise each task runs alone
         (`_post_process_task`)."""
         nms_cfg = test_cfg["nms"]
-        if nms_cfg.get("approx_topk", False):
-            raise NotImplementedError(
-                "approx_topk (the TPU's lax.approx_max_k) is not ported")
         circle = bool(test_cfg.get("circular_nms", False))
         rotate = nms_cfg.get("use_rotate_nms", False)
 
@@ -450,12 +544,10 @@ class CenterHead(nn.Module):
                  feat_channels=None, quant=False, device=None):
         """`feat_channels`: channels of each input map (the neck's outputs);
         defaults to `in_channels`. `code_weights`, `common_heads` and
-        `reg_iou` also configure the loss. The head's int8 mode
-        (`quant=True`, rejected in the JAX package for its mAP cost) is not
-        ported."""
+        `reg_iou` also configure the loss. `quant=True`: the int8 deploy
+        mode of the shared convs and of each SepHead's wide conv (the JAX
+        package's scope study rejected it for its mAP cost; it runs)."""
         super().__init__()
-        if quant:
-            raise NotImplementedError("CenterHead: quant=True is not ported")
         self.code_weights = list(code_weights)
         self.common_heads = dict(common_heads)
         self.reg_iou = reg_iou
@@ -466,7 +558,8 @@ class CenterHead(nn.Module):
         self.num_scales = len(in_channels)
         for k in range(self.num_scales):
             setattr(self, f"share_conv{k}",
-                    MaskedConv(feat_channels[k], share_channel, device=device))
+                    MaskedConv(feat_channels[k], share_channel, quant=quant,
+                               device=device))
             setattr(self, f"share_bn{k}",
                     MaskedBatchNorm(share_channel, device=device))
         strides = sorted({int(t["stride"]) for t in self.tasks}, reverse=True)
@@ -475,25 +568,27 @@ class CenterHead(nn.Module):
             heads = dict(common_heads)
             heads["hm"] = (len(t["class_names"]), 2)
             setattr(self, f"task{k}",
-                    SepHead(heads, in_channels=share_channel, device=device))
+                    SepHead(heads, in_channels=share_channel, quant=quant,
+                            device=device))
 
     def math(self) -> CenterHeadMath:
         return CenterHeadMath(self.tasks, self.pillar_size,
                               self.point_cloud_range, self.code_weights,
                               self.common_heads, self.reg_iou)
 
+    def convs(self):
+        """The shared convs' (conv, bn) pairs (each SepHead freezes its wide
+        conv itself)."""
+        return [(getattr(self, f"share_conv{k}"), getattr(self, f"share_bn{k}"))
+                for k in range(self.num_scales)]
+
     def forward(self, x):
         """x: tuple of NCHW maps, one per scale -> list of per-task dicts of
         NHWC views."""
         if len(x) != self.num_scales:
             raise ValueError(f"expected {self.num_scales} maps, got {len(x)}")
-        share = []
-        for k in range(self.num_scales):
-            conv = getattr(self, f"share_conv{k}")
-            bn = getattr(self, f"share_bn{k}")
-            y = bn(conv(x[k])) if self.training else \
-                conv.folded(x[k], *bn.fold_factors())
-            share.append(F.relu(y))
+        share = [conv_bn_act(conv, bn, x[k], None, self.training)
+                 for k, (conv, bn) in enumerate(self.convs())]
         return [getattr(self, f"task{k}")(share[self.task_idx[k]])
                 for k in range(len(self.tasks))]
 

@@ -1,4 +1,4 @@
-"""Dense BEV FPN necks RPNV1, RPNV2, RPNG and RPNGV2.
+"""Dense BEV FPN necks RPNV1, RPNV2, RPNG and RPNGV2, and the legacy RPN.
 
 Port of `pillarnet_lts_tpu/models/necks/rpn.py`:
 
@@ -9,6 +9,9 @@ Port of `pillarnet_lts_tpu/models/necks/rpn.py`:
 - RPNG: top-down 5 -> 4 -> 3; two outputs, at strides 8 and 4 (the FPN
   of the two-stage and `*_fpn_waymo` configs).
 - RPNGV2: RPNG with 3x3 'reduce' convs on the lateral maps.
+- RPN: the legacy generic multi-scale neck (`rpn.py:212-272`): strided
+  stages on the backbone's last map, each stage's output upsampled (or
+  kept, at up stride 1) and concatenated; one output.
 
 Inputs are the backbone's NCHW maps; the conv input widths come from
 `backbone_channels`, which the detector passes in (flax infers them from
@@ -98,13 +101,23 @@ class _DeBlock(nn.Module):
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features, device=device)
 
     def forward(self, x):
-        # the transposed conv accumulates the x.dtype operands in f32 and
-        # feeds the f32 BN unrounded; one rounding to x.dtype after the BN.
-        # That is what the JAX package computes under jit, where XLA folds
-        # the conv output's bf16 round trip into the BN's f32 convert.
-        w = self.ConvTranspose_0.weight.to(x.dtype).float()
-        y = F.conv_transpose2d(x.float(), w, stride=2)
-        return F.relu(self.MaskedBatchNorm_0(y).to(x.dtype))
+        return _conv_bn_relu_f32(self.ConvTranspose_0, self.MaskedBatchNorm_0,
+                                 x)
+
+
+def _conv_bn_relu_f32(conv, bn, x):
+    """A bias-free conv (`MaskedConv`) or `ConvTranspose` + BN + ReLU with
+    the BN unfolded: the x.dtype operands accumulate in f32, the f32 BN
+    reads the sums unrounded (batch statistics in training, running ones
+    at eval), one rounding to x.dtype after it, then the ReLU. That is what
+    the JAX package computes under jit, where XLA folds the conv output's
+    bf16 round trip into the BN's f32 convert."""
+    w = conv.weight.to(x.dtype).float()
+    if isinstance(conv, ConvTranspose):
+        y = F.conv_transpose2d(x.float(), w, stride=w.shape[-1])
+    else:
+        y = F.conv2d(x.float(), w, stride=conv.stride, padding=conv.padding)
+    return F.relu(bn(y).to(x.dtype))
 
 
 class _TopDownNeck(nn.Module):
@@ -223,3 +236,88 @@ class RPNGV2(nn.Module):
         r3 = self.reduce_3(feats["conv3"][0])
         x3b = self.block_3(torch.cat([r3, self.top_down_43(x4b)], dim=1))
         return (x4b, x3b)
+
+
+@NECKS.register_module
+class RPN(nn.Module):
+    """The legacy generic multi-scale neck (`det3d/models/necks/rpn.py:
+    15-134`; JAX `rpn.py:212-272`), kept for the reference's legacy
+    configs. Stage i: a 3x3 conv of stride `ds_layer_strides[i]` + BN +
+    ReLU (`block{i}_conv0`, `block{i}_bn0`), then `layer_nums[i]`
+    conv + BN + ReLU units (`block{i}_conv{j}`, int8 through K4 per
+    tensor with `quant`). The last `len(us_layer_strides)` stages each
+    feed an up path: a bias-free `ConvTranspose` of kernel and stride
+    `us_layer_strides[k]` (> 1) or a 1x1 conv (stride 1) (`deblock{k}`),
+    + BN (`deblock{k}_bn`) + ReLU; the up paths' maps are concatenated
+    (else the last stage's map is the output). Reads the last key of the
+    backbone's dict (sorted, as `_feat` does: `conv5` of a PillarResNet).
+    Up strides are integers, as the JAX module takes them (the reference's
+    fractional strides are not).
+
+    The entry conv and the up path compute as `_DeBlock` (f32 sums, the
+    BN unfolded); the units as `_ConvBNReLU`."""
+
+    def __init__(self, layer_nums: Sequence[int],
+                 ds_layer_strides: Sequence[int],
+                 ds_num_filters: Sequence[int],
+                 us_layer_strides: Sequence[int],
+                 us_num_filters: Sequence[int], in_channels: int,
+                 backbone_channels=None, quant=False, device=None):
+        super().__init__()
+        n = len(layer_nums)
+        if len(ds_layer_strides) != n or len(ds_num_filters) != n \
+                or len(us_layer_strides) != len(us_num_filters) \
+                or len(us_layer_strides) > n:
+            raise ValueError("RPN: layer_nums, ds_layer_strides and "
+                             "ds_num_filters must have one entry a stage, "
+                             "us_layer_strides and us_num_filters one an "
+                             "up path, at most one a stage")
+        for st in list(ds_layer_strides) + list(us_layer_strides):
+            if int(st) != st or st < 1:
+                raise ValueError(f"RPN: strides must be integers >= 1, got "
+                                 f"{st}")
+        self.layer_nums = [int(k) for k in layer_nums]
+        self.up_start = n - len(us_layer_strides)
+        cin = (in_channels if not backbone_channels
+               else backbone_channels[sorted(backbone_channels)[-1]])
+        for i, feats in enumerate(ds_num_filters):
+            setattr(self, f"block{i}_conv0", MaskedConv(
+                cin, feats, 3, int(ds_layer_strides[i]), use_bias=False,
+                init="xavier", device=device))
+            setattr(self, f"block{i}_bn0",
+                    MaskedBatchNorm(feats, device=device))
+            for j in range(self.layer_nums[i]):
+                setattr(self, f"block{i}_conv{j + 1}",
+                        _ConvBNReLU(feats, feats, quant, device))
+            if i >= self.up_start:
+                k = i - self.up_start
+                st, uf = int(us_layer_strides[k]), us_num_filters[k]
+                up = (ConvTranspose(feats, uf, size=st, device=device)
+                      if st > 1 else MaskedConv(
+                          feats, uf, 1, use_bias=False, init="xavier",
+                          device=device))
+                setattr(self, f"deblock{k}", up)
+                setattr(self, f"deblock{k}_bn",
+                        MaskedBatchNorm(uf, device=device))
+            cin = feats
+        self.out_channels = ((sum(us_num_filters),) if us_num_filters
+                             else (ds_num_filters[-1],))
+
+    def forward(self, feats):
+        """feats: the backbone's dict of (NCHW map, occupancy) pairs (its
+        last key's map is read), a pair, or a map -> (map,)."""
+        x = feats[sorted(feats)[-1]] if isinstance(feats, dict) else feats
+        if isinstance(x, tuple):
+            x = x[0]
+        ups = []
+        for i, n in enumerate(self.layer_nums):
+            x = _conv_bn_relu_f32(getattr(self, f"block{i}_conv0"),
+                                  getattr(self, f"block{i}_bn0"), x)
+            for j in range(n):
+                x = getattr(self, f"block{i}_conv{j + 1}")(x)
+            if i >= self.up_start:
+                k = i - self.up_start
+                ups.append(_conv_bn_relu_f32(
+                    getattr(self, f"deblock{k}"),
+                    getattr(self, f"deblock{k}_bn"), x))
+        return (torch.cat(ups, dim=1) if ups else x,)

@@ -42,6 +42,12 @@ return models in eval mode, as they are built for serving).
 Parameter names follow torch (`weight`, `bias`, `running_mean`,
 `running_var`); `runtime/convert.py` maps them from flax's
 `scale`/`bias`/`mean`/`var`.
+
+`MaskedGroupNorm` (`norm.py:145-194`) and the factory `build_norm` /
+`get_norm_kwargs` (`:196-232`) complete the JAX package's norm-layer
+surface: `dict(type="GN", num_groups=...)` builds a GroupNorm whose
+statistics are per (sample, group) over the active sites; no config uses
+it, as in the JAX package.
 """
 
 import contextlib
@@ -76,7 +82,7 @@ def exact_statistics():
     """Within it a training forward sets each norm's running statistics
     to its batch's own (momentum 1: `0 * running + mean` is the mean
     exactly), what precise BN (`runtime/precise_bn.py`) collects."""
-    prev = getattr(_EXACT, "momentum", _MOMENTUM)
+    prev = getattr(_EXACT, "momentum", None)
     _EXACT.momentum = 1.0
     try:
         yield
@@ -105,9 +111,10 @@ def _clamp0(v):
 
 
 class MaskedBatchNorm(nn.Module):
-    def __init__(self, features, eps=1e-3, device=None):
+    def __init__(self, features, eps=1e-3, momentum=_MOMENTUM, device=None):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.empty(features, device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("running_mean",
@@ -177,7 +184,7 @@ class MaskedBatchNorm(nn.Module):
             with torch.no_grad():
                 unbiased = (var * bessel if mask is None
                             else var * cnt / (cnt - 1.0).clamp_min(1.0))
-                m = getattr(_EXACT, "momentum", _MOMENTUM)
+                m = getattr(_EXACT, "momentum", None) or self.momentum
                 self.running_mean.copy_(
                     (1.0 - m) * self.running_mean + m * mean)
                 self.running_var.copy_(
@@ -187,6 +194,93 @@ class MaskedBatchNorm(nn.Module):
         if mask is not None:
             y = y * mask.to(y.dtype)
         return y.to(x.dtype)
+
+
+class MaskedGroupNorm(nn.Module):
+    """GroupNorm with optional sparse-site statistics (JAX
+    `norm.py::MaskedGroupNorm`): per (sample, group) the mean and the
+    biased variance in f32 over the active sites x the group's channels
+    (cnt = max(sites * C / G, 1); var = sum((x - mean)^2) / cnt), y =
+    (x - mean) * rsqrt(var + eps) * scale + bias, re-zeroed at inactive
+    sites, returned in x.dtype. The same in training and at eval (no
+    running statistics). x: (B, C, H, W) maps or (B, N, C) rows; mask as
+    `MaskedBatchNorm`'s, or None for every site. `weight` / `bias` are
+    flax's `scale` / `bias`."""
+
+    def __init__(self, features, num_groups=32, eps=1e-5, device=None):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(features, device=device))
+        self.bias = nn.Parameter(torch.empty(features, device=device))
+        self.init_weights(None)
+
+    @torch.no_grad()
+    def init_weights(self, generator):
+        del generator  # flax's: ones and zeros
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x, mask=None):
+        cdim = 1 if x.dim() == 4 else x.dim() - 1
+        xf = torch.movedim(x.float(), cdim, -1)  # channels last
+        B, C = xf.shape[0], xf.shape[-1]
+        if C % self.num_groups:  # at the call, as the JAX module checks
+            raise ValueError(f"features={C} not divisible by "
+                             f"num_groups={self.num_groups}")
+        cg = C // self.num_groups
+        xg = xf.reshape(B, -1, self.num_groups, cg)
+        if mask is None:
+            w = torch.ones((B, xg.shape[1], 1, 1), dtype=torch.float32,
+                           device=x.device)
+        else:
+            m = torch.movedim(mask.float().expand(
+                *x.shape[:cdim], 1, *x.shape[cdim + 1:]), cdim, -1)
+            w = m.reshape(B, -1, 1, 1)
+        cnt = (w.sum(1, keepdim=True) * cg).clamp_min(1.0)
+        mean = (xg * w).sum((1, 3), keepdim=True) / cnt
+        var = ((xg - mean).square() * w).sum((1, 3), keepdim=True) / cnt
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(xf.shape)
+        y = y * self.weight + self.bias
+        if mask is not None:
+            y = y * w.reshape(xf.shape[:-1] + (1,))
+        return torch.movedim(y, -1, cdim).to(x.dtype)
+
+
+_BN_TYPES = ("BN", "BN1d", "SyncBN")
+
+
+def build_norm(norm_cfg, features, device=None):
+    """Norm-layer factory of the reference's `build_norm_layer` dispatch
+    (JAX `norm.py::build_norm`): BN / BN1d / SyncBN -> `MaskedBatchNorm`
+    (the mask at call time selects sparse or dense statistics; a process
+    group makes them cross-replica), GN -> `MaskedGroupNorm`; anything else
+    raises. `requires_grad` (a torch knob of the reference's configs) is
+    dropped."""
+    cfg = dict(norm_cfg or {"type": "BN"})
+    t = cfg.pop("type", "BN")
+    cfg.pop("requires_grad", None)
+    if t in _BN_TYPES:
+        return MaskedBatchNorm(features, eps=cfg.get("eps", 1e-3),
+                               momentum=cfg.get("momentum", _MOMENTUM),
+                               device=device)
+    if t == "GN":
+        return MaskedGroupNorm(features, num_groups=cfg.get("num_groups", 32),
+                               eps=cfg.get("eps", 1e-5), device=device)
+    raise NotImplementedError(f"norm type {t} not supported")
+
+
+def get_norm_kwargs(norm_cfg):
+    """A reference-style BN config (`dict(type="BN1d", momentum=0.01,
+    eps=1e-3)`) -> `MaskedBatchNorm`'s momentum and eps (JAX
+    `norm.py::get_norm_kwargs`); other types raise."""
+    if norm_cfg is None:
+        return dict(momentum=_MOMENTUM, eps=1e-3)
+    t = norm_cfg.get("type", "BN")
+    if t not in _BN_TYPES:
+        raise NotImplementedError(f"norm type {t} not supported")
+    return dict(momentum=norm_cfg.get("momentum", _MOMENTUM),
+                eps=norm_cfg.get("eps", 1e-3))
 
 
 class LayerNorm(nn.Module):

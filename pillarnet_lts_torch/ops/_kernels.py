@@ -17,7 +17,8 @@ An op that calls two entry points of one source (the sorted-run
 scatter-max makes its sort keys first) counts once, as its kernel; the int8
 conv's and the fused stage's bf16 and f32 variants (`int8_conv` /
 `int8_conv_f32`, `int8_stage` / `int8_stage_f32`, one source each) count
-apart; an entry point that only exposes a kernel's staged values for
+apart, and so do the int8 conv's per-input-channel variants
+(`int8_conv_pc` / `int8_conv_pc_f32`); an entry point that only exposes a kernel's staged values for
 a check (`suppression_mask_corners`) counts nothing.
 """
 
@@ -31,7 +32,8 @@ import threading
 
 LAUNCHES = {"pillar_scatter_max": 0, "pillar_scatter_max_tiled": 0,
             "rotated_overlap": 0, "suppression_mask": 0, "int8_conv": 0,
-            "int8_conv_f32": 0, "int8_stage": 0, "int8_stage_f32": 0}
+            "int8_conv_f32": 0, "int8_conv_pc": 0, "int8_conv_pc_f32": 0,
+            "int8_stage": 0, "int8_stage_f32": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -82,6 +84,14 @@ KERNELS = {
     ),
     "int8_conv_f32": (
         "int8_conv.cu", _NO_FMA, "int8_conv_f32",
+        [_P] * 8 + [_INT] * 9 + [_P],
+    ),
+    "int8_conv_pc": (
+        "int8_conv.cu", _NO_FMA, "int8_conv_pc_bf16",
+        [_P] * 8 + [_INT] * 9 + [_P],
+    ),
+    "int8_conv_pc_f32": (
+        "int8_conv.cu", _NO_FMA, "int8_conv_pc_f32",
         [_P] * 8 + [_INT] * 9 + [_P],
     ),
     "int8_stage": (

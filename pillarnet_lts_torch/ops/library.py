@@ -14,6 +14,7 @@ functions (`ops/scatter.py`, `ops/iou3d.py`, `ops/nms.py`, `ops/quant.py`,
   suppression_mask                      K3, suppression_mask.cu
   suppression_mask_corners              K3's staged corners (a check)
   int8_conv, int8_conv_f32              K4, int8_conv.cu (bf16 / f32)
+  int8_conv_pc, int8_conv_pc_f32        K4's per-input-channel variants
   int8_stage, int8_stage_f32            K5, int8_stage.cu (bf16 / f32)
 
 Each op has three implementations: on CUDA tensors the ctypes launch of the
@@ -51,6 +52,8 @@ _ELEM = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # K1' `elem`
 # 32 or 64
 _CIN_CHUNK = 32
 _COUT_TILE = 32
+# K4's per-channel variant keeps the (Cin,) scales in shared memory
+_MAX_CIN_PC = 4096
 
 
 def _op(name, device_types="cpu"):
@@ -324,9 +327,10 @@ def _int8_conv_plain(x, w_pack, inv_s, dq, shift, stride, mask, residual,
                                   stride, mask, residual, act)
 
 
-def _int8_conv_cuda(name, dtype, x, w_pack, inv_s, dq, shift, stride, mask,
-                    residual, act):
-    """Launch K4's variant `name` (activations of `dtype`)."""
+def _int8_conv_cuda(name, dtype, per_channel, x, w_pack, inv_s, dq, shift,
+                    stride, mask, residual, act):
+    """Launch K4's variant `name` (activations of `dtype`; `per_channel`:
+    inv_s is a (Cin,) vector, else one value)."""
     B, H, W, cin = x.shape
     taps, cout, wcin = w_pack.shape
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
@@ -336,8 +340,12 @@ def _int8_conv_cuda(name, dtype, x, w_pack, inv_s, dq, shift, stride, mask,
     if residual is not None:
         tensors["residual"] = residual
     _kernels.check_args(name, **tensors)
-    _kernels.check_args(name, align=16, x=x, w_pack=w_pack,
-                        **({} if residual is None else {"residual": residual}))
+    aligned = dict(x=x, w_pack=w_pack)
+    if residual is not None:
+        aligned["residual"] = residual
+    if per_channel:  # read as float4 by the kernel
+        aligned["inv_s"] = inv_s
+    _kernels.check_args(name, align=16, **aligned)
     if x.dtype != dtype or w_pack.dtype != torch.int8:
         raise TypeError(f"{name}: {_NAMES[dtype]} activations (the bf16 or "
                         f"f32 variant by their dtype) and an int8 kernel, "
@@ -345,11 +353,16 @@ def _int8_conv_cuda(name, dtype, x, w_pack, inv_s, dq, shift, stride, mask,
     for arg in ("inv_s", "dq", "shift"):
         if tensors[arg].dtype != torch.float32:
             raise TypeError(f"{name}: {arg} must be f32")
+    scales = (cin,) if per_channel else ()
     if (taps, wcin) != (9, cin) or stride not in (1, 2) \
-            or inv_s.numel() != 1 or dq.shape != (cout,) \
+            or inv_s.shape != scales or dq.shape != (cout,) \
             or shift.shape != (cout,):
         raise ValueError(f"{name}: x {tuple(x.shape)}, w_pack "
-                         f"{tuple(w_pack.shape)}, stride {stride}")
+                         f"{tuple(w_pack.shape)}, inv_s "
+                         f"{tuple(inv_s.shape)}, stride {stride}")
+    if per_channel and cin > _MAX_CIN_PC:
+        raise ValueError(f"{name}: at most {_MAX_CIN_PC} input channels, "
+                         f"got {cin}")
     if cin % _CIN_CHUNK or cout % _COUT_TILE:
         raise ValueError(f"{name}: channels must be multiples of "
                          f"{_CIN_CHUNK} (in) and {_COUT_TILE} (out), got "
@@ -403,18 +416,51 @@ def int8_conv_f32(x: torch.Tensor, w_pack: torch.Tensor, inv_s: torch.Tensor,
                             residual, act)
 
 
+@_op("int8_conv_pc")
+def int8_conv_pc(x: torch.Tensor, w_pack: torch.Tensor, inv_s: torch.Tensor,
+                 dq: torch.Tensor, shift: torch.Tensor, stride: int,
+                 mask: Optional[torch.Tensor],
+                 residual: Optional[torch.Tensor], act: bool) -> torch.Tensor:
+    """K4 on bf16 activations with an inverse scale per input channel:
+    `int8_conv`'s contract with inv_s a (Cin,) f32 vector."""
+    return _int8_conv_plain(x, w_pack, inv_s, dq, shift, stride, mask,
+                            residual, act)
+
+
+@_op("int8_conv_pc_f32")
+def int8_conv_pc_f32(x: torch.Tensor, w_pack: torch.Tensor,
+                     inv_s: torch.Tensor, dq: torch.Tensor,
+                     shift: torch.Tensor, stride: int,
+                     mask: Optional[torch.Tensor],
+                     residual: Optional[torch.Tensor],
+                     act: bool) -> torch.Tensor:
+    """K4 on f32 activations with an inverse scale per input channel."""
+    return _int8_conv_plain(x, w_pack, inv_s, dq, shift, stride, mask,
+                            residual, act)
+
+
 @int8_conv.register_kernel("cuda")
 def _int8_conv_bf16_cuda(*args):
-    return _int8_conv_cuda("int8_conv", torch.bfloat16, *args)
+    return _int8_conv_cuda("int8_conv", torch.bfloat16, False, *args)
 
 
 @int8_conv_f32.register_kernel("cuda")
 def _int8_conv_f32_cuda(*args):
-    return _int8_conv_cuda("int8_conv_f32", torch.float32, *args)
+    return _int8_conv_cuda("int8_conv_f32", torch.float32, False, *args)
 
 
-int8_conv.register_fake(_int8_conv_fake)
-int8_conv_f32.register_fake(_int8_conv_fake)
+@int8_conv_pc.register_kernel("cuda")
+def _int8_conv_pc_bf16_cuda(*args):
+    return _int8_conv_cuda("int8_conv_pc", torch.bfloat16, True, *args)
+
+
+@int8_conv_pc_f32.register_kernel("cuda")
+def _int8_conv_pc_f32_cuda(*args):
+    return _int8_conv_cuda("int8_conv_pc_f32", torch.float32, True, *args)
+
+
+for _conv in (int8_conv, int8_conv_f32, int8_conv_pc, int8_conv_pc_f32):
+    _conv.register_fake(_int8_conv_fake)
 
 
 # --- K5: the fused int8 stride-1 stage -------------------------------------
@@ -498,4 +544,5 @@ OPS = {"pillar_scatter_max": pillar_scatter_max,
        "suppression_mask": suppression_mask,
        "suppression_mask_corners": suppression_mask_corners,
        "int8_conv": int8_conv, "int8_conv_f32": int8_conv_f32,
+       "int8_conv_pc": int8_conv_pc, "int8_conv_pc_f32": int8_conv_pc_f32,
        "int8_stage": int8_stage, "int8_stage_f32": int8_stage_f32}

@@ -71,6 +71,26 @@ def _greedy_suppress(iou, valid, thresh, sweeps=_NMS_SWEEPS):
     return _greedy_suppress_mask(m, valid, sweeps)
 
 
+def greedy_suppress_with_convergence(iou, valid, thresh, sweeps=_NMS_SWEEPS):
+    """`_greedy_suppress` and whether its keep set is the exact greedy
+    fixpoint (JAX `ops/nms.py:75-86`): one more sweep from it must change
+    nothing. An audit of a workload's suppression-chain depth against
+    `sweeps` (deeper chains need `test_cfg.nms.nms_sweeps` raised); it costs
+    one more matvec.
+
+    Args: as `_greedy_suppress` ((..., K, K) IoU, (..., K) validity).
+    Returns:
+      (keep (..., K) bool, converged (...) bool: per row, the extra sweep
+      left the keep set as it was)."""
+    k = iou.shape[-1]
+    idx = torch.arange(k, device=iou.device)
+    m = ((idx[:, None] < idx[None, :]) & (iou > thresh)).to(torch.float32)
+    keep = _greedy_suppress_mask(m, valid, sweeps)
+    again = valid & ~((keep.to(torch.float32)[..., None, :] @ m)[..., 0, :]
+                      > 0.0)
+    return keep, (again == keep).all(-1)
+
+
 def _select_topk_sorted(keep, post_max_size):
     """First `post_max_size` kept slots (in existing order) -> (idx, mask)."""
     k = keep.shape[-1]

@@ -7,11 +7,13 @@ Port of the int8 helpers of `pillarnet_lts_tpu/models/backbones/base.py`
 `pillarnet_lts_tpu/ops/pallas/s2d_conv_kernel.py::s2d_subm_conv_int8` (:137).
 The scheme: symmetric per-output-channel weight scales taken over the raw
 kernel (the BN fold factor rides the dequant vector), symmetric per-tensor
-activation scales from a calibrated absmax, int32 sums, f32 dequant.
+activation scales from a calibrated absmax (per input channel for the
+int8 CenterHead's wide conv), int32 sums, f32 dequant.
 
 Public functions keep the JAX package's layouts: activations NHWC, kernels
 HWIO. `int8_conv_bn_act` calls the op `pillarnet::int8_conv` or
-`pillarnet::int8_conv_f32` (`ops/library.py`, by the activations' dtype),
+`pillarnet::int8_conv_f32` (`ops/library.py`, by the activations' dtype;
+with a (Cin,) vector of inverse scales `int8_conv_pc` / `int8_conv_pc_f32`),
 which launches `csrc/int8_conv.cu` on a CUDA tensor and runs its plain
 version on a CPU tensor; nothing falls back, and nothing casts f32 to bf16.
 The op reads the weights as `pack_kernel(w_q)`, which a caller may compute
@@ -31,9 +33,12 @@ import torch.nn.functional as F
 
 from . import _kernels
 
-# activation dtype -> the int8 conv kernel's variant (its op and launch
-# counter)
-_CONV_VARIANTS = {torch.bfloat16: "int8_conv", torch.float32: "int8_conv_f32"}
+# (activation dtype, per-channel scales) -> the int8 conv kernel's variant
+# (its op and launch counter)
+_CONV_VARIANTS = {(torch.bfloat16, False): "int8_conv",
+                  (torch.float32, False): "int8_conv_f32",
+                  (torch.bfloat16, True): "int8_conv_pc",
+                  (torch.float32, True): "int8_conv_pc_f32"}
 
 INV_127 = 1.0 / 127.0  # applied to f32 tensors, it rounds to f32(1 / 127)
 
@@ -134,7 +139,9 @@ def int8_conv_bn_act(x, w_q, inv_s, dq, shift, stride, mask=None,
               dtype: bf16 configs and f32 configs after
               `enable_backbone_quant`);
     w_q:      (3, 3, Cin, Cout) int8 kernel (`kernel_int8`);
-    inv_s:    0-dim f32 tensor, 1 / activation scale (computed in f32);
+    inv_s:    0-dim f32 tensor, 1 / activation scale (computed in f32),
+              or a (Cin,) f32 vector of them, one per input channel
+              (the int8 CenterHead's wide conv);
     dq:       (Cout,) f32 dequant vector s_x * s_w * inv (BN fold included);
     shift:    (Cout,) f32, conv bias * inv + BN shift;
     stride:   1 or 2;
@@ -148,11 +155,13 @@ def int8_conv_bn_act(x, w_q, inv_s, dq, shift, stride, mask=None,
     quantized itself), sums in int32, then (acc * dq + shift) -> x.dtype,
     + residual, ReLU if `act`, times the mask, each in x.dtype. Returns
     (B, Ho, Wo, Cout) in x.dtype. The op of x.dtype's variant
-    (`pillarnet::int8_conv` bf16, `pillarnet::int8_conv_f32` f32): a CPU
+    (`pillarnet::int8_conv` bf16, `pillarnet::int8_conv_f32` f32; with a
+    vector inv_s `pillarnet::int8_conv_pc` / `int8_conv_pc_f32`): a CPU
     tensor takes the plain version; a CUDA tensor launches
-    `csrc/int8_conv.cu`'s variant or raises (a pointer of x, w_pack or the
-    residual that is not 16-byte aligned raises: nothing is copied)."""
-    name = _CONV_VARIANTS.get(x.dtype, "int8_conv")
+    `csrc/int8_conv.cu`'s variant or raises (a pointer of x, w_pack, the
+    residual or a vector inv_s that is not 16-byte aligned raises: nothing
+    is copied)."""
+    name = _CONV_VARIANTS.get((x.dtype, inv_s.dim() == 1), "int8_conv")
     _kernels.check_device(name, x)
     if w_pack is None:
         w_pack = pack_kernel(w_q)

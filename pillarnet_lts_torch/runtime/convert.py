@@ -14,10 +14,12 @@ a per-leaf transform:
                                              (I, O, kh, kw), spatially flipped
   BN `scale` / `bias`                        weight / bias
   BN batch_stats `mean` / `var`              running_mean / running_var
-  LayerNorm `scale` / `bias`                 LayerNorm.weight / bias
+  LayerNorm, GroupNorm `scale` / `bias`      LayerNorm, MaskedGroupNorm
+                                             .weight / bias
   Affine `alpha` / `beta` (1, 1, C)          Affine.alpha / beta
   ResMLP `token_scale` / `channel_scale`     ResMLPLayer.token_scale / ...
-  quant `in_absmax` (conv: (), PFN: (Cin,))  in_absmax (then calibrated)
+  quant `in_absmax` (conv: (), PFN and       in_absmax (then calibrated)
+  SepHead: (Cin,))
   quant `scatter_absmax` (reader)            DynamicPFE.scatter_absmax
 
 The flip: flax's ConvTranspose correlates the zero-dilated input with an
@@ -42,11 +44,12 @@ import numpy as np
 import torch
 
 from ..models.backbones.base import MaskedConv
+from ..models.bbox_heads.center_head import SepHead
 from ..models.necks.rpn import ConvTranspose
 from ..models.readers.dynamic_pillar_encoder import DynamicPFE, _PFNDense
 from ..models.roi_heads.mlp_layers import Affine, ResMLPLayer
 from ..models.utils.dense import Dense
-from ..models.utils.norm import LayerNorm, MaskedBatchNorm
+from ..models.utils.norm import LayerNorm, MaskedBatchNorm, MaskedGroupNorm
 
 
 def _conv_kernel(w):
@@ -78,6 +81,9 @@ _LEAVES = {
                       "running_var": ("batch_stats", "var", None)},
     LayerNorm: {"weight": ("params", "scale", None),
                 "bias": ("params", "bias", None)},
+    MaskedGroupNorm: {"weight": ("params", "scale", None),
+                      "bias": ("params", "bias", None)},
+    SepHead: {"in_absmax": ("quant", "in_absmax", None)},
     Affine: {"alpha": ("params", "alpha", None),
              "beta": ("params", "beta", None)},
     ResMLPLayer: {"token_scale": ("params", "token_scale", None),

@@ -27,8 +27,10 @@ from ..models.utils.quant import Calibrated
 def enable_backbone_quant(model_cfg, head=False):
     """Flip the int8 deploy flags in a model config dict: reader MLP,
     backbone and neck (the JAX package's default scope). `head=True`
-    flips the head's too, which the port does not run (it raises at
-    build). Handles single-stage ({'backbone': ...}) and two-stage
+    flips the CenterHead's too (its shared convs per tensor, each SepHead's
+    wide conv per input channel; the JAX package's scope study measured it
+    as an mAP collapse, `pillarnet_lts_tpu/runtime/quantize.py:22-45`).
+    Handles single-stage ({'backbone': ...}) and two-stage
     ({'first_stage_cfg': ...}) layouts."""
     stage1 = (model_cfg if "backbone" in model_cfg
               else model_cfg["first_stage_cfg"])
@@ -105,20 +107,29 @@ def _int8_convs(model):
             for conv, bn in m.convs() if conv.quant_ready()]
 
 
+def _stacked(model):
+    """The modules that freeze int8 params of their own, built from
+    several convs: the backbone's fused stage (`PillarResNet`) and each
+    SepHead's wide conv (whose `freeze_int8` says whether it froze)."""
+    return [m for m in model.modules()
+            if hasattr(m, "freeze_int8") and not isinstance(m, MaskedConv)]
+
+
 def freeze_int8(model):
     """Freeze the int8 params of every calibrated conv of `model` into
-    buffers (`MaskedConv.freeze_int8`) and the fused stage's stacked ones
-    (`PillarResNet.freeze_int8`): the int8 forward then reads no tensor's
-    data pointer or version, so it traces (`torch.export`), and serves
-    eagerly bit-equal to before. Weights or scales changed afterwards need
-    another freeze (`calibrate` thaws). Returns the number of frozen
-    convs; raises if a calibrated conv is in no module's pairs."""
+    buffers (`MaskedConv.freeze_int8`), the fused stage's stacked ones
+    (`PillarResNet.freeze_int8`) and each calibrated SepHead's wide conv
+    (`SepHead.freeze_int8`): the int8 forward then reads no tensor's data
+    pointer or version, so it traces (`torch.export`), and serves eagerly
+    bit-equal to before. Weights or scales changed afterwards need another
+    freeze (`calibrate` thaws). Returns the number of frozen convs (a
+    SepHead's wide conv counts one); raises if a calibrated conv is in no
+    module's pairs."""
     pairs = _int8_convs(model)
     for conv, bn in pairs:
         conv.freeze_int8(bn)
-    for m in model.modules():
-        if hasattr(m, "fused_stage1_params"):
-            m.freeze_int8()
+    # after the convs: the fused stage stacks their frozen params
+    wide = sum(bool(m.freeze_int8()) for m in _stacked(model))
     frozen = {id(conv) for conv, _ in pairs}
     missed = [name for name, m in model.named_modules()
               if isinstance(m, MaskedConv) and m.quant_ready()
@@ -126,11 +137,11 @@ def freeze_int8(model):
     if missed:
         raise ValueError(f"calibrated convs outside any (conv, bn) pair: "
                          f"{missed}")
-    return len(pairs)
+    return len(pairs) + wide
 
 
 def thaw_int8(model):
     """Undo `freeze_int8`: the int8 params follow the weights again."""
     for m in model.modules():
-        if isinstance(m, MaskedConv) or hasattr(m, "fused_stage1_params"):
+        if isinstance(m, MaskedConv) or hasattr(m, "freeze_int8"):
             m.thaw_int8()

@@ -278,9 +278,20 @@ def _neck_rules(tree: Dict, rules):
 
 
 def _generic_rpn_rules(tree: Dict, rules):
-    """Legacy flat RPN (`rpn.py:15-133`): blocks./deblocks. ModuleLists."""
+    """Legacy flat RPN (`rpn.py:15-133`): blocks./deblocks. ModuleLists.
+    A stage's units after its entry conv (`block{i}_conv{j}`, j >= 1, our
+    `_ConvBNReLU` {Conv_0, MaskedBatchNorm_0}) sit in the same Sequential
+    at 1 + 3j / 2 + 3j; the JAX package's converter maps only the entry
+    conv's flat kernel there and leaves the units out."""
     for name in tree:
-        if name.startswith("block") and "_conv" in name:
+        if name.startswith("block") and "_conv" in name \
+                and isinstance(tree[name], dict) and "Conv_0" in tree[name]:
+            i, j = name[len("block"):].split("_conv")
+            rules.append((("neck_net", name, "Conv_0", "kernel"),
+                          f"neck.blocks.{i}.{1 + 3 * int(j)}.weight", _CONV))
+            _bn_rules(("neck_net", name, "MaskedBatchNorm_0"),
+                      f"neck.blocks.{i}.{2 + 3 * int(j)}", rules)
+        elif name.startswith("block") and "_conv" in name:
             i, j = name[len("block"):].split("_conv")
             rules.append(
                 (("neck_net", name, "kernel"),

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version, and
 the models' paths through the kernels (f32: scatter-max and overlap; int8
-deploy: also the int8 conv, its f32 variant and the fused int8 stage; the
+deploy: also the int8 conv, its f32 variant, its per-channel variants
+(the int8 CenterHead's wide conv) and the fused int8 stage; the
 switches: the sorted-run scatter-max and the suppression mask; the
 two-stage and RPNG Waymo configs: scatter-max and overlap, no host sync,
 the card against the CPU; the two-stage model in int8 on f32 activations
@@ -365,6 +366,50 @@ def test_int8_conv_f32_kernel_on_edge_cases(cuda, cls, case):
         assert not bool(got[1].any())
     elif case == "corners":
         assert int((got.abs().sum(-1) > 0).sum()) <= 6
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("cin", [64, 256])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_int8_conv_pc_kernel_on_edge_cases(cuda, dtype, cin, batch):
+    """K4's per-input-channel variants (`int8_conv_pc`, `int8_conv_pc_f32`)
+    at the int8 CenterHead's wide conv (stride 1, no mask, ReLU; Cout six
+    branches of 64 at Cin 64): channel ranges 1e-3 to 1e3 apart, one
+    channel all zero (calibrated absmax 0: scale 1e-6 / 127), a quarter of
+    the channels with scales at half their range (codes clip at +-127), a
+    size that is no multiple of the 8 x 16 tile. Equal by value to the
+    plain version, two calls byte-identical, counted under the variant's
+    own name only."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    name = "int8_conv_pc" if dtype == "bf16" else "int8_conv_pc_f32"
+    cout = 384 if cin == 64 else 128
+    rng = np.random.RandomState(cin + batch + len(dtype))
+    H, W = 37, 45
+    spread = 10.0 ** rng.uniform(-3, 3, cin)
+    x = np.abs(rng.randn(batch, H, W, cin)) * spread
+    x[..., 5] = 0.0
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda, dt)
+    absmax = x.float().abs().amax((0, 1, 2))
+    absmax[::4] *= 0.5
+    inv_s = 1.0 / tquant.activation_scale(absmax)
+    args = (x, torch.from_numpy(rng.randint(-127, 128, (3, 3, cin, cout))
+                                .astype(np.int8)).to(cuda), inv_s,
+            torch.from_numpy((rng.rand(cout) * 2e-4 / cin ** 0.5 + 1e-5)
+                             .astype(np.float32)).to(cuda),
+            torch.from_numpy(rng.randn(cout).astype(np.float32)).to(cuda), 1)
+    want = tquant.int8_conv_bn_act_plain(*args)
+    before = dict(_kernels.LAUNCHES)
+    got = tquant.int8_conv_bn_act(*args)
+    got2 = tquant.int8_conv_bn_act(*args, w_pack=tquant.pack_kernel(args[1]))
+    torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in _kernels.LAUNCHES.items()
+            if n != before[k]} == {name: 2}
+    assert got.shape == want.shape and got.dtype == dt
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    assert torch.equal(got, got2)
+    assert got.float().abs().max() > 0
+    codes = (x.float() * inv_s).abs()
+    assert codes.amax() > 127 and float(inv_s[5]) > 1e8
 
 
 @pytest.mark.parametrize("density", ["sparse", "dense"])
@@ -1548,6 +1593,8 @@ def _op_cases(dev):
              torch.full((3, 32), 2e-4, device=dev),
              torch.from_numpy(rng.randn(3, 32).astype(np.float32)).to(dev),
              occ.to(bf))
+    inv_vec = a["inv_s"] * torch.from_numpy(
+        rng.uniform(0.25, 4.0, 32).astype(np.float32)).to(dev)
     ops = torch.ops.pillarnet
     return {
         "pillar_scatter_max": (
@@ -1581,6 +1628,19 @@ def _op_cases(dev):
                                 False),
             lambda: tquant.int8_conv_bn_act_plain(a["x"].to(f32), *conv,
                                                   act=False), False),
+        "int8_conv_pc": (
+            ops.int8_conv_pc, (a["x"], pack, inv_vec, *conv[2:-1], 1, None,
+                               None, True),
+            lambda: tquant.int8_conv_bn_act_plain(a["x"], a["w_q"], inv_vec,
+                                                  *conv[2:-1], 1), False),
+        "int8_conv_pc_f32": (
+            ops.int8_conv_pc_f32, (a["x"].to(f32), pack, inv_vec, *conv[2:],
+                                   a["mask"].to(f32),
+                                   a["residual"].to(f32), True),
+            lambda: tquant.int8_conv_bn_act_plain(
+                a["x"].to(f32), a["w_q"], inv_vec, *conv[2:],
+                mask=a["mask"].to(f32), residual=a["residual"].to(f32)),
+            False),
         "int8_stage": (
             ops.int8_stage, (x, tquant.pack_kernel(w_q), *stage[1:]),
             lambda: tstage.int8_stage_plain(x, *stage), False),
@@ -1595,7 +1655,8 @@ def _op_cases(dev):
 _OP_NAMES = ["pillar_scatter_max", "pillar_scatter_max-int8",
              "pillar_scatter_max_tiled", "rotated_overlap",
              "suppression_mask", "suppression_mask_corners", "int8_conv",
-             "int8_conv_f32", "int8_stage", "int8_stage_f32"]
+             "int8_conv_f32", "int8_conv_pc", "int8_conv_pc_f32",
+             "int8_stage", "int8_stage_f32"]
 
 
 def _outputs(out):
@@ -1631,12 +1692,15 @@ def test_kernel_op_fake_shapes_match_the_card(cuda, case):
         [(t.shape, t.dtype, t.device) for t in real]
 
 
-@pytest.mark.parametrize("variant", ["f32", "int8-fused", "f32-fused"])
+@pytest.mark.parametrize("variant", ["f32", "int8-fused", "f32-fused",
+                                     "int8-head", "f32-head"])
 def test_demo_program_on_the_card_equals_eager(cuda, variant, tmp_path):
     """pillarnet18_demo exported on the card: f32, int8 in bf16 with the
-    fused stage (K4, K5) and int8 in f32 with the fused stage (the f32
-    variants of K4 and K5). The program launches what eager launches and
-    returns eager's detections bit for bit."""
+    fused stage (K4, K5), int8 in f32 with the fused stage (the f32
+    variants of K4 and K5), and int8 with the head quantized in bf16 and
+    in f32 (K4's per-channel variants for the SepHead wide convs). The
+    program launches what eager launches and returns eager's detections
+    bit for bit."""
     from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
                                           spread_head_outputs)
     from pillarnet_lts_torch.eval_utils import make_infer_fn
@@ -1647,13 +1711,14 @@ def test_demo_program_on_the_card_equals_eager(cuda, variant, tmp_path):
 
     cfg = load_config(os.path.join(os.path.dirname(__file__), "..",
                                    "configs", "demo", "pillarnet18_demo.py"))
-    int8 = variant.endswith("-fused")
+    int8 = variant != "f32"
     if int8:
-        enable_backbone_quant(cfg["model"])
-        if variant == "int8-fused":
+        enable_backbone_quant(cfg["model"], head=variant.endswith("-head"))
+        if variant.startswith("int8"):
             cfg["model"]["dtype"] = "bfloat16"
         cfg["model"]["reader"]["num_filters"] = (32,)
-        cfg["model"]["backbone"].update(in_channels=32, s2d_pallas=True)
+        cfg["model"]["backbone"].update(
+            in_channels=32, s2d_pallas=variant.endswith("-fused"))
     pts, msk = _demo_cloud(cfg, cuda, 5)
     model = build_model_from_cfg(cfg, device=cuda)
     spread_head_outputs(model, pts, msk)
@@ -1672,7 +1737,9 @@ def test_demo_program_on_the_card_equals_eager(cuda, variant, tmp_path):
     assert eager["pillar_scatter_max"] == 1 and eager["rotated_overlap"] >= 1
     assert (eager["int8_stage"] == 1) == (variant == "int8-fused")
     assert (eager["int8_stage_f32"] == 1) == (variant == "f32-fused")
-    assert (eager["int8_conv_f32"] > 0) == (variant == "f32-fused")
+    assert (eager["int8_conv_f32"] > 0) == variant.startswith("f32-")
+    assert eager["int8_conv_pc"] == (2 if variant == "int8-head" else 0)
+    assert eager["int8_conv_pc_f32"] == (2 if variant == "f32-head" else 0)
     assert int(want["mask"].sum()) > 0
     for k in want:
         assert torch.equal(got[k], want[k]), k

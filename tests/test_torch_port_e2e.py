@@ -311,6 +311,22 @@ def test_port_runs_without_importing_jax():
         "                           torch.Generator().manual_seed(0))\n"
         "    total.backward()\n"
         "    assert bool(torch.isfinite(total)), v\n"
+        "from pillarnet_lts_torch.models.necks.rpn import RPN\n"
+        "from pillarnet_lts_torch.models.utils import (MaskedGroupNorm,\n"
+        "    build_norm, get_norm_kwargs)\n"
+        "from pillarnet_lts_torch.ops.nms import "
+        "greedy_suppress_with_convergence\n"
+        "mcfg, tcfg = golden_model_cfg()\n"
+        "mcfg = enable_backbone_quant(dict(mcfg, dtype='bfloat16'), "
+        "head=True)\n"
+        "mcfg['bbox_head'] = dict(mcfg['bbox_head'], common_heads=dict(\n"
+        "    mcfg['bbox_head']['common_heads'], reg=(2, 1), height=(1, 3)))\n"
+        "tcfg = dict(tcfg, nms=dict(tcfg['nms'], approx_topk=True))\n"
+        "model = build_int8_model(dict(model=mcfg, test_cfg=tcfg),\n"
+        "                         [(pts, msk)], device='cpu')\n"
+        "assert model.head_net.task0.quant_ready()\n"
+        "det = make_infer_fn(model)(pts, msk)\n"
+        "assert bool(torch.isfinite(det['box3d_lidar']).all())\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'pillarnet_lts_tpu' not in sys.modules, 'JAX package imported'\n"
         "print('no-jax ok')\n"

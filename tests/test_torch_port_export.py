@@ -137,6 +137,7 @@ def op_cases():
     x, w_pack, inv_s, dq, shift, mask = int8_args(rng, 32, 32, 2)
     res = torch.from_numpy(rng.randn(1, 5, 6, 32).astype(np.float32))
     xs, ws, ss, dqs, shs, _ = int8_args(rng, 32, 32, 1, n=3)
+    inv_vec = torch.from_numpy(rng.uniform(20, 40, 32).astype(np.float32))
     stage_mask = torch.from_numpy(
         (rng.rand(1, 9, 11) < 0.5).astype(np.float32)).to(torch.bfloat16)
     return {
@@ -161,6 +162,11 @@ def op_cases():
             mask.to(torch.bfloat16), res.to(torch.bfloat16), True)),
         "int8_conv_f32": (OPS.int8_conv_f32, (
             x, w_pack, inv_s, dq, shift, 2, None, None, False)),
+        "int8_conv_pc": (OPS.int8_conv_pc, (
+            x.to(torch.bfloat16), w_pack, inv_vec, dq, shift, 1, None, None,
+            True)),
+        "int8_conv_pc_f32": (OPS.int8_conv_pc_f32, (
+            x, w_pack, inv_vec, dq, shift, 2, mask, res, True)),
         "int8_stage": (OPS.int8_stage, (
             (xs * stage_mask[..., None].float()).to(torch.bfloat16), ws, ss,
             dqs, shs, stage_mask)),
@@ -265,15 +271,18 @@ def int8_demo(variant):
     """The int8 demo: `enable_backbone_quant` on pillarnet18_demo (f32
     activations, K4's f32 variant), or at the int8 kernels' widths in bf16
     with the fused stage on (K4 and K5), or the same widths in f32 with
-    the fused stage on (the f32 variants of K4 and K5); seeded weights,
+    the fused stage on (the f32 variants of K4 and K5), or with the head
+    quantized too (`head=True`: K4's per-channel variant for the SepHead
+    wide convs), in f32 or at the kernels' widths in bf16; seeded weights,
     spread heads, calibrated on the cloud it serves."""
     cfg = load_config(DEMO)
-    enable_backbone_quant(cfg["model"])
-    if variant.endswith("-fused"):
-        if variant == "bf16-fused":
-            cfg["model"]["dtype"] = "bfloat16"
+    enable_backbone_quant(cfg["model"], head=variant.endswith("-head"))
+    if variant.startswith("bf16"):
+        cfg["model"]["dtype"] = "bfloat16"
+    if variant != "f32" and variant != "f32-head":
         cfg["model"]["reader"]["num_filters"] = (32,)
-        cfg["model"]["backbone"].update(in_channels=32, s2d_pallas=True)
+        cfg["model"]["backbone"].update(
+            in_channels=32, s2d_pallas=variant.endswith("-fused"))
     pts, msk = demo_cloud(cfg, seed=2)
     model = build_model_from_cfg(cfg, device="cpu", seed=4)
     spread_head_outputs(model, pts, msk)
@@ -286,7 +295,11 @@ def int8_demo(variant):
     ("bf16-fused", {"pillar_scatter_max", "rotated_overlap", "int8_conv",
                     "int8_stage"}),
     ("f32-fused", {"pillar_scatter_max", "rotated_overlap", "int8_conv_f32",
-                   "int8_stage_f32"})])
+                   "int8_stage_f32"}),
+    ("f32-head", {"pillar_scatter_max", "rotated_overlap", "int8_conv_f32",
+                  "int8_conv_pc_f32"}),
+    ("bf16-head", {"pillar_scatter_max", "rotated_overlap", "int8_conv",
+                   "int8_conv_pc"})])
 def test_int8_export_round_trips(variant, ops, tmp_path):
     model, pts, msk = int8_demo(variant)
     before = make_infer_fn(model)(pts, msk)
@@ -472,20 +485,31 @@ def test_export_torch_then_convert_torch_round_trips(tmp_path):
         assert torch.equal(got["model"][k], want[k]), k
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("int8", [False, True, "head"],
+                         ids=["f32", "int8", "int8-head"])
 def test_export_serving_cli_on_the_cpu(int8, tmp_path):
+    """The CLI with and without `--int8`; "int8-head": a config that says
+    `bbox_head.quant=True`, whose SepHead wide convs the program then runs
+    on K4's per-channel variant (no CLI flag, as in the JAX package)."""
     from pillarnet_lts_torch.tools import export_serving as cli
 
+    config = DEMO
+    if int8 == "head":
+        config = str(tmp_path / "head.py")
+        with open(config, "w") as f:
+            f.write(f"exec(open({DEMO!r}).read())\n"
+                    "model['bbox_head']['quant'] = True\n")
     ckpt, out = str(tmp_path / "p.pth"), str(tmp_path / "m.pt2")
     model = build_model_from_cfg(load_config(DEMO), device="cpu", seed=11)
     torch.save({"model": model.state_dict(), "meta": {}}, ckpt)
-    rec = cli.main([DEMO, "--checkpoint", ckpt, "--out", out, "--batch", "2",
-                    "--max-points", "2048", "--device", "cpu"]
+    rec = cli.main([config, "--checkpoint", ckpt, "--out", out, "--batch",
+                    "2", "--max-points", "2048", "--device", "cpu"]
                    + (["--int8", "--calib-batches", "2"] if int8 else []))
     assert rec["bytes"] == os.path.getsize(out) > 0
     assert (rec["batch"], rec["points"]) == (2, 2048)
     program = load_serving(out)
-    assert ("int8_conv_f32" in kernel_ops(program)) == int8
+    assert ("int8_conv_f32" in kernel_ops(program)) == bool(int8)
+    assert ("int8_conv_pc_f32" in kernel_ops(program)) == (int8 == "head")
     pts = torch.stack([demo_cloud(load_config(DEMO), s, 2048)[0][0]
                        for s in (1, 2)])
     det = program.module()(pts, torch.ones(2, 2048, dtype=torch.bool))

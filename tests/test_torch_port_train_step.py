@@ -232,14 +232,15 @@ def _as_jax_layout(decision, shape):
     return decision
 
 
-def first_step_gradients():
+def first_step_gradients(cfg=None, losses=None):
     """The first step's gradients of both packages from one JAX variables
     tree on one batch, as port-named numpy dicts: the port's `.grad` after
     its training forward and backward, and jax.grad of the JAX package's
     training loss (`parallel/train_step.py::loss_fn`) with every ReLU
     taking the port's decision (`test_first_step_gradients_match_jax_leaf_
-    by_leaf`)."""
-    cfg = _cfg()
+    by_leaf`). `cfg`: the demo config, or a variant of it; `losses`: a
+    dict that receives both packages' total loss ("port", "jax")."""
+    cfg = cfg or _cfg()
     examples = _batches(cfg)[0]
     jb = jax_collate(examples, max_points=cfg["data"]["max_points"])
     jb.pop("metadata")
@@ -280,8 +281,11 @@ def first_step_gradients():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jdpe, "pillar_scatter_max", tpu_vjp_scatter)
         mp.setattr(flax.linen, "relu", relu_as_the_port)
-        grads = jax.jit(jax.grad(loss_fn))(variables["params"])
+        jtotal, grads = jax.jit(jax.value_and_grad(loss_fn))(
+            variables["params"])
     assert len(taken) == len(decisions) > 0
+    if losses is not None:
+        losses.update(port=float(total.detach()), jax=float(jtotal))
     want = _as_port(cfg, {"params": jax.tree_util.tree_map(np.asarray, grads),
                           "batch_stats": variables["batch_stats"]})
     return want, port, set(bn_shifted_biases(model))

@@ -108,16 +108,6 @@ def test_grouped_multiclass_respects_per_class_pre_limits():
                                np.asarray(want["scores"])[m], atol=1e-6)
 
 
-def test_approx_topk_raises():
-    jmath, preds = _head_and_preds(0)
-    cfg = _cfg(True)
-    cfg["nms"]["approx_topk"] = True
-    math = CenterHeadMath(jmath.tasks, jmath.pillar_size,
-                          jmath.point_cloud_range)
-    with pytest.raises(NotImplementedError, match="approx_topk"):
-        math.predict({}, _torch_preds(preds), cfg)
-
-
 def shrunk_waymo_cfg(group_classes=True):
     """pillarnet18_waymo's structure (PillarResNet18 + RPNV1 + one 3-class
     task, no vel, box dim 7, per-class NMS with flat per-class params) at
