@@ -389,6 +389,33 @@ Phases, each of which raises on failure:
      gains the `int8_conv_pc` (24a, with its program's calls under
      `export_bs8`) and `int8_conv_pc_f32` (24b) rows, and every row phase
      24's launches under `model_remainder_launches`.
+ 25. spatial (BEV-grid) sharding (`spatial_sharding`;
+     `parallel/spatial.py`, `models/backbones/band_exec.py`): 2 gloo
+     ranks that share card 0 (`--spatial-rank SPEC`), each holding the
+     whole model and the same points, the stride-1 stage and conv2 on its
+     band of grid rows with halo rows from the other, conv2 gathered,
+     the rest replicated; against one process on the same card: (a) f32
+     `pillarnet34_nusc` at full width, 3 requests at bs 1 (the first
+     untimed), detections within phase 14e's tolerances; (b)
+     `pillarnet34_nusc_int8` (bf16, every conv1 / conv2 K4 call on a
+     band), calibrated by the ranks under the group (their scales beside
+     one process's), then served on one process's scales: the gathered
+     conv2 map and the detections bit-equal; (c) one bs-2 training step
+     of `pillarnet34_nusc` (remat): the ranks identical, every loss within
+     1e-5, the gradients by module group within phase 19's bound (from one
+     nudged one-process step), the running statistics within 1e-4, the
+     summed gradients exactly the reader's, conv1's and conv2's, the
+     summing norms exactly the sharded stages'; (d) a group of one under
+     NCCL (`torchrun --nproc_per_node 1`: the gather's all_reduce on
+     NCCL) serving (a)'s requests bit-equal to one process, and with two
+     or more cards (a)-(c) with one NCCL rank a card; (e) the box ops
+     (`ops.roiaware_pool3d`, `points_in_boxes_*`, `points_in_rbbox_device`)
+     card vs CPU. Every K1, K2 and K4 call of the ranks' timed requests and
+     step is held to its plain version; the request wall ms of each rank
+     and of one process, the all_reduce calls a request and the phase's
+     seconds are printed; `{"spatial": ...}` follows
+     `{"model_remainder": ...}`, and K1's, K2's and K4's rows carry the
+     ranks' launches and replays under `spatial`.
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work on this run's inputs, the larger of the bytes it
@@ -402,14 +429,17 @@ through) plus the separation test on every pair they test; the old count
 (every pair clipped) is printed beside it.
 
 Every `torch.profiler` number comes from `profiled`, which retakes a
-session that lost device events and keeps the one that lost the fewest; a
-`[profiler]` line counts the sessions. Before the last three lines stdout
+session that lost device events (PROFILE_TRIES sessions at most) and
+keeps the one that lost the fewest; a `[profiler]` line counts the
+sessions. A pass's replayed K1 / K2 calls are each held bit-equal to the
+plain version, and the first REPLAY_TIMED of them timed. Before the last three lines stdout
 carries phase 13's, 14's, 15's, 16's, 17's, 18's and 19's JSON records
 (`{"training": ...}`, `{"two_stage": ...}`, `{"two_stage_training": ...}`,
 `{"eval": ...}`, `{"training_as_written": ...}`, `{"precisions": ...}`,
 `{"data_parallel": ...}`) and phase 20's (`{"compact": ...}`), 21's
 (`{"export": ...}`), 22's (`{"data_prep": ...}`) and 23's
-(`{"two_stage_remainder": ...}`) and 24's (`{"model_remainder": ...}`);
+(`{"two_stage_remainder": ...}`), 24's (`{"model_remainder": ...}`) and
+25's (`{"spatial": ...}`);
 then the kernels' JSON record (K1's and K2's rows also carry
 `two_stage_launches`, under `two_stage_train` phase 15's launches and
 replays, `eval_launches`, phase 16a's pipelined pass, under
@@ -426,7 +456,9 @@ card's
 limit, and the last line `{"ok": true, "device": {...}}`. Without a CUDA
 device, or outside the repository, it exits non-zero and prints no result.
 No JAX is imported. `--dp-rank SPEC` and `--cli-rank OUT TOOL ARGS` are
-phase 19's rank processes, `--serve-artifact SPEC` phase 21's program
+phase 19's rank processes, `--spatial-rank SPEC` phase 25's
+(`--spatial-cards`: phase 25a-c alone, one NCCL rank a card over every
+card of the machine), `--serve-artifact SPEC` phase 21's program
 server, `--data-prep-numpy ARGS` phase 22's numpy-route `create_data`,
 which the smoke starts itself. `--loader-compare PARENT` times phase
 17a's loader passes with this checkout and with the one at PARENT, in
@@ -460,7 +492,8 @@ RCNN_DEMO = os.path.join(ROOT, "configs", "demo", "pillarrcnn18_demo.py")
 N_POINTS = 262144
 NMS_TASKS, NMS_K = 6, 1000
 TIMING_ITERS = 20
-PROFILE_TRIES = 5  # profiled: sessions taken before the best is kept
+PROFILE_TRIES = 3  # profiled: sessions taken before the best is kept
+REPLAY_TIMED = 4  # replays of a pass timed (every call held bit-equal)
 PROFILE_LOST = 0.01  # device_ms: the share of lost events it accepts
 PRIMER = "spin_kernel"  # torch.cuda._sleep's kernel, which pads a session
 PRIMERS = 8  # profiled: primer kernels before fn's and after them
@@ -3227,9 +3260,9 @@ def captured_run(torch, args, int8=False):
 
 
 def replay_scatter(torch, calls):
-    """Each captured K1 call against `scatter_max_to_grid`, bit-equal, and
-    timed as phase 2 (wrapper, kernels alone, plain, `scatter_reduce_`,
-    bound); returns the per-call records."""
+    """Each captured K1 call against `scatter_max_to_grid`, bit-equal, the
+    first REPLAY_TIMED timed as phase 2 (wrapper, kernels alone, plain,
+    `scatter_reduce_`, bound); returns the per-call records."""
     from pillarnet_lts_torch.ops.scatter import pillar_scatter_max
     from pillarnet_lts_torch.ops.voxelize import scatter_max_to_grid
 
@@ -3240,19 +3273,34 @@ def replay_scatter(torch, calls):
         err = check_scatter_equal(torch, f"K1 call {k}", got,
                                   scatter_max_to_grid(*args))
         x, ids, valid = args[:3]
-        peak = INT8_OPS if x.dtype == torch.int8 else F32_OPS
-        recs.append(dict(scatter_times(
-            torch, None, lambda: pillar_scatter_max(*args, **kwargs),
-            lambda: scatter_max_to_grid(*args), x, ids, valid, got, peak),
-            max_abs_err=err, shape=[*x.shape, args[3], args[4]]))
+        rec = dict(max_abs_err=err, shape=[*x.shape, args[3], args[4]])
+        if k < REPLAY_TIMED:
+            peak = INT8_OPS if x.dtype == torch.int8 else F32_OPS
+            rec.update(scatter_times(
+                torch, None, lambda: pillar_scatter_max(*args, **kwargs),
+                lambda: scatter_max_to_grid(*args), x, ids, valid, got,
+                peak))
+        recs.append(rec)
     return recs
 
 
 def replay_overlap(torch, calls, tag):
-    """Each captured K2 call against `_pairwise_area_plain`, bit-equal, and
-    timed as phase 3; returns the per-call records."""
+    """Each captured K2 call against `_pairwise_area_plain`, bit-equal, the
+    first REPLAY_TIMED timed as phase 3; returns the per-call records."""
+    from pillarnet_lts_torch.ops.iou3d import (_pairwise_area_plain,
+                                               convex_intersection_area)
+
     recs = []
     for k, (a, b) in enumerate(calls):
+        if k >= REPLAY_TIMED:
+            got, want = (convex_intersection_area(a, b),
+                         _pairwise_area_plain(a, b))
+            if not bit_equal(torch, got, want):
+                raise AssertionError(f"{tag} call {k}: K2 differs from "
+                                     f"its plain version")
+            recs.append({"shape": list(got.shape), "max_abs_err": (
+                (got - want).abs().max().item() if got.numel() else 0.0)})
+            continue
         r = check_overlap(torch, f"{tag} call {k}", a, b, quiet=True)
         recs.append({f: r[f] for f in ("shape", "ms", "alone_ms",
                                        "plain_ms", "near_share",
@@ -3263,11 +3311,14 @@ def replay_overlap(torch, calls, tag):
 
 def replay_summary(recs):
     """Calls, shapes and the worst error of a pass's replays, with the mean
-    and the [min, max] of each time, its bound and the near-pair share."""
+    and the [min, max] of each time over the timed calls, its bound and
+    the near-pair share."""
     out = {"calls": len(recs),
+           "timed": sum("ms" in r for r in recs),
            "shapes": sorted({str(r["shape"]) for r in recs}),
            "max_abs_err": max(r["max_abs_err"] for r in recs),
-           "bound_by": sorted({r["bound_by"] for r in recs})}
+           "bound_by": sorted({r["bound_by"] for r in recs
+                               if "bound_by" in r})}
     for k in ("ms", "alone_ms", "plain_ms", "library_ms", "bound_ms",
               "near_share"):
         v = [r[k] for r in recs if k in r]
@@ -3286,7 +3337,8 @@ def print_replays(tag, name, s):
           + (f", scatter_reduce_ {s['library_ms']:.4f} ms"
              if "library_ms" in s else "")
           + (f", near pairs {s['near_share']:.2%}"
-             if "near_share" in s else "") + "; means over the calls")
+             if "near_share" in s else "")
+          + f"; means over the first {s['timed']} calls")
 
 
 def replay_pass(torch, tag, k1, k2, k2_name):
@@ -4428,7 +4480,7 @@ def run_ranks(tag, argv, world=DP_WORLD, env=None, timeout=DP_TIMEOUT):
     seconds = time.perf_counter() - t0
     for r, (rc, out) in enumerate(res):
         for line in out.splitlines():
-            if line.startswith("[19"):
+            if line.startswith(("[19", "[25")):
                 print(line)
         if rc != 0:
             raise AssertionError(f"{tag}: rank {r} of {world} exited {rc}:\n"
@@ -5005,7 +5057,7 @@ def run_torchrun(tag, nproc, argv, cwd=ROOT):
             out, _ = proc.communicate()
     seconds = time.perf_counter() - t0
     for line in out.splitlines():
-        if line.startswith("[19"):
+        if line.startswith(("[19", "[25")):
             print(line)
     if proc.returncode != 0:
         raise AssertionError(f"{tag}: torchrun exited {proc.returncode}:\n"
@@ -7897,6 +7949,754 @@ def model_remainder(torch, dev, card):
 K4_COMPARE_ROUNDS = 5  # --k4-compare: rounds of (parent, this, this, parent)
 
 
+SP_WORLD = 2  # 25a-c: gloo ranks that share card 0
+SP_REQUESTS = 3  # 25a/b: requests each rank serves (the first is cold)
+SP_TIMEOUT = 600  # s: a spawned run that has not ended by then is killed
+SP_BATCH = 2  # 25c: frames of the training step
+# 25a, 25d: the served detections against one process's, phase 14e's
+SP_BOX_TOL, SP_SCORE_TOL = 1e-3, 1e-4
+SP_LOSS_RTOL = 1e-5  # 25c: every loss, relative, as phase 19 holds them
+SP_GRAD_RTOL = 1e-3  # 25c: a module group's gradients, relative (phase 19)
+SP_STAT_TOL = 1e-4  # 25c: BN running statistics, rtol = atol (phase 19)
+SP_NUDGES = 1  # 25c: one-process steps from nudged weights (the spread)
+
+
+def sp_job(name, kind, config, **kw):
+    """A phase-25 job that a spatial rank (`spatial_rank`) and one process
+    (`sp_run`) both run: `kind` "serve" (the clouds saved at `clouds`,
+    each a request of `make_infer_fn`; the first cloud's head outputs and,
+    with `conv12`, its gathered conv1 and conv2 maps; with `calibrate`,
+    the int8 scales the ranks take on the clouds before they load the
+    weights) or "train" (one `train_step` on the batch pickled at
+    `batch`), on the weights saved at `weights` (`sp_weights`), the
+    config at `config` with the model keys `edit` and, with `int8`,
+    `enable_backbone_quant`."""
+    job = dict(name=name, kind=kind, config=config, edit={}, int8=False,
+               weights=None, clouds=None, batch=None, calibrate=False,
+               conv12=False, seed=3, capture=False)
+    job.update(kw)
+    return job
+
+
+def sp_config(job, axis=None):
+    """The config of a job, with `spatial_axis` = axis (None: unsharded)
+    on the detector or a two-stage model's first stage."""
+    from pillarnet_lts_torch.apis import load_config
+    from pillarnet_lts_torch.runtime.quantize import enable_backbone_quant
+
+    cfg = load_config(job["config"])
+    model = cfg["model"]
+    for k, v in job["edit"].items():
+        model[k] = dict(model[k], **v) if isinstance(v, dict) else v
+    if job["int8"]:
+        enable_backbone_quant(model)
+    if axis:
+        if "first_stage_cfg" in model:
+            model["first_stage_cfg"] = dict(model["first_stage_cfg"],
+                                            spatial_axis=axis)
+        else:
+            model["spatial_axis"] = axis
+    return cfg
+
+
+def sp_clouds(cfg, n, points, seed):
+    """n single-cloud requests of `points` points in the config's range."""
+    from pillarnet_lts_torch.datasets import synth_points_realistic
+
+    return [synth_points_realistic(1, points, cfg["point_cloud_range"],
+                                   seed=seed + i) for i in range(n)]
+
+
+def sp_weights(torch, job, dev, clouds, path):
+    """The job's weights: the config's model from `job["seed"]`, its heads
+    spread on the first cloud, an int8 model calibrated on the clouds
+    unsharded; saved to `path`. Returns the model."""
+    from pillarnet_lts_torch.apis import (build_model_from_cfg,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.runtime.quantize import calibrate
+
+    cfg = sp_config(job)
+    model = build_model_from_cfg(cfg, device=dev, seed=job["seed"])
+    spread_head_outputs(model, *on_card(torch, dev, clouds[0]))
+    if job["int8"]:
+        calibrate(model, [on_card(torch, dev, c) for c in clouds])
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+    return model
+
+
+def sp_model(torch, job, dev, axis=None):
+    """The job's model on `dev` with its saved weights (an int8 model
+    takes the saved scales as calibrated)."""
+    from pillarnet_lts_torch.apis import build_model_from_cfg
+    from pillarnet_lts_torch.runtime.quantize import observers
+
+    cfg = sp_config(job, axis)
+    model = build_model_from_cfg(cfg, device=dev, seed=job["seed"])
+    model.load_state_dict(torch.load(job["weights"], map_location=dev,
+                                     weights_only=True))
+    for m in observers(model) if job["int8"] else ():
+        m.set_absmax(m.absmax().clone())
+    return cfg, model
+
+
+@contextlib.contextmanager
+def counting_collectives(counts):
+    """Every `torch.distributed.all_reduce` inside the block adds one to
+    counts["all_reduce"]."""
+    import torch.distributed as tdist
+
+    def make(real):
+        def count(*args, **kwargs):
+            counts["all_reduce"] += 1
+            return real(*args, **kwargs)
+        return count
+
+    with patched(tdist, "all_reduce", make):
+        yield counts
+
+
+@contextlib.contextmanager
+def capturing(torch, calls, on):
+    """K1's, K2's and K4's calls inside the block appended to calls["k1"],
+    ["k2"], ["k4"] (when `on`)."""
+    from pillarnet_lts_torch.models.readers import dynamic_pillar_encoder
+    from pillarnet_lts_torch.ops import iou3d
+
+    if not on:
+        yield
+        return
+    with recording(dynamic_pillar_encoder, "pillar_scatter_max",
+                   calls["k1"]), \
+            recording(iou3d, "convex_intersection_area", calls["k2"],
+                      keep=lambda a, k: a), \
+            recording_int8_convs(calls["k4"]):
+        yield
+
+
+def sp_serve(torch, job, model, dev, counts, calls):
+    """A serve job on `model`: each cloud one request, host-synced (wall
+    ms, all_reduce calls a request, launches a request), the first
+    cloud's head outputs and (`conv12`) its conv1 and conv2 maps."""
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.runtime.serving import to_host
+
+    clouds = torch.load(job["clouds"], weights_only=False)
+    infer = make_infer_fn(model)
+    rec = {"detections": [], "ms": [], "collectives": [], "launches": []}
+    for i, cloud in enumerate(clouds):
+        pts, msk = on_card(torch, dev, cloud)
+        before = dict(_kernels.LAUNCHES)
+        counts["all_reduce"] = 0
+        t0 = time.perf_counter()
+        with capturing(torch, calls, job["capture"] and i > 0):
+            det = to_host(infer(pts, msk))
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["collectives"].append(counts["all_reduce"])
+        rec["launches"].append({k: v - before[k] for k, v in
+                                _kernels.LAUNCHES.items() if v > before[k]})
+        rec["detections"].append(det)
+    first = getattr(model, "single_det", model)
+    first.spatial_conv1 = job["conv12"]
+    with torch.inference_mode():
+        pts, msk = on_card(torch, dev, clouds[0])
+        rec["preds"] = on_cpu(torch, model(pts, msk))
+        if job["conv12"]:
+            _, feats = first.extract_feat(pts, msk)
+            rec["conv"] = {k: feats[k][0].cpu() for k in ("conv1", "conv2")}
+    return rec
+
+
+def sp_train(torch, job, cfg, model, dev, counts, calls):
+    """A train job on `model`: one `train_step` on the job's batch; its
+    metrics, gradients (after the step's sums), state after the step,
+    the parameters whose gradients were summed over the ranks and the
+    norms whose statistics were."""
+    from pillarnet_lts_torch.apis import optimizer_from_cfg
+    from pillarnet_lts_torch.models.utils.norm import MaskedBatchNorm
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.runtime import train_step as ts
+
+    with open(job["batch"], "rb") as f:
+        batch = ts.batch_to_device(pickle.load(f), dev)
+    opt = optimizer_from_cfg(model, cfg, 1)
+    summed = []
+
+    def record(real):
+        def sums(params):
+            params = list(params)
+            summed.extend(id(p) for p in params)
+            return real(params)
+        return sums
+
+    before = dict(_kernels.LAUNCHES)
+    counts["all_reduce"] = 0
+    t0 = time.perf_counter()
+    with patched(ts, "sum_gradients_over_ranks", record), \
+            capturing(torch, calls, job["capture"]):
+        metrics = ts.train_step(model, opt, batch, cfg["train_cfg"],
+                                ts.step_generator(job["seed"], 0, dev))
+        metrics = {k: float(v) for k, v in metrics.items()}
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {"metrics": metrics, "grads": grads_of(torch, model),
+            "state": state_of(torch, model),
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "collectives": counts["all_reduce"],
+            "launches": {k: v - before[k] for k, v in
+                         _kernels.LAUNCHES.items() if v > before[k]},
+            "summed": sorted(names[i] for i in summed),
+            "bn_summed": sorted(
+                n for n, m in model.named_modules()
+                if isinstance(m, MaskedBatchNorm) and m.sums_over_ranks())}
+
+
+def sp_run(torch, job, dev, axis=None, calls=None):
+    """Run one job on `dev`: the model spatially sharded over the group
+    (`axis`) or in one process (None). An int8 job records its scales:
+    with `calibrate` a sharded job first calibrates on the clouds under
+    the group and records the scales it took, then serves on the saved
+    ones."""
+    from pillarnet_lts_torch.runtime.quantize import calibrate, observers
+
+    counts = {"all_reduce": 0}
+    calls = calls if calls is not None else {"k1": [], "k2": [], "k4": []}
+    out = {}
+    with counting_collectives(counts):
+        cfg, model = sp_model(torch, job, dev, axis)
+        if job["int8"] and job["calibrate"] and axis:
+            clouds = torch.load(job["clouds"], weights_only=False)
+            calibrate(model, [on_card(torch, dev, c) for c in clouds])
+            out["absmax"] = [m.absmax().cpu() for m in observers(model)]
+            cfg, model = sp_model(torch, job, dev, axis)
+        elif job["int8"]:
+            out["absmax"] = [m.absmax().cpu() for m in observers(model)]
+        if job["kind"] == "serve":
+            out.update(sp_serve(torch, job, model, dev, counts, calls))
+        else:
+            model.train()
+            out.update(sp_train(torch, job, cfg, model, dev, counts, calls))
+    return out
+
+
+def absmax_rel(torch, got, want):
+    """The largest relative difference between two lists of scales."""
+    return max(((g - w).abs() / w.abs().clamp_min(1e-30)).max().item()
+               for g, w in zip(got, want))
+
+
+def sp_ops(torch, world):
+    """The collectives and the band execution alone, on the rank's band of
+    seeded maps, gathered: `sharded_conv3x3` and `sharded_subm_conv3x3` on
+    `tests/test_spatial_sharding.py`'s shapes and seeds (NHWC out), and
+    on an uneven last band (62 rows) the SubM conv with its input's
+    gradient through the halo's backward, a 2-row halo exchange, and a
+    stride-2 `SparseDownStage` (`band_exec.down_stage_band`) in eval and
+    in training (its output, BN statistics and input gradient)."""
+    import torch.nn.functional as F
+
+    from pillarnet_lts_torch.models.backbones.band_exec import (
+        down_stage_band)
+    from pillarnet_lts_torch.models.backbones.base import SparseDownStage
+    from pillarnet_lts_torch.models.utils import init_weights
+    from pillarnet_lts_torch.models.utils.norm import MaskedBatchNorm
+    from pillarnet_lts_torch.parallel import dist
+    from pillarnet_lts_torch.parallel.spatial import (
+        coarse_bands, gather_rows, halo_exchange_h, row_bands,
+        sharded_conv3x3, sharded_subm_conv3x3)
+
+    r, out = dist.rank(), {}
+
+    def band(x, bands):
+        return x[:, :, bands[r][0]:bands[r][1]]
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 64, 32, 8).astype(np.float32)
+    k = (rng.randn(3, 3, 8, 16) * 0.1).astype(np.float32)
+    bands = row_bands(64, world)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    w = torch.from_numpy(k).permute(3, 2, 0, 1)
+    y = gather_rows(sharded_conv3x3(band(xt, bands).contiguous(), w, bands),
+                    bands)
+    out["conv"] = y.permute(0, 2, 3, 1).numpy()
+    rng = np.random.RandomState(1)
+    mask = rng.rand(1, 64, 32) > 0.6
+    x = (rng.randn(1, 64, 32, 4) * mask[..., None]).astype(np.float32)
+    k = (rng.randn(3, 3, 4, 4) * 0.1).astype(np.float32)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    mt = torch.from_numpy(mask)
+    y = sharded_subm_conv3x3(band(xt, bands).contiguous(),
+                             mt[:, bands[r][0]:bands[r][1]],
+                             torch.from_numpy(k).permute(3, 2, 0, 1), bands)
+    out["subm"] = gather_rows(y, bands).permute(0, 2, 3, 1).numpy()
+
+    # an uneven last band: 62 rows
+    g = torch.Generator().manual_seed(7)
+    H = 62
+    bands = row_bands(H, world)
+    occ = torch.rand(2, H, 20, generator=g) > 0.7
+    x = torch.randn(2, 8, H, 20, generator=g) * occ[:, None]
+    w = torch.randn(8, 8, 3, 3, generator=g) * 0.1
+    R = torch.randn(2, 8, H, 20, generator=g)
+    xb = band(x, bands).clone().requires_grad_(True)
+    y = gather_rows(sharded_subm_conv3x3(
+        xb, occ[:, bands[r][0]:bands[r][1]], w, bands), bands)
+    (y * R).sum().backward()
+    halo2 = halo_exchange_h(band(x, bands).contiguous(), bands, rows=2)
+    out["uneven"] = {"y": y.detach(), "grad": gather_rows(xb.grad, bands),
+                     "halo2": gather_rows(halo2[:, :, 2:-2], bands),
+                     "halo2_rows": halo2}
+    coarse = coarse_bands(bands, H)
+    for mode in ("eval", "train"):
+        stage = init_weights(SparseDownStage(8, 16, 1), 11)
+        stage.train(mode == "train")
+        for m in stage.modules():
+            if isinstance(m, MaskedBatchNorm):
+                m.over_ranks = True
+        xb = band(x, bands).clone().requires_grad_(True)
+        y, m2 = down_stage_band(stage, xb, occ, bands, coarse)
+        y = gather_rows(y, coarse)
+        (y * F.avg_pool2d(R, 2, ceil_mode=True).repeat(1, 2, 1, 1)
+         ).sum().backward()
+        out[f"down_{mode}"] = {
+            "y": y.detach(), "occ": m2, "grad": gather_rows(xb.grad, bands),
+            "stats": {k: v.clone() for k, v in stage.state_dict().items()
+                      if "running" in k}}
+    return out
+
+
+def spatial_rank(spec_path):
+    """A rank of a spatially sharded run (`python3 chip_smoke.py
+    --spatial-rank SPEC`, spawned by `spawn_ranks` or torchrun): the group
+    started by `parallel.dist.init_from_env` (the spec's device and
+    backend), then each job of the spec (`sp_job`) on the sharded model
+    (`sp_run`), the launch counts set to 0 just before each job and read
+    just after, and with `ops` the collectives alone (`sp_ops`); on the
+    card every K1, K2 and K4 call of the captured requests held to its
+    plain version. Saved to `{out}/rank{r}.pt`."""
+    import datetime
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from pillarnet_lts_torch.ops import _kernels
+    from pillarnet_lts_torch.parallel import dist
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec["threads"]:
+        torch.set_num_threads(spec["threads"])
+    dev = dist.init_from_env(spec["device"], backend=spec["backend"],
+                             timeout=datetime.timedelta(
+                                 seconds=DP_INIT_TIMEOUT))
+    r, cuda = dist.rank(), dev.type == "cuda"
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = {"rank": r, "world": dist.process_count(), "device": str(dev),
+           "backend": spec["backend"], "jobs": {}}
+    calls = {"k1": [], "k2": [], "k4": []}
+    if spec.get("ops"):
+        rec["ops"] = sp_ops(torch, dist.process_count())
+    for job in spec["jobs"]:
+        _kernels.reset_launches()
+        rec["jobs"][job["name"]] = sp_run(torch, job, dev, "sp", calls)
+        rec["jobs"][job["name"]]["job_launches"] = dict(_kernels.LAUNCHES)
+        print(f"[25 rank {r}] {job['name']}: "
+              + (f"request ms {[round(v, 2) for v in rec['jobs'][job['name']]['ms']]}"
+                 if job["kind"] == "serve" else
+                 f"step ms {rec['jobs'][job['name']]['ms']:.2f}"), flush=True)
+    if cuda:
+        rec["replays"] = replay_equal(torch, calls["k1"], calls["k2"],
+                                      f"25 rank {r}")
+        rec["replays"]["k4"] = dict(zip(("calls", "max_abs_err"),
+                                        replay_int8_equal(
+                                            torch, calls["k4"],
+                                            f"25 rank {r}")))
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "pillarnet_lts_tpu")]
+    if bad:
+        raise AssertionError(f"a rank imported {bad[:4]}")
+    torch.save(rec, os.path.join(spec["out"], f"rank{r}.pt"))
+    dist.shutdown()
+    return 0
+
+
+def run_spatial(spec, tag, world=SP_WORLD, timeout=SP_TIMEOUT,
+                torchrun=False):
+    """The ranks of `spec` (`spatial_rank`): `world` processes spawned with
+    torchrun's environment (`spawn_ranks`; on the card they share card 0),
+    or under `torchrun` itself (`torchrun`: a rank a card). Returns their
+    records in rank order and the wall seconds."""
+    import torch
+
+    os.makedirs(spec["out"], exist_ok=True)
+    path = os.path.join(spec["out"], "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    argv = [os.path.join(ROOT, "chip_smoke.py"), "--spatial-rank", path]
+    if torchrun:
+        seconds = run_torchrun(tag, world, argv)
+    else:
+        env = ({"OMP_NUM_THREADS": str(spec["threads"])} if spec["threads"]
+               else None)
+        seconds = run_ranks(tag, [sys.executable] + argv, world, env,
+                            timeout)
+    return [torch.load(os.path.join(spec["out"], f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)], seconds
+
+
+def sp_spec(device, backend, out, jobs, threads=None, ops=False):
+    return dict(device=device, backend=backend, out=out, jobs=jobs,
+                threads=threads, ops=ops)
+
+
+def compare_sp_detections(tag, got, want, box_tol=SP_BOX_TOL,
+                          score_tol=SP_SCORE_TOL, exact=False):
+    """A rank's served detections against one process's, request by
+    request: the kept slots and labels equal, boxes within `box_tol` m and
+    scores within `score_tol` (`exact`: every array bit-equal). Returns
+    the largest box and score differences."""
+    worst = [0.0, 0.0]
+    for i, (g, w) in enumerate(zip(got, want)):
+        if exact:
+            for k in w:
+                if not np.array_equal(g[k], w[k]):
+                    raise AssertionError(f"{tag} request {i}: {k} differs")
+            continue
+        m = w["mask"].astype(bool)
+        if not (np.array_equal(g["mask"], w["mask"])
+                and np.array_equal(g["label_preds"][m], w["label_preds"][m])):
+            raise AssertionError(f"{tag} request {i}: kept slots or labels "
+                                 f"differ")
+        db = float(np.abs(g["box3d_lidar"][m] - w["box3d_lidar"][m]).max(
+            initial=0.0))
+        ds = float(np.abs(g["scores"][m] - w["scores"][m]).max(initial=0.0))
+        worst = [max(worst[0], db), max(worst[1], ds)]
+        if db > box_tol or ds > score_tol:
+            raise AssertionError(f"{tag} request {i}: boxes {db:.3g} m, "
+                                 f"scores {ds:.3g} from one process's")
+    return worst
+
+
+def sp_spread(torch, job, dev, want, nudges, path):
+    """The one process's own spread of a training job: per module group
+    the largest gradient difference (`grad_diffs`) of the step from the
+    saved weights times 1 + 1e-6 N(0, 1) (`nudges` draws, written to
+    `path`) against the step from the weights themselves (`want`), as
+    phase 19 measures it."""
+    state = torch.load(job["weights"], weights_only=True)
+    g = torch.Generator().manual_seed(16)
+    spread = {}
+    for _ in range(nudges):
+        torch.save({n: v * (1 + 1e-6 * torch.randn(v.shape, generator=g))
+                    if v.is_floating_point() and "running" not in n else v
+                    for n, v in state.items()}, path)
+        got = sp_run(torch, dict(job, weights=path, capture=False), dev)
+        for k, d in grad_diffs(torch, got["grads"], want["grads"])[0].items():
+            spread[k] = max(spread.get(k, 0.0), d)
+    return spread
+
+
+def check_sp_training(torch, tag, got, want, spread):
+    """A training job of the ranks against one process's: the ranks'
+    states and metrics bit-identical to one another; every loss within
+    SP_LOSS_RTOL; the gradients by module group within min(max(2 x the
+    one process's own spread (`sp_spread`), SP_GRAD_RTOL), DP_GRAD_CAP),
+    phase 19's bound; the running statistics within SP_STAT_TOL; the
+    summed gradients exactly those of `partial_prefixes`, the summing
+    norms exactly the sharded stages'. Returns the differences."""
+    r0 = got[0]
+    for rk in got[1:]:
+        if rk["metrics"] != r0["metrics"]:
+            raise AssertionError(f"{tag}: the ranks' metrics differ")
+        for k, v in r0["state"].items():
+            if not torch.equal(rk["state"][k], v):
+                raise AssertionError(f"{tag}: the ranks' {k} differs")
+    rel = {k: rel_diff(r0["metrics"][k], v) for k, v in want["metrics"].items()
+           if k.endswith("loss") or "_loss_" in k}
+    bad = {k: v for k, v in rel.items() if v > SP_LOSS_RTOL}
+    if bad:
+        raise AssertionError(f"{tag}: losses beyond {SP_LOSS_RTOL}: {bad}")
+    groups, leaf = grad_diffs(torch, r0["grads"], want["grads"])
+    bounds = {k: min(max(2 * spread[k], SP_GRAD_RTOL), DP_GRAD_CAP)
+              for k in groups}
+    bad = {k: v for k, v in groups.items() if v > bounds[k]}
+    if bad:
+        raise AssertionError(f"{tag}: gradient groups beyond their bounds "
+                             f"{bounds}: {bad}")
+    stats = 0.0
+    for k, w in want["state"].items():
+        if "running" in k:
+            g = r0["state"][k]
+            stats = max(stats, (g - w).abs().max().item())
+            if not torch.allclose(g, w, rtol=SP_STAT_TOL, atol=SP_STAT_TOL):
+                raise AssertionError(f"{tag}: running statistic {k} beyond "
+                                     f"{SP_STAT_TOL}")
+    summed, prefixes = r0["summed"], partial_prefixes(want["grads"])
+    want_summed = sorted(n for n in want["grads"] if n.startswith(prefixes))
+    if summed != want_summed:
+        raise AssertionError(f"{tag}: the ranks summed the gradients of "
+                             f"{set(summed) ^ set(want_summed)} otherwise")
+    bn_prefixes = prefixes[1:]
+    if not r0["bn_summed"] or not all(
+            n.startswith(bn_prefixes) for n in r0["bn_summed"]):
+        raise AssertionError(f"{tag}: norms summed over the ranks: "
+                             f"{r0['bn_summed']}")
+    return {"loss": [r0["metrics"]["loss"], want["metrics"]["loss"]],
+            "loss_rel": rel, "grad_rel_by_group": groups,
+            "grad_bound_by_group": bounds, "grad_spread_by_group": spread,
+            "grad_worst_leaf": {"name": leaf[1], "rel": leaf[2]},
+            "running_stats_max_abs": stats,
+            "summed_params": len(summed), "summed_norms": len(r0["bn_summed"])}
+
+
+def partial_prefixes(names):
+    """The parameter-name prefixes of the reader, the stride-1 stage and
+    conv2 of a model's (first stage's) detector, given its names."""
+    det = "single_det." if any(n.startswith("single_det.") for n in names) \
+        else ""
+    return (f"{det}reader_net.", f"{det}backbone_net.conv1_block",
+            f"{det}backbone_net.conv2.")
+
+
+def box_ops_card_vs_cpu(torch, dev):
+    """Phase 25e: `ops.roiaware_pool3d` (max, avg; 24 and 40 RoIs),
+    `points_in_boxes_index`, `points_in_boxes_batch` and
+    `points_in_rbbox_device` on CUDA tensors against the CPU: the integer
+    outputs equal, the pooled features within 1e-5 (the card's sin and
+    cos may round otherwise), the gradients of the pooled features by
+    value."""
+    from pillarnet_lts_torch import ops
+
+    rng = np.random.RandomState(25)
+    out = {}
+    for n in (24, 40):
+        pts = rng.uniform(-20, 20, (20000, 3)).astype(np.float32)
+        rois = np.zeros((n, 7), np.float32)
+        rois[:, :3] = rng.uniform(-15, 15, (n, 3))
+        rois[:, 3:6] = rng.uniform(2, 8, (n, 3))
+        rois[:, 6] = rng.uniform(-np.pi, np.pi, n)
+        feats = rng.randn(20000, 16).astype(np.float32)
+        res = {}
+        for where in ("cpu", dev):
+            p, b, f = (torch.from_numpy(a).to(where)
+                       for a in (pts, rois, feats))
+            f.requires_grad_(True)
+            pooled = {pool: ops.roiaware_pool3d(b, p, f, (6, 6, 4), pool=pool)
+                      for pool in ("max", "avg")}
+            (pooled["max"].sum() + pooled["avg"].sum()).backward()
+            res[str(where)] = {
+                "index": ops.points_in_boxes_index(p, b).cpu(),
+                "batch": ops.points_in_boxes_batch(p[None], b[None]).cpu(),
+                "rbbox": ops.points_in_rbbox_device(p, b).cpu(),
+                **{k: v.detach().cpu() for k, v in pooled.items()},
+                "grad": f.grad.cpu()}
+        cpu, card = res["cpu"], res[str(dev)]
+        for k in ("index", "batch", "rbbox"):
+            if not torch.equal(cpu[k], card[k]):
+                raise AssertionError(f"[25e] {k} ({n} boxes): card != CPU")
+        errs = {k: (cpu[k] - card[k]).abs().max().item()
+                for k in ("max", "avg", "grad")}
+        if max(errs.values()) > 1e-5:
+            raise AssertionError(f"[25e] pooled ({n} RoIs): {errs}")
+        out[f"rois{n}"] = dict(errs, inside=int((cpu["index"] >= 0).sum()))
+    print(f"[25e] box ops on the card equal to the CPU: {out}")
+    return out
+
+
+def sp_flagship_jobs(torch, dev, tmp, config, int8_config, points):
+    """Phase 25a-c's jobs (`sp_job`) with their inputs written under `tmp`
+    (SP_REQUESTS clouds, the f32 and the calibrated int8 weights, a bs-2
+    batch), one process's runs of them on `dev` (`sp_run`) and its own
+    training spread under SP_NUDGES weight nudges (`sp_spread`)."""
+    from pillarnet_lts_torch.apis import load_config
+    from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
+
+    cfg = load_config(config)
+    clouds = sp_clouds(cfg, SP_REQUESTS, points, 250)
+    cloud_path = os.path.join(tmp, "clouds.pt")
+    torch.save(clouds, cloud_path)
+    jobs = [sp_job("25a", "serve", config, clouds=cloud_path,
+                   weights=os.path.join(tmp, "f32.pt"), capture=True),
+            sp_job("25b", "serve", int8_config, clouds=cloud_path,
+                   weights=os.path.join(tmp, "int8.pt"), int8=True,
+                   calibrate=True, conv12=True, capture=True),
+            sp_job("25c", "train", config,
+                   weights=os.path.join(tmp, "f32.pt"),
+                   batch=os.path.join(tmp, "batch.pkl"), capture=True)]
+    sp_weights(torch, jobs[0], dev, clouds, jobs[0]["weights"])
+    sp_weights(torch, jobs[1], dev, clouds, jobs[1]["weights"])
+    ds = SynthDataset(cfg, SP_BATCH, points, seed=260, num_boxes=(10, 21))
+    with open(jobs[2]["batch"], "wb") as f:
+        pickle.dump(collate_batch([ds[i] for i in range(SP_BATCH)], points),
+                    f)
+    one = {job["name"]: sp_run(torch, job, dev) for job in jobs}
+    spread = sp_spread(torch, jobs[2], dev, one["25c"], SP_NUDGES,
+                       os.path.join(tmp, "nudged.pt"))
+    return jobs, one, spread
+
+
+def check_sp_ranks(torch, ranks, one, spread, group, card):
+    """Phase 25a-c's checks of the ranks' records against one process's:
+    (a) detections within phase 14e's tolerances, (b) the gathered conv2
+    map and the detections bit-equal and the ranks' calibrated scales
+    beside one process's, (c) `check_sp_training`. `group` names the
+    ranks in the prints. Returns the record (with the ranks' replays)."""
+    out = {}
+    for tag in ("25a", "25b"):
+        got = [rk["jobs"][tag] for rk in ranks]
+        exact = tag == "25b"
+        worst = [compare_sp_detections(f"[{tag}] rank {rk['rank']}",
+                                       g["detections"],
+                                       one[tag]["detections"], exact=exact)
+                 for rk, g in zip(ranks, got)]
+        res = {"requests": len(got[0]["detections"]),
+               "per_rank": [g["launches"] for g in got],
+               "box_max_abs": max(w[0] for w in worst),
+               "score_max_abs": max(w[1] for w in worst),
+               "request_ms_per_rank": [g["ms"] for g in got],
+               "one_process_ms": one[tag]["ms"],
+               "collectives_per_request": got[0]["collectives"],
+               "launches_per_request": got[0]["launches"],
+               "one_process_launches": one[tag]["launches"]}
+        if exact:
+            for rk, g in zip(ranks, got):
+                if not torch.equal(g["conv"]["conv2"],
+                                   one[tag]["conv"]["conv2"]):
+                    raise AssertionError(f"[{tag}] rank {rk['rank']}: the "
+                                         "gathered conv2 map differs")
+            res["absmax_rel_to_one_process"] = absmax_rel(
+                torch, got[0]["absmax"], one[tag]["absmax"])
+        out[tag] = res
+        print(f"[{tag}] {group}: request wall ms per rank "
+              f"{[[round(v, 2) for v in g['ms']] for g in got]} (one "
+              f"process {[round(v, 2) for v in one[tag]['ms']]}); "
+              f"all_reduce calls a request {got[0]['collectives']}; "
+              f"launches a request {got[0]['launches'][-1]}; detections "
+              + ("bit-equal to" if exact else
+                 f"within {res['box_max_abs']:.3g} m / "
+                 f"{res['score_max_abs']:.3g} of")
+              + f" one process's; card: {card}")
+    got = [rk["jobs"]["25c"] for rk in ranks]
+    out["25c"] = check_sp_training(torch, "[25c]", got, one["25c"], spread)
+    out["25c"].update(per_rank=[g["launches"] for g in got],
+                      step_ms_per_rank=[g["ms"] for g in got],
+                      one_process_ms=one["25c"]["ms"],
+                      collectives=got[0]["collectives"],
+                      launches=got[0]["launches"])
+    print(f"[25c] one bs-{SP_BATCH} step, {group}: {out['25c']}; "
+          f"card: {card}")
+    out["replays"] = [rk.get("replays") for rk in ranks]
+    return out
+
+
+def spatial_sharding(torch, dev, card, config=FLAGSHIP, int8_config=None,
+                     points=N_POINTS):
+    """Phase 25: spatial (BEV-grid) sharding (`parallel/spatial.py`,
+    `models/backbones/band_exec.py`) on the card: 2 gloo ranks that share
+    card 0 (NCCL refuses two ranks on one card), each holding the whole
+    model and the same points, against one process on the same card
+    (`check_sp_ranks`): (a) f32 `pillarnet34_nusc` at full width,
+    SP_REQUESTS requests at bs 1; (b) `pillarnet34_nusc_int8` (bf16, K4 on
+    every conv1 / conv2 band), calibrated by the ranks under the group,
+    then served on one process's scales; (c) one bs-2 training step of
+    `pillarnet34_nusc` (remat); (d) a group of one under NCCL (`torchrun
+    --nproc_per_node 1`) serving (a)'s requests, bit-equal to one
+    process, and with two or more cards (a)-(c) with one NCCL rank a card;
+    (e) the box ops card vs CPU. Every K1, K2 and K4 call of the ranks'
+    timed requests and step is held to its plain version. Prints the
+    request wall ms, the collectives a request and the phase's seconds.
+    (`config`, `int8_config`, `points`: another config and cloud size,
+    which a CPU rehearsal takes.)"""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    cuda = dev.type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="phase25_", dir=os.environ.get("TMPDIR"))
+    try:
+        jobs, one, spread = sp_flagship_jobs(
+            torch, dev, tmp, config,
+            int8_config or config.replace(".py", "_int8.py"), points)
+        if cuda:
+            torch.cuda.empty_cache()
+        ranks, seconds = run_spatial(
+            sp_spec(dev.type, "gloo", os.path.join(tmp, "gloo"), jobs),
+            "25a-c")
+        out.update(check_sp_ranks(torch, ranks, one, spread,
+                                  "2 gloo ranks on one card", card),
+                   ranks_seconds=seconds)
+        # (d) a group of one under NCCL
+        nccl_job = dict(jobs[0], capture=False)
+        one_rank, s1 = run_spatial(
+            sp_spec(dev.type, "nccl" if cuda else "gloo",
+                    os.path.join(tmp, "nccl1"), [nccl_job]),
+            "25d", world=1, torchrun=True)
+        compare_sp_detections("[25d] NCCL group of one",
+                              one_rank[0]["jobs"]["25a"]["detections"],
+                              one["25a"]["detections"], exact=True)
+        out["25d"] = {"seconds": s1, "collectives_per_request":
+                      one_rank[0]["jobs"]["25a"]["collectives"],
+                      "backend": one_rank[0]["backend"]}
+        cards = torch.cuda.device_count() if cuda else 0
+        if cards >= 2:
+            out["25d"]["cards"] = spatial_on_cards(torch, tmp, jobs, one,
+                                                   spread, cards, card)
+        print(f"[25d] {out['25d']}")
+        out["25e"] = box_ops_card_vs_cpu(torch, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[25] phase 25 took {out['seconds']:.1f} s; card: {card}")
+    return out
+
+
+def spatial_on_cards(torch, tmp, jobs, one, spread, cards, card):
+    """Phase 25a-c with one NCCL rank a card over `cards` cards (torchrun)
+    against one process on card 0 (`check_sp_ranks`)."""
+    torch.cuda.empty_cache()
+    ranks, seconds = run_spatial(
+        sp_spec("cuda", "nccl", os.path.join(tmp, "cards"), jobs), "25d",
+        world=cards, torchrun=True)
+    return dict(check_sp_ranks(torch, ranks, one, spread,
+                               f"{cards} NCCL ranks, one a card", card),
+                world=cards, seconds=seconds)
+
+
+def spatial_cards():
+    """`python3 chip_smoke.py --spatial-cards`: phase 25a-c alone with one
+    NCCL rank a card over every card of the machine, against one process
+    on card 0 (the kernels built first, TF32 off); one JSON line. Needs
+    two or more cards."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from pillarnet_lts_torch.ops import _kernels
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < 2:
+        print(f"--spatial-cards: {cards} cards", file=sys.stderr)
+        return 2
+    _kernels.build_all()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="cards_", dir=os.environ.get("TMPDIR"))
+    try:
+        jobs, one, spread = sp_flagship_jobs(
+            torch, torch.device("cuda", 0), tmp, FLAGSHIP,
+            FLAGSHIP.replace(".py", "_int8.py"), N_POINTS)
+        out = spatial_on_cards(torch, tmp, jobs, one, spread, cards, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"spatial_cards": out}, default=str))
+    print(card)
+    return 0
+
+
 def k4_launcher(torch, fn, args, kw):
     """A callable that launches the C entry `fn` of `int8_conv.cu` (either
     checkout's build) on one captured K4 call's arguments into one output
@@ -8082,6 +8882,7 @@ def main():
         torch, dev, card, {"flagship": training["flagship"],
                            "rcnn": two_stage_training["waymo"]})
     model_rem, model_launches = model_remainder(torch, dev, card)
+    spatial = spatial_sharding(torch, dev, card)
 
     # launches: K1, K2, K4, K5 from the int8 flagship's run with the fused
     # stage on (phase 8), K1' and K3 from the Waymo run with the switches
@@ -8311,6 +9112,20 @@ def main():
         k["max_abs_err"] = max([k["max_abs_err"]] + [
             r["max_abs_err"] for r in
             k["two_stage_remainder"]["replays"].values()])
+    # phase 25: the spatial ranks' launches a request (the last served
+    # request of 25a / 25b, 25c's step) and their calls held to the plain
+    # versions
+    for i, key, name in ((0, "k1", "pillar_scatter_max"),
+                         (2, "k2", "rotated_overlap"), (4, "k4", "int8_conv")):
+        k = record["kernels"][i]
+        k["spatial"] = {
+            "launches_per_rank": {tag: [
+                (launches[-1] if isinstance(launches, list) else launches)
+                .get(name, 0) for launches in spatial[tag]["per_rank"]]
+                for tag in ("25a", "25b", "25c")},
+            "replays_per_rank": [r[key] for r in spatial["replays"]]}
+        k["max_abs_err"] = max([k["max_abs_err"]] + [
+            r[key]["max_abs_err"] for r in spatial["replays"]])
     for k in record["kernels"]:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on the path")
@@ -8330,6 +9145,8 @@ def main():
     print(json.dumps({"data_prep": prep}))
     print(json.dumps({"two_stage_remainder": remainder}))
     print(json.dumps({"model_remainder": model_rem}))
+    print(json.dumps({"spatial": {k: v for k, v in spatial.items()
+                                  if k != "replays"}}))
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -8341,6 +9158,10 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--spatial-rank"]:
+        sys.exit(spatial_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--spatial-cards"]:
+        sys.exit(spatial_cards())
     if sys.argv[1:2] == ["--cli-rank"]:
         sys.exit(cli_rank(sys.argv[2:]))
     if sys.argv[1:2] == ["--serve-artifact"]:

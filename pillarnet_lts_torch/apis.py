@@ -14,6 +14,7 @@ from .models import build_detector
 from .models.utils import init_weights
 from .parallel.dist import barrier, process_count, rank
 from .parallel.mesh import rank_batch_size, replicate, train_shards
+from .parallel.spatial import sharded_detectors
 from .runtime.checkpoint import is_port_checkpoint, load_pretrained
 from .runtime.hooks import (CheckpointHook, Hook, IterTimerHook,
                             TextLoggerHook)
@@ -208,6 +209,11 @@ def train_detector(model, dataset, cfg, logger=None, resume_from=None,
     on rank 0 only, and every rank waits at the end of an epoch until
     rank 0 has written its checkpoint."""
     logger = logger or logging.getLogger("train")
+    if process_count() > 1 and sharded_detectors(model):
+        raise ValueError(
+            "a data-parallel run with spatial_axis set: the group either "
+            "splits the batch or the BEV grid; train a spatially sharded "
+            "model with runtime.train_step.train_step on every rank")
     data = cfg["data"]
     workers = data.get("workers_per_gpu", 2)
     batch = rank_batch_size(data["samples_per_gpu"])

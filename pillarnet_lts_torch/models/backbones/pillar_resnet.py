@@ -27,6 +27,16 @@ conv2-conv4 and each conv5 layer in the backward (`base.py::remat`), the
 units the JAX package wraps in `nn.remat` (`pillar_resnet.py:180-190`,
 `base.py:934-938`).
 
+Spatial sharding (`bands`, the detector's `spatial_axis`): each rank runs
+the stride-1 stage and conv2 on its band of grid rows, with halo rows
+from the ranks that own them (`band_exec.py`, `parallel/spatial.py`);
+conv2's output is gathered into the whole map on every rank, and conv3
+onward run on it replicated, as the JAX package pins them
+(`pillarnet_lts_tpu/models/detectors/pillarnet.py:91-130`). The fused
+stage (K5) takes an n-row halo of the grid and the occupancy, since it
+re-zeroes with the mask after each of its n convs, and its halo rows are
+cropped. conv1 is gathered only for a consumer that reads it (`conv1`).
+
 Compact execution: when the reader hands a `CompactPillars` table
 (`reader.compact_kmax > 0`), conv1 and conv2 run as gather convs over the
 active sites (`compact_exec.py`), with `compact_kmax2` coarse sites for
@@ -50,7 +60,11 @@ from ...ops.compact import (Neighbors, compact_to_dense,
                             subm_reverse)
 from ...ops.int8_stage import CHANNELS as _STAGE_CHANNELS
 from ...ops.int8_stage import int8_stage
+from ...parallel import dist
+from ...parallel.spatial import coarse_bands, gather_rows
 from ..registry import BACKBONES
+from .band_exec import (band_rows, basic_block_band, basic_block_v_band,
+                        down_stage_band, halo_mask)
 from .base import (
     DenseConvBNReLU,
     Sparse2DBasicBlock,
@@ -166,10 +180,21 @@ class _PillarResNetBase(nn.Module):
             out["conv5"] = 16
         return out
 
-    def forward(self, grid, occ):
+    def sharded_stages(self):
+        """The modules that run on a rank's band under spatial sharding:
+        the stride-1 stage's blocks and conv2."""
+        return self._stage1_blocks() + [self.conv2]
+
+    def forward(self, grid, occ, bands=None, conv1=True):
         """grid (B, H, W, C) and occ (B, H, W) from the dense reader, or a
-        `CompactPillars` table (and occ None) from the compact one."""
-        out = self.conv12(grid, occ)
+        `CompactPillars` table (and occ None) from the compact one. With
+        `bands` (`parallel.spatial.row_bands` of H), conv1 and conv2 run
+        on this rank's band and are gathered (conv1 only with `conv1`;
+        else it is left out of the dict)."""
+        if bands is None:
+            out = self.conv12(grid, occ)
+        else:
+            out = self._conv12_sharded(grid, occ, bands, conv1)
         x2, m2 = out["conv2"]
         x3, m3 = self.conv3(x2, m2)
         x4, m4 = self.conv4(x3, m3)
@@ -198,6 +223,37 @@ class _PillarResNetBase(nn.Module):
             for blk in self._stage1_blocks():
                 x = remat(self.remat, blk, x, mask)
         return {"conv1": (x, occ), "conv2": self.conv2(x, occ)}
+
+    def _conv12_sharded(self, grid, occ, bands, conv1):
+        """conv1 and conv2 on this rank's band of the whole grid and
+        occupancy, which every rank holds (`band_exec.py`), gathered."""
+        height = grid.shape[1]
+        band = bands[dist.rank()]
+        x = _nchw(grid)
+        fused = self.fused_stage1_params()
+        if fused is not None:
+            w_q, inv_s, dq, shift, w_pack = fused
+            n = w_q.shape[0]
+            xh = band_rows(x, bands, n)
+            # the halo rows' true occupancy: the stage re-zeroes with it
+            mask = band_rows(site_mask(occ, x.dtype), bands, n)
+            y = int8_stage(nhwc(xh), w_q, inv_s, dq, shift, mask[:, 0],
+                           w_pack=w_pack)
+            x1 = y[:, n:-n].permute(0, 3, 1, 2)
+        else:
+            mask_h = halo_mask(occ, band, x.dtype)
+            blocks = self._stage1_blocks()
+            x1 = remat(self.remat, basic_block_v_band, blocks[0],
+                       band_rows(x, bands), mask_h, bands)
+            for blk in blocks[1:]:
+                x1 = remat(self.remat, basic_block_band, blk, x1, mask_h,
+                           bands)
+        coarse = coarse_bands(bands, height)
+        x2, m2 = down_stage_band(self.conv2, x1, occ, bands, coarse)
+        out = {"conv2": (gather_rows(x2, coarse), m2)}
+        if conv1:
+            out["conv1"] = (gather_rows(x1, bands), occ)
+        return out
 
     def coarse_budget(self, kmax):
         """conv2's coarse-site budget on the compact path for a reader

@@ -5,9 +5,11 @@ Config keys that only select TPU layouts or XLA's remat policy
 port runs the plain layout, which the JAX package pins equal to them.
 `quant` (int8 deploy), `quant_scatter`, `s2d_pallas` (the fused int8
 stride-1 stage), the backbone's `remat` (activation recompute in
-training) and the compact sparse path (`reader.compact_kmax`,
-`backbone.compact_kmax2`) are live. The compute dtype (`dtype`, float32 or
-bfloat16) is a detector-level key, as in the JAX package.
+training), the compact sparse path (`reader.compact_kmax`,
+`backbone.compact_kmax2`) and the detector's spatial sharding
+(`spatial_axis`, `parallel/spatial.py`) are live. The compute dtype
+(`dtype`, float32 or bfloat16) is a detector-level key, as in the JAX
+package.
 """
 
 import torch
@@ -16,7 +18,7 @@ from .registry import (BACKBONES, DETECTORS, HEADS, NECKS, POINT_HEAD,
                        READERS, ROI_HEAD, SECOND_STAGE, build_from_cfg)
 
 _DROPPED_KEYS = ("logger", "remat_policy", "s2d_stage1", "chunk_nc",
-                 "chunk_min_w", "chunk_train", "hpack", "spatial_axis")
+                 "chunk_min_w", "chunk_train", "hpack")
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "fp32": torch.float32, torch.float32: torch.float32,

@@ -102,6 +102,12 @@ class PillarRCNN(nn.Module):
                     f"{bev_channels}")
             setattr(self, f"second_stage_{k}",
                     self._second_stage_module(m, device))
+        # a spatially sharded first stage gathers conv1 only for a second
+        # stage that reads it
+        self.single_det.spatial_conv1 = any(
+            src == "conv1" for k in range(self.num_second_stage)
+            for src, _ in getattr(getattr(self, f"second_stage_{k}"),
+                                  "sources", ()))
         head_cls = ROI_HEAD.get(roi_head["type"])
         if ("in_features" in inspect.signature(head_cls).parameters
                 and self.num_second_stage):

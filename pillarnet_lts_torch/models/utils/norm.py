@@ -26,7 +26,12 @@ sum(x^2) and the site count are summed over the ranks in one collective,
 with a gradient through the sum, before the mean and variance are
 formed, so every rank normalizes with, and moves its running statistics
 by, the same global statistics. The count of the dense branch is the
-local one times the ranks (every rank's batch has one shape). The replay
+local one times the ranks (every rank's batch has one shape). Under a
+group that splits the BEV grid (`parallel/spatial.py`) a norm sums over
+the ranks only where `over_ranks` is True: the spatially sharded stages
+(conv1, conv2) set it, each rank holding one band of rows of the map;
+every other norm (the reader's, conv3's onward) sees the whole map on every
+rank and takes its statistics alone. The replay
 of a checkpointed forward runs the collective again: every rank replays
 the same segments in the same order, and the same inputs give the same
 sums.
@@ -98,9 +103,7 @@ def _site_sum(t, dims):
 
 def _sum_over_ranks(*sums):
     """The per-rank sums `sums` summed over the ranks in one collective,
-    differentiable (the sums themselves without a process group)."""
-    if dist.process_count() == 1:
-        return sums
+    differentiable."""
     flat = dist.sum_with_grad(torch.cat([t.reshape(-1) for t in sums]))
     return flat.split([t.numel() for t in sums])
 
@@ -115,6 +118,9 @@ class MaskedBatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        # None: sum over the ranks when the group splits the batch; True:
+        # also under a grid split (a spatially sharded stage's norm)
+        self.over_ranks = None
         self.weight = nn.Parameter(torch.empty(features, device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("running_mean",
@@ -129,6 +135,12 @@ class MaskedBatchNorm(nn.Module):
         self.bias.zero_()
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
+
+    def sums_over_ranks(self):
+        """Whether the training statistics are summed over the ranks."""
+        if self.over_ranks:
+            return dist.process_count() > 1
+        return dist.splits_batch() and dist.process_count() > 1
 
     def fold_factors(self):
         """Eval-mode BN as y = x * inv + shift, in f32 whatever the compute
@@ -160,12 +172,14 @@ class MaskedBatchNorm(nn.Module):
             return y.to(x.dtype)
 
         dims = [d for d in range(x.dim()) if d != cdim]
+        ranks = self.sums_over_ranks()
+        total = _sum_over_ranks if ranks else (lambda *sums: sums)
         if mask is None:
             # the global site count: every rank's batch has this shape
-            cnt = max(x.numel() // x.shape[cdim], 1) * dist.process_count()
+            cnt = max(x.numel() // x.shape[cdim], 1) * (
+                dist.process_count() if ranks else 1)
             rcp = f32_reciprocal(cnt)
-            s1, s2 = _sum_over_ranks(_site_sum(xf, dims),
-                                     _site_sum(xf * xf, dims))
+            s1, s2 = total(_site_sum(xf, dims), _site_sum(xf * xf, dims))
             mean = s1 * rcp
             var = _clamp0(s2 * rcp - mean * mean)
             # cnt / (cnt - 1) for the running variance, folded into one
@@ -174,9 +188,8 @@ class MaskedBatchNorm(nn.Module):
                 f32_reciprocal(max(cnt - 1, 1))))
         else:
             mf = mask.float()
-            s1, s2, cnt = _sum_over_ranks(_site_sum(xf * mf, dims),
-                                          _site_sum(xf * xf * mf, dims),
-                                          mf.sum())
+            s1, s2, cnt = total(_site_sum(xf * mf, dims),
+                                _site_sum(xf * xf * mf, dims), mf.sum())
             cnt = cnt.clamp_min(1.0)
             mean = s1 / cnt
             var = _clamp0(s2 / cnt - mean * mean)

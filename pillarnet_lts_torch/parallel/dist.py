@@ -19,6 +19,14 @@ here they are explicit, each at its own site: the masked BN's sums
 (`models/utils/norm.py`, `sum_with_grad`), the losses' normalizers
 (`sum_over_ranks`), the gradients and the logged metrics
 (`runtime/train_step.py`, `sum_gradients_over_ranks`).
+
+A group splits the batch (data parallel, the default) or the BEV grid
+(`parallel/spatial.py`: a process that builds a detector with
+`spatial_axis` calls `split_grid`). Under a grid split every rank holds
+the whole batch, so the data-parallel collectives are off
+(`splits_batch` is False: the losses' normalizers and the metrics are
+not summed, the draws are not split), and only the sharded stages'
+collectives run.
 """
 
 import datetime
@@ -83,6 +91,26 @@ def shutdown():
         dist.destroy_process_group()
 
 
+_SPLIT = {"grid": False}
+
+
+def split_grid():
+    """Declare that this process's group splits the BEV grid, not the
+    batch (`parallel/spatial.py`); it stays so for the process."""
+    _SPLIT["grid"] = True
+
+
+def splits_batch():
+    """Whether a group is up and splits the batch (data parallel)."""
+    return is_initialized() and not _SPLIT["grid"]
+
+
+def batch_process_count():
+    """The ranks that split the batch: the group's size under data
+    parallelism, 1 under a grid split or without a group."""
+    return process_count() if splits_batch() else 1
+
+
 def process_count():
     """The number of ranks (1 without a group)."""
     return dist.get_world_size() if is_initialized() else 1
@@ -138,8 +166,8 @@ def gather_detections(detections):
 def sum_over_ranks(t):
     """The sum over the ranks of a tensor without gradient (a count that
     normalizes a loss, a logged metric): a new tensor, or `t` itself
-    without a group."""
-    if not is_initialized():
+    unless the group splits the batch."""
+    if not splits_batch():
         return t
     out = t.detach().clone()
     dist.all_reduce(out)
@@ -172,18 +200,31 @@ def sum_with_grad(t):
     return _SumOverRanks.apply(t)
 
 
-def sum_gradients_over_ranks(params):
-    """Replace every `.grad` of `params` by its sum over the ranks, in one
-    collective over the flattened gradients. A parameter without a
-    gradient (a frozen one, on every rank alike) takes no part."""
-    if not is_initialized():
-        return
+def _flat_collective(params, collective):
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    collective(flat)
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
+
+
+def broadcast_gradients(params):
+    """Replace every `.grad` of `params` by rank 0's, in one collective
+    (nothing without a group): gradients that every rank computes from
+    the same inputs, which a nondeterministic backward kernel (cuDNN's
+    weight gradients add with atomics) makes part in their last bits, so
+    that the ranks' replicas stay identical."""
+    if is_initialized():
+        _flat_collective(params, lambda flat: dist.broadcast(flat, 0))
+
+
+def sum_gradients_over_ranks(params):
+    """Replace every `.grad` of `params` by its sum over the ranks, in one
+    collective over the flattened gradients. A parameter without a
+    gradient (a frozen one, on every rank alike) takes no part."""
+    if is_initialized():
+        _flat_collective(params, dist.all_reduce)

@@ -62,11 +62,12 @@ def train_shards():
 
 def rank_slice(n_global):
     """This rank's rows of a global batch of `n_global` rows (every rank
-    the same count, in rank order)."""
-    ranks = dist.process_count()
+    the same count, in rank order; all of them unless the group splits
+    the batch)."""
+    ranks = dist.batch_process_count()
     if n_global % ranks:
         raise ValueError(f"{n_global} rows do not split over {ranks} ranks")
-    n, r = n_global // ranks, dist.rank()
+    n, r = n_global // ranks, dist.rank() if ranks > 1 else 0
     return slice(r * n, (r + 1) * n)
 
 
@@ -74,8 +75,9 @@ def rank_rows(draw, rows, *shape):
     """`draw(size)` made for the global batch, size (rows x ranks, *shape),
     and this rank's `rows` of it: a generator that every rank holds alike
     gives each rank the rows that one process drawing for the whole batch
-    gives them (without a group: `draw((rows, *shape))`)."""
-    n = dist.process_count()
+    gives them (without a group, or under a grid split:
+    `draw((rows, *shape))`)."""
+    n = dist.batch_process_count()
     if n == 1:
         return draw((rows, *shape))
     return draw((rows * n, *shape))[rank_slice(rows * n)]

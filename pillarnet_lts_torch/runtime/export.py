@@ -37,8 +37,13 @@ def export_serving(model, batch, max_points, device=None):
     (`freeze_int8`) and thawed after it: the program keeps the frozen
     tensors, and the model's int8 params follow its weights again."""
     from ..eval_utils import ServingModule
+    from ..parallel.spatial import sharded_detectors
     from .quantize import freeze_int8, thaw_int8
 
+    if sharded_detectors(model):
+        raise ValueError("export_serving traces one request of one "
+                         "process: a model with spatial_axis set shards "
+                         "its grid over a group; build it without the key")
     if device is None:
         device = next(model.parameters()).device
     serving = ServingModule(model).eval()

@@ -22,6 +22,7 @@ import torch
 
 from ..models.backbones.base import MaskedConv
 from ..models.utils.quant import Calibrated
+from ..parallel.spatial import max_over_group
 
 
 def enable_backbone_quant(model_cfg, head=False):
@@ -74,7 +75,11 @@ def calibrate(model, batches, reduce="max"):
     on the model's device. reduce: how per-batch absmax values merge —
     'max' (never clips a calibration activation) or 'mean' (the average of
     the per-batch maxima, summed left to right as the JAX package does).
-    Existing scales are re-collected. Returns `model`, in eval mode."""
+    Existing scales are re-collected. Returns `model`, in eval mode.
+
+    Under spatial sharding (`parallel/spatial.py`) every rank calibrates
+    on the same batches, and each batch's absmax values are the max over
+    the group of the ranks' (a rank's sharded convs see its band)."""
     if reduce not in ("max", "mean"):
         raise ValueError(f"unknown reduce {reduce!r}")
     thaw_int8(model)
@@ -85,7 +90,10 @@ def calibrate(model, batches, reduce="max"):
             for m in obs:
                 m.observed = None
             model(points, points_mask)
-            per_batch.append([m.observed for m in obs])
+            seen = [m.observed for m in obs]
+            if all(v is not None for v in seen):
+                seen = max_over_group(seen)
+            per_batch.append(seen)
     if not per_batch:
         raise ValueError("calibrate() needs at least one batch")
     for k, m in enumerate(obs):

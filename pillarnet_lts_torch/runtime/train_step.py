@@ -26,8 +26,9 @@ package's do (the CenterNet losses cast them to f32).
 import numpy as np
 import torch
 
-from ..parallel.dist import (is_initialized, sum_gradients_over_ranks,
-                             sum_over_ranks)
+from ..parallel.dist import (broadcast_gradients, splits_batch,
+                             sum_gradients_over_ranks, sum_over_ranks)
+from ..parallel.spatial import partial_parameters
 
 _TARGET_KEYS = ("hm", "anno_box", "ind", "mask", "cat", "gt_box")
 _ARRAY_KEYS = ("points", "points_mask", "gt_boxes_and_cls")
@@ -78,18 +79,32 @@ def train_step(model, optimizer, batch, train_cfg=None, generator=None):
     collective, a sum and not DDP's mean) before the clip and the update,
     which are then the global ones, as is `grad_norm`; the other metrics
     are summed over the ranks (one more collective), which makes them the
-    global batch's."""
+    global batch's.
+
+    Under spatial sharding (`parallel/spatial.py`) every rank holds the
+    whole batch and computes the whole loss; only the parameters that
+    see one band of the grid (the reader's, conv1's and conv2's:
+    `spatial.partial_parameters`) have a share of their gradient, and
+    only theirs are summed; every other gradient is whole on every rank,
+    equal up to a nondeterministic kernel's last bits, and rank 0's is
+    taken (`broadcast_gradients`), so the ranks' replicas stay identical;
+    the metrics are every rank's already."""
     total, losses = step_losses(model, batch, train_cfg, generator)
     optimizer.zero_grad(set_to_none=True)
     total.backward()
-    sum_gradients_over_ranks([p for g in optimizer.param_groups
-                              for p in g["params"]])
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    partial = partial_parameters(model)
+    if partial is not None:
+        ids = {id(p) for p in partial}
+        broadcast_gradients([p for p in params if id(p) not in ids])
+        params = [p for p in params if id(p) in ids]
+    sum_gradients_over_ranks(params)
     metrics = {"loss": total.detach()}
     for k, vals in losses.items():
         if k != "loss" and (k.endswith("_loss") or k == "num_positive"):
             for t, v in enumerate(vals):
                 metrics[f"{k}_task{t}"] = v.detach()
-    if is_initialized():
+    if splits_batch():
         summed = sum_over_ranks(torch.stack(list(metrics.values())))
         metrics = dict(zip(metrics, summed.unbind()))
     metrics["grad_norm"] = optimizer.step()

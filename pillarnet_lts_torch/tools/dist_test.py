@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..apis import build_model_from_cfg, load_config
+from ..parallel.spatial import refuse
 from ..datasets import DataLoader, build_dataset
 from ..eval_utils import detections_to_host, make_infer_fn, pipelined_infer
 from ..parallel.dist import (gather_detections, init_from_env,
@@ -207,6 +208,7 @@ def main(argv=None):
 def _evaluate(args, device):
     logger = logging.getLogger("test")
     cfg = load_config(args.config)
+    refuse(cfg["model"], "tools.dist_test")
     work_dir = args.work_dir or cfg["work_dir"]
     os.makedirs(work_dir, exist_ok=True)
     if args.int8:

@@ -35,6 +35,7 @@ import time
 import torch
 
 from ..apis import build_model_from_cfg, load_config
+from ..parallel.spatial import refuse
 from ..runtime.export import export_serving, save_serving
 from .dist_test import load_weights, on_device, resolve_device
 
@@ -76,6 +77,7 @@ def main(argv=None):
     logger = logging.getLogger("export")
     device = resolve_device(args.device)
     cfg = load_config(args.config)
+    refuse(cfg["model"], "tools.export_serving")
     if args.int8:
         from ..runtime.quantize import enable_backbone_quant
 

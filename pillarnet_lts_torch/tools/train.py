@@ -31,6 +31,7 @@ import os
 import torch
 
 from ..apis import build_model_from_cfg, load_config, train_detector
+from ..parallel.spatial import refuse
 from ..datasets import build_dataset
 from ..parallel.dist import init_from_env, process_count, rank, shutdown
 
@@ -73,6 +74,7 @@ def main(argv=None):
 
 def _train(args, device):
     cfg = load_config(args.config)
+    refuse(cfg["model"], "tools.train")
     work_dir = args.work_dir or cfg["work_dir"]
     os.makedirs(work_dir, exist_ok=True)
     with open(args.config) as f:

@@ -56,6 +56,7 @@ from pillarnet_lts_torch.datasets.synth import (write_nuscenes_set,
                                                 write_waymo_set)
 from pillarnet_lts_torch.datasets.utils import create_groundtruth_database
 import test_torch_port_threads  # noqa: F401  (one torch thread)
+from test_torch_port_dataprep import need_natives
 from test_torch_port_datasets import assert_same_sample
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -79,10 +80,9 @@ def numpy_route():
 
 @pytest.fixture
 def native_routes():
-    """Both packages' native routes (skips where a library is not built)."""
-    if not (jnative.available() and tnative.available()):
-        pytest.skip("a native library is not built: "
-                    f"{tnative.build_error()}")
+    """Both packages' native routes, each library built first (skips only
+    where a compiler fails: `test_torch_port_dataprep.need_natives`)."""
+    need_natives()
 
 
 def random_boxes(rng, n, width=9, spread=20.0):

@@ -327,6 +327,21 @@ def test_port_runs_without_importing_jax():
         "assert model.head_net.task0.quant_ready()\n"
         "det = make_infer_fn(model)(pts, msk)\n"
         "assert bool(torch.isfinite(det['box3d_lidar']).all())\n"
+        "from pillarnet_lts_torch.parallel import spatial\n"
+        "from pillarnet_lts_torch.models.backbones import band_exec\n"
+        "from pillarnet_lts_torch.ops import (points_in_boxes_batch,\n"
+        "    points_in_boxes_index, points_in_rbbox_device, roiaware_pool3d)\n"
+        "mcfg, tcfg = golden_model_cfg()\n"
+        "smodel = build_detector(dict(mcfg, spatial_axis='sp'),\n"
+        "                        test_cfg=tcfg)\n"
+        "sdet = make_infer_fn(smodel)(pts, msk)\n"
+        "assert sdet['mask'].shape == (1, 128)\n"
+        "box = torch.tensor([[0.0, 0.0, 0.0, 30.0, 30.0, 8.0, 0.3]])\n"
+        "assert roiaware_pool3d(box, pts[0, :, :3], pts[0], 2).shape == \\\n"
+        "    (1, 2, 2, 2, 5)\n"
+        "assert points_in_boxes_index(pts[0], box).shape == (pts.shape[1],)\n"
+        "assert points_in_boxes_batch(pts, box[None]).shape == msk.shape\n"
+        "assert points_in_rbbox_device(pts[0], box).shape[1] == 1\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'pillarnet_lts_tpu' not in sys.modules, 'JAX package imported'\n"
         "print('no-jax ok')\n"
