@@ -1,0 +1,10 @@
+"""Peak device memory allocated in the traced training window (GiB),
+after a reset at its start."""
+
+UNIT = "GiB"
+
+
+def read(ctx):
+    if ctx.tag != "train" or not ctx.peak_window_bytes:
+        return None
+    return ctx.peak_window_bytes / 2**30
