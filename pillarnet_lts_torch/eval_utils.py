@@ -5,6 +5,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .runtime import tracing
+
 
 class ServingModule(nn.Module):
     """One request of a detector as a module: forward + decode + NMS, the
@@ -19,7 +21,9 @@ class ServingModule(nn.Module):
     then `post_process`.
 
     forward(points (B, N, C) f32, points_mask (B, N) bool) -> the padded
-    detection dict, on the model's device, without a host sync."""
+    detection dict, on the model's device, without a host sync. Each call
+    is one `serving.request` of the tracer (`runtime/tracing.py`), which
+    counts `serving.requests` and the batch's `serving.frames`."""
 
     def __init__(self, model, test_cfg=None):
         super().__init__()
@@ -29,11 +33,14 @@ class ServingModule(nn.Module):
 
     def forward(self, points, points_mask):
         model = self.model
-        if hasattr(model, "predict"):
-            return model.predict({}, model(points, points_mask),
-                                 self.test_cfg)
-        return model.post_process(model(points, points_mask,
-                                        test_cfg=self.test_cfg))
+        with tracing.request("serving.request"):
+            tracing.count("serving.requests")
+            tracing.count("serving.frames", points.shape[0])
+            if hasattr(model, "predict"):
+                return model.predict({}, model(points, points_mask),
+                                     self.test_cfg)
+            return model.post_process(model(points, points_mask,
+                                            test_cfg=self.test_cfg))
 
 
 def make_infer_fn(model, test_cfg=None):

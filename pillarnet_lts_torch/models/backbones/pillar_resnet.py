@@ -47,6 +47,10 @@ each eager forward keeps their count over the batch in
 `dropped_coarse_sites`, a 0-d int64 tensor on the device. Not
 with int8 (it raises, as the JAX package does); remat covers conv3+
 only there.
+
+Each stage is a span of the tracer (`runtime/tracing.py`) under the
+detector's `backbone`: `backbone.conv1` (the stride-1 stage, fused or
+not) to `backbone.conv5`, on every route.
 """
 
 from typing import Tuple
@@ -62,6 +66,7 @@ from ...ops.int8_stage import CHANNELS as _STAGE_CHANNELS
 from ...ops.int8_stage import int8_stage
 from ...parallel import dist
 from ...parallel.spatial import coarse_bands, gather_rows
+from ...runtime import tracing
 from ..registry import BACKBONES
 from .band_exec import (band_rows, basic_block_band, basic_block_v_band,
                         down_stage_band, halo_mask)
@@ -196,14 +201,17 @@ class _PillarResNetBase(nn.Module):
         else:
             out = self._conv12_sharded(grid, occ, bands, conv1)
         x2, m2 = out["conv2"]
-        x3, m3 = self.conv3(x2, m2)
-        x4, m4 = self.conv4(x3, m3)
+        with tracing.span("backbone.conv3"):
+            x3, m3 = self.conv3(x2, m2)
+        with tracing.span("backbone.conv4"):
+            x4, m4 = self.conv4(x3, m3)
         out.update(conv3=(x3, m3), conv4=(x4, m4))
         if self.with_conv5:
             y = x4
-            for layer in (self.conv5_down, self.conv5_block0,
-                          self.conv5_block1):
-                y = remat(self.remat, layer, y)
+            with tracing.span("backbone.conv5"):
+                for layer in (self.conv5_down, self.conv5_block0,
+                              self.conv5_block1):
+                    y = remat(self.remat, layer, y)
             out["conv5"] = (y, None)
         return out
 
@@ -212,17 +220,19 @@ class _PillarResNetBase(nn.Module):
         as `forward` returns them, on either reader's output."""
         if isinstance(grid, CompactPillars):
             return self._conv12_compact(grid)
-        x = _nchw(grid)
-        mask = site_mask(occ, x.dtype)
-        fused = self.fused_stage1_params()
-        if fused is not None:
-            w_q, inv_s, dq, shift, w_pack = fused
-            x = int8_stage(nhwc(x), w_q, inv_s, dq, shift, mask[:, 0],
-                           w_pack=w_pack).permute(0, 3, 1, 2)
-        else:
-            for blk in self._stage1_blocks():
-                x = remat(self.remat, blk, x, mask)
-        return {"conv1": (x, occ), "conv2": self.conv2(x, occ)}
+        with tracing.span("backbone.conv1"):
+            x = _nchw(grid)
+            mask = site_mask(occ, x.dtype)
+            fused = self.fused_stage1_params()
+            if fused is not None:
+                w_q, inv_s, dq, shift, w_pack = fused
+                x = int8_stage(nhwc(x), w_q, inv_s, dq, shift, mask[:, 0],
+                               w_pack=w_pack).permute(0, 3, 1, 2)
+            else:
+                for blk in self._stage1_blocks():
+                    x = remat(self.remat, blk, x, mask)
+        with tracing.span("backbone.conv2"):
+            return {"conv1": (x, occ), "conv2": self.conv2(x, occ)}
 
     def _conv12_sharded(self, grid, occ, bands, conv1):
         """conv1 and conv2 on this rank's band of the whole grid and
@@ -231,28 +241,30 @@ class _PillarResNetBase(nn.Module):
         band = bands[dist.rank()]
         x = _nchw(grid)
         fused = self.fused_stage1_params()
-        if fused is not None:
-            w_q, inv_s, dq, shift, w_pack = fused
-            n = w_q.shape[0]
-            xh = band_rows(x, bands, n)
-            # the halo rows' true occupancy: the stage re-zeroes with it
-            mask = band_rows(site_mask(occ, x.dtype), bands, n)
-            y = int8_stage(nhwc(xh), w_q, inv_s, dq, shift, mask[:, 0],
-                           w_pack=w_pack)
-            x1 = y[:, n:-n].permute(0, 3, 1, 2)
-        else:
-            mask_h = halo_mask(occ, band, x.dtype)
-            blocks = self._stage1_blocks()
-            x1 = remat(self.remat, basic_block_v_band, blocks[0],
-                       band_rows(x, bands), mask_h, bands)
-            for blk in blocks[1:]:
-                x1 = remat(self.remat, basic_block_band, blk, x1, mask_h,
-                           bands)
-        coarse = coarse_bands(bands, height)
-        x2, m2 = down_stage_band(self.conv2, x1, occ, bands, coarse)
-        out = {"conv2": (gather_rows(x2, coarse), m2)}
-        if conv1:
-            out["conv1"] = (gather_rows(x1, bands), occ)
+        with tracing.span("backbone.conv1"):
+            if fused is not None:
+                w_q, inv_s, dq, shift, w_pack = fused
+                n = w_q.shape[0]
+                xh = band_rows(x, bands, n)
+                # the halo rows' true occupancy: the stage re-zeroes with it
+                mask = band_rows(site_mask(occ, x.dtype), bands, n)
+                y = int8_stage(nhwc(xh), w_q, inv_s, dq, shift, mask[:, 0],
+                               w_pack=w_pack)
+                x1 = y[:, n:-n].permute(0, 3, 1, 2)
+            else:
+                mask_h = halo_mask(occ, band, x.dtype)
+                blocks = self._stage1_blocks()
+                x1 = remat(self.remat, basic_block_v_band, blocks[0],
+                           band_rows(x, bands), mask_h, bands)
+                for blk in blocks[1:]:
+                    x1 = remat(self.remat, basic_block_band, blk, x1,
+                               mask_h, bands)
+        with tracing.span("backbone.conv2"):
+            coarse = coarse_bands(bands, height)
+            x2, m2 = down_stage_band(self.conv2, x1, occ, bands, coarse)
+            out = {"conv2": (gather_rows(x2, coarse), m2)}
+            if conv1:
+                out["conv1"] = (gather_rows(x1, bands), occ)
         return out
 
     def coarse_budget(self, kmax):
@@ -280,28 +292,31 @@ class _PillarResNetBase(nn.Module):
         valid1 = (torch.arange(kmax, device=dev)[None, :]
                   < cp.k_valid[:, None])
         # the gathers index with int64: convert each table once
-        nbr1 = subm_neighbor_table(cp.site_ids, cp.k_valid, H, W,
-                                   kmax).long()
-        nbr1 = Neighbors(nbr1, subm_reverse(nbr1, cp.k_valid) if grad
-                         else None)
-        x = cp.rows
-        for blk in self._stage1_blocks():
-            x = blk.compact(x, nbr1, valid1)
+        with tracing.span("backbone.conv1"):
+            nbr1 = subm_neighbor_table(cp.site_ids, cp.k_valid, H, W,
+                                       kmax).long()
+            nbr1 = Neighbors(nbr1, subm_reverse(nbr1, cp.k_valid) if grad
+                             else None)
+            x = cp.rows
+            for blk in self._stage1_blocks():
+                x = blk.compact(x, nbr1, valid1)
 
-        H2, W2 = H // 2, W // 2
-        ids2, k2, dropped = downsample_site_ids(cp.site_ids, cp.k_valid, H, W,
-                                                k2max)
-        if not torch.compiler.is_compiling():
-            self.dropped_coarse_sites = dropped
-        nbr_down = Neighbors(
-            down_conv_neighbor_table(ids2, k2, cp.site_ids, cp.k_valid, H, W,
-                                     kmax).long(),
-            down_conv_reverse(cp.site_ids, cp.k_valid, ids2, k2, H, W, k2max)
-            if grad else None)
-        nbr2 = subm_neighbor_table(ids2, k2, H2, W2, k2max).long()
-        nbr2 = Neighbors(nbr2, subm_reverse(nbr2, k2) if grad else None)
-        valid2 = torch.arange(k2max, device=dev)[None, :] < k2[:, None]
-        x2c = self.conv2.compact(x, nbr_down, nbr2, valid2)
+        with tracing.span("backbone.conv2"):
+            H2, W2 = H // 2, W // 2
+            ids2, k2, dropped = downsample_site_ids(cp.site_ids, cp.k_valid,
+                                                    H, W, k2max)
+            if not torch.compiler.is_compiling():
+                self.dropped_coarse_sites = dropped
+            nbr_down = Neighbors(
+                down_conv_neighbor_table(ids2, k2, cp.site_ids, cp.k_valid,
+                                         H, W, kmax).long(),
+                down_conv_reverse(cp.site_ids, cp.k_valid, ids2, k2, H, W,
+                                  k2max)
+                if grad else None)
+            nbr2 = subm_neighbor_table(ids2, k2, H2, W2, k2max).long()
+            nbr2 = Neighbors(nbr2, subm_reverse(nbr2, k2) if grad else None)
+            valid2 = torch.arange(k2max, device=dev)[None, :] < k2[:, None]
+            x2c = self.conv2.compact(x, nbr_down, nbr2, valid2)
         # densified for conv3+, which run dense as in the JAX package
         x2, m2 = compact_to_dense(_ext(x2c), ids2, k2, H2, W2)
         x1, m1 = compact_to_dense(_ext(x), cp.site_ids, cp.k_valid, H, W)

@@ -51,6 +51,7 @@ from torch import nn
 
 from .. import builder
 from ..point_heads.point_head import assign_point_targets_2d, point_cls_loss
+from ...runtime import tracing
 from ..registry import DETECTORS, ROI_HEAD
 from ..roi_heads.proposal_target_layer import (proposal_target_layer,
                                                sampler_draws)
@@ -178,14 +179,20 @@ class PillarRCNN(nn.Module):
     def _refine(self, bev, feats, rois, roi_scores, out, generator=None):
         """Pooling, point head and RoI head over `rois`, into out (with
         `rcnn_iou` from a head with an IoU branch)."""
-        roi_feats, point_feats, point_coords = self._pool(bev, feats, rois)
+        with tracing.span("roi_pool"):
+            roi_feats, point_feats, point_coords = self._pool(bev, feats,
+                                                              rois)
         out["point_coords"] = point_coords
         if self.point_head_net is not None:
-            out["point_logits"] = self.point_head_net(point_feats)
-            if self.att_model:
-                point_feats = point_feats * torch.sigmoid(out["point_logits"])
-                roi_feats = point_feats.reshape(roi_feats.shape)
-        head_out = self.roi_head_net(roi_feats, rois, roi_scores, generator)
+            with tracing.span("point_head"):
+                out["point_logits"] = self.point_head_net(point_feats)
+                if self.att_model:
+                    point_feats = point_feats * torch.sigmoid(
+                        out["point_logits"])
+                    roi_feats = point_feats.reshape(roi_feats.shape)
+        with tracing.span("roi_head"):
+            head_out = self.roi_head_net(roi_feats, rois, roi_scores,
+                                         generator)
         out["rcnn_cls"], out["rcnn_reg"] = head_out[:2]
         if len(head_out) == 3:
             out["rcnn_iou"] = head_out[2]

@@ -22,6 +22,9 @@ sharded stages' BNs sum over it. conv1 is gathered only when a consumer
 reads it (`spatial_conv1`, which a second stage reading conv1 sets); else
 `extract_feat`'s dict leaves it out. Without a group the forward is the
 unsharded one. The compact reader has no H axis to shard, and raises.
+
+Each layer's call is a span of the tracer (`runtime/tracing.py`):
+`reader`, `backbone`, `neck`, `head`, and `predict`.
 """
 
 from typing import Optional
@@ -32,6 +35,7 @@ from torch import nn
 from ...core.utils import set_by_task_cfg
 from ...parallel import dist
 from ...parallel.spatial import row_bands
+from ...runtime import tracing
 from .. import builder
 from ..registry import DETECTORS
 from ..utils.norm import MaskedBatchNorm
@@ -83,19 +87,23 @@ class PillarNet(nn.Module):
                                   train_cfg or self.train_cfg)
 
     def predict(self, example, preds, test_cfg=None):
-        return self.head_net.predict(
-            example, preds, test_cfg or self.processed_test_cfg())
+        with tracing.span("predict"):
+            return self.head_net.predict(
+                example, preds, test_cfg or self.processed_test_cfg())
 
     def extract_feat(self, points, points_mask):
-        grid, occ = self.reader_net(points, points_mask)
-        if self.spatial_axis:
-            feats = self.backbone_net(
-                grid, occ,
-                bands=row_bands(grid.shape[1], dist.process_count()),
-                conv1=self.spatial_conv1)
-        else:
-            feats = self.backbone_net(grid, occ)
-        return self.neck_net(feats), feats
+        with tracing.span("reader"):
+            grid, occ = self.reader_net(points, points_mask)
+        with tracing.span("backbone"):
+            if self.spatial_axis:
+                feats = self.backbone_net(
+                    grid, occ,
+                    bands=row_bands(grid.shape[1], dist.process_count()),
+                    conv1=self.spatial_conv1)
+            else:
+                feats = self.backbone_net(grid, occ)
+        with tracing.span("neck"):
+            return self.neck_net(feats), feats
 
     def forward(self, points, points_mask, gt_boxes_and_cls=None,
                 generator=None):
@@ -105,11 +113,13 @@ class PillarNet(nn.Module):
         stage takes them, as the JAX package's, and uses neither."""
         del gt_boxes_and_cls, generator
         bev, _ = self.extract_feat(points, points_mask)
-        return self.head_net(bev)
+        with tracing.span("head"):
+            return self.head_net(bev)
 
     def forward_two_stage(self, points, points_mask):
         """The forward that also returns what a second stage pools from:
         (per-task predictions, the neck's tuple of NCHW maps, the
         backbone's dict of (map, occupancy))."""
         bev, feats = self.extract_feat(points, points_mask)
-        return self.head_net(bev), bev, feats
+        with tracing.span("head"):
+            return self.head_net(bev), bev, feats

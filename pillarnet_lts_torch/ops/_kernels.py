@@ -10,8 +10,9 @@ nvcc's stderr; nothing falls back.
 
 The kernels launch only from the CUDA implementations of their custom ops
 (`ops/library.py`, `torch.ops.pillarnet.*`), which eager calls and exported
-programs both reach. `LAUNCHES` counts kernel launches per kernel: each op
-adds one right after its launch succeeds and nowhere else, so a caller can
+programs both reach. `LAUNCHES`, the tracer's launch counters
+(`runtime/tracing.py`), counts kernel launches per kernel: each op adds
+one right after its launch succeeds and nowhere else, so a caller can
 zero the counts, run the model and see which kernels the run went through.
 An op that calls two entry points of one source (the sorted-run
 scatter-max makes its sort keys first) counts once, as its kernel; the int8
@@ -30,10 +31,14 @@ import subprocess
 import tempfile
 import threading
 
-LAUNCHES = {"pillar_scatter_max": 0, "pillar_scatter_max_tiled": 0,
-            "rotated_overlap": 0, "suppression_mask": 0, "int8_conv": 0,
-            "int8_conv_f32": 0, "int8_conv_pc": 0, "int8_conv_pc_f32": 0,
-            "int8_stage": 0, "int8_stage_f32": 0}
+from ..runtime import tracing
+
+# the tracer's launch counters (`tracing.counters()["launch.<kernel>"]`)
+LAUNCHES = tracing.LAUNCHES
+LAUNCHES.update(dict.fromkeys((
+    "pillar_scatter_max", "pillar_scatter_max_tiled", "rotated_overlap",
+    "suppression_mask", "int8_conv", "int8_conv_f32", "int8_conv_pc",
+    "int8_conv_pc_f32", "int8_stage", "int8_stage_f32"), 0))
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")

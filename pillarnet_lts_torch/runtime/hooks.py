@@ -11,7 +11,8 @@ import datetime
 import json
 import logging
 import os
-import time
+
+from . import tracing
 
 
 class Hook:
@@ -37,18 +38,19 @@ class Hook:
 
 
 class IterTimerHook(Hook):
-    """Per-iteration host time: `data_time` (the loader) and `time` (the
-    whole iteration, step and metric read-back included)."""
-
-    def before_train_epoch(self, trainer):
-        self.t = time.time()
-
-    def before_train_iter(self, trainer):
-        trainer.log_buffer.update({"data_time": time.time() - self.t})
+    """Per-iteration host seconds from the tracer's spans
+    (`runtime/tracing.py`): `data_time`, the batch's copy to the device
+    (`train.feed`), and `time`, the iteration from the batch's arrival to
+    its metrics on the host (`train.iter`; the metric read waits for the
+    step, so this is the step's time, not its issue). Nothing at the
+    `off` level."""
 
     def after_train_iter(self, trainer):
-        trainer.log_buffer.update({"time": time.time() - self.t})
-        self.t = time.time()
+        for key, name in (("data_time", "train.feed"), ("time", "train.iter")):
+            rec = tracing.last(name)
+            if rec is not None:
+                trainer.log_buffer.update(
+                    {key: (rec["end_ns"] - rec["start_ns"]) * 1e-9})
 
 
 class TextLoggerHook(Hook):

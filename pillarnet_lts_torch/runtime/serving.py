@@ -11,16 +11,26 @@ from collections import deque
 
 import torch
 
+from . import tracing
+
 
 def to_host(out):
     """Copy a (nested dict/list/tuple of) tensor result to numpy; the copy
-    waits for the work that produced it."""
+    waits for the work that produced it. Traced as one `serving.sync`
+    span and one `host_syncs` count a call: the host blocked on the
+    card."""
+    with tracing.span("serving.sync"):
+        tracing.count("host_syncs")
+        return _to_numpy(out)
+
+
+def _to_numpy(out):
     if isinstance(out, torch.Tensor):
         return out.cpu().numpy()
     if isinstance(out, dict):
-        return {k: to_host(v) for k, v in out.items()}
+        return {k: _to_numpy(v) for k, v in out.items()}
     if isinstance(out, (list, tuple)):
-        return type(out)(to_host(v) for v in out)
+        return type(out)(_to_numpy(v) for v in out)
     return out
 
 

@@ -26,9 +26,11 @@ package's do (the CenterNet losses cast them to f32).
 import numpy as np
 import torch
 
-from ..parallel.dist import (broadcast_gradients, splits_batch,
-                             sum_gradients_over_ranks, sum_over_ranks)
+from ..parallel.dist import (broadcast_gradients, is_initialized,
+                             splits_batch, sum_gradients_over_ranks,
+                             sum_over_ranks)
 from ..parallel.spatial import partial_parameters
+from . import tracing
 
 _TARGET_KEYS = ("hm", "anno_box", "ind", "mask", "cat", "gt_box")
 _ARRAY_KEYS = ("points", "points_mask", "gt_boxes_and_cls")
@@ -37,13 +39,14 @@ _ARRAY_KEYS = ("points", "points_mask", "gt_boxes_and_cls")
 def batch_to_device(batch, device):
     """The tensors of a collated numpy batch (`datasets/collate.py`) on
     `device`: points, points_mask, gt_boxes_and_cls and the per-task
-    target lists."""
-    out = {k: torch.from_numpy(batch[k]).to(device)
-           for k in _ARRAY_KEYS if k in batch}
-    for k in _TARGET_KEYS:
-        if k in batch:
-            out[k] = [torch.from_numpy(a).to(device) for a in batch[k]]
-    return out
+    target lists (the tracer's `train.feed` span)."""
+    with tracing.span("train.feed"):
+        out = {k: torch.from_numpy(batch[k]).to(device)
+               for k in _ARRAY_KEYS if k in batch}
+        for k in _TARGET_KEYS:
+            if k in batch:
+                out[k] = [torch.from_numpy(a).to(device) for a in batch[k]]
+        return out
 
 
 def step_generator(seed, step, device):
@@ -58,13 +61,15 @@ def step_losses(model, batch, train_cfg=None, generator=None):
     per-task loss dict). generator: the step's (`step_generator`), which a
     two-stage model needs."""
     model.train()
-    preds = model(batch["points"], batch["points_mask"],
-                  gt_boxes_and_cls=batch.get("gt_boxes_and_cls"),
-                  generator=generator)
-    losses = model.loss(batch, preds, train_cfg)
-    total = losses["loss"][0]
-    for task_loss in losses["loss"][1:]:
-        total = total + task_loss
+    with tracing.span("train.forward"):
+        preds = model(batch["points"], batch["points_mask"],
+                      gt_boxes_and_cls=batch.get("gt_boxes_and_cls"),
+                      generator=generator)
+    with tracing.span("train.loss"):
+        losses = model.loss(batch, preds, train_cfg)
+        total = losses["loss"][0]
+        for task_loss in losses["loss"][1:]:
+            total = total + task_loss
     return total, losses
 
 
@@ -88,10 +93,36 @@ def train_step(model, optimizer, batch, train_cfg=None, generator=None):
     only theirs are summed; every other gradient is whole on every rank,
     equal up to a nondeterministic kernel's last bits, and rank 0's is
     taken (`broadcast_gradients`), so the ranks' replicas stay identical;
-    the metrics are every rank's already."""
-    total, losses = step_losses(model, batch, train_cfg, generator)
-    optimizer.zero_grad(set_to_none=True)
-    total.backward()
+    the metrics are every rank's already.
+
+    The step is one `train.step` request of the tracer
+    (`runtime/tracing.py`, counted in `train.steps`) with the spans
+    `train.forward`, `train.loss`, `train.backward`, `train.grad_sync`
+    (the collectives, only in a process group) and `train.optimizer`
+    (the clip and the update)."""
+    with tracing.request("train.step"):
+        tracing.count("train.steps")
+        total, losses = step_losses(model, batch, train_cfg, generator)
+        with tracing.span("train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            total.backward()
+        metrics = {"loss": total.detach()}
+        for k, vals in losses.items():
+            if k != "loss" and (k.endswith("_loss") or k == "num_positive"):
+                for t, v in enumerate(vals):
+                    metrics[f"{k}_task{t}"] = v.detach()
+        if is_initialized():
+            with tracing.span("train.grad_sync"):
+                metrics = _sync_over_ranks(model, optimizer, metrics)
+        with tracing.span("train.optimizer"):
+            metrics["grad_norm"] = optimizer.step()
+        return metrics
+
+
+def _sync_over_ranks(model, optimizer, metrics):
+    """The step's collectives: the gradients summed (or, under spatial
+    sharding, the band parameters' summed and the rest taken from rank
+    0), and the metrics summed when the group splits the batch."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
     partial = partial_parameters(model)
     if partial is not None:
@@ -99,15 +130,9 @@ def train_step(model, optimizer, batch, train_cfg=None, generator=None):
         broadcast_gradients([p for p in params if id(p) not in ids])
         params = [p for p in params if id(p) in ids]
     sum_gradients_over_ranks(params)
-    metrics = {"loss": total.detach()}
-    for k, vals in losses.items():
-        if k != "loss" and (k.endswith("_loss") or k == "num_positive"):
-            for t, v in enumerate(vals):
-                metrics[f"{k}_task{t}"] = v.detach()
     if splits_batch():
         summed = sum_over_ranks(torch.stack(list(metrics.values())))
         metrics = dict(zip(metrics, summed.unbind()))
-    metrics["grad_norm"] = optimizer.step()
     return metrics
 
 

@@ -4,10 +4,12 @@ Port of `pillarnet_lts_tpu/runtime/trainer.py`, on one device or on each
 rank of a data-parallel group (`parallel/`): the epoch
 loop with hook calls (`runtime/hooks.py`), one `train_step` per batch
 (`runtime/train_step.py`) with the step's generator from (seed, step),
-metrics read back into the `LogBuffer` every
-step (the JAX trainer's `device_get`), checkpoints with the config text
-and class names in their meta, `resume`, and the validation workflow:
-`run(..., workflow=[('train', k), ('val', 1)])` infers over the val
+metrics read back into the `LogBuffer` every step (the JAX trainer's
+`device_get`; one `host_syncs` count a metric), each iteration a
+`train.iter` span of the tracer (`runtime/tracing.py`) from the batch's
+arrival to the end of its `train.metrics_read`, checkpoints with the
+config text and class names in their meta, `resume`, and the validation
+workflow: `run(..., workflow=[('train', k), ('val', 1)])` infers over the val
 loader (`eval_utils.pipelined_infer`), scores the detections with the
 dataset's `evaluation` and logs the result. In a group each rank trains
 on its shard of every global batch and validates its shard of the val
@@ -23,6 +25,7 @@ from ..parallel.dist import gather_detections, rank
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .hooks import Hook
 from .log_buffer import LogBuffer
+from . import tracing
 from .train_step import batch_to_device, step_generator, train_step
 
 
@@ -83,12 +86,16 @@ class Trainer:
         self.call_hook("before_train_epoch")
         for i, batch in enumerate(data_loader):
             self.inner_iter = i
-            self.call_hook("before_train_iter")
-            metrics = train_step(
-                self.model, self.optimizer,
-                batch_to_device(batch, self.device), self.train_cfg,
-                step_generator(self.seed, self.iter, self.device))
-            self.log_buffer.update({k: float(v) for k, v in metrics.items()})
+            with tracing.span("train.iter"):
+                self.call_hook("before_train_iter")
+                metrics = train_step(
+                    self.model, self.optimizer,
+                    batch_to_device(batch, self.device), self.train_cfg,
+                    step_generator(self.seed, self.iter, self.device))
+                with tracing.span("train.metrics_read"):
+                    tracing.count("host_syncs", len(metrics))
+                    self.log_buffer.update({k: float(v)
+                                            for k, v in metrics.items()})
             self.call_hook("after_train_iter")
             self.iter += 1
         self.call_hook("after_train_epoch")

@@ -18,8 +18,9 @@ Weights (`--checkpoint`): a checkpoint of the port's trainer
 (`runtime/checkpoint.py`), a reference det3d `.pth`
 (`runtime/torch_convert.py`), or none: random weights from `--seed`.
 
-`--speed_test`: batch 1, the host synced after every frame, the mean over
-the middle third of the frames, on CUDA events and on the host clock.
+`--speed_test`: batch 1, the host synced after every frame, traced at
+the `device` level (`runtime/tracing.py`): the median frame on the host
+clock and on CUDA events, and each layer's median host and device ms.
 Default: the pipelined pass (`eval_utils.pipelined_infer`, up to 4
 batches in flight), timed with the loader: frames/s over the whole pass
 and over the batches of its middle third. `--int8`: the int8 deploy build
@@ -54,6 +55,7 @@ from ..datasets import DataLoader, build_dataset
 from ..eval_utils import detections_to_host, make_infer_fn, pipelined_infer
 from ..parallel.dist import (gather_detections, init_from_env,
                              process_count, rank, shutdown)
+from ..runtime import tracing
 from ..runtime.serving import to_host
 
 CALIB_BATCHES = 8
@@ -116,43 +118,50 @@ def on_device(batch, device):
 
 
 def speed_test(infer, loader, device, metas_of, logger):
-    """Serial frames at batch 1: returns (detections, speed record)."""
+    """Serial frames at batch 1, each served and copied to the host before
+    the next, traced at the `device` level (`runtime/tracing.py`): returns
+    (detections, speed record). The record: a frame's host ms (its
+    `serving.request` and `serving.sync` spans) and device ms (CUDA
+    events at the request's ends), every frame's and their medians, and
+    the median host and device ms of each layer's span in a request."""
     cuda = device.type == "cuda"
-    detections, host, dev = {}, [], []
-    for i, batch in enumerate(loader):
-        pts, msk = on_device(batch, device)
-        if cuda:
-            torch.cuda.synchronize(device)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        if cuda:
-            start.record()
-        det = infer(pts, msk)
-        if cuda:
-            end.record()
-            torch.cuda.synchronize(device)
-        host.append(time.perf_counter() - t0)
-        if cuda:
-            dev.append(start.elapsed_time(end) / 1e3)
-        for sample in detections_to_host(to_host(det), metas_of(batch)):
-            detections[sample["metadata"]["token"]] = sample
-        if i % 50 == 0:
-            logger.info("batch %d/%d", i, len(loader))
-
-    def middle_third(t):
-        return t[len(t) // 3:2 * len(t) // 3] or t
-
-    rec = {"frames": len(host),
-           "host_ms": float(np.mean(middle_third(host))) * 1e3,
-           "host_ms_all": [t * 1e3 for t in host]}
+    prev = tracing.configure("device")
+    t0 = time.perf_counter_ns()
+    detections = {}
+    try:
+        for i, batch in enumerate(loader):
+            pts, msk = on_device(batch, device)
+            if cuda:
+                torch.cuda.synchronize(device)
+            det = to_host(infer(pts, msk))
+            for sample in detections_to_host(det, metas_of(batch)):
+                detections[sample["metadata"]["token"]] = sample
+            if i % 50 == 0:
+                logger.info("batch %d/%d", i, len(loader))
+        spans = [s for s in tracing.snapshot()["spans"]
+                 if s["start_ns"] >= t0]
+        layers = tracing.summary("serving.request", since_ns=t0)
+    finally:
+        tracing.configure(prev)
+    reqs = [s for s in spans if s["name"] == "serving.request"]
+    syncs = [s for s in spans if s["name"] == "serving.sync"]
+    host = [(r["end_ns"] - r["start_ns"] + s["end_ns"] - s["start_ns"])
+            * 1e-6 for r, s in zip(reqs, syncs)]
+    rec = {"frames": len(host), "host_ms": float(np.median(host)),
+           "host_ms_all": host,
+           "layers": {k: v for k, v in layers.items()
+                      if k != "serving.request"}}
     line = (f"Total time per frame: {rec['host_ms']:.2f} ms "
             f"({1e3 / rec['host_ms']:.2f} FPS) on the host clock")
     if cuda:
-        rec["device_ms"] = float(np.mean(middle_third(dev))) * 1e3
-        rec["device_ms_all"] = [t * 1e3 for t in dev]
+        rec["device_ms_all"] = [r["device_ms"] for r in reqs]
+        rec["device_ms"] = float(np.median(rec["device_ms_all"]))
         line += f", {rec['device_ms']:.2f} ms on CUDA events"
-    print(f"\n{line}")
+    print(f"\n{line} (medians of {len(host)} frames)")
+    for name, v in rec["layers"].items():
+        dev = ("" if v["device_ms"] is None
+               else f", device {v['device_ms']:.3f} ms")
+        print(f"  {name}: host {v['host_ms']:.3f} ms{dev}")
     return detections, rec
 
 

@@ -15,12 +15,14 @@ Waymo 196,608 in one) and reports, after 3 warm-up requests:
 
   - FLOPs of one bs=1 request (`torch.utils.flop_counter`; it does not see
     the port's own kernels, so an int8 config's count is its bf16 ops only);
-  - per-stage device time (CUDA events around each module; median of 10):
-    reader, backbone and its conv1..conv5, neck, head, predict; for a
-    two-stage config (`configs/pillarrcnn/pillarrcnn18_waymo.py`) those of
-    its first stage, then the second stage as a stage of its own
-    (`second_stage`: RoI pooling, heads, box decoding and post_process)
-    and its parts `roi_pool`, `point_head`, `roi_head`;
+  - per-stage device ms, median of 10 requests, from the port's tracer at
+    its `device` level (`pillarnet_lts_torch/runtime/tracing.py`: CUDA
+    events at the ends of each span): the request (`serving.request`),
+    reader, backbone and its `backbone.conv1`..`backbone.conv5`, neck,
+    head, predict; for a two-stage config
+    (`configs/pillarrcnn/pillarrcnn18_waymo.py`) those of its first stage
+    and the second stage's `roi_pool`, `point_head`, `roi_head`; and each
+    span's host ms (the host's issue);
   - kernel time by kernel over 5 requests (`torch.profiler`), grouped into
     the port's kernels, convolutions, GEMMs, the second stage's
     `index_select` gathers, elementwise, layout transposes and the rest,
@@ -37,7 +39,8 @@ config too: `--config configs/pillarrcnn/pillarrcnn18_waymo.py`, each
 step with its own generator for the RoI sampler and dropout), at its
 `samples_per_gpu`, on seeded synthetic scenes with every class
 (`datasets.SynthDataset`): after 2 warm-up steps, the forward with the
-losses, the backward and the optimizer step (CUDA events, median of 3),
+losses, the backward and the optimizer step (the tracer's `train.*`
+spans at the `device` level, median of 3),
 kernel time by group over 2 steps (`torch.profiler`) with the busy share
 of their window, samples/s and peak memory; then the same with the
 backbone's `remat` off, for what remat costs and saves.
@@ -51,59 +54,27 @@ import json
 import statistics
 import sys
 import time
-from collections import defaultdict
 
 import torch
 
 from chip_smoke import FLAGSHIP, ROOT, card_line, group_table, profiled
 
-class StageTimer:
-    """CUDA events around the top-level stage modules of a PillarNet (a
-    two-stage model's `single_det`) and of a two-stage model's second
-    stage: the RoI-grid pooling, the point head and the RoI head."""
 
-    def __init__(self, model):
-        self.events, self.open = [], []
-        det = getattr(model, "single_det", model)
-        mods = [("reader", det.reader_net), ("backbone", det.backbone_net)]
-        for name, mod in det.backbone_net.named_children():
-            mods.append((name.split("_")[0], mod))  # conv1_block0 -> conv1
-        mods += [("neck", det.neck_net), ("head", det.head_net)]
-        if det is not model:
-            parts = (("roi_pool", "second_stage_0"),
-                     ("point_head", "point_head_net"),
-                     ("roi_head", "roi_head_net"))
-            mods += [(name, getattr(model, attr)) for name, attr in parts
-                     if getattr(model, attr, None) is not None]
-        self.handles = []
-        for stage, mod in mods:
-            self.handles += [mod.register_forward_pre_hook(self._pre(stage)),
-                             mod.register_forward_hook(self._post)]
+def traced(kind, fn, times):
+    """Run fn() `times` times at the tracer's `device` level, each run
+    synced; -> the median host and device ms of each span name in the
+    `kind` requests they made (`runtime/tracing.py::summary`)."""
+    from pillarnet_lts_torch.runtime import tracing
 
-    def _pre(self, stage):
-        def hook(mod, args):
-            ev = [stage, torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True)]
-            ev[1].record()
-            self.events.append(ev)
-            self.open.append(ev)
-        return hook
-
-    def _post(self, mod, args, out):
-        self.open.pop()[2].record()  # the backbone nests its stages
-
-    def remove(self):
-        for h in self.handles:
-            h.remove()
-
-    def take(self):
-        torch.cuda.synchronize()
-        ms = defaultdict(float)
-        for stage, start, end in self.events:
-            ms[stage] += start.elapsed_time(end)
-        self.events = []
-        return ms
-
+    prev = tracing.configure("device")
+    t0 = time.perf_counter_ns()
+    try:
+        for _ in range(times):
+            fn()
+            torch.cuda.synchronize()
+        return tracing.summary(kind, since_ns=t0)
+    finally:
+        tracing.configure(prev)
 
 def train_profile(cfg, dev, remat):
     """Step phases, kernel groups, samples/s and peak memory of training
@@ -111,7 +82,7 @@ def train_profile(cfg, dev, remat):
     from pillarnet_lts_torch.apis import build_model_from_cfg, optimizer_from_cfg
     from pillarnet_lts_torch.datasets import SynthDataset, collate_batch
     from pillarnet_lts_torch.runtime.train_step import (
-        batch_to_device, step_generator, step_losses, train_step)
+        batch_to_device, step_generator, train_step)
 
     det = cfg["model"].get("first_stage_cfg", cfg["model"])
     det["backbone"] = dict(det["backbone"], remat=remat)
@@ -130,24 +101,17 @@ def train_profile(cfg, dev, remat):
     torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(2):
         train_step(model, opt, batch, cfg["train_cfg"], gen())
-    phases = defaultdict(list)
-    for _ in range(3):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev[0].record()
-        total, _ = step_losses(model, batch, cfg["train_cfg"], gen())
-        ev[1].record()
-        opt.zero_grad(set_to_none=True)
-        total.backward()
-        ev[2].record()
-        opt.step()
-        ev[3].record()
-        torch.cuda.synchronize()
-        phases["step_host"].append((time.perf_counter() - t0) * 1e3)
-        for name, a, b in (("forward", 0, 1), ("backward", 1, 2),
-                           ("optimizer", 2, 3)):
-            phases[name].append(ev[a].elapsed_time(ev[b]))
+    spans = traced("train.step", lambda: train_step(
+        model, opt, batch, cfg["train_cfg"], gen()), 3)
+
+    def phase_ms(clock):
+        ms = {k: v[clock] for k, v in spans.items()}
+        return {"step": ms["train.step"],
+                "forward": ms["train.forward"] + ms["train.loss"],
+                "backward": ms["train.backward"],
+                "optimizer": ms["train.optimizer"]}
+
+    phases = phase_ms("device_ms")
 
     def two_steps():
         t0 = time.perf_counter()
@@ -158,10 +122,9 @@ def train_profile(cfg, dev, remat):
 
     rows, window, lost = profiled(two_steps)
     groups = group_table(rows)
-    step = statistics.median(phases["step_host"])
-    return {"remat": remat, "batch": bs,
-            "phase_ms": {k: statistics.median(v) for k, v in phases.items()},
-            "samples_per_s": bs / step * 1e3,
+    return {"remat": remat, "batch": bs, "phase_ms": phases,
+            "phase_host_ms": phase_ms("host_ms"),
+            "samples_per_s": bs / phases["step"] * 1e3,
             "peak_allocated_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
             "profile_2_steps": {
                 "window_ms": window, "kernel_ms": sum(groups.values()),
@@ -186,11 +149,14 @@ def profile_training(args):
         if "error" in r:
             print(f"remat {remat}: {r['error'][:200]}")
             continue
-        p, prof = r["phase_ms"], r["profile_2_steps"]
-        print(f"remat {remat}, bs={r['batch']}: step {p['step_host']:.1f} ms "
+        p, h, prof = r["phase_ms"], r["phase_host_ms"], r["profile_2_steps"]
+        print(f"remat {remat}, bs={r['batch']}: step {p['step']:.1f} ms "
               f"(forward + losses {p['forward']:.1f}, backward "
-              f"{p['backward']:.1f}, optimizer {p['optimizer']:.1f}; median "
-              f"of 3), {r['samples_per_s']:.3f} samples/s, peak allocated "
+              f"{p['backward']:.1f}, optimizer {p['optimizer']:.1f}; device "
+              f"ms, medians of 3; host ms in each: step {h['step']:.1f}, "
+              f"forward + losses {h['forward']:.1f}, backward "
+              f"{h['backward']:.1f}, optimizer {h['optimizer']:.1f}), "
+              f"{r['samples_per_s']:.3f} samples/s, peak allocated "
               f"{r['peak_allocated_gib']:.3f} GiB; 2 steps: kernel time "
               f"{prof['kernel_ms']:.1f} ms in a {prof['window_ms']:.1f} ms "
               f"window (busy {100 * prof['kernel_ms'] / prof['window_ms']:.1f}"
@@ -268,29 +234,11 @@ def main():
         infer(*clouds[0])
     rec["gflop_per_frame"] = fc.get_total_flops() / 1e9
 
-    timer = StageTimer(model)
-    det = getattr(model, "single_det", model)
-    per_stage = defaultdict(list)
-    for c in clouds:
-        with torch.inference_mode():
-            if det is model:
-                preds = model(*c)
-            else:
-                preds, bev, feats = det.forward_two_stage(*c)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
-            first = det.predict({}, preds, test_cfg)
-            ev[1].record()
-            if det is not model:
-                model.post_process(model.second_stage(first, bev, feats))
-            ev[2].record()
-        for s, v in timer.take().items():
-            per_stage[s].append(v)
-        per_stage["predict"].append(ev[0].elapsed_time(ev[1]))
-        if det is not model:
-            per_stage["second_stage"].append(ev[1].elapsed_time(ev[2]))
-    rec["stage_ms"] = {s: statistics.median(v) for s, v in per_stage.items()}
-    timer.remove()
+    frames = iter(clouds)
+    spans = traced("serving.request", lambda: infer(*next(frames)),
+                   len(clouds))
+    rec["stage_ms"] = {s: v["device_ms"] for s, v in spans.items()}
+    rec["stage_host_ms"] = {s: v["host_ms"] for s, v in spans.items()}
 
     def five_requests():
         t0 = time.perf_counter()
@@ -336,8 +284,9 @@ def main():
     print(f"card: {card}; {args.config}, fused stage {args.fused}, tiled "
           f"scatter {args.tiled}, mask kernel {args.mask_kernel}")
     print(f"GFLOP per bs=1 frame: {rec['gflop_per_frame']:.1f}")
-    print("stage ms (median of 10): " + ", ".join(
-        f"{s} {v:.2f}" for s, v in rec["stage_ms"].items()))
+    print("stage ms, device (host), medians of 10 requests: " + ", ".join(
+        f"{s} {v:.2f} ({rec['stage_host_ms'][s]:.2f})"
+        for s, v in rec["stage_ms"].items()))
     print(f"5 requests: kernel time {busy:.1f} ms in a {window:.1f} ms "
           f"window (busy {100 * busy / window:.1f}%); by group: " + ", ".join(
               f"{g} {v:.2f} ms" for g, v in sorted(groups.items(),

@@ -1813,3 +1813,90 @@ def test_cpu_exported_program_served_on_the_card(cuda, tmp_path):
     for k in want:
         assert got[k].device.type == "cuda"
         assert torch.equal(got[k], want[k]), k
+
+
+# ---- the tracer on the profiler's clock (runtime/tracing.py) ----------------
+
+def _launches_by_kernel(events, launch_calls):
+    """{kernel event: the host runtime call that launched it}, matched by
+    the CUPTI correlation id that both carry (the kernel's own or its
+    linked one)."""
+    from torch.autograd import DeviceType
+
+    calls = {e.correlation_id(): e for e in events
+             if e.device_type() == DeviceType.CPU
+             and any(k in e.name() for k in launch_calls)}
+    out = {}
+    for e in events:
+        if e.device_type() == DeviceType.CUDA \
+                and not e.is_user_annotation():
+            call = calls.get(e.correlation_id()) \
+                or calls.get(e.linked_correlation_id())
+            if call is not None:
+                out[e] = call
+    return out
+
+
+def test_tracer_spans_share_the_profilers_clock(cuda):
+    """One request of the demo f32 model under `torch.profiler`: each
+    tracer span has its `pillarnet.<name>` range in the trace, nested as
+    the tracer recorded it; the runtime call that launched K1 lies inside
+    `pillarnet.reader` and K2's inside `pillarnet.predict`."""
+    import time
+
+    from pillarnet_lts_torch.apis import (build_model_from_cfg, load_config,
+                                          spread_head_outputs)
+    from pillarnet_lts_torch.eval_utils import make_infer_fn
+    from pillarnet_lts_torch.runtime import tracing
+    from pillarnet_lts_torch.runtime.serving import to_host
+
+    cfg = load_config(_DEMO)
+    pts, msk = _demo_cloud(cfg, cuda, 7)
+    model = build_model_from_cfg(cfg, device=cuda, seed=7)
+    spread_head_outputs(model, pts, msk)
+    infer = make_infer_fn(model)
+    to_host(infer(pts, msk))
+    prev = tracing.configure("host")
+    t0 = time.perf_counter_ns()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            to_host(infer(pts, msk))
+            torch.cuda.synchronize()
+    finally:
+        tracing.configure(prev)
+    spans = [s for s in tracing.snapshot()["spans"] if s["start_ns"] >= t0]
+    assert spans and all(s["profiled"] for s in spans)
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    ranges = {}
+    for e in events:  # the host ranges (the trace repeats them on the card)
+        if e.name().startswith("pillarnet.") \
+                and e.device_type() == DeviceType.CPU:
+            assert e.name() not in ranges, e.name()
+            ranges[e.name()] = (e.start_ns(), e.end_ns())
+    by_id = {s["id"]: s for s in spans}
+    assert set(ranges) == {f"pillarnet.{s['name']}" for s in spans}
+    for s in spans:
+        a, b = ranges[f"pillarnet.{s['name']}"]
+        if s["parent"] is not None:
+            pa, pb = ranges[f"pillarnet.{by_id[s['parent']]['name']}"]
+            assert pa <= a <= b <= pb, (s["name"], by_id[s["parent"]]["name"])
+    assert ranges["pillarnet.serving.sync"][0] \
+        >= ranges["pillarnet.serving.request"][1]
+    launches = _launches_by_kernel(
+        events, ("LaunchKernel", "cuLaunch"))
+    found = {}
+    for kernel, call in launches.items():
+        for tag, keys, layer in (
+                ("K1", ("scatter_max_claim", "scatter_max_merge",
+                        "ClaimedPillars"), "reader"),
+                ("K2", ("rotated_overlap",), "predict")):
+            if any(k in kernel.name() for k in keys):
+                a, b = ranges[f"pillarnet.{layer}"]
+                assert a <= call.start_ns() <= b, (tag, call.name())
+                found[tag] = found.get(tag, 0) + 1
+    assert found.get("K1", 0) >= 1 and found.get("K2", 0) >= 1, (
+        found, sorted({k.name()[:60] for k in launches}))
