@@ -8726,15 +8726,35 @@ def k4_launcher(torch, fn, args, kw):
     return run
 
 
+def k4_groups(calls):
+    """The captured K4 calls of an int8 flagship request by group, in
+    `benchmark/counts.py::conv_list`'s order: the masked stages by their
+    output channels (conv1 32, conv2 64, conv3 128, conv4 256, each with
+    its strided down conv), then the dense calls: conv5 (its strided down
+    conv and the two convs after it) and the neck (`block_5`, `block_4`).
+    Returns {group: [call index]}."""
+    names = {32: "conv1", 64: "conv2", 128: "conv3", 256: "conv4"}
+    groups, dense = {}, []
+    for i, (args, kw, _) in enumerate(calls):
+        if kw.get("mask") is not None:
+            groups.setdefault(names[args[1].shape[3]], []).append(i)
+        else:
+            dense.append(i)
+    groups["conv5"], groups["neck"] = dense[:3], dense[3:]
+    return groups
+
+
 def k4_compare(parent):
     """`python3 chip_smoke.py --k4-compare PARENT`: K4 per tensor (bf16)
     built from the checkout at PARENT (its `pillarnet_lts_torch/csrc/
     int8_conv.cu`, the same flags) and from this one, on the captured K4
     calls of one int8 flagship request (phase 6's model, fused stage off)
     at bs 1 and at bs 8: every output of the two byte-identical, and each
-    side's calls of a request timed by CUDA events, in turns parent,
-    this, this, parent over K4_COMPARE_ROUNDS rounds. Prints one JSON
-    line."""
+    side's calls of a request, and of each group of them (`k4_groups`),
+    timed by CUDA events, in turns parent, this, this, parent over
+    K4_COMPARE_ROUNDS rounds, beside each group's bound
+    (`int8_conv_bound`); the launch counts of this checkout's served
+    request say which route its calls took. Prints one JSON line."""
     import ctypes
 
     import torch
@@ -8760,7 +8780,10 @@ def k4_compare(parent):
     for bs in (1, 8):
         batch = cloud(50) if bs == 1 else export_clouds(
             load_config(FLAGSHIP_INT8), bs, 600)[0]
+        _kernels.reset_launches()
         calls = capture_int8_convs(torch, model, on_card(torch, dev, batch))
+        routes = {k: n for k, n in _kernels.LAUNCHES.items()
+                  if k.startswith("int8_conv") and n}
         runs = {k: [k4_launcher(torch, fn, a, kw) for a, kw, _ in calls]
                 for k, fn in sides.items()}
         for i, (a, b) in enumerate(zip(runs["parent"], runs["this"])):
@@ -8769,18 +8792,36 @@ def k4_compare(parent):
             if not (torch.equal(ya.view(torch.int16), yb.view(torch.int16))
                     and torch.equal(yb, calls[i][2])):
                 raise AssertionError(f"k4 bs {bs}: call {i} differs")
-        times = {k: [] for k in sides}
+        groups = k4_groups(calls)
+        bounds = {g: sum(int8_conv_bound(torch, *calls[i])[0][0] for i in idx)
+                  for g, idx in groups.items()}
+        parts = dict(request=list(range(len(calls))), **groups)
+        times = {p: {k: [] for k in sides} for p in parts}
         for _ in range(K4_COMPARE_ROUNDS):
             for k in ("parent", "this", "this", "parent"):
-                times[k].append(cuda_ms(lambda: [r() for r in runs[k]],
-                                        iters=10, warmup=1))
-        rec[f"bs{bs}"] = {"calls": len(calls), "ms_a_request": times}
-        print(f"[k4] bs {bs}: {len(calls)} calls byte-identical; ms a "
-              f"request (CUDA events; parent, this, this, parent x "
-              f"{K4_COMPARE_ROUNDS}): " + ", ".join(
-                  f"{k} median {statistics.median(v):.4f} (range "
-                  f"{min(v):.4f}-{max(v):.4f})" for k, v in times.items())
+                for p, idx in parts.items():
+                    times[p][k].append(cuda_ms(
+                        lambda: [runs[k][i]() for i in idx], iters=10,
+                        warmup=1))
+        rec[f"bs{bs}"] = {
+            "calls": len(calls), "routes": routes,
+            "ms_a_request": times.pop("request"),
+            "groups": {g: {"calls": len(groups[g]), "bound_ms": bounds[g],
+                           "ms": times[g]} for g in groups}}
+        med = statistics.median
+        print(f"[k4] bs {bs}: {len(calls)} calls byte-identical; launches "
+              f"of the served request {routes}; ms a request (CUDA events; "
+              f"parent, this, this, parent x {K4_COMPARE_ROUNDS}): "
+              + ", ".join(
+                  f"{k} median {med(v):.4f} (range {min(v):.4f}-"
+                  f"{max(v):.4f})" for k, v in
+                  rec[f"bs{bs}"]["ms_a_request"].items())
               + f"; card: {card}", flush=True)
+        for g, r in rec[f"bs{bs}"]["groups"].items():
+            print(f"[k4] bs {bs} {g}: {r['calls']} calls, bound "
+                  f"{r['bound_ms']:.4f} ms; " + ", ".join(
+                      f"{k} median {med(v):.4f} ({r['bound_ms'] / med(v):.1%}"
+                      f" of bound)" for k, v in r["ms"].items()), flush=True)
         del calls, runs
         torch.cuda.empty_cache()
     print(json.dumps({"k4_compare": rec}))

@@ -1,7 +1,7 @@
 // Device helpers shared by the int8 conv kernels (int8_conv.cu,
 // int8_stage.cu): quantize on load (bf16 or f32 activations), the epilogue
 // of ops/quant.py::int8_conv_bn_act_plain on a pair of output channels (bf16
-// or f32), and the int8 tensor-core micro-tile (ldmatrix,
+// or f32), and K5's int8 tensor-core micro-tile (ldmatrix,
 // mma.sync.m16n8k32 s8 -> s32, cp.async). The f32 products and sums are written with __fmul_rn /
 // __fadd_rn (and the sources build with -fmad=false) so that they round as
 // the plain version does.

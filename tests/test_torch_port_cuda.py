@@ -191,25 +191,53 @@ def _int8_conv_args(dev, seed, B, H, W, cin, cout, stride, density=0.2):
         residual=torch.from_numpy(res).to(dev, bf))
 
 
-@pytest.mark.parametrize("stride,cin,cout,use_mask,use_res,act", [
-    (1, 32, 32, True, True, True),      # stage-1 tail conv
-    (1, 32, 32, True, False, False),    # stage-1 conv0
-    (2, 32, 64, True, False, True),     # down conv
-    (1, 512, 256, False, False, True),  # neck conv (dense)
-    (2, 256, 256, False, False, True),  # conv5 down (dense)
+# K4's variants: activations' dtype and per-channel scales
+_K4_VARIANTS = {"bf16": (torch.bfloat16, False, "int8_conv"),
+                "f32": (torch.float32, False, "int8_conv_f32"),
+                "pc": (torch.bfloat16, True, "int8_conv_pc"),
+                "pc_f32": (torch.float32, True, "int8_conv_pc_f32")}
+
+
+@pytest.mark.parametrize("variant", sorted(_K4_VARIANTS))
+@pytest.mark.parametrize("stride,cin,cout,use_mask,use_res,act,shape", [
+    (1, 32, 32, True, True, True, None),       # stage-1 tail conv
+    (1, 32, 32, True, False, False, None),     # stage-1 conv0
+    (2, 32, 64, True, False, True, None),      # down conv
+    (1, 512, 256, False, False, True, None),   # neck conv (dense)
+    (2, 256, 256, False, False, True, None),   # conv5 down (dense)
+    # the tile configurations of the warp-specialised kernel: N of 32 and
+    # 64 (8 x 64 tiles, weights resident) at batch 8, 128 (4 x 64, a ring of
+    # weight stages) and 256 (2 x 64) with a mask, stride 2 into 64 / 128 /
+    # 256; the sizes are no multiple of the tiles; Cin 1024 at stride 2
+    # (in f32 with per-channel scales: one raw stage, two weight stages)
+    (1, 32, 32, True, True, True, (8, 40, 150)),
+    (1, 64, 64, True, True, True, (8, 19, 125)),
+    (1, 128, 128, True, True, True, (2, 33, 70)),
+    (1, 128, 256, True, False, True, (2, 33, 70)),
+    (2, 64, 128, True, False, True, (2, 37, 130)),
+    (2, 128, 256, True, True, True, (2, 37, 130)),
+    (2, 1024, 64, True, False, True, (1, 19, 21)),
 ])
 def test_int8_conv_kernel_matches_plain(cuda, stride, cin, cout, use_mask,
-                                        use_res, act):
-    a = _int8_conv_args(cuda, cin + stride, 2, 37, 45, cin, cout, stride)
-    kw = dict(mask=a["mask"] if use_mask else None,
-              residual=a["residual"] if use_res else None, act=act)
-    args = (a["x"], a["w_q"], a["inv_s"], a["dq"], a["shift"], stride)
-    before = _kernels.LAUNCHES["int8_conv"]
+                                        use_res, act, shape, variant):
+    """Each variant equal to its plain version and counted under its own
+    name."""
+    dtype, per_channel, name = _K4_VARIANTS[variant]
+    B, H, W = shape or (2, 37, 45)
+    a = _int8_conv_args(cuda, cin + stride, B, H, W, cin, cout, stride)
+    kw = dict(mask=a["mask"].to(dtype) if use_mask else None,
+              residual=a["residual"].to(dtype) if use_res else None, act=act)
+    inv_s = a["inv_s"]
+    if per_channel:  # scales a factor of 4 apart across the channels
+        inv_s = inv_s * torch.linspace(0.5, 2.0, cin, device=cuda)
+    args = (a["x"].to(dtype), a["w_q"], inv_s, a["dq"], a["shift"], stride)
+    before = dict(_kernels.LAUNCHES)
     got = tquant.int8_conv_bn_act(*args, **kw)
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["int8_conv"] == before + 1
+    assert {k: n - before[k] for k, n in _kernels.LAUNCHES.items()
+            if n != before[k]} == {name: 1}
     want = tquant.int8_conv_bn_act_plain(*args, **kw)
-    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert got.shape == want.shape and got.dtype == dtype
     assert torch.equal(got, want), (got.float() - want.float()).abs().max()
     assert got.float().abs().max() > 0
 
@@ -262,8 +290,9 @@ _K4_CLASSES = {"32-32": (32, 32, 1), "32-64-s2": (32, 64, 2),
 # without the packed keyword; "dense": no mask; "corners": one active site
 # at each image corner and at tile corners; "poisoned": the output carved
 # out of 0xFF-filled memory, one sample with a random mask and one whose
-# mask is all zero. Sizes are odd and no multiple of the 8 x 16 tile.
-_K4_CASES = ("masked", "dense", "corners", "poisoned")
+# mask is all zero; "dead": a mask all zero, so that every tile is dead.
+# Sizes are odd and no multiple of the tiles (8, 4 or 2 rows x 64).
+_K4_CASES = ("masked", "dense", "corners", "poisoned", "dead")
 
 
 def _k4_case(dev, case, cin, cout, stride, dtype=torch.bfloat16):
@@ -283,6 +312,8 @@ def _k4_case(dev, case, cin, cout, stride, dtype=torch.bfloat16):
             mask[b, y, xx] = True
     elif case == "poisoned":
         mask[1] = False
+    elif case == "dead":
+        mask[:] = False
     res = rng.randn(B, Ho, Wo, cout).astype(np.float32) * mask[..., None]
     amax = np.abs(x).max() * (0.5 if case == "masked" else 1.0)
     args = (torch.from_numpy(x).to(dev, bf),
@@ -311,16 +342,17 @@ def test_int8_conv_kernel_on_edge_cases(cuda, cls, case):
     out_bytes = want.numel() * want.element_size()
     if case == "poisoned":
         poisoned = _poison(cuda, out_bytes)
-    before = _kernels.LAUNCHES["int8_conv"]
+    before = dict(_kernels.LAUNCHES)
     got = tquant.int8_conv_bn_act(*args, **kw, w_pack=pack)
     got2 = tquant.int8_conv_bn_act(
         *args, **kw, w_pack=None if case == "masked" else pack)
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["int8_conv"] == before + 2
+    assert {k: n - before[k] for k, n in _kernels.LAUNCHES.items()
+            if n != before[k]} == {"int8_conv": 2}
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert torch.equal(got, want), (got.float() - want.float()).abs().max()
     assert torch.equal(got.view(torch.int16), got2.view(torch.int16))
-    assert got.float().abs().max() > 0
+    assert (got.float().abs().max() > 0) == (case != "dead")
     if case == "masked":  # some codes clip
         assert (args[0].float() * args[2]).abs().max() > 127
     elif case == "poisoned":  # the output was carved out of a poisoned block
@@ -350,13 +382,12 @@ def test_int8_conv_f32_kernel_on_edge_cases(cuda, cls, case):
     got2 = tquant.int8_conv_bn_act(
         *args, **kw, w_pack=None if case == "masked" else pack)
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["int8_conv_f32"] == \
-        before["int8_conv_f32"] + 2
-    assert _kernels.LAUNCHES["int8_conv"] == before["int8_conv"]
+    assert {k: n - before[k] for k, n in _kernels.LAUNCHES.items()
+            if n != before[k]} == {"int8_conv_f32": 2}
     assert got.shape == want.shape and got.dtype == torch.float32
     assert torch.equal(got, want), (got - want).abs().max()
     assert torch.equal(got.view(torch.int32), got2.view(torch.int32))
-    assert got.abs().max() > 0
+    assert (got.abs().max() > 0) == (case != "dead")
     if case == "masked":  # some codes clip
         assert (args[0] * args[2]).abs().max() > 127
     elif case == "poisoned":
